@@ -1,0 +1,288 @@
+"""Axial attention along one spatial axis of an NCHW tensor.
+
+Port of ``medt_tpu/ops/axial_attention.py`` (eval mode). Semantics
+(reference axialnet.py:19-258 and the zoo's gated_sig/gated_data variants):
+
+  1. qkv 1x1 projection (no bias) + BN over the 2*out_planes channels;
+  2. per group: q (gp/2), k (gp/2), v (gp) channels;
+  3. a learned relative position table (2gp, 2*span-1) gathered into
+     per-(query, key) embeddings (the reference's ``flatten_index``);
+  4. logits qk, qr, kr, optional scalar gates on qr/kr, stacked BN over
+     (3, groups), summed, softmax over keys;
+  5. outputs sv and sve, optional gates, BN over (groups, gp, 2), summed;
+  6. optional average-pool downsample when stride > 1.
+
+Two paths, as in JAX:
+
+* the **fused path** (``use_fused`` in eval, modes full/gated/wopos): BN
+  running statistics fold into the ``(g, 8)`` similarity affine, the gates
+  fold into the position tables *before* the BN (they precede it in the
+  reference), and the attention core runs on the fused ``(g, 2gp, L, S)``
+  qkv — a CUDA kernel on the card, chosen by span
+  (:func:`lanes_family_core`). ``f_sv`` scales ``sv`` after the core and the
+  output BN is applied per half (``_bn_apply_split`` in JAX).
+* the **plain path** (``_jnp_attention`` in JAX), for the other modes and
+  whenever ``use_fused`` is off.
+
+Parameters carry the reference's names and shapes (``qkv_transform.weight``
+(2*out, in, 1), ``bn_qkv``, ``bn_similarity``, ``bn_output``, ``relative``,
+``flatten_index``, ``f_qr``/``f_kr``/``f_sve``/``f_sv``), so reference
+state dicts load with ``load_state_dict``. The released reference freezes
+the gates (``requires_grad=False``); ``trainable_gates`` makes them
+trainable.
+"""
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from .attn_core import pack_sim_affine
+from .axial_lanes import (
+    FLASH_MAX_SPAN,
+    LANES_MAX_SPAN,
+    flash_lanes_core,
+    flash_lanes_plain,
+    lanes_attn_core,
+    lanes_attn_plain,
+)
+from .initializers import normal_by_fan, uniform_by_fan
+from .norms import BatchNorm, batch_norm_eval
+from .pooling import avg_pool
+
+MODE_FULL = "full"
+MODE_GATED = "gated"
+MODE_WOPOS = "wopos"
+MODE_GATED_SIG = "gated_sig"
+MODE_GATED_DATA = "gated_data"
+
+_MODES = (MODE_FULL, MODE_GATED, MODE_WOPOS, MODE_GATED_SIG, MODE_GATED_DATA)
+_FUSED_MODES = (MODE_FULL, MODE_GATED, MODE_WOPOS)
+_GATE_NAMES = ("f_qr", "f_kr", "f_sve", "f_sv")
+
+SPAN_TODO = ("fused attention at span {span} > 64 is not ported yet "
+             "(ROADMAP.md, 'Port: flash2 kernel + medt_512' and "
+             "'Port: stripe kernel')")
+
+
+def relative_logit_index(span: int) -> np.ndarray:
+    """(span, span) gather index into a (2*span-1)-wide relative table:
+    ``idx[i, j] = i - j + span - 1`` (reference axialnet.py:43-46)."""
+    r = np.arange(span)
+    return r[:, None] - r[None, :] + span - 1
+
+
+def lanes_family_core(qkv, qemb, kemb_t, vemb, sim_affine,
+                      plain: bool = False):
+    """Route the fused core by span: <= 16 the lanes kernel, 17..64 the
+    flash kernel; longer spans raise. ``plain`` runs the plain versions on
+    whatever device the input lies on — an explicit choice, never a
+    fallback."""
+    span = qkv.shape[2]
+    if span <= LANES_MAX_SPAN:
+        if plain:
+            return lanes_attn_plain(qkv, qemb, kemb_t, vemb, sim_affine)
+        return lanes_attn_core(qkv, qemb, kemb_t, vemb, sim_affine)
+    if span <= FLASH_MAX_SPAN:
+        if plain:
+            sv, sve, _, _ = flash_lanes_plain(qkv, qemb, kemb_t, vemb,
+                                              sim_affine)
+            return sv, sve
+        return flash_lanes_core(qkv, qemb, kemb_t, vemb, sim_affine)
+    raise NotImplementedError(SPAN_TODO.format(span=span))
+
+
+class AxialAttention(nn.Module):
+    """Multi-head self-attention along one axis of an NCHW tensor.
+
+    ``axis="h"`` attends along the height (stripes over the width), ``"w"``
+    along the width. ``plain_cores`` makes the fused path run the kernels'
+    plain versions even on the card (the reference the kernels are held
+    against)."""
+
+    def __init__(self, in_planes: int, out_planes: int, span: int,
+                 groups: int = 8, stride: int = 1, axis: str = "h",
+                 mode: str = MODE_GATED,
+                 gate_init: Tuple[float, float, float, float] = (
+                     0.1, 0.1, 0.1, 1.0),
+                 trainable_gates: bool = False, use_fused: bool = False,
+                 plain_cores: bool = False, *,
+                 generator: Optional[torch.Generator] = None, device=None):
+        super().__init__()
+        if mode not in _MODES:
+            raise ValueError(f"unknown attention mode {mode!r}")
+        if axis not in ("h", "w"):
+            raise ValueError(f"axis must be 'h' or 'w', got {axis!r}")
+        if out_planes % groups:
+            raise ValueError("out_planes must divide by groups")
+        gp = out_planes // groups
+        if gp % 2:
+            raise ValueError("group planes must be even to split q/k")
+        self.in_planes, self.out_planes = in_planes, out_planes
+        self.span, self.groups, self.gp = span, groups, gp
+        self.stride, self.axis, self.mode = stride, axis, mode
+        self.use_fused, self.plain_cores = use_fused, plain_cores
+
+        self.qkv_transform = nn.Conv1d(in_planes, 2 * out_planes, 1,
+                                       bias=False, device=device)
+        normal_by_fan(self.qkv_transform.weight, in_planes, generator)
+        self.bn_qkv = BatchNorm(2 * out_planes, device=device)
+        if mode == MODE_WOPOS:
+            self.bn_similarity = BatchNorm(groups, device=device)
+            self.bn_output = BatchNorm(out_planes, device=device)
+        else:
+            self.bn_similarity = BatchNorm(3 * groups, device=device)
+            self.bn_output = BatchNorm(2 * out_planes, device=device)
+            self.relative = nn.Parameter(torch.empty(
+                (2 * gp, 2 * span - 1), dtype=torch.float32, device=device))
+            normal_by_fan(self.relative, gp, generator)
+            index = torch.as_tensor(relative_logit_index(span).reshape(-1),
+                                    dtype=torch.int64, device=device)
+            self.register_buffer("flatten_index", index)
+        if mode in (MODE_GATED, MODE_GATED_SIG):
+            for name, value in zip(_GATE_NAMES, gate_init):
+                setattr(self, name, nn.Parameter(
+                    torch.tensor(float(value), device=device),
+                    requires_grad=trainable_gates))
+        if mode == MODE_GATED_DATA:
+            hidden = max(in_planes // 4, 4)
+            self.gate_fc1 = nn.Linear(in_planes, hidden, device=device)
+            self.gate_fc2 = nn.Linear(hidden, 4, device=device)
+            for fc in (self.gate_fc1, self.gate_fc2):
+                uniform_by_fan(fc.weight, fc.in_features, generator)
+                uniform_by_fan(fc.bias, fc.in_features, generator)
+
+    # ---- helpers -----------------------------------------------------------
+
+    def _gates(self, x: torch.Tensor):
+        """(f_qr, f_kr, f_sve, f_sv), or None for full/wopos. gated_data
+        gives per-sample gates shaped (n, 1, 1, 1, 1)."""
+        if self.mode in (MODE_FULL, MODE_WOPOS):
+            return None
+        if self.mode == MODE_GATED_DATA:
+            h = F.relu(self.gate_fc1(x.mean(dim=(2, 3))))
+            gates = torch.sigmoid(self.gate_fc2(h))          # (n, 4)
+            return tuple(gates[:, i].reshape(-1, 1, 1, 1, 1)
+                         for i in range(4))
+        gates = tuple(getattr(self, name) for name in _GATE_NAMES)
+        if self.mode == MODE_GATED_SIG:
+            gates = tuple(torch.sigmoid(v) for v in gates)
+        return gates
+
+    def _tables(self):
+        """Gathered (q_emb, k_emb, v_emb): (c, L, L), (c, L, L), (gp, L, L)."""
+        c, gp, L = self.gp // 2, self.gp, self.span
+        all_emb = self.relative[:, self.flatten_index].reshape(2 * gp, L, L)
+        return all_emb[:c], all_emb[c:gp], all_emb[gp:]
+
+    def _output_bn_split(self, sv, sve, feature_axes):
+        """BN over stack([sv, sve], -1) with (..., 2)-minor parameters,
+        computed per half and summed (``_bn_apply_split`` in JAX)."""
+        bn = self.bn_output
+        g, gp = self.groups, self.gp
+        halves = [t.reshape(g, gp, 2) for t in (
+            bn.weight, bn.bias, bn.running_mean, bn.running_var)]
+        out = 0
+        for half, x in enumerate((sv, sve)):
+            w, b, m, v = (t[..., half] for t in halves)
+            out = out + batch_norm_eval(x, w, b, m, v, feature_axes, bn.eps)
+        return out
+
+    # ---- forward ------------------------------------------------------------
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.training:
+            raise NotImplementedError(
+                "train-mode axial attention is not ported yet (ROADMAP.md, "
+                "'Port: training slice')")
+        x_in = x
+        if self.axis == "w":
+            x = x.transpose(2, 3)  # attend along dim 2 below
+        n, _, L, _ = x.shape
+        if L != self.span:
+            raise ValueError(f"span {self.span} != attended extent {L}")
+        qkv = F.conv2d(x, self.qkv_transform.weight[..., None])
+        qkv = self.bn_qkv(qkv)                            # (n, 2out, L, m)
+
+        if self.use_fused and self.mode in _FUSED_MODES:
+            out = self._fused_attention(qkv)
+        else:
+            out = self._plain_attention(qkv, x_in)
+
+        if self.axis == "w":
+            out = out.transpose(2, 3)
+        if self.stride > 1:
+            out = avg_pool(out, self.stride)
+        return out
+
+    def _fused_attention(self, qkv: torch.Tensor) -> torch.Tensor:
+        """Eval fused path: the affine fold around the lanes-family core."""
+        n, _, L, m = qkv.shape
+        g, gp = self.groups, self.gp
+        S = n * m
+        qkv_l4 = qkv.permute(1, 2, 0, 3).reshape(g, 2 * gp, L, S) \
+            .float().contiguous()
+        a, b = self.bn_similarity.affine()
+        gates = None
+        if self.mode == MODE_WOPOS:
+            aff = pack_sim_affine(g, a, b, MODE_WOPOS)
+            empty = qkv_l4.new_zeros((0, L, L))
+            sv, _ = lanes_family_core(qkv_l4, empty, empty, empty, aff,
+                                      plain=self.plain_cores)
+            y = batch_norm_eval(sv, self.bn_output.weight, self.bn_output.bias,
+                                self.bn_output.running_mean,
+                                self.bn_output.running_var, (0, 1),
+                                self.bn_output.eps)
+        else:
+            aff = pack_sim_affine(g, a.reshape(3, g), b.reshape(3, g),
+                                  self.mode)
+            q_emb, k_emb, v_emb = self._tables()
+            gates = self._gates(None)
+            if gates is not None:
+                f_qr, f_kr, f_sve, f_sv = gates
+                # the gates precede each BN in the reference, so folding
+                # them into the tables keeps the affine exact
+                q_emb, k_emb, v_emb = q_emb * f_qr, k_emb * f_kr, v_emb * f_sve
+            sv, sve = lanes_family_core(
+                qkv_l4, q_emb.contiguous(), k_emb.transpose(1, 2).contiguous(),
+                v_emb.contiguous(), aff, plain=self.plain_cores)
+            if gates is not None:
+                sv = sv * f_sv
+            y = self._output_bn_split(sv, sve, (0, 1))
+        out = y.reshape(self.out_planes, L, n, m).permute(2, 0, 1, 3)
+        return out.to(qkv.dtype)
+
+    def _plain_attention(self, qkv: torch.Tensor, x_in: torch.Tensor):
+        """Plain path (``_jnp_attention`` in JAX), every mode."""
+        n, _, L, m = qkv.shape
+        g, gp, c = self.groups, self.gp, self.gp // 2
+        qkv5 = qkv.reshape(n, g, 2 * gp, L, m)
+        q, k, v = qkv5[:, :, :c], qkv5[:, :, c:gp], qkv5[:, :, gp:]
+        qk = torch.einsum("ngcim,ngcjm->ngmij", q, k)
+        if self.mode == MODE_WOPOS:
+            gates = None
+            logits = self.bn_similarity(qk, feature_axes=1)
+        else:
+            q_emb, k_emb, v_emb = self._tables()
+            qr = torch.einsum("ngcim,cij->ngmij", q, q_emb)
+            kr = torch.einsum("ngcjm,cji->ngmij", k, k_emb)
+            gates = self._gates(x_in)
+            if gates is not None:
+                f_qr, f_kr, f_sve, f_sv = gates
+                qr, kr = qr * f_qr, kr * f_kr
+            stacked = torch.stack([qk, qr, kr], dim=1)   # (n, 3, g, m, i, j)
+            logits = self.bn_similarity(stacked, feature_axes=(1, 2)).sum(1)
+        sim = torch.softmax(logits.float(), dim=-1)
+        sv = torch.einsum("ngmij,ngpjm->ngpim", sim, v)
+        if self.mode == MODE_WOPOS:
+            out = self.bn_output(sv, feature_axes=(1, 2))
+        else:
+            sve = torch.einsum("ngmij,pij->ngpim", sim, v_emb)
+            if gates is not None:
+                sv, sve = sv * f_sv, sve * f_sve
+            stacked = torch.stack([sv, sve], dim=-1)     # (n, g, p, i, m, 2)
+            out = self.bn_output(stacked, feature_axes=(1, 2, 5)).sum(-1)
+        return out.reshape(n, self.out_planes, L, m).to(qkv.dtype)

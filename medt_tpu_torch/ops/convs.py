@@ -1,0 +1,43 @@
+"""Convolutions with the reference's default initialization.
+
+Port of ``medt_tpu/ops/convs.py``: torch-style ``Conv2d`` with explicit
+symmetric padding (``kernel_size // 2`` by default: "same" at stride 1, the
+reference's floor-division output size at stride 2), weights and bias drawn
+from ``U(-1/sqrt(fan_in), 1/sqrt(fan_in))`` through a ``torch.Generator``.
+These convolutions lie outside every Pallas kernel of the JAX package, so
+they stay ``torch.nn.Conv2d``.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+from torch import nn
+
+from .initializers import uniform_by_fan
+
+
+def conv2d(in_features: int, features: int, kernel_size: int,
+           stride: int = 1, padding: Optional[int] = None,
+           use_bias: bool = True, *,
+           generator: Optional[torch.Generator] = None,
+           device=None) -> nn.Conv2d:
+    """``nn.Conv2d`` drawn from the reference's default law."""
+    if padding is None:
+        padding = kernel_size // 2
+    conv = nn.Conv2d(in_features, features, kernel_size, stride=stride,
+                     padding=padding, bias=use_bias, device=device,
+                     dtype=torch.float32)
+    fan_in = in_features * kernel_size * kernel_size
+    uniform_by_fan(conv.weight, fan_in, generator)
+    if use_bias:
+        uniform_by_fan(conv.bias, fan_in, generator)
+    return conv
+
+
+def conv1x1(in_features: int, features: int, stride: int = 1, *,
+            generator: Optional[torch.Generator] = None,
+            device=None) -> nn.Conv2d:
+    """1x1 conv, no bias (reference axialnet.py:14-16)."""
+    return conv2d(in_features, features, 1, stride=stride, padding=0,
+                  use_bias=False, generator=generator, device=device)

@@ -1,0 +1,191 @@
+"""The port's kernels, their build and its isolation from JAX.
+
+This file imports neither JAX nor the JAX package, so it also runs on the
+card's machine (``python -m pytest tests/test_torch_port_cuda.py``). Tests
+marked ``cuda`` hold each CUDA kernel against its plain PyTorch version at
+tolerance 1e-4 (float32; the kernel sums keys in another order, with an
+online softmax for the flash kernel) and skip without a card.
+"""
+import ast
+import pathlib
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from medt_tpu_torch.kernels import build as kbuild
+from medt_tpu_torch.ops import axial_lanes
+from medt_tpu_torch.ops.attn_core import pack_sim_affine
+
+REPO = pathlib.Path(__file__).resolve().parent.parent
+
+
+def core_inputs(seed, g, gp, L, S, has_pos, device="cpu"):
+    """Tensors of a lanes-family core: qkv, qemb, kemb_t, vemb, aff."""
+    rng = np.random.default_rng(seed)
+    c = gp // 2
+
+    def t(*shape, scale=1.0):
+        x = rng.normal(size=shape).astype(np.float32) * scale
+        return torch.from_numpy(x).to(device)
+
+    qkv = t(g, 2 * gp, L, S)
+    if has_pos:
+        qemb, kemb_t, vemb = t(c, L, L), t(c, L, L), t(gp, L, L)
+        a, b = t(3, g, scale=0.5).abs(), t(3, g, scale=0.1)
+        aff = pack_sim_affine(g, a, b, "full")
+    else:
+        qemb = kemb_t = vemb = torch.zeros((0, L, L), device=device)
+        a, b = t(g, scale=0.5).abs(), t(g, scale=0.1)
+        aff = pack_sim_affine(g, a, b, "wopos")
+    return qkv, qemb, kemb_t, vemb, aff
+
+
+# ---- wrappers and build, on any machine -------------------------------------
+
+def test_kernel_wrappers_reject_cpu_tensors():
+    """The wrappers launch on CUDA tensors only; a CPU tensor is refused
+    before anything is built (the cores send CPU tensors to the plain
+    versions instead)."""
+    args = core_inputs(9, g=2, gp=4, L=8, S=128, has_pos=True)
+    for fn in (axial_lanes.lanes_attn_fwd, axial_lanes.flash_lanes_fwd):
+        before = fn.launches
+        with pytest.raises(ValueError, match="CUDA"):
+            fn(*args)
+        assert fn.launches == before
+
+
+def test_cores_on_cpu_run_the_plain_versions():
+    args = core_inputs(11, g=2, gp=4, L=8, S=64, has_pos=True)
+    counts = axial_lanes.launch_counts()
+    for got, want in zip(axial_lanes.lanes_attn_core(*args),
+                         axial_lanes.lanes_attn_plain(*args)):
+        torch.testing.assert_close(got, want, atol=0, rtol=0)
+    assert axial_lanes.launch_counts() == counts
+
+
+def test_build_is_atomic_and_keyed_by_source_hash(tmp_path, monkeypatch):
+    """The library appears under its hash name only after nvcc succeeded;
+    a second call reuses it; a failed build leaves nothing loadable."""
+    fake = tmp_path / "nvcc"
+    fake.write_text(
+        f"#!{sys.executable}\nimport sys\n"
+        "out = sys.argv[sys.argv.index('-o') + 1]\n"
+        "open(out, 'w').write('lib')\n")
+    fake.chmod(0o755)
+    build_dir = tmp_path / "_build"
+    monkeypatch.setattr(kbuild, "BUILD_DIR", build_dir)
+    monkeypatch.setattr(kbuild, "nvcc_path", lambda: str(fake))
+    first = kbuild.build()
+    assert first.path.name == f"libmedt_kernels-{kbuild.source_hash()}.so"
+    assert first.path.read_text() == "lib"
+    assert not list(build_dir.glob(".tmp-*"))
+    assert kbuild.build().seconds == 0.0
+
+    first.path.unlink()
+    fake.write_text(f"#!{sys.executable}\nimport sys\nsys.exit(3)\n")
+    with pytest.raises(kbuild.BuildError):
+        kbuild.build()
+    assert not list(build_dir.iterdir())
+
+
+def test_sources_include_no_torch_header():
+    for path in (REPO / "medt_tpu_torch" / "csrc").iterdir():
+        text = path.read_text()
+        assert "#include <torch" not in text and "ATen" not in text, path
+
+
+# ---- nothing of JAX in the port ---------------------------------------------
+
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "PIL", "medt_tpu",
+             "torch.utils.cpp_extension")
+
+
+def _forbidden(module: str) -> bool:
+    return any(module == f or module.startswith(f + ".") for f in FORBIDDEN)
+
+
+def test_port_imports_nothing_of_jax_ast():
+    files = sorted((REPO / "medt_tpu_torch").rglob("*.py"))
+    files.append(REPO / "chip_smoke.py")
+    bad = []
+    for path in files:
+        tree = ast.parse(path.read_text(), filename=str(path))
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module or ""]
+            elif isinstance(node, ast.Attribute):  # torch.utils.cpp_extension
+                names = [node.attr]
+            else:
+                continue
+            bad += [f"{path.relative_to(REPO)}: {n}" for n in names
+                    if _forbidden(n) or n == "cpp_extension"]
+    assert not bad, bad
+
+
+def test_port_imports_nothing_of_jax_at_runtime():
+    """What importing the port loads (beyond what the interpreter had
+    loaded before it) holds none of them."""
+    code = ("import sys; before = set(sys.modules); "
+            "import medt_tpu_torch.serving.engine, medt_tpu_torch.models, "
+            "medt_tpu_torch.utils.weights; "
+            "print(' '.join(sorted(set(sys.modules) - before)))")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    loaded = [m for m in out.stdout.split() if _forbidden(m)]
+    assert not loaded, loaded
+
+
+# ---- on the card: kernels vs their plain versions ---------------------------
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel,L,gp,has_pos", [
+    ("lanes", 8, 4, True), ("lanes", 16, 2, False), ("lanes", 4, 16, False),
+    ("lanes", 2, 8, True), ("flash", 32, 4, True), ("flash", 64, 2, True),
+    ("flash", 48, 8, False), ("flash", 20, 16, True),
+])
+def test_kernel_matches_plain_on_card(cuda_device, kernel, L, gp, has_pos):
+    """Odd stripe count (a ragged last block) and spans that are not a
+    multiple of the key block included."""
+    args = core_inputs(10, g=8, gp=gp, L=L, S=300, has_pos=has_pos,
+                       device=cuda_device)
+    if kernel == "lanes":
+        fn, plain = axial_lanes.lanes_attn_fwd, axial_lanes.lanes_attn_plain
+    else:
+        fn, plain = axial_lanes.flash_lanes_fwd, axial_lanes.flash_lanes_plain
+    before = fn.launches
+    got = fn(*args)
+    want = plain(*args)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    for o, w in zip(got, want):
+        torch.testing.assert_close(o, w, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.cuda
+def test_kernel_wrappers_refuse_what_the_kernel_does_not_take(cuda_device):
+    qkv, qemb, kemb_t, vemb, aff = core_inputs(12, g=2, gp=4, L=8, S=128,
+                                               has_pos=True,
+                                               device=cuda_device)
+    fn = axial_lanes.lanes_attn_fwd
+    with pytest.raises(TypeError):
+        fn(qkv.double(), qemb, kemb_t, vemb, aff)
+    with pytest.raises(ValueError, match="contiguous"):
+        fn(qkv.transpose(2, 3).contiguous().transpose(2, 3), qemb, kemb_t,
+           vemb, aff)
+    big = core_inputs(12, g=2, gp=4, L=32, S=128, has_pos=True,
+                      device=cuda_device)
+    with pytest.raises(ValueError, match="span"):
+        fn(*big)
