@@ -7,7 +7,9 @@ Port of ``medt_tpu/models/medt.py`` (reference axialnet.py:509-711):
 * local branch: a full 4-stage axial U-Net over a ``patch_grid`` x
   ``patch_grid`` grid of patches, folded into the batch
   (:func:`space_to_batch`) so it runs once instead of the reference's
-  16 sequential passes — identical in eval mode;
+  16 sequential passes — identical in eval mode; in train mode its BNs take
+  joint batch statistics over all patches, the JAX package's default (its
+  ``sequential_bn_parity`` is not ported yet, ROADMAP.md);
 * fusion: add -> 3x3 ``decoderf`` -> ReLU -> 1x1 ``adjust`` -> raw logits.
 
 Reference quirk kept: the local stem is built after the global stages

@@ -29,21 +29,19 @@ def pack_sim_affine(g: int, a, b, mode: str) -> torch.Tensor:
     """Pack per-stack affines into the kernels' ``(g, 8)`` layout.
 
     ``a``/``b`` are ``(3, g)`` for the full/gated modes or ``(g,)`` for
-    ``"wopos"`` (rows 2..5 stay zero)."""
-    aff = torch.zeros((g, 8), dtype=torch.float32, device=a.device)
+    ``"wopos"`` (rows 2..5 stay zero). Differentiable in ``a`` and ``b``."""
+    a, b = a.float(), b.float()
     if mode == "wopos":
-        aff[:, 0] = a
-        aff[:, 1] = b
-        return aff
-    for row in range(3):
-        aff[:, 2 * row] = a[row]
-        aff[:, 2 * row + 1] = b[row]
-    return aff
+        cols = [a, b] + [torch.zeros_like(a)] * 6
+    else:
+        cols = [t for row in range(3) for t in (a[row], b[row])]
+        cols += [torch.zeros_like(a[0])] * 2
+    return torch.stack(cols, dim=1)
 
 
 def attn_logits(q, k, qemb, kemb, sim_affine, has_pos: bool = True):
     """BN-folded similarity logits ``(S, g, L_query, L_key)``."""
-    a = sim_affine.float()[:, :, None, None]  # (g, 8, 1, 1)
+    a = sim_affine[:, :, None, None]  # (g, 8, 1, 1)
     qk = torch.einsum("sgci,sgcj->sgij", q, k)
     logits = qk * a[:, 0] + a[:, 1]
     if has_pos:

@@ -1,6 +1,6 @@
 """Axial attention along one spatial axis of an NCHW tensor.
 
-Port of ``medt_tpu/ops/axial_attention.py`` (eval mode). Semantics
+Port of ``medt_tpu/ops/axial_attention.py``, train and eval mode. Semantics
 (reference axialnet.py:19-258 and the zoo's gated_sig/gated_data variants):
 
   1. qkv 1x1 projection (no bias) + BN over the 2*out_planes channels;
@@ -14,15 +14,21 @@ Port of ``medt_tpu/ops/axial_attention.py`` (eval mode). Semantics
 
 Two paths, as in JAX:
 
-* the **fused path** (``use_fused`` in eval, modes full/gated/wopos): BN
-  running statistics fold into the ``(g, 8)`` similarity affine, the gates
-  fold into the position tables *before* the BN (they precede it in the
-  reference), and the attention core runs on the fused ``(g, 2gp, L, S)``
-  qkv — a CUDA kernel on the card, chosen by span
-  (:func:`lanes_family_core`). ``f_sv`` scales ``sv`` after the core and the
-  output BN is applied per half (``_bn_apply_split`` in JAX).
+* the **fused path** (``use_fused``, modes full/gated/wopos;
+  ``_fused_train_attention`` in JAX): the gates fold into the position
+  tables *before* the similarity BN (they precede it in the reference),
+  the BN folds into the ``(g, 8)`` similarity affine — from its running
+  statistics in eval, from the batch moments of the logits in train mode
+  (:mod:`.moments`, factorised so no logits tensor is formed; the running
+  statistics then take the unbiased variance) — and the attention core
+  runs on the fused ``(g, 2gp, L, S)`` qkv: a CUDA kernel on the card,
+  chosen by span (:func:`lanes_family_core`), differentiable through its
+  backward kernel. ``f_sv`` scales ``sv`` after the core and the output BN
+  is applied per half (``_bn_apply_split`` in JAX). Autograd assembles the
+  BN-coupled backward around the cores: dqkv gets one term from the core
+  and one from the moments.
 * the **plain path** (``_jnp_attention`` in JAX), for the other modes and
-  whenever ``use_fused`` is off.
+  whenever ``use_fused`` is off, in both modes.
 
 Parameters carry the reference's names and shapes (``qkv_transform.weight``
 (2*out, in, 1), ``bn_qkv``, ``bn_similarity``, ``bn_output``, ``relative``,
@@ -40,17 +46,21 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .attn_core import pack_sim_affine
+from .attn_core import fold_train_affine, pack_sim_affine
 from .axial_lanes import (
     FLASH_MAX_SPAN,
     LANES_MAX_SPAN,
     flash_lanes_core,
-    flash_lanes_plain,
     lanes_attn_core,
-    lanes_attn_plain,
 )
 from .initializers import normal_by_fan, uniform_by_fan
-from .norms import BatchNorm, batch_norm_eval
+from .moments import logit_moments_lanes_fused, qk_moments_lanes_fused
+from .norms import (
+    BatchNorm,
+    batch_norm_eval,
+    batch_norm_train,
+    update_running,
+)
 from .pooling import avg_pool
 
 MODE_FULL = "full"
@@ -78,20 +88,14 @@ def relative_logit_index(span: int) -> np.ndarray:
 def lanes_family_core(qkv, qemb, kemb_t, vemb, sim_affine,
                       plain: bool = False):
     """Route the fused core by span: <= 16 the lanes kernel, 17..64 the
-    flash kernel; longer spans raise. ``plain`` runs the plain versions on
-    whatever device the input lies on — an explicit choice, never a
-    fallback."""
+    flash kernel; longer spans raise. Differentiable. ``plain`` runs the
+    plain versions (forward and backward) on whatever device the input lies
+    on — an explicit choice, never a fallback."""
     span = qkv.shape[2]
     if span <= LANES_MAX_SPAN:
-        if plain:
-            return lanes_attn_plain(qkv, qemb, kemb_t, vemb, sim_affine)
-        return lanes_attn_core(qkv, qemb, kemb_t, vemb, sim_affine)
+        return lanes_attn_core(qkv, qemb, kemb_t, vemb, sim_affine, plain)
     if span <= FLASH_MAX_SPAN:
-        if plain:
-            sv, sve, _, _ = flash_lanes_plain(qkv, qemb, kemb_t, vemb,
-                                              sim_affine)
-            return sv, sve
-        return flash_lanes_core(qkv, qemb, kemb_t, vemb, sim_affine)
+        return flash_lanes_core(qkv, qemb, kemb_t, vemb, sim_affine, plain)
     raise NotImplementedError(SPAN_TODO.format(span=span))
 
 
@@ -180,24 +184,28 @@ class AxialAttention(nn.Module):
 
     def _output_bn_split(self, sv, sve, feature_axes):
         """BN over stack([sv, sve], -1) with (..., 2)-minor parameters,
-        computed per half and summed (``_bn_apply_split`` in JAX)."""
+        computed per half and summed (``_bn_apply_split`` in JAX); in train
+        mode each half normalises with its own batch moments and updates
+        its half of the running statistics."""
         bn = self.bn_output
         g, gp = self.groups, self.gp
-        halves = [t.reshape(g, gp, 2) for t in (
+        halves = [t.view(g, gp, 2) for t in (
             bn.weight, bn.bias, bn.running_mean, bn.running_var)]
         out = 0
         for half, x in enumerate((sv, sve)):
             w, b, m, v = (t[..., half] for t in halves)
-            out = out + batch_norm_eval(x, w, b, m, v, feature_axes, bn.eps)
+            if self.training:
+                y, mean, var = batch_norm_train(x, w, b, feature_axes, bn.eps)
+                update_running(m, mean)
+                update_running(v, var)
+            else:
+                y = batch_norm_eval(x, w, b, m, v, feature_axes, bn.eps)
+            out = out + y
         return out
 
     # ---- forward ------------------------------------------------------------
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.training:
-            raise NotImplementedError(
-                "train-mode axial attention is not ported yet (ROADMAP.md, "
-                "'Port: training slice')")
         x_in = x
         if self.axis == "w":
             x = x.transpose(2, 3)  # attend along dim 2 below
@@ -218,34 +226,53 @@ class AxialAttention(nn.Module):
             out = avg_pool(out, self.stride)
         return out
 
+    def _sim_affine(self, qkv_l4, q_emb=None, k_emb=None):
+        """The similarity BN as the ``(g, 8)`` affine: running statistics in
+        eval; in train mode the batch moments of the logits (the running
+        statistics then take the unbiased variance)."""
+        g, plain = self.groups, self.plain_cores
+        bn = self.bn_similarity
+        if not self.training:
+            a, b = bn.affine()
+        else:
+            if self.mode == MODE_WOPOS:
+                mean, var, count = qk_moments_lanes_fused(qkv_l4, plain)
+            else:
+                mean, var, count = logit_moments_lanes_fused(
+                    qkv_l4, q_emb, k_emb, plain)
+            shape = mean.shape
+            a, b = fold_train_affine(bn.weight.view(shape),
+                                     bn.bias.view(shape), mean, var, bn.eps)
+            update_running(bn.running_mean, mean.reshape(-1))
+            update_running(bn.running_var, (var * (
+                count / max(count - 1.0, 1.0))).reshape(-1))
+        if self.mode == MODE_WOPOS:
+            return pack_sim_affine(g, a, b, MODE_WOPOS)
+        return pack_sim_affine(g, a.reshape(3, g), b.reshape(3, g), self.mode)
+
     def _fused_attention(self, qkv: torch.Tensor) -> torch.Tensor:
-        """Eval fused path: the affine fold around the lanes-family core."""
+        """Fused path: the affine fold around the lanes-family core."""
         n, _, L, m = qkv.shape
         g, gp = self.groups, self.gp
         S = n * m
         qkv_l4 = qkv.permute(1, 2, 0, 3).reshape(g, 2 * gp, L, S) \
             .float().contiguous()
-        a, b = self.bn_similarity.affine()
-        gates = None
         if self.mode == MODE_WOPOS:
-            aff = pack_sim_affine(g, a, b, MODE_WOPOS)
+            aff = self._sim_affine(qkv_l4)
             empty = qkv_l4.new_zeros((0, L, L))
             sv, _ = lanes_family_core(qkv_l4, empty, empty, empty, aff,
                                       plain=self.plain_cores)
-            y = batch_norm_eval(sv, self.bn_output.weight, self.bn_output.bias,
-                                self.bn_output.running_mean,
-                                self.bn_output.running_var, (0, 1),
-                                self.bn_output.eps)
+            y = self.bn_output(sv, feature_axes=(0, 1))
         else:
-            aff = pack_sim_affine(g, a.reshape(3, g), b.reshape(3, g),
-                                  self.mode)
             q_emb, k_emb, v_emb = self._tables()
             gates = self._gates(None)
             if gates is not None:
                 f_qr, f_kr, f_sve, f_sv = gates
                 # the gates precede each BN in the reference, so folding
-                # them into the tables keeps the affine exact
+                # them into the tables keeps the affine (and the moments)
+                # exact
                 q_emb, k_emb, v_emb = q_emb * f_qr, k_emb * f_kr, v_emb * f_sve
+            aff = self._sim_affine(qkv_l4, q_emb, k_emb)
             sv, sve = lanes_family_core(
                 qkv_l4, q_emb.contiguous(), k_emb.transpose(1, 2).contiguous(),
                 v_emb.contiguous(), aff, plain=self.plain_cores)

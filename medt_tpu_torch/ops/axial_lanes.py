@@ -1,8 +1,8 @@
-"""Forward lanes-attention cores: CUDA kernels and their plain versions.
+"""Lanes-attention cores: CUDA kernels, their plain versions and autograd.
 
-Port of the forward halves of ``medt_tpu/ops/pallas_axial_lanes.py``:
-``lanes_attn_core`` (spans <= 16) and ``flash_lanes_core`` (spans 17..64).
-Same contract as the JAX functions::
+Port of ``medt_tpu/ops/pallas_axial_lanes.py``: ``lanes_attn_core`` (spans
+<= 16) and ``flash_lanes_core`` (spans 17..64), forward and backward. Same
+contract as the JAX functions::
 
     qkv     (g, 2gp, L, S)  rows [0:c]=q, [c:gp]=k, [gp:2gp]=v, c = gp//2
     qemb    (c, L, L)       zero-size (0, L, L) tables without positions
@@ -11,23 +11,32 @@ Same contract as the JAX functions::
     sim_affine (g, 8)       attn_core.pack_sim_affine layout
     -> sv, sve (g, gp, L, S); sve is zero without positions
 
-Each core dispatches on where its input lies: on a CPU tensor it runs the
-plain PyTorch version beside it; on a CUDA tensor it launches the kernel of
-``csrc/axial_lanes_fwd.cu`` through its wrapper (:func:`lanes_attn_fwd`,
-:func:`flash_lanes_fwd`), which checks device, dtype, shape and contiguity
-and raises on anything else. There is no fallback from a CUDA tensor to a
-plain version. Each wrapper counts its launches in ``.launches``.
+and the backward gives ``(dqkv, dqemb, dkemb_t, dvemb, daff)`` from
+``(dsv, dsve)``. As in JAX, the lanes backward recomputes the softmax from
+the logits, and the flash backward rebuilds it from the forward's saved row
+max ``m`` and denominator ``l`` with delta taken from the saved ``sv, sve``.
 
-Only float32 is taken. The TPU kernels' blocking (``_JB_FWD``, ``Sb``,
-VMEM budgets) is not ported: the kernel sizes itself for the H100.
+:func:`lanes_attn_core` and :func:`flash_lanes_core` are differentiable
+(autograd Functions :class:`LanesAttnCore`, :class:`FlashLanesCore`) and
+dispatch on where their input lies: on CPU tensors they run the plain
+PyTorch versions beside them; on CUDA tensors they launch the kernels of
+``csrc/axial_lanes_fwd.cu`` and ``csrc/axial_lanes_bwd.cu`` through their
+wrappers (:func:`lanes_attn_fwd`, :func:`flash_lanes_fwd`,
+:func:`lanes_attn_bwd`, :func:`flash_lanes_bwd`), which check device,
+dtype, shape and contiguity and raise on anything else. There is no
+fallback from a CUDA tensor to a plain version: only an explicit ``plain``
+argument runs the plain versions on the card. Each wrapper counts its
+launches in ``.launches``.
+
+Only float32 is taken. The TPU kernels' blocking (``_JB_*``, ``Sb``, VMEM
+budgets) is not ported: the kernels size themselves for the H100.
 """
 from __future__ import annotations
-
-import ctypes
 
 import torch
 
 from ..kernels.build import library
+from ..kernels.launch import BLOCK_STRIPES, check_tensor, ptr, raise_on, stream
 from .attn_core import attend, attn_logits
 
 LANES_MAX_SPAN = 16
@@ -43,7 +52,7 @@ def _to_stripes(qkv: torch.Tensor):
     """(g, 2gp, L, S) -> q (S, g, c, L), k (S, g, c, L), v (S, g, gp, L)."""
     gp = qkv.shape[1] // 2
     c = gp // 2
-    t = qkv.float().permute(3, 0, 1, 2)
+    t = qkv.permute(3, 0, 1, 2)
     return t[:, :, :c], t[:, :, c:gp], t[:, :, gp:]
 
 
@@ -75,8 +84,99 @@ def flash_lanes_plain(qkv, qemb, kemb_t, vemb, sim_affine):
         l.permute(1, 2, 0).contiguous()
 
 
-def _check(qkv, qemb, kemb_t, vemb, sim_affine, max_span: int, name: str):
-    """Validate what the kernel takes; returns (g, gp, L, S, has_pos)."""
+# ---- plain backward versions ------------------------------------------------
+#
+# Layout (g, ., L, S) throughout; the (L, L) pair tensors are (g, i, j, S).
+
+def _bwd_logits(qkv, qemb, kemb_t, aff, has_pos):
+    """q, k, v and the logit terms qk, qr, kr (g, i, j, S) and logits."""
+    gp = qkv.shape[1] // 2
+    c = gp // 2
+    q, k, v = qkv[:, :c], qkv[:, c:gp], qkv[:, gp:]
+    a = aff[:, :, None, None, None]                      # (g, 8, 1, 1, 1)
+    qk = torch.einsum("gcis,gcjs->gijs", q, k)
+    logits = qk * a[:, 0] + a[:, 1]
+    qr = kr = None
+    if has_pos:
+        qr = torch.einsum("gcis,cij->gijs", q, qemb)
+        kr = torch.einsum("gcjs,cij->gijs", k, kemb_t)
+        logits = logits + (qr * a[:, 2] + a[:, 3]) + (kr * a[:, 4] + a[:, 5])
+    return q, k, v, qk, qr, kr, logits
+
+
+def _bwd_from_probs(q, k, v, qk, qr, kr, sim, dlog_of, qemb, kemb_t, vemb,
+                    aff, dsv, dsve, has_pos):
+    """Every gradient from the probabilities ``sim`` (g, i, j, S); ``dlog_of``
+    maps dsim to the logits' gradient (the softmax backward)."""
+    a = aff
+    dsim = torch.einsum("gpis,gpjs->gijs", dsv, v)
+    if has_pos:
+        dsim = dsim + torch.einsum("gpis,pij->gijs", dsve, vemb)
+    dlog = dlog_of(dsim)
+    a0 = a[:, 0, None, None, None]
+    dv = torch.einsum("gpis,gijs->gpjs", dsv, sim)
+    dq = torch.einsum("gijs,gcjs->gcis", dlog * a0, k)
+    dk = torch.einsum("gijs,gcis->gcjs", dlog * a0, q)
+    db = dlog.sum(dim=(1, 2, 3))
+    zero = torch.zeros_like(db)
+    if has_pos:
+        d_qr = dlog * a[:, 2, None, None, None]
+        d_kr = dlog * a[:, 4, None, None, None]
+        dq = dq + torch.einsum("gijs,cij->gcis", d_qr, qemb)
+        dk = dk + torch.einsum("gijs,cij->gcjs", d_kr, kemb_t)
+        dqemb = torch.einsum("gijs,gcis->cij", d_qr, q)
+        dkemb_t = torch.einsum("gijs,gcjs->cij", d_kr, k)
+        dvemb = torch.einsum("gijs,gpis->pij", sim, dsve)
+        daff = torch.stack([(dlog * qk).sum(dim=(1, 2, 3)), db,
+                            (dlog * qr).sum(dim=(1, 2, 3)), db,
+                            (dlog * kr).sum(dim=(1, 2, 3)), db, zero, zero],
+                           dim=1)
+    else:
+        dqemb, dkemb_t, dvemb = qemb, kemb_t, vemb  # zero-size
+        daff = torch.stack([(dlog * qk).sum(dim=(1, 2, 3)), db] + [zero] * 6,
+                           dim=1)
+    dqkv = torch.cat([dq, dk, dv], dim=1)
+    return dqkv, dqemb, dkemb_t, dvemb, daff
+
+
+def lanes_attn_bwd_plain(qkv, qemb, kemb_t, vemb, sim_affine, dsv, dsve):
+    """Plain version of the lanes backward (``_bwd_kernel``): the softmax
+    recomputed from the logits; ``(dqkv, dqemb, dkemb_t, dvemb, daff)``."""
+    has_pos = _has_pos(qemb)
+    q, k, v, qk, qr, kr, logits = _bwd_logits(qkv, qemb, kemb_t, sim_affine,
+                                              has_pos)
+    sim = torch.softmax(logits, dim=2)
+    return _bwd_from_probs(
+        q, k, v, qk, qr, kr, sim,
+        lambda dsim: sim * (dsim - (sim * dsim).sum(dim=2, keepdim=True)),
+        qemb, kemb_t, vemb, sim_affine, dsv, dsve, has_pos)
+
+
+def flash_lanes_bwd_plain(qkv, qemb, kemb_t, vemb, sim_affine, m, l, sv, sve,
+                          dsv, dsve):
+    """Plain version of the flash backward (``_flash_bwd_kernel``):
+    probabilities from the saved ``(m, l)``, delta from the saved outputs
+    ``delta = sum_p dsv*sv + dsve*sve``."""
+    has_pos = _has_pos(qemb)
+    q, k, v, qk, qr, kr, logits = _bwd_logits(qkv, qemb, kemb_t, sim_affine,
+                                              has_pos)
+    sim = torch.exp(logits - m[:, :, None, :]) * (1.0 / l)[:, :, None, :]
+    delta = (dsv * sv).sum(dim=1)
+    if has_pos:
+        delta = delta + (dsve * sve).sum(dim=1)
+    return _bwd_from_probs(
+        q, k, v, qk, qr, kr, sim,
+        lambda dsim: sim * (dsim - delta[:, :, None, :]),
+        qemb, kemb_t, vemb, sim_affine, dsv, dsve, has_pos)
+
+
+# ---- kernel wrappers --------------------------------------------------------
+
+def _check(qkv, qemb, kemb_t, vemb, sim_affine, max_span: int, name: str,
+           **extra):
+    """Validate what a kernel takes; returns (g, gp, L, S, has_pos).
+    ``extra`` names further operands: ``"gp"``-shaped (g, gp, L, S) or
+    ``"row"``-shaped (g, L, S) tensors, given as (tensor, kind)."""
     if qkv.dim() != 4:
         raise ValueError(f"{name}: qkv must be (g, 2gp, L, S), got "
                          f"{tuple(qkv.shape)}")
@@ -98,28 +198,12 @@ def _check(qkv, qemb, kemb_t, vemb, sim_affine, max_span: int, name: str):
         for tname, (t, _) in tables.items():
             if t.numel():
                 raise ValueError(f"{name}: {tname} must be empty when qemb is")
+    kinds = {"gp": (g, gp, L, S), "row": (g, L, S)}
+    for tname, (t, kind) in extra.items():
+        shapes[tname] = (t, kinds[kind])
     for tname, (t, shape) in shapes.items():
-        if t.device != qkv.device or t.device.type != "cuda":
-            raise ValueError(f"{name}: {tname} must lie on qkv's CUDA "
-                             f"device, got {t.device}")
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name}: {tname} must be float32, got {t.dtype}")
-        if tuple(t.shape) != shape:
-            raise ValueError(f"{name}: {tname} shape {tuple(t.shape)} != "
-                             f"{shape}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name}: {tname} must be contiguous")
+        check_tensor(name, tname, t, shape, qkv.device)
     return g, gp, L, S, has_pos
-
-
-def _ptr(t: torch.Tensor):
-    return ctypes.c_void_p(t.data_ptr())
-
-
-def _raise_on(err: int, name: str):
-    if err != 0:
-        raise RuntimeError(f"{name}: kernel launch failed with CUDA error "
-                           f"{err}")
 
 
 def _zeros_like_view(t: torch.Tensor) -> torch.Tensor:
@@ -133,12 +217,10 @@ def lanes_attn_fwd(qkv, qemb, kemb_t, vemb, sim_affine):
                                   LANES_MAX_SPAN, "lanes_attn_fwd")
     sv = torch.empty((g, gp, L, S), dtype=torch.float32, device=qkv.device)
     sve = torch.empty_like(sv) if has_pos else sv  # not written without pos
-    stream = torch.cuda.current_stream(qkv.device).cuda_stream
     err = library().medt_lanes_attn_fwd(
-        _ptr(qkv), _ptr(qemb), _ptr(kemb_t), _ptr(vemb), _ptr(sim_affine),
-        _ptr(sv), _ptr(sve), g, gp, L, S, int(has_pos),
-        ctypes.c_void_p(stream))
-    _raise_on(err, "lanes_attn_fwd")
+        ptr(qkv), ptr(qemb), ptr(kemb_t), ptr(vemb), ptr(sim_affine),
+        ptr(sv), ptr(sve), g, gp, L, S, int(has_pos), stream(qkv.device))
+    raise_on(err, "lanes_attn_fwd")
     lanes_attn_fwd.launches += 1
     return sv, (sve if has_pos else _zeros_like_view(sv))
 
@@ -156,12 +238,11 @@ def flash_lanes_fwd(qkv, qemb, kemb_t, vemb, sim_affine):
     sve = torch.empty_like(sv) if has_pos else sv
     m = torch.empty((g, L, S), dtype=torch.float32, device=dev)
     l = torch.empty_like(m)
-    stream = torch.cuda.current_stream(dev).cuda_stream
     err = library().medt_flash_lanes_fwd(
-        _ptr(qkv), _ptr(qemb), _ptr(kemb_t), _ptr(vemb), _ptr(sim_affine),
-        _ptr(sv), _ptr(sve), _ptr(m), _ptr(l), g, gp, L, S, int(has_pos),
-        ctypes.c_void_p(stream))
-    _raise_on(err, "flash_lanes_fwd")
+        ptr(qkv), ptr(qemb), ptr(kemb_t), ptr(vemb), ptr(sim_affine),
+        ptr(sv), ptr(sve), ptr(m), ptr(l), g, gp, L, S, int(has_pos),
+        stream(dev))
+    raise_on(err, "flash_lanes_fwd")
     flash_lanes_fwd.launches += 1
     return sv, (sve if has_pos else _zeros_like_view(sv)), m, l
 
@@ -169,27 +250,180 @@ def flash_lanes_fwd(qkv, qemb, kemb_t, vemb, sim_affine):
 flash_lanes_fwd.launches = 0
 
 
-def lanes_attn_core(qkv, qemb, kemb_t, vemb, sim_affine):
-    """Spans <= 16: the kernel on CUDA tensors, the plain version on CPU."""
-    if qkv.device.type == "cpu":
-        return lanes_attn_plain(qkv, qemb, kemb_t, vemb, sim_affine)
-    return lanes_attn_fwd(qkv, qemb, kemb_t, vemb, sim_affine)
+def _bwd_buffers(qkv, g, gp, L, S, has_pos):
+    """Outputs and scratch of a backward launch."""
+    dev = qkv.device
+    f32 = dict(dtype=torch.float32, device=dev)
+    blocks = -(-S // BLOCK_STRIPES)
+    n_tab = g * blocks if has_pos else 0
+    out = dict(
+        dqkv=torch.empty((g, 2 * gp, L, S), **f32),
+        dtables=torch.empty((2 * gp if has_pos else 0, L, L), **f32),
+        daff=torch.empty((g, 8), **f32),
+        delta=torch.empty((g, L, S), **f32),
+        tab_part=torch.empty((max(n_tab, 1), 2 * gp if has_pos else 1, L, L),
+                             **f32),
+        aff_part=torch.empty((L * blocks, g, 4), **f32))
+    return out, n_tab, L * blocks
 
 
-def flash_lanes_core(qkv, qemb, kemb_t, vemb, sim_affine):
-    """Spans 17..64: the kernel on CUDA tensors, the plain version on CPU."""
-    if qkv.device.type == "cpu":
-        sv, sve, _, _ = flash_lanes_plain(qkv, qemb, kemb_t, vemb, sim_affine)
-    else:
-        sv, sve, _, _ = flash_lanes_fwd(qkv, qemb, kemb_t, vemb, sim_affine)
-    return sv, sve
+def _split_tables(dtables, gp, has_pos):
+    if not has_pos:
+        return dtables, dtables, dtables  # zero-size
+    c = gp // 2
+    return dtables[:c], dtables[c:gp], dtables[gp:]
+
+
+def lanes_attn_bwd(qkv, qemb, kemb_t, vemb, sim_affine, dsv, dsve):
+    """Launch the lanes backward (spans <= 16) on CUDA tensors:
+    ``(dqkv, dqemb, dkemb_t, dvemb, daff)``. ``dsve`` is ignored (and may
+    be any tensor) without positions."""
+    extra = {"dsv": (dsv, "gp")}
+    if _has_pos(qemb):
+        extra["dsve"] = (dsve, "gp")
+    g, gp, L, S, has_pos = _check(qkv, qemb, kemb_t, vemb, sim_affine,
+                                  LANES_MAX_SPAN, "lanes_attn_bwd", **extra)
+    b, n_tab, n_aff = _bwd_buffers(qkv, g, gp, L, S, has_pos)
+    m, l = torch.empty_like(b["delta"]), torch.empty_like(b["delta"])
+    err = library().medt_lanes_attn_bwd(
+        ptr(qkv), ptr(qemb), ptr(kemb_t), ptr(vemb), ptr(sim_affine),
+        ptr(dsv), ptr(dsve if has_pos else dsv), ptr(b["dqkv"]),
+        ptr(b["dtables"]), ptr(b["daff"]), ptr(m), ptr(l),
+        ptr(b["delta"]), ptr(b["tab_part"]), ptr(b["aff_part"]),
+        g, gp, L, S, int(has_pos), n_tab, n_aff, stream(qkv.device))
+    raise_on(err, "lanes_attn_bwd")
+    lanes_attn_bwd.launches += 1
+    return (b["dqkv"], *_split_tables(b["dtables"], gp, has_pos), b["daff"])
+
+
+lanes_attn_bwd.launches = 0
+
+
+def flash_lanes_bwd(qkv, qemb, kemb_t, vemb, sim_affine, m, l, sv, sve, dsv,
+                    dsve):
+    """Launch the flash backward (spans <= 64) on CUDA tensors, from the
+    forward's saved ``(m, l, sv, sve)``: ``(dqkv, dqemb, dkemb_t, dvemb,
+    daff)``. ``sve``/``dsve`` are ignored without positions."""
+    extra = {"m": (m, "row"), "l": (l, "row"), "sv": (sv, "gp"),
+             "dsv": (dsv, "gp")}
+    if _has_pos(qemb):
+        extra.update(sve=(sve, "gp"), dsve=(dsve, "gp"))
+    g, gp, L, S, has_pos = _check(qkv, qemb, kemb_t, vemb, sim_affine,
+                                  FLASH_MAX_SPAN, "flash_lanes_bwd", **extra)
+    b, n_tab, n_aff = _bwd_buffers(qkv, g, gp, L, S, has_pos)
+    err = library().medt_flash_lanes_bwd(
+        ptr(qkv), ptr(qemb), ptr(kemb_t), ptr(vemb), ptr(sim_affine),
+        ptr(m), ptr(l), ptr(sv), ptr(sve if has_pos else sv), ptr(dsv),
+        ptr(dsve if has_pos else dsv), ptr(b["dqkv"]), ptr(b["dtables"]),
+        ptr(b["daff"]), ptr(b["delta"]), ptr(b["tab_part"]),
+        ptr(b["aff_part"]), g, gp, L, S, int(has_pos), n_tab, n_aff,
+        stream(qkv.device))
+    raise_on(err, "flash_lanes_bwd")
+    flash_lanes_bwd.launches += 1
+    return (b["dqkv"], *_split_tables(b["dtables"], gp, has_pos), b["daff"])
+
+
+flash_lanes_bwd.launches = 0
+
+
+# ---- autograd ----------------------------------------------------------------
+
+def _runs_plain(qkv: torch.Tensor, plain: bool) -> bool:
+    return plain or qkv.device.type == "cpu"
+
+
+def _grads_in(qkv, dsv, dsve, has_pos):
+    """Upstream gradients as contiguous tensors of the outputs' shape
+    (zeros for an output nothing used)."""
+    g, r2, L, S = qkv.shape
+
+    def dense(t):
+        if t is None:
+            return qkv.new_zeros((g, r2 // 2, L, S))
+        return t.contiguous()
+
+    dsv = dense(dsv)
+    return dsv, (dense(dsve) if has_pos else dsv)
+
+
+def _table_grads(grads, has_pos):
+    """Zero-size tables (wopos) take no gradient."""
+    dqkv, dqemb, dkemb_t, dvemb, daff = grads
+    if not has_pos:
+        return dqkv, None, None, None, daff
+    return grads
+
+
+class LanesAttnCore(torch.autograd.Function):
+    """``lanes_attn_core`` with its backward (``_fwd_rule``/``_bwd_rule``):
+    saves the inputs and recomputes the softmax."""
+
+    @staticmethod
+    def forward(ctx, qkv, qemb, kemb_t, vemb, sim_affine, plain=False):
+        ctx.plain = _runs_plain(qkv, plain)
+        ctx.has_pos = _has_pos(qemb)
+        if ctx.plain:
+            sv, sve = lanes_attn_plain(qkv, qemb, kemb_t, vemb, sim_affine)
+        else:
+            sv, sve = lanes_attn_fwd(qkv, qemb, kemb_t, vemb, sim_affine)
+        ctx.save_for_backward(qkv, qemb, kemb_t, vemb, sim_affine)
+        if not ctx.has_pos:
+            ctx.mark_non_differentiable(sve)
+        return sv, sve
+
+    @staticmethod
+    def backward(ctx, dsv, dsve):
+        qkv, qemb, kemb_t, vemb, aff = ctx.saved_tensors
+        dsv, dsve = _grads_in(qkv, dsv, dsve, ctx.has_pos)
+        fn = lanes_attn_bwd_plain if ctx.plain else lanes_attn_bwd
+        grads = fn(qkv, qemb, kemb_t, vemb, aff, dsv, dsve)
+        return (*_table_grads(grads, ctx.has_pos), None)
+
+
+class FlashLanesCore(torch.autograd.Function):
+    """``flash_lanes_core`` with its backward (``_flash_fwd_rule``/
+    ``_flash_bwd_rule``): saves the inputs and the forward's m, l, sv, sve."""
+
+    @staticmethod
+    def forward(ctx, qkv, qemb, kemb_t, vemb, sim_affine, plain=False):
+        ctx.plain = _runs_plain(qkv, plain)
+        ctx.has_pos = _has_pos(qemb)
+        fwd = flash_lanes_plain if ctx.plain else flash_lanes_fwd
+        sv, sve, m, l = fwd(qkv, qemb, kemb_t, vemb, sim_affine)
+        ctx.save_for_backward(qkv, qemb, kemb_t, vemb, sim_affine, m, l, sv,
+                              sve)
+        if not ctx.has_pos:
+            ctx.mark_non_differentiable(sve)
+        return sv, sve
+
+    @staticmethod
+    def backward(ctx, dsv, dsve):
+        qkv, qemb, kemb_t, vemb, aff, m, l, sv, sve = ctx.saved_tensors
+        dsv, dsve = _grads_in(qkv, dsv, dsve, ctx.has_pos)
+        fn = flash_lanes_bwd_plain if ctx.plain else flash_lanes_bwd
+        grads = fn(qkv, qemb, kemb_t, vemb, aff, m, l, sv, sve, dsv, dsve)
+        return (*_table_grads(grads, ctx.has_pos), None)
+
+
+def lanes_attn_core(qkv, qemb, kemb_t, vemb, sim_affine, plain=False):
+    """Spans <= 16, differentiable: the kernels on CUDA tensors, the plain
+    versions on CPU tensors or when ``plain`` is set."""
+    return LanesAttnCore.apply(qkv, qemb, kemb_t, vemb, sim_affine, plain)
+
+
+def flash_lanes_core(qkv, qemb, kemb_t, vemb, sim_affine, plain=False):
+    """Spans 17..64, differentiable: the kernels on CUDA tensors, the plain
+    versions on CPU tensors or when ``plain`` is set."""
+    return FlashLanesCore.apply(qkv, qemb, kemb_t, vemb, sim_affine, plain)
+
+
+_WRAPPERS = (lanes_attn_fwd, flash_lanes_fwd, lanes_attn_bwd, flash_lanes_bwd)
 
 
 def reset_launch_counts():
-    lanes_attn_fwd.launches = 0
-    flash_lanes_fwd.launches = 0
+    for fn in _WRAPPERS:
+        fn.launches = 0
 
 
 def launch_counts() -> dict:
-    return {"lanes_attn_fwd": lanes_attn_fwd.launches,
-            "flash_lanes_fwd": flash_lanes_fwd.launches}
+    return {fn.__name__: fn.launches for fn in _WRAPPERS}

@@ -1,0 +1,281 @@
+"""Similarity-BN batch moments of the train-mode attention.
+
+Port of ``medt_tpu/ops/pallas_moments.py`` (``moment_sums_core`` forward
+and backward, ``logit_moments_lanes_fused``, ``qk_moments_lanes_fused``)
+and of the stripe-major ``logit_moments``/``qk_moments`` of
+``medt_tpu/ops/pallas_axial_train.py:388-435``.
+
+In train mode the similarity BN normalises the qk, qr and kr logits with
+their batch moments over every (query, key, stripe). Those moments factor
+into sums over q and k alone, so no (S, g, L, L) logits tensor is formed::
+
+    moment_sums(qkv, r_q, e_q, r_k, e_k) -> (g, 8)
+        [s1_qk, s2_qk, s1_qr, s2_qr, s1_kr, s2_kr, 0, 0]
+
+on the q/k rows of the fused ``(g, 2gp, L, S)`` qkv, with the tables
+``r_q[c, i] = sum_j qemb[c, i, j]``, ``e_q[c, d, i] = sum_j qemb[c, i, j]
+qemb[d, i, j]`` (``r_k``, ``e_k`` likewise on kemb in ``[c, j, i]``
+coordinates); zero-size ``(0, L)`` / ``(0, 0, L)`` tables for the
+position-free mode.
+
+:func:`moment_sums` is differentiable (:class:`MomentSums`) and dispatches
+like the attention cores: plain PyTorch on CPU tensors (or with ``plain``),
+the kernels of ``csrc/moments.cu`` through :func:`moment_sums_fwd` and
+:func:`moment_sums_bwd` on CUDA tensors, never a fallback.
+"""
+from __future__ import annotations
+
+import torch
+
+from ..kernels.build import library
+from ..kernels.launch import BLOCK_STRIPES, check_tensor, ptr, raise_on, stream
+from .axial_lanes import KERNEL_GP
+
+
+def _split_qk(qkv):
+    gp = qkv.shape[1] // 2
+    c = gp // 2
+    return qkv[:, :c], qkv[:, c:gp]
+
+
+def _has_pos(r_q) -> bool:
+    return r_q.shape[0] > 0
+
+
+def moment_sums_plain(qkv, r_q, e_q, r_k, e_k):
+    """Plain version of the moments kernel: the (g, 8) sums."""
+    q, k = _split_qk(qkv)                                 # (g, c, L, S)
+    qs, ks = q.sum(dim=2), k.sum(dim=2)                   # (g, c, S)
+    qq = torch.einsum("gcls,gdls->gcds", q, q)
+    kk = torch.einsum("gcls,gdls->gcds", k, k)
+    s1_qk = (qs * ks).sum(dim=(1, 2))
+    s2_qk = (qq * kk).sum(dim=(1, 2, 3))
+    zero = torch.zeros_like(s1_qk)
+    if _has_pos(r_q):
+        s1_qr = torch.einsum("gcls,cl->g", q, r_q)
+        s2_qr = torch.einsum("gcls,cdl,gdls->g", q, e_q, q)
+        s1_kr = torch.einsum("gcls,cl->g", k, r_k)
+        s2_kr = torch.einsum("gcls,cdl,gdls->g", k, e_k, k)
+    else:
+        s1_qr = s2_qr = s1_kr = s2_kr = zero
+    return torch.stack([s1_qk, s2_qk, s1_qr, s2_qr, s1_kr, s2_kr, zero, zero],
+                       dim=1)
+
+
+def moment_sums_bwd_plain(qkv, r_q, e_q, r_k, e_k, ct):
+    """Plain version of the moments backward (``_moments_bwd_kernel``):
+    ``(dqkv, dr_q, de_q, dr_k, de_k)`` for the cotangent ``ct`` (g, 8);
+    the v rows of dqkv are zero."""
+    q, k = _split_qk(qkv)
+    g, c, L, S = q.shape
+    qs, ks = q.sum(dim=2), k.sum(dim=2)
+    qq = torch.einsum("gcls,gdls->gcds", q, q)
+    kk = torch.einsum("gcls,gdls->gcds", k, k)
+    col = [ct[:, i, None, None, None] for i in range(6)]  # (g, 1, 1, 1)
+    dq = col[0] * ks[:, :, None, :] + 2.0 * col[1] * torch.einsum(
+        "gcds,gdls->gcls", kk, q)
+    dk = col[0] * qs[:, :, None, :] + 2.0 * col[1] * torch.einsum(
+        "gcds,gdls->gcls", qq, k)
+    if _has_pos(r_q):
+        e_q2 = e_q + e_q.transpose(0, 1)
+        e_k2 = e_k + e_k.transpose(0, 1)
+        dq = dq + col[2] * r_q[None, :, :, None] + col[3] * torch.einsum(
+            "cdl,gdls->gcls", e_q2, q)
+        dk = dk + col[4] * r_k[None, :, :, None] + col[5] * torch.einsum(
+            "cdl,gdls->gcls", e_k2, k)
+        dr_q = torch.einsum("g,gcls->cl", ct[:, 2], q)
+        de_q = torch.einsum("g,gcls,gdls->cdl", ct[:, 3], q, q)
+        dr_k = torch.einsum("g,gcls->cl", ct[:, 4], k)
+        de_k = torch.einsum("g,gcls,gdls->cdl", ct[:, 5], k, k)
+    else:
+        dr_q, de_q, dr_k, de_k = r_q, e_q, r_k, e_k       # zero-size
+    dqkv = torch.cat([dq, dk, torch.zeros_like(qkv[:, 2 * c:])], dim=1)
+    return dqkv, dr_q, de_q, dr_k, de_k
+
+
+def _check(qkv, r_q, e_q, r_k, e_k, name, **extra):
+    """Validate what a moments kernel takes; returns (g, gp, L, S, has_pos,
+    blocks)."""
+    if qkv.dim() != 4:
+        raise ValueError(f"{name}: qkv must be (g, 2gp, L, S), got "
+                         f"{tuple(qkv.shape)}")
+    g, r2, L, S = qkv.shape
+    gp = r2 // 2
+    c = gp // 2
+    if r2 % 2 or gp not in KERNEL_GP:
+        raise ValueError(f"{name}: group planes gp={r2 / 2} not in "
+                         f"{KERNEL_GP}")
+    has_pos = _has_pos(r_q)
+    shapes = {"qkv": (qkv, (g, r2, L, S))}
+    tables = {"r_q": (r_q, (c, L)), "e_q": (e_q, (c, c, L)),
+              "r_k": (r_k, (c, L)), "e_k": (e_k, (c, c, L))}
+    if has_pos:
+        shapes.update(tables)
+    else:
+        for tname, (t, _) in tables.items():
+            if t.numel():
+                raise ValueError(f"{name}: {tname} must be empty when r_q is")
+    shapes.update(extra)
+    for tname, (t, shape) in shapes.items():
+        check_tensor(name, tname, t, shape, qkv.device)
+    return g, gp, L, S, has_pos, -(-S // BLOCK_STRIPES)
+
+
+def moment_sums_fwd(qkv, r_q, e_q, r_k, e_k):
+    """Launch the moments kernel on CUDA tensors: the (g, 8) sums."""
+    g, gp, L, S, has_pos, blocks = _check(qkv, r_q, e_q, r_k, e_k,
+                                          "moment_sums_fwd")
+    f32 = dict(dtype=torch.float32, device=qkv.device)
+    out = torch.empty((g, 8), **f32)
+    part = torch.empty((g * blocks, 6), **f32)
+    err = library().medt_moment_sums_fwd(
+        ptr(qkv), ptr(r_q), ptr(e_q), ptr(r_k), ptr(e_k), ptr(out),
+        ptr(part), g, gp, L, S, int(has_pos), g * blocks,
+        stream(qkv.device))
+    raise_on(err, "moment_sums_fwd")
+    moment_sums_fwd.launches += 1
+    return out
+
+
+moment_sums_fwd.launches = 0
+
+
+def moment_sums_bwd(qkv, r_q, e_q, r_k, e_k, ct):
+    """Launch the moments backward on CUDA tensors: ``(dqkv, dr_q, de_q,
+    dr_k, de_k)``."""
+    g, gp, L, S, has_pos, blocks = _check(
+        qkv, r_q, e_q, r_k, e_k, "moment_sums_bwd",
+        ct=(ct, (qkv.shape[0], 8)))
+    c = gp // 2
+    f32 = dict(dtype=torch.float32, device=qkv.device)
+    rows = 2 * c + 2 * c * c if has_pos else 0
+    dqkv = torch.empty(tuple(qkv.shape), **f32)
+    dtables = torch.empty((rows, L), **f32)
+    stats = torch.empty((g, 2 * c + c * (c + 1), S), **f32)
+    n_part = g * blocks if has_pos else 0
+    part = torch.empty((max(n_part, 1), max(rows, 1), L), **f32)
+    err = library().medt_moment_sums_bwd(
+        ptr(qkv), ptr(r_q), ptr(e_q), ptr(r_k), ptr(e_k), ptr(ct),
+        ptr(dqkv), ptr(dtables), ptr(stats), ptr(part), g, gp, L, S,
+        int(has_pos), n_part, stream(qkv.device))
+    raise_on(err, "moment_sums_bwd")
+    moment_sums_bwd.launches += 1
+    if not has_pos:
+        return dqkv, r_q, e_q, r_k, e_k                   # zero-size
+    cc = c * c
+    dr_q = dtables[:c]
+    de_q = dtables[c:c + cc].reshape(c, c, L)
+    dr_k = dtables[c + cc:2 * c + cc]
+    de_k = dtables[2 * c + cc:].reshape(c, c, L)
+    return dqkv, dr_q, de_q, dr_k, de_k
+
+
+moment_sums_bwd.launches = 0
+
+
+class MomentSums(torch.autograd.Function):
+    """``moment_sums_core`` with its backward (``_sums_fwd_rule``/
+    ``_sums_bwd_rule``): saves the inputs."""
+
+    @staticmethod
+    def forward(ctx, qkv, r_q, e_q, r_k, e_k, plain=False):
+        ctx.plain = plain or qkv.device.type == "cpu"
+        ctx.save_for_backward(qkv, r_q, e_q, r_k, e_k)
+        if ctx.plain:
+            return moment_sums_plain(qkv, r_q, e_q, r_k, e_k)
+        return moment_sums_fwd(qkv, r_q, e_q, r_k, e_k)
+
+    @staticmethod
+    def backward(ctx, ct):
+        qkv, r_q, e_q, r_k, e_k = ctx.saved_tensors
+        fn = moment_sums_bwd_plain if ctx.plain else moment_sums_bwd
+        grads = fn(qkv, r_q, e_q, r_k, e_k, ct.contiguous())
+        if not _has_pos(r_q):
+            return grads[0], None, None, None, None, None
+        return (*grads, None)
+
+
+def moment_sums(qkv, r_q, e_q, r_k, e_k, plain=False):
+    """Differentiable moment sums (g, 8): the kernels on CUDA tensors, the
+    plain versions on CPU tensors or when ``plain`` is set."""
+    return MomentSums.apply(qkv, r_q, e_q, r_k, e_k, plain)
+
+
+def logit_moments_lanes_fused(qkv, qemb, kemb, plain=False):
+    """Batch mean and biased variance (each (3, g), rows qk/qr/kr) of the
+    similarity logits, and their count S*L*L. ``qemb``/``kemb``: (c, L, L)
+    gate-folded tables in the ``all_emb`` coordinates (kr reads kemb as
+    [c, j, i])."""
+    _, _, L, S = qkv.shape
+    n = S * L * L
+    r_q = qemb.sum(dim=2)                                 # (c, i)
+    e_q = torch.einsum("cij,dij->cdi", qemb, qemb)        # (c, c, i)
+    r_k = kemb.sum(dim=2)                                 # (c, j)
+    e_k = torch.einsum("cji,dji->cdj", kemb, kemb)        # (c, c, j)
+    sums = moment_sums(qkv, r_q.contiguous(), e_q.contiguous(),
+                       r_k.contiguous(), e_k.contiguous(), plain)
+    mean = torch.stack([sums[:, 0], sums[:, 2], sums[:, 4]]) / n
+    msq = torch.stack([sums[:, 1], sums[:, 3], sums[:, 5]]) / n
+    var = torch.clamp(msq - mean * mean, min=0.0)
+    return mean, var, n
+
+
+def qk_moments_lanes_fused(qkv, plain=False):
+    """Position-free variant: mean and biased variance (each (g,)) of the
+    qk logits, and their count."""
+    _, _, L, S = qkv.shape
+    n = S * L * L
+    zr = qkv.new_zeros((0, L))
+    ze = qkv.new_zeros((0, 0, L))
+    sums = moment_sums(qkv, zr, ze, zr, ze, plain)
+    m1 = sums[:, 0] / n
+    var = torch.clamp(sums[:, 1] / n - m1 * m1, min=0.0)
+    return m1, var, n
+
+
+def logit_moments(q, k, qemb, kemb):
+    """Stripe-major version (``pallas_axial_train.logit_moments``): q, k
+    (S, g, c, L); returns mean, biased var (3, g) and the count."""
+    S, g, c, L = q.shape
+    n = S * L * L
+    qs, ks = q.sum(dim=3), k.sum(dim=3)
+    m1_qk = torch.einsum("sgc,sgc->g", qs, ks) / n
+    qq = torch.einsum("sgcl,sgdl->sgcd", q, q)
+    kk = torch.einsum("sgcl,sgdl->sgcd", k, k)
+    m2_qk = torch.einsum("sgcd,sgcd->g", qq, kk) / n
+    r_q = qemb.sum(dim=2)
+    m1_qr = torch.einsum("sgci,ci->g", q, r_q) / n
+    e_q = torch.einsum("cij,dij->icd", qemb, qemb)
+    m2_qr = torch.einsum("sgci,icd,sgdi->g", q, e_q, q) / n
+    r_k = kemb.sum(dim=2)
+    m1_kr = torch.einsum("sgcj,cj->g", k, r_k) / n
+    e_k = torch.einsum("cji,dji->jcd", kemb, kemb)
+    m2_kr = torch.einsum("sgcj,jcd,sgdj->g", k, e_k, k) / n
+    mean = torch.stack([m1_qk, m1_qr, m1_kr])
+    msq = torch.stack([m2_qk, m2_qr, m2_kr])
+    return mean, torch.clamp(msq - mean * mean, min=0.0), n
+
+
+def qk_moments(q, k):
+    """Stripe-major position-free version (``pallas_axial_train.
+    qk_moments``): mean, biased var (g,) and the count."""
+    S, g, c, L = q.shape
+    n = S * L * L
+    qs, ks = q.sum(dim=3), k.sum(dim=3)
+    m1 = torch.einsum("sgc,sgc->g", qs, ks) / n
+    qq = torch.einsum("sgcl,sgdl->sgcd", q, q)
+    kk = torch.einsum("sgcl,sgdl->sgcd", k, k)
+    m2 = torch.einsum("sgcd,sgcd->g", qq, kk) / n
+    return m1, torch.clamp(m2 - m1 * m1, min=0.0), n
+
+
+_WRAPPERS = (moment_sums_fwd, moment_sums_bwd)
+
+
+def reset_launch_counts():
+    for fn in _WRAPPERS:
+        fn.launches = 0
+
+
+def launch_counts() -> dict:
+    return {fn.__name__: fn.launches for fn in _WRAPPERS}

@@ -1,6 +1,6 @@
-"""Eval-mode batch normalization over multi-axis feature layouts.
+"""Batch normalization over multi-axis feature layouts, torch semantics.
 
-Port of ``medt_tpu/ops/norms.py:68-77``. The attention BNs normalize over
+Port of ``medt_tpu/ops/norms.py:46-77``. The attention BNs normalize over
 stacked feature layouts — ``bn_similarity`` over (3, g) (or (g,) without
 positions) and ``bn_output`` over (g, gp, 2) (or (g, gp)) — which a plain
 ``nn.BatchNorm*`` cannot express. Parameters are stored flat, exactly as the
@@ -8,12 +8,15 @@ reference's ``nn.BatchNorm1d/2d`` store them, and reshaped row-major onto the
 feature axes at use: that row-major order *is* the reference's channel
 layout (e.g. the per-channel sv/sve interleave of ``bn_output``).
 
-Statistics are applied in float32 whatever the activation dtype. Train mode
-(batch statistics, running-stat updates) belongs to the training slice of
-the port and raises here.
+Train mode normalizes with the biased batch variance, computed as JAX
+does (E[x^2] - mean^2 in float32, clamped at 0), and pushes the unbiased
+variance n/(n-1) into the running estimate with torch's momentum 0.1
+(``running = 0.9*running + 0.1*batch``). Statistics are taken and applied
+in float32 whatever the activation dtype.
 """
 from __future__ import annotations
 
+import math
 from typing import Sequence, Tuple, Union
 
 import torch
@@ -23,8 +26,7 @@ from .attn_core import fold_train_affine
 
 Axes = Union[int, Sequence[int]]
 
-TRAIN_BN_TODO = ("train-mode BatchNorm is not ported yet (ROADMAP.md, "
-                 "'Port: training slice')")
+MOMENTUM = 0.1
 
 
 def _canonical_axes(rank: int, axes: Axes) -> Tuple[int, ...]:
@@ -54,6 +56,28 @@ def batch_norm_eval(x, weight, bias, mean, var, feature_axes: Axes,
     return y.to(x.dtype)
 
 
+def batch_norm_train(x, weight, bias, feature_axes: Axes, eps: float = 1e-5):
+    """Train-mode BN: ``(y, batch_mean, batch_var_unbiased)``, the moments
+    per feature; the caller owns the running-stat update."""
+    feature_axes = _canonical_axes(x.dim(), feature_axes)
+    reduce = tuple(a for a in range(x.dim()) if a not in feature_axes)
+    xf = x.float()
+    mean = xf.mean(dim=reduce)
+    var = torch.clamp((xf * xf).mean(dim=reduce) - mean * mean, min=0.0)
+    shape = _bshape(x, feature_axes)
+    y = (xf - mean.reshape(shape)) * torch.rsqrt(var.reshape(shape) + eps)
+    y = y * weight.float().reshape(shape) + bias.float().reshape(shape)
+    n = math.prod(x.shape[a] for a in reduce)
+    return y.to(x.dtype), mean, var * (n / max(n - 1.0, 1.0))
+
+
+@torch.no_grad()
+def update_running(running: torch.Tensor, batch: torch.Tensor,
+                   momentum: float = MOMENTUM):
+    """``running = (1 - momentum)*running + momentum*batch``, in place."""
+    running.mul_(1.0 - momentum).add_(momentum * batch.detach())
+
+
 class BatchNorm(nn.Module):
     """Torch-semantics BN with flat reference-named state.
 
@@ -81,6 +105,15 @@ class BatchNorm(nn.Module):
 
     def forward(self, x, feature_axes: Axes = 1):
         if self.training:
-            raise NotImplementedError(TRAIN_BN_TODO)
+            axes = _canonical_axes(x.dim(), feature_axes)
+            if x.numel() == math.prod(x.shape[a] for a in axes):
+                # as torch's BatchNorm: no unbiased variance from one value
+                raise ValueError("Expected more than 1 value per channel "
+                                 f"when training, got input {tuple(x.shape)}")
+            y, mean, var = batch_norm_train(x, self.weight, self.bias,
+                                            feature_axes, self.eps)
+            update_running(self.running_mean, mean.reshape(-1))
+            update_running(self.running_var, var.reshape(-1))
+            return y
         return batch_norm_eval(x, self.weight, self.bias, self.running_mean,
                                self.running_var, feature_axes, self.eps)

@@ -1,0 +1,101 @@
+"""Where a training step's time goes on the card.
+
+    python -m medt_tpu_torch.profile_train
+
+Trains MedT 128 at batch 16 (full width, seeded random weights, Adam-L2,
+float32 with TF32 off) on a synthetic blob batch and prints one JSON
+object: the wall time per step (host clock, profiler off), then, from a
+``torch.profiler`` window over as many steps, the device's summed kernel
+time per step, its busy share of that wall time, the kernel launches per
+step, the port's own kernels (attention cores forward and backward,
+moments) per step and the top kernels by device time. Needs a card; exits
+non-zero without one.
+"""
+from __future__ import annotations
+
+import json
+import sys
+import time
+
+from .profile_serve import _device_us
+
+MODEL, IMG, BATCH, ITERS, LR = "MedT", 128, 16, 5, 1e-3
+# the port's hand-written kernels, by the names nvcc gives them
+OWN_KERNELS = ("axial_lanes_fwd_kernel", "lanes_bwd_row_kernel",
+               "lanes_bwd_col_kernel", "daff_finalize_kernel",
+               "sum_partials_kernel", "moments_fwd_kernel",
+               "moments_finalize_kernel", "moments_stripe_stats_kernel",
+               "moments_bwd_kernel")
+
+
+def main() -> int:
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    if not torch.cuda.is_available():
+        print("profile_train: no CUDA device", file=sys.stderr)
+        return 2
+    from . import ops
+    from .data import blob_batch
+    from .models import build_model
+    from .training import TrainState, adam_l2, train_step
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    model = build_model(MODEL, img_size=IMG, use_fused=True, seed=0,
+                        device="cuda")
+    state = TrainState(model, adam_l2(model.parameters(), LR))
+    images, masks = blob_batch(BATCH, IMG, seed=0)
+    batch = {"image": images, "label": masks}
+    for _ in range(3):
+        train_step(state, batch)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    for _ in range(ITERS):
+        train_step(state, batch)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) / ITERS
+    own_launches = {k: v / ITERS for k, v in ops.launch_counts().items()}
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(ITERS):
+            train_step(state, batch)
+        torch.cuda.synchronize()
+        wall_profiled = (time.perf_counter() - t0) / ITERS
+    # device-side ranges of record_function annotations (the optimizer's
+    # "Optimizer.step#Adam.step") span kernels counted on their own
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and _device_us(e) > 0
+               and not getattr(e, "is_user_annotation", False)
+               and not e.key.startswith("Optimizer.")]
+    total_us = sum(_device_us(e) for e in kernels) / ITERS
+    own = {name: sum(_device_us(e) for e in kernels if name in e.key)
+           / ITERS / 1e3 for name in OWN_KERNELS}
+    top = sorted(kernels, key=_device_us, reverse=True)[:15]
+    out = {
+        "device": torch.cuda.get_device_name(0), "model": MODEL,
+        "img": IMG, "batch": BATCH, "iters": ITERS, "optimizer": "adam_l2",
+        "wall_ms_per_step": wall * 1e3,
+        "images_per_s": BATCH / wall,
+        "wall_ms_per_step_profiled": wall_profiled * 1e3,
+        "device_kernel_ms_per_step": (total_us / 1e3) if kernels
+        else "not measured",
+        "device_busy_share": (total_us / 1e6 / wall) if kernels
+        else "not measured",
+        "kernel_launches_per_step": sum(e.count for e in kernels) / ITERS,
+        "port_kernel_wrapper_calls_per_step": own_launches,
+        "port_kernels_ms_per_step": own,
+        "port_kernels_ms_per_step_total": sum(own.values()),
+        "top": [{"name": e.key[:90], "ms_per_step":
+                 _device_us(e) / 1e3 / ITERS,
+                 "calls_per_step": e.count / ITERS} for e in top],
+    }
+    print(json.dumps(out), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,24 @@
+"""Training of the port: optimizers, schedules, the train step."""
+from .optimizers import OPTIMIZER_REGISTRY, adam_l2, build_optimizer, sgd
+from .schedules import (
+    SCHEDULE_REGISTRY,
+    constant,
+    warmup_cosine,
+    warmup_staircase,
+)
+from .state import TrainState, eval_step, normalize, train_step
+
+__all__ = [
+    "OPTIMIZER_REGISTRY",
+    "SCHEDULE_REGISTRY",
+    "TrainState",
+    "adam_l2",
+    "build_optimizer",
+    "constant",
+    "eval_step",
+    "normalize",
+    "sgd",
+    "train_step",
+    "warmup_cosine",
+    "warmup_staircase",
+]

@@ -2,9 +2,12 @@
 
 This file imports neither JAX nor the JAX package, so it also runs on the
 card's machine (``python -m pytest tests/test_torch_port_cuda.py``). Tests
-marked ``cuda`` hold each CUDA kernel against its plain PyTorch version at
-tolerance 1e-4 (float32; the kernel sums keys in another order, with an
-online softmax for the flash kernel) and skip without a card.
+marked ``cuda`` hold each CUDA kernel against its plain PyTorch version and
+skip without a card: the forward kernels at tolerance 1e-4 (float32; the
+kernel sums keys in another order, with an online softmax for the flash
+kernel), the backward and moments kernels at 1e-4 + 1e-4 * max|plain| per
+tensor (their outputs are sums over up to S*L terms), and the backward
+kernels give bit-identical results on every run (no atomics).
 """
 import ast
 import pathlib
@@ -16,7 +19,7 @@ import pytest
 import torch
 
 from medt_tpu_torch.kernels import build as kbuild
-from medt_tpu_torch.ops import axial_lanes
+from medt_tpu_torch.ops import axial_lanes, moments
 from medt_tpu_torch.ops.attn_core import pack_sim_affine
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
@@ -57,6 +60,26 @@ def test_kernel_wrappers_reject_cpu_tensors():
         assert fn.launches == before
 
 
+def test_backward_and_moment_wrappers_reject_cpu_tensors():
+    qkv, qemb, kemb_t, vemb, aff = core_inputs(13, g=2, gp=4, L=8, S=128,
+                                               has_pos=True)
+    d = torch.zeros((2, 4, 8, 128))
+    row = torch.zeros((2, 8, 128))
+    calls = [
+        (axial_lanes.lanes_attn_bwd, (qkv, qemb, kemb_t, vemb, aff, d, d)),
+        (axial_lanes.flash_lanes_bwd,
+         (qkv, qemb, kemb_t, vemb, aff, row, row, d, d, d, d)),
+        (moments.moment_sums_fwd, moment_inputs(13, 2, 4, 8, 128, True)),
+        (moments.moment_sums_bwd,
+         (*moment_inputs(13, 2, 4, 8, 128, True), torch.zeros(2, 8))),
+    ]
+    for fn, args in calls:
+        before = fn.launches
+        with pytest.raises(ValueError, match="CUDA"):
+            fn(*args)
+        assert fn.launches == before
+
+
 def test_cores_on_cpu_run_the_plain_versions():
     args = core_inputs(11, g=2, gp=4, L=8, S=64, has_pos=True)
     counts = axial_lanes.launch_counts()
@@ -89,6 +112,24 @@ def test_build_is_atomic_and_keyed_by_source_hash(tmp_path, monkeypatch):
     with pytest.raises(kbuild.BuildError):
         kbuild.build()
     assert not list(build_dir.iterdir())
+
+
+def moment_inputs(seed, g, gp, L, S, has_pos, device="cpu"):
+    """Tensors of the moments core: qkv, r_q, e_q, r_k, e_k."""
+    rng = np.random.default_rng(seed)
+    c = gp // 2
+    qkv = torch.from_numpy(rng.normal(size=(g, 2 * gp, L, S))
+                           .astype(np.float32)).to(device)
+    if not has_pos:
+        zr, ze = torch.zeros((0, L)), torch.zeros((0, 0, L))
+        return [qkv, zr.to(device), ze.to(device), zr.to(device),
+                ze.to(device)]
+    qemb, kemb = (torch.from_numpy(rng.normal(size=(c, L, L))
+                                   .astype(np.float32) / gp).to(device)
+                  for _ in range(2))
+    tables = (qemb.sum(2), torch.einsum("cij,dij->cdi", qemb, qemb),
+              kemb.sum(2), torch.einsum("cji,dji->cdj", kemb, kemb))
+    return [qkv] + [t.contiguous() for t in tables]
 
 
 def test_sources_include_no_torch_header():
@@ -189,3 +230,115 @@ def test_kernel_wrappers_refuse_what_the_kernel_does_not_take(cuda_device):
                       device=cuda_device)
     with pytest.raises(ValueError, match="span"):
         fn(*big)
+
+
+def _close(got, want, name):
+    tol = 1e-4 + 1e-4 * float(want.abs().max()) if want.numel() else 0.0
+    torch.testing.assert_close(got, want, atol=tol, rtol=0, msg=name)
+
+
+def _grads_in(seed, g, gp, L, S, device):
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.normal(size=(g, gp, L, S))
+                             .astype(np.float32)).to(device)
+            for _ in range(2)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel,L,gp,has_pos", [
+    ("lanes", 16, 2, False), ("lanes", 4, 16, False), ("lanes", 8, 4, True),
+    ("lanes", 16, 16, True), ("flash", 64, 2, True), ("flash", 32, 4, True),
+    ("flash", 64, 4, False), ("flash", 20, 8, True),
+])
+def test_backward_kernel_matches_plain_on_card(cuda_device, kernel, L, gp,
+                                               has_pos):
+    """The five gradients; an odd stripe count (a ragged last block); the
+    same bits on a second run."""
+    S = 300
+    args = core_inputs(14, g=8, gp=gp, L=L, S=S, has_pos=has_pos,
+                       device=cuda_device)
+    dsv, dsve = _grads_in(15, 8, gp, L, S, cuda_device)
+    if kernel == "lanes":
+        fn, plain = axial_lanes.lanes_attn_bwd, axial_lanes.lanes_attn_bwd_plain
+        extra = ()
+    else:
+        fn = axial_lanes.flash_lanes_bwd
+        plain = axial_lanes.flash_lanes_bwd_plain
+        sv, sve, m, l = axial_lanes.flash_lanes_fwd(*args)
+        extra = (m, l, sv, sve.contiguous())
+    before = fn.launches
+    got = fn(*args, *extra, dsv, dsve)
+    again = fn(*args, *extra, dsv, dsve)
+    want = plain(*args, *extra, dsv, dsve)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 2
+    for name, o, a, w in zip(("dqkv", "dqemb", "dkemb_t", "dvemb", "daff"),
+                             got, again, want):
+        _close(o, w, name)
+        assert torch.equal(o, a), f"{name} differs between two runs"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("gp,L,has_pos", [
+    (2, 64, True), (4, 32, True), (4, 16, False), (16, 4, False),
+    (16, 8, True),
+])
+def test_moment_kernels_match_plain_on_card(cuda_device, gp, L, has_pos):
+    ins = moment_inputs(16, 8, gp, L, 300, has_pos, device=cuda_device)
+    ct = torch.from_numpy(np.random.default_rng(17).normal(size=(8, 8))
+                          .astype(np.float32)).to(cuda_device)
+    _close(moments.moment_sums_fwd(*ins), moments.moment_sums_plain(*ins),
+           "sums")
+    got = moments.moment_sums_bwd(*ins, ct)
+    again = moments.moment_sums_bwd(*ins, ct)
+    want = moments.moment_sums_bwd_plain(*ins, ct)
+    torch.cuda.synchronize()
+    for name, o, a, w in zip(("dqkv", "dr_q", "de_q", "dr_k", "de_k"),
+                             got, again, want):
+        _close(o, w, name)
+        assert torch.equal(o, a), f"{name} differs between two runs"
+
+
+@pytest.mark.cuda
+def test_attention_train_step_on_kernels_matches_plain_cores(cuda_device):
+    """One AxialAttention train-mode forward and backward through the
+    kernels vs the same module on plain cores (gated, span 32: flash;
+    random cotangent). Per tensor: 1e-5 + 1e-4 * max|plain| plus four times
+    the spread of the plain step when its input is perturbed by 1e-6
+    (relative; two runs), as chip_smoke.py's train phase holds the whole
+    step. The similarity BN's bias gradient is 0 in exact arithmetic
+    (softmax is shift-invariant): it is held at the scale of its weight
+    gradient."""
+    from medt_tpu_torch.ops.axial_attention import AxialAttention
+
+    rng = np.random.default_rng(18)
+    x = rng.normal(size=(4, 16, 32, 32)).astype(np.float32)
+    ct = torch.from_numpy(rng.normal(size=(4, 16, 32, 32))
+                          .astype(np.float32)).to(cuda_device)
+
+    def grads(plain, noise=0.0):
+        op = AxialAttention(16, 16, 32, groups=8, mode="gated",
+                            use_fused=True, plain_cores=plain,
+                            generator=torch.Generator().manual_seed(0),
+                            device=cuda_device).train()
+        xi = x * (1.0 + noise * rng.standard_normal(x.shape))
+        xt = torch.from_numpy(xi.astype(np.float32)).to(cuda_device)
+        xt.requires_grad_()
+        (op(xt) * ct).sum().backward()
+        return dict([("input", xt.grad)] + [
+            (name, p.grad) for name, p in op.named_parameters()
+            if p.requires_grad])
+
+    got, want = grads(False), grads(True)
+    spread = [want] + [grads(True, 1e-6) for _ in range(2)]
+    bad = []
+    for name, g in got.items():
+        runs = [r[name] for r in spread]
+        noise = max(float((a - b).abs().max()) for i, a in enumerate(runs)
+                    for b in runs[i + 1:])
+        scale = want["bn_similarity.weight" if name == "bn_similarity.bias"
+                     else name].abs().max()
+        err = float((g - want[name]).abs().max())
+        if not err <= 1e-5 + 1e-4 * float(scale) + 4.0 * noise:
+            bad.append((name, err, float(scale), noise))
+    assert not bad, bad

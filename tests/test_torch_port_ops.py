@@ -144,9 +144,13 @@ def test_batch_norm_eval_matches_jax(feature_axes, fshape):
 
 
 def test_batch_norm_module_raises_in_train_mode():
+    """Train mode runs (tests/test_torch_port_train_ops.py holds it); like
+    torch's BatchNorm it raises on one value per channel, where the
+    unbiased running variance is undefined."""
     bn = BatchNorm(4, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        bn(torch.zeros(2, 4, 3, 3))
+    assert bn(torch.zeros(2, 4, 3, 3)).shape == (2, 4, 3, 3)
+    with pytest.raises(ValueError, match="more than 1 value per channel"):
+        bn(torch.zeros(1, 4, 1, 1))
 
 
 def test_pooling_matches_jax():
