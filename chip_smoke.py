@@ -10,21 +10,35 @@ the start of the script) as it ends:
 2. ``build``   — every kernel source compiled by one plain ``nvcc``
    command into a ``ctypes``-loaded library.
 3. ``kernels`` — each kernel held against its plain PyTorch version on the
-   card at every geometry the serving and training paths give it (MedT 128
-   at batch 16; both has_pos variants of each), with CUDA-event times of
-   kernel and plain version and the bound of each.
+   card at every geometry the serving, training and batch-1 paths give it
+   (MedT 128 at batch 16 and at batch 1; both has_pos variants of each;
+   gatedaxialunet's batch-1 geometries for the eval kernel), with
+   CUDA-event times of kernel and plain version and the bound of each.
 4. ``serve``   — the port's ``InferenceEngine`` serving MedT 128 at batch
    16 from a seeded random init: threaded ``submit`` at two priorities plus
    full-batch ``predict_batch`` calls; the launch counters must show every
    forward went through the kernels (16 lanes + 6 flash launches); the
    engine's logits are held against the same model on plain cores.
-5. ``train``   — ``train_step`` of MedT 128 at full width, batch 16, Adam-L2,
+5. ``predict`` — the batch-1 evaluation path: ``cli.test`` over 32
+   synthetic 128x128 image/mask PNG pairs and ``cli.predict`` over three
+   unlabelled images (128x128, 256x192 and 96x112: the window route for the
+   last two), in process, from a seeded MedT-128 checkpoint written by
+   ``save_checkpoint``; every batch-1 forward launches the eval kernel 14
+   times and the lanes kernel 8 times; ``metrics.json`` holds 32 finite
+   scores; each mask has its image's size; the batch-1 logits are held
+   against plain cores; batch-1 images/s and p50 per-image ms (host clock
+   from the batch on the host to the mask on the host; the rate leaves out
+   the first image).
+6. ``train``   — ``train_step`` of MedT 128 at full width, batch 16, Adam-L2,
    on a synthetic blob batch: counted, 3 warm-up and 10 timed steps (ms
    per step, images/s) and 20 more steps on the same batch, whose loss
    must fall; every step launches 16 + 6 forward, 16 + 6 backward and
    22 + 22 moments kernels. Then one step on the kernels against the same
    step on plain cores from identical weights, with cuDNN deterministic:
    the loss, every gradient and the running statistics.
+7. ``tf32``    — what TF32 does to MedT 128 against TF32 off: batch-16 and
+   batch-1 logits, one train-mode forward and backward (loss, gradients),
+   and the time of each.
 
 Then: the per-kernel JSON summary, the card's ``nvidia-smi`` line, and, as
 the last line, ``{"ok": true, "device": ...}``. Any failed phase ends the
@@ -71,6 +85,7 @@ SOURCES = {
     "flash_lanes_bwd": "medt_tpu_torch/csrc/axial_lanes_bwd.cu",
     "moment_sums_fwd": "medt_tpu_torch/csrc/moments.cu",
     "moment_sums_bwd": "medt_tpu_torch/csrc/moments.cu",
+    "axial_eval_fwd": "medt_tpu_torch/csrc/axial_eval_fwd.cu",
 }
 REPLACES = {
     "lanes_attn_fwd": "medt_tpu/ops/pallas_axial_lanes.py:333",
@@ -79,6 +94,7 @@ REPLACES = {
     "flash_lanes_bwd": "medt_tpu/ops/pallas_axial_lanes.py:759",
     "moment_sums_fwd": "medt_tpu/ops/pallas_moments.py:189",
     "moment_sums_bwd": "medt_tpu/ops/pallas_moments.py:310",
+    "axial_eval_fwd": "medt_tpu/ops/pallas_axial.py:165",
 }
 # The attention sites of MedT 128 at batch 16, g = 8 everywhere:
 # (span, gp, stripes, has_pos, sites). Global branch (gated, positions):
@@ -92,6 +108,17 @@ SITES = [
 ]
 # the other has_pos variant of each kernel (logo, gatedaxialunet run it)
 OTHER_VARIANT = {"flash": (64, 4, 1024, False), "lanes": (16, 2, 4096, True)}
+# The eval kernel's sites in one MedT-128 batch-1 forward (14 of the 22;
+# the other 8 run the lanes kernel): (span, gp, stripes, has_pos, sites);
+# then gatedaxialunet-128's batch-1 geometries (sites 0: not on MedT's path)
+EVAL_SITES = [
+    (4, 8, 64, False, 6), (4, 16, 64, False, 2), (32, 4, 32, True, 2),
+    (64, 2, 64, True, 2), (64, 4, 64, True, 2),
+    (16, 8, 16, True, 0), (16, 16, 16, True, 0), (32, 8, 32, True, 0),
+]
+# lanes sites of the same batch-1 forward: (8, 4, 128), (8, 8, 128),
+# (16, 2, 256), (16, 4, 256), two each
+BATCH1_LAUNCHES = {"axial_eval_fwd": 14, "lanes_attn_fwd": 8}
 
 
 def _geometries():
@@ -107,6 +134,7 @@ def _geometries():
     for kernel in ("moment_sums_fwd", "moment_sums_bwd"):
         rows += [(kernel, *site) for site in SITES]
         rows += [(kernel, *v, 0) for v in OTHER_VARIANT.values()]
+    rows += [("axial_eval_fwd", *site) for site in EVAL_SITES]
     return rows
 
 
@@ -232,7 +260,8 @@ def work(kernel, gp, L, S, has_pos):
     stripe) pair, float32, counting multiply and add apart:
     forward: qk 2c + affine 2 [+ qr 2c + kr 2c + affines 4 + adds 2], max,
     exp, sum 3, sv 2gp [+ sve 2gp]; per output element 1 divide; online
-    rescaling not counted. Backward: the forward's logits and exp again
+    rescaling not counted. The eval kernel: the same pairs, and per output
+    element its 1/l scaling and output affine. Backward: the forward's logits and exp again
     (the softmax is recomputed or rebuilt from m, l), dsim 2gp [+ 2gp],
     dlog 2, dv 2gp, dq 2c [+ 2c], dk 2c [+ 2c], daff sums 3 [+ 4], table
     gradients [2c + 2c + 2gp]. Moments per (group, position, stripe):
@@ -247,7 +276,13 @@ def work(kernel, gp, L, S, has_pos):
     row = g * L * S
     pairs = g * L * L * S
     logit_ops = 2 * c + 2 + (4 * c + 6 if has_pos else 0)
-    if kernel in ("lanes_attn_fwd", "flash_lanes_fwd"):
+    if kernel == "axial_eval_fwd":
+        # + the (g, 4, gp) output affine in; per output element the 1/l
+        # scaling and the affine (pos: 2 + 5, without: 1 + 3)
+        nbytes = 4 * (qkv + tables + g * 8 + g * 4 * gp + sv)
+        ops = pairs * (logit_ops + 3 + 2 * gp * (2 if has_pos else 1)) \
+            + sv * (7 if has_pos else 4)
+    elif kernel in ("lanes_attn_fwd", "flash_lanes_fwd"):
         outputs = sv * (2 if has_pos else 1)
         if kernel == "flash_lanes_fwd":
             outputs += 2 * row
@@ -296,12 +331,31 @@ def moment_inputs(torch, gen, gp, L, S, has_pos):
             torch.einsum("cji,dji->cdj", kemb, kemb).contiguous())
 
 
+def eval_inputs(torch, gen, gp, L, S, has_pos):
+    """The eval kernel's operands at a batch-1 site: q, k, v as views of one
+    stripe-major (S, g, 2gp, L) qkv (as the model passes them), the tables
+    (zero-size without positions) and both affines."""
+    qkv, qemb, kemb_t, vemb, aff = core_inputs(torch, gen, gp, L, S, has_pos)
+    c = gp // 2
+    st = qkv.permute(3, 0, 1, 2).contiguous()
+    out_aff = 0.5 + torch.rand((GROUPS, 4, gp), generator=gen, device="cuda")
+    if not has_pos:
+        out_aff[:, 2:] = 0.0
+    kemb = kemb_t.transpose(1, 2).contiguous() if has_pos else kemb_t
+    return (st[:, :, :c], st[:, :, c:gp], st[:, :, gp:], qemb, kemb, vemb,
+            aff, out_aff)
+
+
 def kernel_calls(torch, gen, kernel, gp, L, S, has_pos):
     """(kernel call, plain call, per-output relative tolerance?) with the
     inputs of one geometry bound."""
-    from medt_tpu_torch.ops import axial_lanes, moments
+    from medt_tpu_torch.ops import axial_eval, axial_lanes, moments
 
     g = GROUPS
+    if kernel == "axial_eval_fwd":
+        ins = eval_inputs(torch, gen, gp, L, S, has_pos)
+        return (lambda: (axial_eval.axial_eval_fwd(*ins),),
+                lambda: (axial_eval.axial_attention_fused_plain(*ins),))
     if kernel.startswith("moment"):
         ins = moment_inputs(torch, gen, gp, L, S, has_pos)
         if kernel == "moment_sums_fwd":
@@ -339,7 +393,7 @@ def compare(torch, kernel, got, want):
         err = max(err, d)
         ok = ok and bool(torch.isfinite(o).all())
         if kernel.endswith("_fwd") and not kernel.startswith("moment"):
-            if i < 2:   # sv, sve
+            if i < 2:   # sv, sve (the eval kernel: its output)
                 ok = ok and d <= KERNEL_ATOL
             else:       # flash: m, l
                 ok = ok and bool(((o - w).abs()
@@ -463,7 +517,117 @@ def phase_serve(torch):
     return counts
 
 
-# ---- 5. train ---------------------------------------------------------------
+# ---- 5. predict ---------------------------------------------------------------
+
+PREDICT_IMAGES = 32
+UNLABELLED = {"a_128x128.png": (128, 128), "b_256x192.png": (256, 192),
+              "c_96x112.png": (96, 112)}
+
+
+def phase_predict(torch):
+    """The batch-1 evaluation path: ``cli.test`` over 32 labelled PNG pairs
+    and ``cli.predict`` over three unlabelled images (one of the model's
+    size, a larger and a smaller one: the window route), in process on the
+    card, from a seeded MedT-128 checkpoint written with the port's
+    ``save_checkpoint``. Every batch-1 forward must launch the eval kernel
+    14 times and the lanes kernel 8 times; the batch-1 logits on the
+    kernels are held against the same checkpoint on plain cores."""
+    import shutil
+
+    import numpy as np
+
+    from medt_tpu_torch import ops
+    from medt_tpu_torch.cli import predict as cli_predict
+    from medt_tpu_torch.cli import test as cli_test
+    from medt_tpu_torch.config import parse_config
+    from medt_tpu_torch.data import make_png_dataset, read_png, write_png
+    from medt_tpu_torch.data.transforms import to_float01
+    from medt_tpu_torch.models import build_model
+    from medt_tpu_torch.training import save_checkpoint
+
+    root = REPO / "_smoke"
+    shutil.rmtree(root, ignore_errors=True)
+    labelled = make_png_dataset(str(root / "labelled"), PREDICT_IMAGES, IMG,
+                                seed=0)
+    rng = np.random.default_rng(1)
+    (root / "unlabelled" / "img").mkdir(parents=True)
+    for name, shape in UNLABELLED.items():
+        write_png(str(root / "unlabelled" / "img" / name),
+                  rng.integers(0, 256, size=shape + (3,), dtype=np.uint8))
+    save_checkpoint(str(root / "ckpt"), 0,
+                    build_model("MedT", img_size=IMG, seed=0, device="cpu"))
+    common = ["--modelname", "MedT", "--imgsize", str(IMG), "--loaddirec",
+              str(root / "ckpt" / "final_model"), "--workers", "2"]
+    test_argv = ["--val_dataset", labelled, "--direc",
+                 str(root / "test_out")] + common
+    predict_argv = ["--val_dataset", str(root / "unlabelled"), "--direc",
+                    str(root / "predict_out")] + common
+
+    # -- the main path, counted: cli.test at batch 1 -------------------------
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    result = cli_test.main(test_argv)
+    test_s = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    # -- end of the counted run -------------------------------------------------
+    expect = {name: 0 for name in counts}
+    expect.update({k: v * PREDICT_IMAGES for k, v in BATCH1_LAUNCHES.items()})
+    check(counts == expect, f"cli.test launch counts {counts} != {expect}")
+    metrics = json.loads((root / "test_out" / "metrics.json").read_text())
+    check(metrics["images"] == PREDICT_IMAGES and
+          len(metrics["per_image_f1"]) == PREDICT_IMAGES,
+          f"metrics.json has {metrics['images']} images")
+    scores = metrics["per_image_f1"] + metrics["per_image_iou"] + [
+        metrics["mean_f1"], metrics["mean_iou"]]
+    check(all(np.isfinite(scores)), "non-finite scores in metrics.json")
+    masks = sorted((root / "test_out").glob("*.png"))
+    check(len(masks) == PREDICT_IMAGES and all(
+        read_png(str(m), gray=True).shape == (IMG, IMG) for m in masks),
+        "cli.test must write one 128x128 mask per image")
+
+    # cli.predict: one batch-1 forward for the 128x128 image, one batch-16
+    # window forward each for the larger (6 tiles) and the smaller image
+    ops.reset_launch_counts()
+    written = dict(cli_predict.main(predict_argv))
+    pcounts = ops.launch_counts()
+    pexpect = {name: 0 for name in pcounts}
+    pexpect.update(axial_eval_fwd=14, lanes_attn_fwd=8 + 2 * 16,
+                   flash_lanes_fwd=2 * 6)
+    check(pcounts == pexpect, f"cli.predict launch counts {pcounts} != "
+                              f"{pexpect}")
+    for name, shape in UNLABELLED.items():
+        got = read_png(str(root / "predict_out" / name), gray=True)
+        check(written.get(name) == shape and got.shape == shape,
+              f"{name}: mask {got.shape} for an image of {shape}")
+
+    # batch-1 logits on the kernels vs on plain cores, same checkpoint
+    cfg = parse_config(test_argv)
+    image = read_png(str(Path(labelled) / "img" / "000.png"))
+    x = torch.from_numpy(to_float01(image)).cuda().permute(2, 0, 1)[None]
+    with torch.inference_mode():
+        got = cli_test.load_model(cfg, "cuda")(x)
+        want = cli_test.load_model(cfg, "cuda", plain_cores=True)(x)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    check(bool(torch.isfinite(got).all()), "non-finite batch-1 logits")
+    check(err <= LOGITS_ATOL, f"batch-1 logits vs plain cores: {err} > "
+                              f"{LOGITS_ATOL}")
+    per_image = result["per_image_ms"]
+    emit("predict", model="MedT", img=IMG, batch=1, images=PREDICT_IMAGES,
+         launches=counts, predict_launches=pcounts,
+         images_per_s=(len(per_image) - 1) / (sum(per_image[1:]) / 1e3),
+         per_image_ms_p50=statistics.median(per_image),
+         per_image_ms_max=max(per_image),
+         cli_test_wall_s=test_s, mean_f1=metrics["mean_f1"],
+         mean_iou=metrics["mean_iou"],
+         window_masks={k: list(v) for k, v in written.items()},
+         logits_max_abs_err=err, logits_max_abs=float(want.abs().max()),
+         tolerance=LOGITS_ATOL)
+    shutil.rmtree(root, ignore_errors=True)
+    return counts
+
+
+# ---- 6. train ---------------------------------------------------------------
 
 PER_STEP = {"lanes_attn_fwd": 16, "flash_lanes_fwd": 6, "lanes_attn_bwd": 16,
             "flash_lanes_bwd": 6, "moment_sums_fwd": 22, "moment_sums_bwd": 22}
@@ -548,7 +712,8 @@ def phase_train(torch):
     worst = max(checks, key=lambda c: c["err"] / c["tol"])
 
     steps = 33
-    expect = {k: v * steps for k, v in PER_STEP.items()}
+    expect = {name: 0 for name in counts}
+    expect.update({k: v * steps for k, v in PER_STEP.items()})
     emit("train", model="MedT", img=IMG, batch=BATCH, optimizer="adam_l2",
          lr=TRAIN_LR, loss_kernels=loss_k, loss_plain=loss_p,
          parity_tensors=len(checks), parity_failed=len(bad),
@@ -566,10 +731,94 @@ def phase_train(torch):
     return counts
 
 
-def summary(rows, serve_counts, train_counts):
+# ---- TF32 ---------------------------------------------------------------------
+
+def set_tf32(torch, on: bool):
+    torch.backends.cudnn.allow_tf32 = on
+    torch.backends.cuda.matmul.allow_tf32 = on
+
+
+def phase_tf32(torch):
+    """What TF32 (PyTorch's default for cuDNN convolutions) does to MedT 128
+    on the card, against TF32 off: the logits of one batch-16 and one
+    batch-1 eval forward, and one train-mode forward and backward at batch
+    16 (loss, every gradient), with the times of each. Measured on the
+    model itself, so the entry points' own TF32 setting does not enter."""
+    import numpy as np
+
+    from medt_tpu_torch.data import blob_batch
+    from medt_tpu_torch.losses import log_nll_loss
+    from medt_tpu_torch.models import build_model
+    from medt_tpu_torch.training.state import normalize
+
+    variables = build_model("MedT", img_size=IMG, seed=0,
+                            device="cpu").state_dict()
+    images, masks = blob_batch(BATCH, IMG, seed=0)
+    x = normalize(images, "cuda")
+    labels = torch.from_numpy(masks).cuda()
+    model = build_model("MedT", img_size=IMG, use_fused=True, device="cuda")
+
+    def timed(fn, reps):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) / reps * 1e3
+
+    def eval_logits(batch):
+        model.load_state_dict(variables, strict=True)
+        model.eval()
+        with torch.inference_mode():
+            return model(x[:batch]).clone()
+
+    def train_grads():
+        model.load_state_dict(variables, strict=True)
+        model.train()
+        model.zero_grad(set_to_none=True)
+        loss = log_nll_loss(model(x), labels)
+        loss.backward()
+        return loss.detach(), {k: p.grad.detach().clone()
+                               for k, p in model.named_parameters()
+                               if p.grad is not None}
+
+    result = {}
+    for on in (False, True):
+        set_tf32(torch, on)
+        b16, ms16 = timed(lambda: eval_logits(BATCH), 5)
+        b1, ms1 = timed(lambda: eval_logits(1), 5)
+        (loss, grads), ms_train = timed(train_grads, 3)
+        result[on] = dict(b16=b16, b1=b1, loss=loss, grads=grads,
+                          ms=(ms16, ms1, ms_train))
+    set_tf32(torch, False)
+    off, on = result[False], result[True]
+    grad_err = {k: float((on["grads"][k] - g).abs().max())
+                for k, g in off["grads"].items()}
+    rel = {k: e / max(float(off["grads"][k].abs().max()), 1e-30)
+           for k, e in grad_err.items()}
+    worst = max(rel, key=rel.get)
+    emit("tf32", model="MedT", img=IMG,
+         logits_b16_max_abs_diff=float((on["b16"] - off["b16"]).abs().max()),
+         logits_b16_max_abs=float(off["b16"].abs().max()),
+         logits_b1_max_abs_diff=float((on["b1"] - off["b1"]).abs().max()),
+         loss_off=float(off["loss"]), loss_on=float(on["loss"]),
+         grad_max_abs_diff=max(grad_err.values()),
+         grad_worst_relative={"name": worst, "relative": rel[worst]},
+         grads_compared=len(grad_err),
+         eval_b16_ms={"off": off["ms"][0], "on": on["ms"][0]},
+         eval_b1_ms={"off": off["ms"][1], "on": on["ms"][1]},
+         train_fwd_bwd_ms={"off": off["ms"][2], "on": on["ms"][2]},
+         parity_tolerance=LOGITS_ATOL)
+    check(all(np.isfinite(float(t["loss"])) for t in result.values()),
+          "non-finite loss")
+
+
+def summary(rows, serve_counts, train_counts, predict_counts):
     """One entry per kernel; times per call of its main path: one MedT-128
     batch-16 forward (serving) for the forward cores, one train step for
-    the backward and moments kernels."""
+    the backward and moments kernels, one batch-1 forward (``cli.test``)
+    for the eval kernel."""
     kernels = []
     for name in KERNELS:
         mine = [r for r in rows if r["kernel"] == name]
@@ -577,8 +826,12 @@ def summary(rows, serve_counts, train_counts):
         n = [r["launches_per_call"] for r in used]
         b = sum(r["bytes"] / HBM_BYTES_PER_S * k for r, k in zip(used, n))
         o = sum(r["ops"] / F32_FLOPS_PER_S * k for r, k in zip(used, n))
-        counts = serve_counts if name.endswith("fwd") and \
-            not name.startswith("moment") else train_counts
+        if name == "axial_eval_fwd":
+            counts = predict_counts
+        elif name.endswith("fwd") and not name.startswith("moment"):
+            counts = serve_counts
+        else:
+            counts = train_counts
         kernels.append({
             "name": name, "route": "cuda", "source": SOURCES[name],
             "replaces": REPLACES[name], "launches": counts[name],
@@ -612,12 +865,17 @@ def main() -> int:
         rows = phase_kernels(torch)
         phase = "serve"
         serve_counts = phase_serve(torch)
+        phase = "predict"
+        predict_counts = phase_predict(torch)
         phase = "train"
         train_counts = phase_train(torch)
+        phase = "tf32"
+        phase_tf32(torch)
     except Exception as e:  # report the phase, then fail without "ok"
         emit(phase, ok=False, error=f"{type(e).__name__}: {e}")
         return 1
-    print(json.dumps(summary(rows, serve_counts, train_counts)), flush=True)
+    print(json.dumps(summary(rows, serve_counts, train_counts,
+                             predict_counts)), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -1,13 +1,17 @@
 """Synthetic segmentation data, numpy only.
 
-Port of ``medt_tpu/data/synthetic.py`` without its PNG writer (it needs
-PIL): :class:`InMemoryDataset` and :func:`blob_batch`, the blob images and
-masks that the JAX PNG writer draws, made in memory so that a smoke run's
-loss can fall.
+Port of ``medt_tpu/data/synthetic.py``: :func:`blob_batch` makes in memory
+the blob images and masks that :func:`make_png_dataset` writes as PNG
+files through :mod:`.png` (the JAX writer draws the same arrays and saves
+them with PIL); :class:`InMemoryDataset` for loader-free runs.
 """
 from __future__ import annotations
 
+import os
+
 import numpy as np
+
+from .png import write_png
 
 
 def blob_batch(n: int = 8, img_size: int = 64, chans: int = 3,
@@ -29,6 +33,20 @@ def blob_batch(n: int = 8, img_size: int = 64, chans: int = 3,
         images[i] = img.reshape(img_size, img_size, chans)
         masks[i] = mask
     return images, masks
+
+
+def make_png_dataset(root: str, n: int = 8, img_size: int = 64,
+                     gray: bool = False, seed: int = 0) -> str:
+    """Write a blob-segmentation set under ``root``: ``img/NNN.png`` (RGB,
+    or gray) and ``labelcol/NNN.png`` (0/255 masks)."""
+    images, masks = blob_batch(n, img_size, 1 if gray else 3, seed)
+    for sub in ("img", "labelcol"):
+        os.makedirs(os.path.join(root, sub), exist_ok=True)
+    for i in range(n):
+        write_png(os.path.join(root, "img", f"{i:03d}.png"), images[i])
+        write_png(os.path.join(root, "labelcol", f"{i:03d}.png"),
+                  (masks[i] * 255).astype(np.uint8))
+    return root
 
 
 class InMemoryDataset:

@@ -35,7 +35,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-# (name, argtypes): every pointer and the stream are c_void_p, ints c_int
+_L = ctypes.c_longlong
+# (name, argtypes): every pointer and the stream are c_void_p, ints c_int,
+# strides (in elements) c_longlong
 SIGNATURES = {
     "medt_lanes_attn_fwd": [_P] * 7 + [_I] * 5 + [_P],
     "medt_flash_lanes_fwd": [_P] * 9 + [_I] * 5 + [_P],
@@ -43,6 +45,7 @@ SIGNATURES = {
     "medt_flash_lanes_bwd": [_P] * 17 + [_I] * 7 + [_P],
     "medt_moment_sums_fwd": [_P] * 7 + [_I] * 6 + [_P],
     "medt_moment_sums_bwd": [_P] * 10 + [_I] * 6 + [_P],
+    "medt_axial_eval_fwd": [_P] * 9 + [_L] * 6 + [_I] * 5 + [_P],
 }
 
 

@@ -18,8 +18,11 @@ def log_nll_loss(logits: torch.Tensor, labels: torch.Tensor,
                  ignore_index: int = -100) -> torch.Tensor:
     """Mean cross-entropy over all pixels, ``F.cross_entropy`` semantics:
     with ``weight`` the mean is ``sum(w_y * ce) / sum(w_y)``; pixels
-    labelled ``ignore_index`` (or outside the classes) drop out. Computed as
-    the JAX function does, with a one-hot pick."""
+    labelled ``ignore_index`` drop out. Computed as the JAX function does,
+    with a one-hot pick, which also fixes what happens to a label outside
+    ``0..classes-1`` (``F.cross_entropy`` raises on one): its one-hot row is
+    zero, so without ``weight`` it adds its logsumexp to the mean at weight
+    1, and with ``weight`` its weight is 0 and it drops out."""
     logits = logits.float()
     labels = labels.long()  # uint8 labels must not wrap in the compare
     n_classes = logits.shape[1]

@@ -8,8 +8,11 @@ Port of ``medt_tpu/models/medt.py`` (reference axialnet.py:509-711):
   ``patch_grid`` grid of patches, folded into the batch
   (:func:`space_to_batch`) so it runs once instead of the reference's
   16 sequential passes — identical in eval mode; in train mode its BNs take
-  joint batch statistics over all patches, the JAX package's default (its
-  ``sequential_bn_parity`` is not ported yet, ROADMAP.md);
+  joint batch statistics over all patches, the JAX package's default.
+  ``sequential_bn_parity`` (default off, as in JAX) gives the reference's
+  train mode exactly (reference axialnet.py:661-700): one local pass per
+  patch in row-major order, each normalising with its own batch moments
+  and making its own running-statistics update, in sequence;
 * fusion: add -> 3x3 ``decoderf`` -> ReLU -> 1x1 ``adjust`` -> raw logits.
 
 Reference quirk kept: the local stem is built after the global stages
@@ -54,10 +57,12 @@ class MedTNet(nn.Module):
 
     def __init__(self, img_size: int = 128, imgchan: int = 3,
                  num_classes: int = 2, patch_grid: int = 4,
-                 global_mode: str = "gated", local_mode: str = "wopos", *,
+                 global_mode: str = "gated", local_mode: str = "wopos",
+                 sequential_bn_parity: bool = False, *,
                  attn: dict, generator: Optional[torch.Generator] = None,
                  device=None):
         super().__init__()
+        self.sequential_bn_parity = sequential_bn_parity
         s = S
         bottom = img_size // (patch_grid * 2 * 8)
         if bottom < 2:
@@ -112,7 +117,23 @@ class MedTNet(nn.Module):
         g = up_block(self.decoder4, g2) + g1
         g = up_block(self.decoder5, g)
 
-        p = conv_stem(self, space_to_batch(x, self.patch_grid), "_p")
+        xp = space_to_batch(x, self.patch_grid)
+        if self.sequential_bn_parity and self.training:
+            # patch p of every image is xp[b*P + p]: one pass per patch
+            grid2 = self.patch_grid ** 2
+            per_patch = xp.reshape(-1, grid2, *xp.shape[1:])
+            outs = [self._local(per_patch[:, p]) for p in range(grid2)]
+            d = torch.stack(outs, dim=1).reshape(-1, *outs[0].shape[1:])
+        else:
+            d = self._local(xp)
+        x_loc = batch_to_space(d, self.patch_grid)
+
+        fused = F.relu(self.decoderf(g + x_loc))
+        return self.adjust(F.relu(fused))
+
+    def _local(self, xp):
+        """The local branch on a batch of patches."""
+        p = conv_stem(self, xp, "_p")
         p1 = self.layer1_p(p)
         p2 = self.layer2_p(p1)
         p3 = self.layer3_p(p2)
@@ -121,8 +142,4 @@ class MedTNet(nn.Module):
         d = up_block(self.decoder2_p, d) + p3
         d = up_block(self.decoder3_p, d) + p2
         d = up_block(self.decoder4_p, d) + p1
-        d = up_block(self.decoder5_p, d)
-        x_loc = batch_to_space(d, self.patch_grid)
-
-        fused = F.relu(self.decoderf(g + x_loc))
-        return self.adjust(F.relu(fused))
+        return up_block(self.decoder5_p, d)

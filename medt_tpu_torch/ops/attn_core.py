@@ -16,7 +16,15 @@ the reference's ``all_emb`` (``kr`` reads ``kemb[c, j, i]``).
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
+
+
+def relative_logit_index(span: int) -> np.ndarray:
+    """(span, span) gather index into a (2*span-1)-wide relative table:
+    ``idx[i, j] = i - j + span - 1`` (reference axialnet.py:43-46)."""
+    r = np.arange(span)
+    return r[:, None] - r[None, :] + span - 1
 
 
 def fold_train_affine(scale, bias, mean, var, eps: float = 1e-5):

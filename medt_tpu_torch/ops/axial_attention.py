@@ -27,6 +27,13 @@ Two paths, as in JAX:
   is applied per half (``_bn_apply_split`` in JAX). Autograd assembles the
   BN-coupled backward around the cores: dqkv gets one term from the core
   and one from the moments.
+* the **eval route** of the fused path: in eval mode, at spans <= 64 with
+  fewer than 128 stripes (batch-1 evaluation), the site runs the fused eval
+  kernel (:mod:`.axial_eval`, ``fused_eval_attention`` in JAX) on a
+  stripe-major qkv, with both BNs and the gates folded into it, as JAX
+  routes such sites to its eval kernel where the lanes family refuses them.
+  The TPU admission checks (VMEM budgets, flash's ``gp * span <= 256``) are
+  not ported; :func:`fused_route` is the whole rule.
 * the **plain path** (``_jnp_attention`` in JAX), for the other modes and
   whenever ``use_fused`` is off, in both modes.
 
@@ -41,12 +48,12 @@ from __future__ import annotations
 
 from typing import Optional, Tuple
 
-import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .attn_core import fold_train_affine, pack_sim_affine
+from .attn_core import fold_train_affine, pack_sim_affine, relative_logit_index
+from .axial_eval import EVAL_MAX_SPAN, fused_eval_attention
 from .axial_lanes import (
     FLASH_MAX_SPAN,
     LANES_MAX_SPAN,
@@ -78,11 +85,15 @@ SPAN_TODO = ("fused attention at span {span} > 64 is not ported yet "
              "'Port: stripe kernel')")
 
 
-def relative_logit_index(span: int) -> np.ndarray:
-    """(span, span) gather index into a (2*span-1)-wide relative table:
-    ``idx[i, j] = i - j + span - 1`` (reference axialnet.py:43-46)."""
-    r = np.arange(span)
-    return r[:, None] - r[None, :] + span - 1
+# an eval site with fewer stripes than the lanes family's blocks hold takes
+# the eval kernel (JAX: lanes_supported and flash_supported need S >= 128)
+LANES_MIN_STRIPES = 128
+
+def fused_route(span: int, stripes: int, training: bool) -> str:
+    """The core a fused-path site runs: "eval", "lanes" or "flash"."""
+    if not training and span <= EVAL_MAX_SPAN and stripes < LANES_MIN_STRIPES:
+        return "eval"
+    return "lanes" if span <= LANES_MAX_SPAN else "flash"
 
 
 def lanes_family_core(qkv, qemb, kemb_t, vemb, sim_affine,
@@ -105,7 +116,8 @@ class AxialAttention(nn.Module):
     ``axis="h"`` attends along the height (stripes over the width), ``"w"``
     along the width. ``plain_cores`` makes the fused path run the kernels'
     plain versions even on the card (the reference the kernels are held
-    against)."""
+    against). After a fused-path forward, ``last_route`` holds
+    ``(route, span, g, gp, stripes, has_pos)`` of that call."""
 
     def __init__(self, in_planes: int, out_planes: int, span: int,
                  groups: int = 8, stride: int = 1, axis: str = "h",
@@ -129,6 +141,7 @@ class AxialAttention(nn.Module):
         self.span, self.groups, self.gp = span, groups, gp
         self.stride, self.axis, self.mode = stride, axis, mode
         self.use_fused, self.plain_cores = use_fused, plain_cores
+        self.last_route: Optional[tuple] = None
 
         self.qkv_transform = nn.Conv1d(in_planes, 2 * out_planes, 1,
                                        bias=False, device=device)
@@ -216,7 +229,14 @@ class AxialAttention(nn.Module):
         qkv = self.bn_qkv(qkv)                            # (n, 2out, L, m)
 
         if self.use_fused and self.mode in _FUSED_MODES:
-            out = self._fused_attention(qkv)
+            stripes = n * qkv.shape[3]
+            route = fused_route(L, stripes, self.training)
+            self.last_route = (route, L, self.groups, self.gp, stripes,
+                               self.mode != MODE_WOPOS)
+            if route == "eval":
+                out = self._eval_attention(qkv)
+            else:
+                out = self._fused_attention(qkv)
         else:
             out = self._plain_attention(qkv, x_in)
 
@@ -280,6 +300,30 @@ class AxialAttention(nn.Module):
                 sv = sv * f_sv
             y = self._output_bn_split(sv, sve, (0, 1))
         out = y.reshape(self.out_planes, L, n, m).permute(2, 0, 1, 3)
+        return out.to(qkv.dtype)
+
+    def _eval_attention(self, qkv: torch.Tensor) -> torch.Tensor:
+        """Eval route: both BNs and the gates folded into the eval kernel,
+        on a stripe-major copy of qkv."""
+        n, _, L, m = qkv.shape
+        g, gp = self.groups, self.gp
+        stripes = qkv.permute(0, 3, 1, 2).contiguous() \
+            .view(n * m, g, 2 * gp, L)
+        sim, outb = self.bn_similarity, self.bn_output
+        if self.mode == MODE_WOPOS:
+            sim_shape, out_shape, relative = (g,), (g, gp), None
+        else:
+            sim_shape, out_shape, relative = (3, g), (g, gp, 2), self.relative
+        out = fused_eval_attention(
+            stripes.float(), relative,
+            *(t.view(sim_shape) for t in (sim.weight, sim.bias,
+                                          sim.running_mean, sim.running_var)),
+            *(t.view(out_shape) for t in (outb.weight, outb.bias,
+                                          outb.running_mean, outb.running_var)),
+            gp=gp, span=L, mode=self.mode, gates=self._gates(None),
+            eps=sim.eps, plain=self.plain_cores,
+            index=getattr(self, "flatten_index", None))   # (S, g, gp, L)
+        out = out.reshape(n, m, self.out_planes, L).permute(0, 2, 3, 1)
         return out.to(qkv.dtype)
 
     def _plain_attention(self, qkv: torch.Tensor, x_in: torch.Tensor):

@@ -13,9 +13,11 @@ Port of ``medt_tpu/serving/engine.py`` for one device:
 * uint8 images travel to the device as bytes and are normalized there
   (f32 / 255, the training pipeline's convention).
 
-Images are (H, W, C) arrays as in the JAX engine; the model sees NCHW.
-Images larger than ``imgsize`` need the sliding window, and a mesh needs
-multi-GPU serving: both are later slices of the port and raise here.
+Images are (H, W, C) arrays as in the JAX engine (C = 1 with ``gray``);
+the model sees NCHW. ``predict`` sends an image of any other size than
+``imgsize`` through the sliding window (larger ones tiled, smaller ones
+reflect-padded up to the window), as the JAX engine does. A mesh needs
+multi-GPU serving, a later slice of the port.
 """
 from __future__ import annotations
 
@@ -31,14 +33,9 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..evaluation.sliding_window import sliding_window_inference
 from ..metrics import logits_to_foreground
 from ..models import build_model
-
-CHANNELS = 3  # RGB, as every model of the registry is built
-
-WINDOW_TODO = ("images larger than imgsize need the sliding window, not "
-               "ported yet (ROADMAP.md, 'Port: sliding window, serve CLI, "
-               "data, metrics sweep, DDP, zoo')")
 
 
 class QueueFullError(RuntimeError):
@@ -54,6 +51,8 @@ class InferenceEngine:
       variables: a reference-format state dict (numpy arrays or tensors),
         loaded with ``load_state_dict(strict=True)``.
       batch_size: the fixed batch; requests are padded up to it.
+      gray: single-channel images (the model is built with one input
+        channel).
       decision: "threshold" (reference quirk) or "argmax".
       max_wait_ms: coalescing window of the micro-batching worker.
       max_queue: pending ``submit`` requests before QueueFullError.
@@ -64,22 +63,24 @@ class InferenceEngine:
 
     def __init__(self, modelname: str, imgsize: int,
                  variables: Optional[Mapping] = None, batch_size: int = 16,
-                 decision: str = "threshold", max_wait_ms: float = 5.0,
-                 max_queue: int = 1024, plain_cores: bool = False,
-                 device=None):
+                 gray: bool = False, decision: str = "threshold",
+                 max_wait_ms: float = 5.0, max_queue: int = 1024,
+                 plain_cores: bool = False, device=None):
         self.device = resolve_device(device)
         if variables is None:
             raise ValueError("need variables (a reference-format state "
-                             "dict); checkpoints come with a later slice")
+                             "dict; a checkpoint file gives one through "
+                             "training.restore_checkpoint)")
         self.imgsize = int(imgsize)
         self.batch_size = int(batch_size)
+        self.channels = 1 if gray else 3
         self.decision = decision
         self.max_wait_ms = float(max_wait_ms)
         self.max_queue = int(max_queue)
 
         self.model = build_model(modelname, img_size=self.imgsize,
-                                 use_fused=True, plain_cores=plain_cores,
-                                 device=self.device)
+                                 imgchan=self.channels, use_fused=True,
+                                 plain_cores=plain_cores, device=self.device)
         self.model.load_state_dict(
             {k: torch.as_tensor(np.asarray(v) if not torch.is_tensor(v)
                                 else v) for k, v in variables.items()},
@@ -114,7 +115,7 @@ class InferenceEngine:
 
     def warmup(self):
         """One forward ahead of the first request."""
-        zeros = np.zeros((self.imgsize, self.imgsize, CHANNELS),
+        zeros = np.zeros((self.imgsize, self.imgsize, self.channels),
                          np.uint8)
         self.logits([zeros])
         if self.device.type == "cuda":
@@ -134,15 +135,28 @@ class InferenceEngine:
         return masks
 
     def predict(self, image: np.ndarray) -> np.ndarray:
-        """Segment one image at the model's resolution."""
+        """Segment one (H, W, C) image of any size: at the model's
+        resolution as a batch, otherwise through the sliding window in
+        non-overlapping tiles (JAX's default stride)."""
         if image.ndim == 2:
             image = image[..., None]
-        if image.shape[:2] != (self.imgsize, self.imgsize):
-            if min(image.shape[:2]) >= self.imgsize:
-                raise NotImplementedError(WINDOW_TODO)
-            raise ValueError(f"image {image.shape[:2]} smaller than "
-                             f"imgsize {self.imgsize}")
-        return self.predict_batch([image])[0]
+        h, w = image.shape[:2]
+        if (h, w) == (self.imgsize, self.imgsize):
+            return self.predict_batch([image])[0]
+        if image.shape[2] != self.channels:
+            raise ValueError(f"images have {self.channels} channels; got "
+                             f"{image.shape}")
+        x = image.astype(np.float32)
+        if image.dtype == np.uint8:
+            x = x / np.float32(255.0)
+        with self._forward_lock, torch.inference_mode():
+            logits = sliding_window_inference(
+                x, self.model, window=self.imgsize,
+                batch_size=self.batch_size, device=self.device)
+            fg = logits_to_foreground(logits[None], mode=self.decision)[0]
+        with self._lock:
+            self.images_run += 1
+        return fg.to(torch.uint8).cpu().numpy()
 
     # ---- dynamic micro-batching --------------------------------------------
 
@@ -222,9 +236,8 @@ class InferenceEngine:
     def _check(self, image: np.ndarray) -> np.ndarray:
         if image.ndim == 2:
             image = image[..., None]
-        s = self.imgsize
-        if image.shape != (s, s, CHANNELS):
+        s, c = self.imgsize, self.channels
+        if image.shape != (s, s, c):
             raise ValueError(
-                f"batches take ({s}, {s}, {CHANNELS}) images; got "
-                f"{image.shape}")
+                f"batches take ({s}, {s}, {c}) images; got {image.shape}")
         return image

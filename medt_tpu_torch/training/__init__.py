@@ -1,4 +1,6 @@
-"""Training of the port: optimizers, schedules, the train step."""
+"""Training of the port: optimizers, schedules, the train step,
+checkpoints."""
+from .checkpointing import restore_checkpoint, save_checkpoint
 from .optimizers import OPTIMIZER_REGISTRY, adam_l2, build_optimizer, sgd
 from .schedules import (
     SCHEDULE_REGISTRY,
@@ -17,6 +19,8 @@ __all__ = [
     "constant",
     "eval_step",
     "normalize",
+    "restore_checkpoint",
+    "save_checkpoint",
     "sgd",
     "train_step",
     "warmup_cosine",

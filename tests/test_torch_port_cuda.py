@@ -19,7 +19,7 @@ import pytest
 import torch
 
 from medt_tpu_torch.kernels import build as kbuild
-from medt_tpu_torch.ops import axial_lanes, moments
+from medt_tpu_torch.ops import axial_eval, axial_lanes, moments
 from medt_tpu_torch.ops.attn_core import pack_sim_affine
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
@@ -78,6 +78,31 @@ def test_backward_and_moment_wrappers_reject_cpu_tensors():
         with pytest.raises(ValueError, match="CUDA"):
             fn(*args)
         assert fn.launches == before
+
+
+def eval_inputs(seed, g, gp, L, S, has_pos, device="cpu"):
+    """The eval kernel's operands: q, k, v as views of one stripe-major
+    (S, g, 2gp, L) qkv, the tables (zero-size without positions) and the
+    (g, 8) and (g, 4, gp) affines."""
+    qkv, qemb, kemb_t, vemb, aff = core_inputs(seed, g, gp, L, S, has_pos,
+                                               device)
+    c = gp // 2
+    st = qkv.permute(3, 0, 1, 2).contiguous()
+    rng = np.random.default_rng(seed + 1)
+    out_aff = torch.from_numpy(rng.uniform(0.5, 1.5, size=(g, 4, gp))
+                               .astype(np.float32)).to(device)
+    if not has_pos:
+        out_aff[:, 2:] = 0.0
+    return (st[:, :, :c], st[:, :, c:gp], st[:, :, gp:], qemb, kemb_t, vemb,
+            aff, out_aff)
+
+
+def test_eval_wrapper_rejects_cpu_tensors():
+    args = eval_inputs(19, g=2, gp=4, L=8, S=16, has_pos=True)
+    before = axial_eval.axial_eval_fwd.launches
+    with pytest.raises(ValueError, match="CUDA"):
+        axial_eval.axial_eval_fwd(*args)
+    assert axial_eval.axial_eval_fwd.launches == before
 
 
 def test_cores_on_cpu_run_the_plain_versions():
@@ -173,7 +198,9 @@ def test_port_imports_nothing_of_jax_at_runtime():
     loaded before it) holds none of them."""
     code = ("import sys; before = set(sys.modules); "
             "import medt_tpu_torch.serving.engine, medt_tpu_torch.models, "
-            "medt_tpu_torch.utils.weights; "
+            "medt_tpu_torch.utils.weights, medt_tpu_torch.cli.test, "
+            "medt_tpu_torch.cli.predict, medt_tpu_torch.data, "
+            "medt_tpu_torch.config, medt_tpu_torch.training; "
             "print(' '.join(sorted(set(sys.modules) - before)))")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
@@ -342,3 +369,52 @@ def test_attention_train_step_on_kernels_matches_plain_cores(cuda_device):
         if not err <= 1e-5 + 1e-4 * float(scale) + 4.0 * noise:
             bad.append((name, err, float(scale), noise))
     assert not bad, bad
+
+
+# the smoke's eval geometries: MedT-128 batch 1, then gatedaxialunet-128's;
+# and odd shapes (spans that are not a power of two, a ragged last block)
+EVAL_GEOMETRIES = [
+    (4, 8, 64, False), (4, 16, 64, False), (32, 4, 32, True),
+    (64, 2, 64, True), (64, 4, 64, True), (16, 8, 16, True),
+    (16, 16, 16, True), (32, 8, 32, True),
+    (6, 4, 37, True), (20, 16, 9, False), (64, 16, 5, True), (1, 2, 3, True),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("L,gp,S,has_pos", EVAL_GEOMETRIES)
+def test_eval_kernel_matches_plain_on_card(cuda_device, L, gp, S, has_pos):
+    """Output within 1e-4 of the plain version, the same bits on a second
+    run, one launch counted per call."""
+    args = eval_inputs(20, g=8, gp=gp, L=L, S=S, has_pos=has_pos,
+                       device=cuda_device)
+    fn = axial_eval.axial_eval_fwd
+    before = fn.launches
+    got, again = fn(*args), fn(*args)
+    want = axial_eval.axial_attention_fused_plain(*args)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 2
+    torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+    assert torch.equal(got, again)
+
+
+@pytest.mark.cuda
+def test_eval_kernel_takes_zero_tables_and_dense_operands(cuda_device):
+    """The Pallas contract's position-free call (zero tables, dense q, k,
+    v) gives what the zero-size tables give."""
+    q, k, v, _, _, _, aff, oa = eval_inputs(21, g=8, gp=8, L=4, S=64,
+                                            has_pos=False,
+                                            device=cuda_device)
+    zc = torch.zeros((4, 4, 4), device=cuda_device)
+    zv = torch.zeros((8, 4, 4), device=cuda_device)
+    empty = torch.zeros((0, 4, 4), device=cuda_device)
+    dense = [t.contiguous() for t in (q, k, v)]
+    got = axial_eval.axial_eval_fwd(*dense, zc, zc, zv, aff, oa)
+    want = axial_eval.axial_eval_fwd(q, k, v, empty, empty, empty, aff, oa)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, atol=1e-6, rtol=1e-6)
+    with pytest.raises(ValueError, match="rows"):
+        axial_eval.axial_eval_fwd(q.transpose(0, 1).contiguous()
+                                  .transpose(0, 1).transpose(2, 3)
+                                  .contiguous().transpose(2, 3), k, v,
+                                  empty, empty, empty, aff, oa)

@@ -94,6 +94,39 @@ def test_reference_golden_eval_output(name, img, use_fused):
                                atol=2e-4, rtol=1e-3)
 
 
+@pytest.mark.parametrize("name,img,use_fused,kw", [
+    ("axialunet", 64, True, {}), ("axialunet", 64, False, {}),
+    ("gatedaxialunet", 64, True, {}), ("gatedaxialunet", 64, False, {}),
+    ("MedT", 128, True, {"sequential_bn_parity": True}),
+    ("MedT", 128, False, {"sequential_bn_parity": True}),
+])
+def test_reference_golden_train_output_and_stats(name, img, use_fused, kw):
+    """One train-mode forward on the reference's weights against its
+    ``__out_train__`` (atol 5e-4 / rtol 1e-3) and every running statistic
+    after it, ``__stats_after__.*`` (atol 2e-3 / rtol 1e-2): the
+    tolerances of tests/test_reference_parity.py:68, 106, 132. MedT runs
+    the reference's per-patch local passes (``sequential_bn_parity``)."""
+    blob, sd = _golden(name)
+    model = build_model(name, img_size=img, use_fused=use_fused,
+                        device="cpu", **kw)
+    model.load_state_dict(sd, strict=True)
+    model.train()
+    with torch.no_grad():
+        got = model(torch.from_numpy(blob["__input__"]))
+    np.testing.assert_allclose(got.numpy(), blob["__out_train__"],
+                               atol=5e-4, rtol=1e-3)
+    prefix = "__stats_after__."
+    want = {k[len(prefix):]: blob[k] for k in blob.files
+            if k.startswith(prefix) and not weights.is_dead_reference_key(
+                k[len(prefix):])}
+    stats = {k: v for k, v in model.state_dict().items()
+             if k.endswith(("running_mean", "running_var"))}
+    assert set(stats) == set(want)
+    for k, v in stats.items():
+        np.testing.assert_allclose(v.numpy(), want[k], atol=2e-3, rtol=1e-2,
+                                   err_msg=k)
+
+
 @pytest.mark.parametrize("name,img,kw", [
     ("MedT", 64, {"patch_grid": 2}), ("gatedaxialunet", 64, {}),
 ])

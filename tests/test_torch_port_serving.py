@@ -13,6 +13,7 @@ import pytest
 import torch
 
 from medt_tpu.metrics import logits_to_foreground as jax_foreground
+from medt_tpu_torch.evaluation import sliding_window_inference
 from medt_tpu_torch.metrics import logits_to_foreground
 from medt_tpu_torch.models import build_model
 from medt_tpu_torch.serving import InferenceEngine, QueueFullError
@@ -74,10 +75,24 @@ def test_uint8_is_normalized_on_the_device(engine):
 
 
 def test_shapes_the_engine_does_not_take(engine):
+    """Batches take imgsize images only; ``predict`` sends a larger or a
+    smaller image through the sliding window (it raised for both before
+    the window was ported) and refuses a wrong channel count."""
     with pytest.raises(ValueError):
         engine.predict_batch([np.zeros((SIZE * 2, SIZE, 3), np.uint8)])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        engine.predict(np.zeros((SIZE * 2, SIZE * 2, 3), np.uint8))
+    with pytest.raises(ValueError):
+        engine.predict(np.zeros((SIZE * 2, SIZE * 2, 1), np.uint8))
+    rng = np.random.default_rng(9)
+    for shape in ((SIZE * 2, SIZE + 9), (SIZE - 7, SIZE + 5)):
+        img = rng.integers(0, 255, size=shape + (3,)).astype(np.uint8)
+        mask = engine.predict(img)
+        assert mask.shape == shape and mask.dtype == np.uint8
+        with torch.no_grad():
+            logits = sliding_window_inference(
+                img.astype(np.float32) / 255.0, engine.model, SIZE,
+                batch_size=BATCH, device="cpu")
+        want = logits_to_foreground(logits[None])[0].numpy()
+        np.testing.assert_array_equal(mask, want.astype(np.uint8))
     assert engine.predict(_img(8)).shape == (SIZE, SIZE)
 
 
@@ -156,3 +171,25 @@ def test_queue_full_backpressure(variables):
 def test_engine_needs_variables():
     with pytest.raises(ValueError):
         InferenceEngine("axialunet", SIZE, device="cpu")
+
+
+def test_gray_engine_takes_one_channel():
+    """``gray=True`` builds the model with one input channel (JAX
+    ``engine.py:77, 94``) and takes (S, S) or (S, S, 1) images."""
+    sd = build_model("axialunet", img_size=SIZE, imgchan=1, seed=0,
+                     device="cpu").state_dict()
+    eng = InferenceEngine("axialunet", SIZE, variables=sd, batch_size=2,
+                          gray=True, device="cpu")
+    assert eng.model.conv1.weight.shape[1] == 1
+    img = np.random.default_rng(3).integers(0, 255, (SIZE, SIZE),
+                                            dtype=np.uint8)
+    mask = eng.predict(img)
+    np.testing.assert_array_equal(mask, eng.predict_batch([img[..., None]])[0])
+    with torch.no_grad():
+        logits = eng.model(torch.from_numpy(img).float()[None, None] / 255.0)
+    np.testing.assert_array_equal(
+        mask, logits_to_foreground(logits)[0].numpy().astype(np.uint8))
+    assert eng.predict(np.zeros((SIZE + 3, SIZE - 5), np.uint8)).shape == (
+        SIZE + 3, SIZE - 5)
+    with pytest.raises(ValueError):
+        eng.predict_batch([np.zeros((SIZE, SIZE, 3), np.uint8)])

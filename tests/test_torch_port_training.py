@@ -62,6 +62,26 @@ def test_log_nll_loss_matches_jax(weight, ignore):
     np.testing.assert_allclose(float(got), float(want), atol=1e-6, rtol=0)
 
 
+def test_log_nll_loss_out_of_class_labels():
+    """Labels [0, 1, 1, 5] on 2 classes: without ``weight`` the label 5
+    adds its logsumexp to the mean at weight 1 (the JAX value); with
+    ``weight`` it drops out."""
+    logits = np.array([[0.3, -0.2], [1.1, 0.4], [-0.5, 0.9], [0.2, 0.7]],
+                      F32).reshape(1, 4, 1, 2)          # NHWC, H = 4
+    labels = np.array([0, 1, 1, 5], np.int32).reshape(1, 4, 1)
+    want = jlosses.log_nll_loss(jnp.asarray(logits), jnp.asarray(labels))
+    got = log_nll_loss(_nchw(logits), torch.from_numpy(labels))
+    np.testing.assert_allclose(float(got), float(want), atol=1e-6, rtol=0)
+    flat = logits.reshape(4, 2).astype(np.float64)
+    lse = np.log(np.exp(flat).sum(-1))
+    ce = lse[:3] - flat[np.arange(3), [0, 1, 1]]
+    np.testing.assert_allclose(float(got), (ce.sum() + lse[3]) / 4,
+                               atol=1e-6, rtol=0)
+    weighted = log_nll_loss(_nchw(logits), torch.from_numpy(labels),
+                            (1.0, 1.0))
+    np.testing.assert_allclose(float(weighted), ce.mean(), atol=1e-6, rtol=0)
+
+
 def test_deep_supervision_loss_matches_jax():
     rng = np.random.default_rng(61)
     logits = rng.normal(size=(2, 8, 8, 2)).astype(F32)
