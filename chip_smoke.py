@@ -12,8 +12,10 @@ the start of the script) as it ends:
 3. ``kernels`` — each kernel held against its plain PyTorch version on the
    card at every geometry the serving, training and batch-1 paths give it
    (MedT 128 at batch 16 and at batch 1; both has_pos variants of each;
-   gatedaxialunet's batch-1 geometries for the eval kernel), with
-   CUDA-event times of kernel and plain version and the bound of each.
+   gatedaxialunet's batch-1 geometries for the eval kernel; medt_512 at
+   batch 4: flash2, flash, lanes and moments; flash2 without positions at
+   one more geometry), with CUDA-event times of kernel and plain version
+   and the bound of each.
 4. ``serve``   — the port's ``InferenceEngine`` serving MedT 128 at batch
    16 from a seeded random init: threaded ``submit`` at two priorities plus
    full-batch ``predict_batch`` calls; the launch counters must show every
@@ -39,6 +41,22 @@ the start of the script) as it ends:
 7. ``tf32``    — what TF32 does to MedT 128 against TF32 off: batch-16 and
    batch-1 logits, one train-mode forward and backward (loss, gradients),
    and the time of each.
+8. ``serve512`` — ``InferenceEngine("medt_512", 512, batch_size=4)`` from a
+   seeded init: threaded ``submit`` plus timed full batches; every forward
+   launches 6 flash2 + 8 flash + 8 lanes kernels; logits against plain
+   cores; images/s.
+9. ``predict512`` — ``cli.test`` at ``--imgsize 512`` over 4 synthetic
+   512x512 PNG pairs from a seeded medt_512 checkpoint: 6 + 8 + 8
+   launches per image, 4 finite scores, p50 ms per image.
+10. ``train512`` — ``train_step`` of medt_512 at batch 4 (``bench.py``'s
+   ``M512_BATCH``), Adam-L2: 2 warm-up and 5 timed steps, 20 more whose
+   loss must fall; every step launches 6 + 8 + 8 forward, 6 + 8 + 8
+   backward and 22 + 22 moments kernels. Then one step on the kernels
+   against one on plain cores at batch 1 (at batch 4 the plain flash2
+   backward would hold several 2.1 GB logits-shaped tensors), held as the
+   ``train`` phase holds MedT 128.
+11. ``logo512`` — one batch-1 eval forward of logo_512 (positions in both
+   branches) on the kernels against plain cores, with its launch counts.
 
 Then: the per-kernel JSON summary, the card's ``nvidia-smi`` line, and, as
 the last line, ``{"ok": true, "device": ...}``. Any failed phase ends the
@@ -86,6 +104,8 @@ SOURCES = {
     "moment_sums_fwd": "medt_tpu_torch/csrc/moments.cu",
     "moment_sums_bwd": "medt_tpu_torch/csrc/moments.cu",
     "axial_eval_fwd": "medt_tpu_torch/csrc/axial_eval_fwd.cu",
+    "flash2_lanes_fwd": "medt_tpu_torch/csrc/axial_flash2_fwd.cu",
+    "flash2_lanes_bwd": "medt_tpu_torch/csrc/axial_flash2_bwd.cu",
 }
 REPLACES = {
     "lanes_attn_fwd": "medt_tpu/ops/pallas_axial_lanes.py:333",
@@ -95,6 +115,8 @@ REPLACES = {
     "moment_sums_fwd": "medt_tpu/ops/pallas_moments.py:189",
     "moment_sums_bwd": "medt_tpu/ops/pallas_moments.py:310",
     "axial_eval_fwd": "medt_tpu/ops/pallas_axial.py:165",
+    "flash2_lanes_fwd": "medt_tpu/ops/pallas_axial_lanes.py:1152",
+    "flash2_lanes_bwd": "medt_tpu/ops/pallas_axial_lanes.py:1239",
 }
 # The attention sites of MedT 128 at batch 16, g = 8 everywhere:
 # (span, gp, stripes, has_pos, sites). Global branch (gated, positions):
@@ -120,21 +142,55 @@ EVAL_SITES = [
 # (16, 2, 256), (16, 4, 256), two each
 BATCH1_LAUNCHES = {"axial_eval_fwd": 14, "lanes_attn_fwd": 8}
 
+# The attention sites of medt_512 at batch 4 (bench.py's M512_BATCH), g = 8:
+# (span, gp, stripes, has_pos, sites). Global branch (gated, positions):
+# flash2; local branch (wopos): flash and lanes. At batch 1 the stripes are
+# a quarter, so no site reaches the eval kernel.
+SITES_512 = [
+    (256, 2, 1024, True, 2), (256, 4, 1024, True, 2), (128, 4, 512, True, 2),
+    (64, 2, 4096, False, 2), (64, 4, 4096, False, 2), (32, 4, 2048, False, 2),
+    (32, 8, 2048, False, 2), (16, 8, 1024, False, 6), (16, 16, 1024, False, 2),
+]
+# flash2 off the 512 path: the smallest span it takes, both variants
+FLASH2_OTHER = [(96, 2, 256, True), (96, 2, 256, False)]
+# launches per medt_512 forward (any batch) and per train step
+M512_FORWARD = {"flash2_lanes_fwd": 6, "flash_lanes_fwd": 8,
+                "lanes_attn_fwd": 8}
+M512_STEP = {**M512_FORWARD, "flash2_lanes_bwd": 6, "flash_lanes_bwd": 8,
+             "lanes_attn_bwd": 8, "moment_sums_fwd": 22,
+             "moment_sums_bwd": 22}
+
+
+def _family(span: int) -> str:
+    return "lanes" if span <= 16 else "flash" if span <= 64 else "flash2"
+
 
 def _geometries():
     """(kernel, span, gp, stripes, has_pos, launches per forward or per
-    train step): launches 0 marks an other-variant row."""
+    train step, path): launches 0 marks a row off the path; path "medt128"
+    (MedT 128 at batch 16, or batch 1 for the eval kernel) or "medt512"
+    (medt_512 at batch 4)."""
     rows = []
     for fwd, bwd, family in (("flash_lanes_fwd", "flash_lanes_bwd", "flash"),
                              ("lanes_attn_fwd", "lanes_attn_bwd", "lanes")):
-        mine = [site for site in SITES if (site[0] > 16) == (family == "flash")]
+        mine = [site for site in SITES if _family(site[0]) == family]
         for kernel in (fwd, bwd):
-            rows += [(kernel, *site) for site in mine]
-            rows.append((kernel, *OTHER_VARIANT[family], 0))
+            rows += [(kernel, *site, "medt128") for site in mine]
+            rows.append((kernel, *OTHER_VARIANT[family], 0, "medt128"))
     for kernel in ("moment_sums_fwd", "moment_sums_bwd"):
-        rows += [(kernel, *site) for site in SITES]
-        rows += [(kernel, *v, 0) for v in OTHER_VARIANT.values()]
-    rows += [("axial_eval_fwd", *site) for site in EVAL_SITES]
+        rows += [(kernel, *site, "medt128") for site in SITES]
+        rows += [(kernel, *v, 0, "medt128") for v in OTHER_VARIANT.values()]
+    rows += [("axial_eval_fwd", *site, "medt128") for site in EVAL_SITES]
+    for direction in ("fwd", "bwd"):
+        for site in SITES_512:
+            family = _family(site[0])
+            name = {"lanes": "lanes_attn", "flash": "flash_lanes",
+                    "flash2": "flash2_lanes"}[family]
+            rows.append((f"{name}_{direction}", *site, "medt512"))
+        rows += [(f"flash2_lanes_{direction}", *v, 0, "medt512")
+                 for v in FLASH2_OTHER]
+    for kernel in ("moment_sums_fwd", "moment_sums_bwd"):
+        rows += [(kernel, *site, "medt512") for site in SITES_512]
     return rows
 
 
@@ -282,16 +338,16 @@ def work(kernel, gp, L, S, has_pos):
         nbytes = 4 * (qkv + tables + g * 8 + g * 4 * gp + sv)
         ops = pairs * (logit_ops + 3 + 2 * gp * (2 if has_pos else 1)) \
             + sv * (7 if has_pos else 4)
-    elif kernel in ("lanes_attn_fwd", "flash_lanes_fwd"):
+    elif kernel in ("lanes_attn_fwd", "flash_lanes_fwd", "flash2_lanes_fwd"):
         outputs = sv * (2 if has_pos else 1)
-        if kernel == "flash_lanes_fwd":
+        if kernel != "lanes_attn_fwd":
             outputs += 2 * row
         nbytes = 4 * (qkv + tables + g * 8 + outputs)
         ops = pairs * (logit_ops + 3 + 2 * gp * (2 if has_pos else 1)) \
             + sv * (2 if has_pos else 1)
-    elif kernel in ("lanes_attn_bwd", "flash_lanes_bwd"):
+    elif kernel in ("lanes_attn_bwd", "flash_lanes_bwd", "flash2_lanes_bwd"):
         grads_in = sv * (2 if has_pos else 1)
-        saved = 2 * row + grads_in if kernel == "flash_lanes_bwd" else 0
+        saved = 2 * row + grads_in if kernel != "lanes_attn_bwd" else 0
         nbytes = 4 * (qkv + tables + g * 8 + grads_in + saved       # in
                       + qkv + tables + g * 8)                        # out
         per_pair = logit_ops + 2 + 2 * gp + 2 + 2 * gp + 4 * c + 3
@@ -368,19 +424,21 @@ def kernel_calls(torch, gen, kernel, gp, L, S, has_pos):
     if kernel == "lanes_attn_fwd":
         return (lambda: axial_lanes.lanes_attn_fwd(*args),
                 lambda: axial_lanes.lanes_attn_plain(*args))
-    if kernel == "flash_lanes_fwd":
-        return (lambda: axial_lanes.flash_lanes_fwd(*args),
-                lambda: axial_lanes.flash_lanes_plain(*args))
+    if kernel in ("flash_lanes_fwd", "flash2_lanes_fwd"):
+        fwd = getattr(axial_lanes, kernel)
+        plain = getattr(axial_lanes, kernel.replace("_fwd", "_plain"))
+        return lambda: fwd(*args), lambda: plain(*args)
     dsv = torch.randn((g, gp, L, S), generator=gen, device="cuda")
     dsve = torch.randn((g, gp, L, S), generator=gen, device="cuda")
     if kernel == "lanes_attn_bwd":
         return (lambda: axial_lanes.lanes_attn_bwd(*args, dsv, dsve),
                 lambda: axial_lanes.lanes_attn_bwd_plain(*args, dsv, dsve))
+    bwd = getattr(axial_lanes, kernel)
+    plain = getattr(axial_lanes, kernel.replace("_bwd", "_bwd_plain"))
     sv, sve, m, l = axial_lanes.flash_lanes_plain(*args)
     saved = (m, l, sv, sve)
-    return (lambda: axial_lanes.flash_lanes_bwd(*args, *saved, dsv, dsve),
-            lambda: axial_lanes.flash_lanes_bwd_plain(*args, *saved, dsv,
-                                                      dsve))
+    return (lambda: bwd(*args, *saved, dsv, dsve),
+            lambda: plain(*args, *saved, dsv, dsve))
 
 
 def compare(torch, kernel, got, want):
@@ -406,7 +464,7 @@ def compare(torch, kernel, got, want):
 def phase_kernels(torch):
     gen = torch.Generator(device="cuda").manual_seed(0)
     rows = []
-    for kernel, L, gp, S, has_pos, per_call in GEOMETRIES:
+    for kernel, L, gp, S, has_pos, per_call, path in GEOMETRIES:
         fn, plain = kernel_calls(torch, gen, kernel, gp, L, S, has_pos)
         got, again, want = fn(), fn(), plain()
         torch.cuda.synchronize()
@@ -417,7 +475,8 @@ def phase_kernels(torch):
         nbytes, ops = work(kernel, gp, L, S, has_pos)
         t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F32_FLOPS_PER_S
         row = {"kernel": kernel, "span": L, "gp": gp, "S": S, "g": GROUPS,
-               "has_pos": has_pos, "launches_per_call": per_call,
+               "has_pos": has_pos, "path": path,
+               "launches_per_call": per_call,
                "max_abs_err": err, "ok": ok and repeatable,
                "repeatable": repeatable, "ms": ms, "plain_ms": plain_ms,
                "bytes": nbytes, "ops": ops,
@@ -426,6 +485,7 @@ def phase_kernels(torch):
         rows.append(row)
         print(json.dumps({"geometry": row}), flush=True)
         del fn, plain, got, again, want
+        torch.cuda.empty_cache()  # the 512 rows' plain versions are large
     failed = [r for r in rows if not r["ok"]]
     emit("kernels", geometries=len(rows), tolerance={
         "forward": KERNEL_ATOL, "backward_and_moments_rtol": SUM_RTOL},
@@ -645,26 +705,11 @@ def phase_train(torch):
                             device="cpu").state_dict()
     images, masks = blob_batch(BATCH, IMG, seed=0)
     batch = {"image": images, "label": masks}
-
-    def fresh(plain):
-        model = build_model("MedT", img_size=IMG, use_fused=True,
-                            plain_cores=plain, device="cuda")
-        model.load_state_dict(variables, strict=True)
-        return TrainState(model, adam_l2(model.parameters(), TRAIN_LR))
-
-    def one_step(plain, image):
-        state = fresh(plain)
-        loss = float(train_step(state, {"image": image, "label": masks})
-                     ["loss"])
-        m = state.model
-        grads = {k: p.grad.detach().clone() for k, p in m.named_parameters()
-                 if p.requires_grad}
-        stats = {k: b.detach().clone() for k, b in m.named_buffers()
-                 if k.endswith(("running_mean", "running_var"))}
-        return state, loss, grads, stats
+    model = build_model("MedT", img_size=IMG, use_fused=True, device="cuda")
+    model.load_state_dict(variables, strict=True)
+    state = TrainState(model, adam_l2(model.parameters(), TRAIN_LR))
 
     # -- the main path, counted: 3 warm-up, 10 timed, 20 more steps ------------
-    state = fresh(False)
     ops.reset_launch_counts()
     loss0 = train_step(state, batch)["loss"]
     for _ in range(2):
@@ -679,41 +724,16 @@ def phase_train(torch):
     losses = torch.stack(losses).tolist()
     counts = ops.launch_counts()
     # -- end of the counted run ----------------------------------------------
-    del state
+    del state, model
 
     # -- one step on the kernels vs the same step on plain cores ------------
-    torch.backends.cudnn.deterministic = True
-    _, loss_k, grads_k, stats_k = one_step(False, images)
-    _, loss_p, grads_p, stats_p = one_step(True, images)
-    x = images.astype(np.float32) / 255.0
-    rng = np.random.default_rng(1)
-    spread = [one_step(True, (x * (1.0 + STEP_INPUT_NOISE
-                                   * rng.standard_normal(x.shape)))
-                       .astype(np.float32))[1:] for _ in range(2)]
-    torch.backends.cudnn.deterministic = False
-
-    def held(name, got, want, others):
-        runs = [want] + others
-        noise = max(float((a - b).abs().max()) for i, a in enumerate(runs)
-                    for b in runs[i + 1:])
-        err = float((got - want).abs().max())
-        tol = (1e-5 + 1e-4 * float(want.abs().max())
-               + STEP_NOISE_FACTOR * noise)
-        return {"name": name, "err": err, "tol": tol, "ok": err <= tol and
-                bool(torch.isfinite(got).all())}
-
-    checks = [held("loss", torch.tensor(loss_k), torch.tensor(loss_p),
-                   [torch.tensor(s[0]) for s in spread])]
-    checks += [held(k, grads_k[k], grads_p[k], [s[1][k] for s in spread])
-               for k in grads_p]
-    checks += [held(k, stats_k[k], stats_p[k], [s[2][k] for s in spread])
-               for k in stats_p]
+    loss_k, loss_p, checks = step_parity(torch, "MedT", IMG, images, masks,
+                                         variables)
     bad = [c for c in checks if not c["ok"]]
     worst = max(checks, key=lambda c: c["err"] / c["tol"])
 
     steps = 33
-    expect = {name: 0 for name in counts}
-    expect.update({k: v * steps for k, v in PER_STEP.items()})
+    expect = launches_of(counts, PER_STEP, steps)
     emit("train", model="MedT", img=IMG, batch=BATCH, optimizer="adam_l2",
          lr=TRAIN_LR, loss_kernels=loss_k, loss_plain=loss_p,
          parity_tensors=len(checks), parity_failed=len(bad),
@@ -814,28 +834,320 @@ def phase_tf32(torch):
           "non-finite loss")
 
 
-def summary(rows, serve_counts, train_counts, predict_counts):
+# ---- 8-11. the 512 px models ---------------------------------------------------
+
+M512, IMG512, BATCH512 = "medt_512", 512, 4   # bench.py: M512_BATCH = 4
+PREDICT512_IMAGES = 4
+
+
+def launches_of(counts: dict, per_call: dict, calls: int) -> dict:
+    """The launch counts ``calls`` main-path calls must give: ``per_call``
+    times ``calls``, every other wrapper 0."""
+    expect = {name: 0 for name in counts}
+    expect.update({k: v * calls for k, v in per_call.items()})
+    return expect
+
+
+def phase_serve512(torch):
+    """medt_512 served at batch 4: threaded submits, then timed full
+    batches; 6 flash2 + 8 flash + 8 lanes launches per forward; logits on
+    the kernels vs plain cores."""
+    import numpy as np
+
+    from medt_tpu_torch import ops
+    from medt_tpu_torch.models import build_model
+    from medt_tpu_torch.serving import InferenceEngine
+
+    variables = build_model(M512, seed=0, device="cpu").state_dict()
+    engine = InferenceEngine(M512, IMG512, variables=variables,
+                             batch_size=BATCH512, max_wait_ms=5.0)
+    engine.warmup()
+    rng = np.random.default_rng(0)
+    images = [rng.integers(0, 256, size=(IMG512, IMG512, 3), dtype=np.uint8)
+              for _ in range(8)]
+
+    # -- the main path, counted ------------------------------------------------
+    ops.reset_launch_counts()
+    batches0 = engine.batches_run
+    engine.start()
+    futures, lock = [], threading.Lock()
+
+    def client(k):
+        for i in range(k, 8, 2):  # 2 threads x 4 requests
+            fut = engine.submit(images[i], priority=0 if i % 3 else 5)
+            with lock:
+                futures.append(fut)
+
+    threads = [threading.Thread(target=client, args=(k,)) for k in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=300)
+    check(not any(t.is_alive() for t in threads), "client threads hung")
+    masks = [f.result(timeout=300) for f in futures]
+    engine.stop()
+    full = images[:BATCH512]
+    masks += engine.predict_batch(full)
+    iters = 10
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        masks += engine.predict_batch(full)   # ends in a device->host copy
+    elapsed = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    forwards = engine.batches_run - batches0
+    # -- end of the counted run ----------------------------------------------
+
+    check(len(masks) == 8 + BATCH512 * (iters + 1), "missing masks")
+    check(all(m.shape == (IMG512, IMG512) and m.dtype == np.uint8
+              for m in masks), "masks must be (512, 512) uint8")
+    expect = launches_of(counts, M512_FORWARD, forwards)
+    check(counts == expect, f"launch counts {counts} != {expect} for "
+                            f"{forwards} forwards")
+    plain = InferenceEngine(M512, IMG512, variables=variables,
+                            batch_size=BATCH512, plain_cores=True)
+    got = engine.logits(full)
+    want = plain.logits(full)
+    torch.cuda.synchronize()
+    check(tuple(got.shape) == (BATCH512, 2, IMG512, IMG512),
+          f"logits {got.shape}")
+    check(bool(torch.isfinite(got).all()), "non-finite logits")
+    err = float((got - want).abs().max())
+    check(err <= LOGITS_ATOL, f"logits vs plain cores: {err} > {LOGITS_ATOL}")
+    emit("serve512", model=M512, img=IMG512, batch=BATCH512,
+         forwards=forwards, launches=counts, submitted=8,
+         images_per_s=BATCH512 * iters / elapsed,
+         batch_ms=elapsed / iters * 1e3, logits_max_abs_err=err,
+         logits_max_abs=float(want.abs().max()), tolerance=LOGITS_ATOL)
+    del engine, plain
+    torch.cuda.empty_cache()
+    return counts
+
+
+def phase_predict512(torch):
+    """``cli.test`` at 512 px over 4 PNG pairs from a seeded medt_512
+    checkpoint: 6 + 8 + 8 launches per batch-1 forward."""
+    import shutil
+
+    import numpy as np
+
+    from medt_tpu_torch import ops
+    from medt_tpu_torch.cli import test as cli_test
+    from medt_tpu_torch.data import make_png_dataset
+    from medt_tpu_torch.models import build_model
+    from medt_tpu_torch.training import save_checkpoint
+
+    root = REPO / "_smoke"
+    shutil.rmtree(root, ignore_errors=True)
+    labelled = make_png_dataset(str(root / "labelled"), PREDICT512_IMAGES,
+                                IMG512, seed=0)
+    save_checkpoint(str(root / "ckpt"), 0,
+                    build_model(M512, seed=0, device="cpu"))
+    argv = ["--val_dataset", labelled, "--direc", str(root / "test_out"),
+            "--modelname", M512, "--imgsize", str(IMG512), "--loaddirec",
+            str(root / "ckpt" / "final_model"), "--workers", "2"]
+
+    # -- the main path, counted: cli.test at batch 1 -------------------------
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    result = cli_test.main(argv)
+    wall_s = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    # -- end of the counted run -------------------------------------------------
+    expect = launches_of(counts, M512_FORWARD, PREDICT512_IMAGES)
+    check(counts == expect, f"cli.test launch counts {counts} != {expect}")
+    metrics = json.loads((root / "test_out" / "metrics.json").read_text())
+    scores = metrics["per_image_f1"] + metrics["per_image_iou"]
+    check(metrics["images"] == PREDICT512_IMAGES and
+          len(metrics["per_image_f1"]) == PREDICT512_IMAGES and
+          all(np.isfinite(scores)), f"metrics.json: {metrics}")
+    per_image = result["per_image_ms"]
+    emit("predict512", model=M512, img=IMG512, batch=1,
+         images=PREDICT512_IMAGES, launches=counts,
+         per_image_ms_p50=statistics.median(per_image),
+         per_image_ms=per_image, cli_test_wall_s=wall_s,
+         mean_f1=metrics["mean_f1"], mean_iou=metrics["mean_iou"])
+    shutil.rmtree(root, ignore_errors=True)
+    return counts
+
+
+def held(torch, name, got, want, others):
+    """A train-step tensor on the kernels against plain cores: within
+    1e-5 + 1e-4 * max|plain| plus STEP_NOISE_FACTOR times the plain step's
+    own spread over ``others`` (runs on a perturbed input)."""
+    runs = [want] + others
+    noise = max(float((a - b).abs().max()) for i, a in enumerate(runs)
+                for b in runs[i + 1:])
+    err = float((got - want).abs().max())
+    tol = 1e-5 + 1e-4 * float(want.abs().max()) + STEP_NOISE_FACTOR * noise
+    return {"name": name, "err": err, "tol": tol, "ok": err <= tol and
+            bool(torch.isfinite(got).all())}
+
+
+def step_parity(torch, name, img, images, masks, variables):
+    """One train step on the kernels against the same step on plain cores
+    from identical weights (cuDNN deterministic): the loss, every gradient
+    and the running statistics."""
+    import numpy as np
+
+    from medt_tpu_torch.models import build_model
+    from medt_tpu_torch.training import TrainState, adam_l2, train_step
+
+    def one_step(plain, image):
+        model = build_model(name, img_size=img, use_fused=True,
+                            plain_cores=plain, device="cuda")
+        model.load_state_dict(variables, strict=True)
+        state = TrainState(model, adam_l2(model.parameters(), TRAIN_LR))
+        loss = float(train_step(state, {"image": image, "label": masks})
+                     ["loss"])
+        grads = {k: p.grad.detach().clone()
+                 for k, p in model.named_parameters() if p.requires_grad}
+        stats = {k: b.detach().clone() for k, b in model.named_buffers()
+                 if k.endswith(("running_mean", "running_var"))}
+        return loss, grads, stats
+
+    torch.backends.cudnn.deterministic = True
+    loss_k, grads_k, stats_k = one_step(False, images)
+    loss_p, grads_p, stats_p = one_step(True, images)
+    x = images.astype(np.float32) / 255.0
+    rng = np.random.default_rng(1)
+    spread = [one_step(True, (x * (1.0 + STEP_INPUT_NOISE
+                                   * rng.standard_normal(x.shape)))
+                       .astype(np.float32)) for _ in range(2)]
+    torch.backends.cudnn.deterministic = False
+    checks = [held(torch, "loss", torch.tensor(loss_k), torch.tensor(loss_p),
+                   [torch.tensor(s[0]) for s in spread])]
+    checks += [held(torch, k, grads_k[k], grads_p[k],
+                    [s[1][k] for s in spread]) for k in grads_p]
+    checks += [held(torch, k, stats_k[k], stats_p[k],
+                    [s[2][k] for s in spread]) for k in stats_p]
+    return loss_k, loss_p, checks
+
+
+def phase_train512(torch):
+    """medt_512 trained at batch 4: counted warm-up, timed and loss steps
+    with exact launch counts; then kernels vs plain cores at batch 1."""
+    import numpy as np
+
+    from medt_tpu_torch import ops
+    from medt_tpu_torch.data import blob_batch
+    from medt_tpu_torch.models import build_model
+    from medt_tpu_torch.training import TrainState, adam_l2, train_step
+
+    variables = build_model(M512, seed=0, device="cpu").state_dict()
+    images, masks = blob_batch(BATCH512, IMG512, seed=0)
+    batch = {"image": images, "label": masks}
+    model = build_model(M512, use_fused=True, device="cuda")
+    model.load_state_dict(variables, strict=True)
+    state = TrainState(model, adam_l2(model.parameters(), TRAIN_LR))
+    torch.cuda.reset_peak_memory_stats()
+
+    # -- the main path, counted: 2 warm-up, 5 timed, 20 more steps -------------
+    ops.reset_launch_counts()
+    loss0 = train_step(state, batch)["loss"]
+    train_step(state, batch)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(5):
+        train_step(state, batch)
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t0) / 5
+    losses = torch.stack([train_step(state, batch)["loss"]
+                          for _ in range(20)]).tolist()
+    counts = ops.launch_counts()
+    # -- end of the counted run ----------------------------------------------
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    del state, model
+    torch.cuda.empty_cache()
+
+    one_image, one_mask = blob_batch(1, IMG512, seed=1)
+    loss_k, loss_p, checks = step_parity(torch, M512, IMG512, one_image,
+                                         one_mask, variables)
+    bad = [c for c in checks if not c["ok"]]
+    worst = max(checks, key=lambda c: c["err"] / c["tol"])
+    steps = 27
+    expect = launches_of(counts, M512_STEP, steps)
+    emit("train512", model=M512, img=IMG512, batch=BATCH512,
+         optimizer="adam_l2", lr=TRAIN_LR, steps_counted=steps,
+         launches=counts, ms_per_step=step_s * 1e3,
+         images_per_s=BATCH512 / step_s, loss_step0=float(loss0),
+         loss_first=losses[0], loss_last=losses[-1],
+         peak_memory_gb=peak_gb, parity_batch=1, loss_kernels=loss_k,
+         loss_plain=loss_p, parity_tensors=len(checks),
+         parity_failed=len(bad), parity_worst=worst)
+    check(not bad, f"train step on kernels vs plain cores: {bad[:5]}")
+    check(counts == expect, f"launch counts {counts} != {expect} for "
+                            f"{steps} steps")
+    check(all(np.isfinite(losses)), "non-finite loss")
+    check(np.mean(losses[-5:]) < np.mean(losses[:5]),
+          f"loss did not fall over 20 steps: {losses}")
+    return counts
+
+
+def phase_logo512(torch):
+    """One batch-1 eval forward of logo_512 (positions in both branches, so
+    the with-position flash and lanes variants at the local geometries) on
+    the kernels against plain cores."""
+    import numpy as np
+
+    from medt_tpu_torch import ops
+    from medt_tpu_torch.models import build_model
+
+    variables = build_model("logo_512", seed=0, device="cpu").state_dict()
+    x = torch.from_numpy(np.random.default_rng(2).uniform(
+        size=(1, 3, IMG512, IMG512)).astype(np.float32)).cuda()
+    out = {}
+    for plain in (False, True):
+        model = build_model("logo_512", use_fused=True, plain_cores=plain,
+                            device="cuda")
+        model.load_state_dict(variables, strict=True)
+        ops.reset_launch_counts()
+        with torch.inference_mode():
+            out[plain] = model(x)
+        torch.cuda.synchronize()
+        if not plain:
+            counts = ops.launch_counts()
+    got, want = out[False], out[True]
+    err = float((got - want).abs().max())
+    expect = launches_of(counts, M512_FORWARD, 1)
+    emit("logo512", model="logo_512", img=IMG512, batch=1, launches=counts,
+         logits_max_abs_err=err, logits_max_abs=float(want.abs().max()),
+         tolerance=LOGITS_ATOL)
+    check(counts == expect, f"launch counts {counts} != {expect}")
+    check(bool(torch.isfinite(got).all()), "non-finite logits")
+    check(err <= LOGITS_ATOL, f"logits vs plain cores: {err} > {LOGITS_ATOL}")
+    return counts
+
+
+def summary(rows, counts):
     """One entry per kernel; times per call of its main path: one MedT-128
-    batch-16 forward (serving) for the forward cores, one train step for
-    the backward and moments kernels, one batch-1 forward (``cli.test``)
-    for the eval kernel."""
+    batch-16 forward (serving) for the lanes and flash forward cores, one
+    MedT-128 train step for their backward and the moments kernels, one
+    batch-1 forward (``cli.test``) for the eval kernel, one medt_512
+    batch-4 forward (``serve512``) for the flash2 forward and one medt_512
+    train step for its backward. ``counts`` holds each phase's launch
+    counts by phase name."""
     kernels = []
     for name in KERNELS:
-        mine = [r for r in rows if r["kernel"] == name]
+        flash2 = name.startswith("flash2")
+        path = "medt512" if flash2 else "medt128"
+        mine = [r for r in rows if r["kernel"] == name and r["path"] == path]
         used = [r for r in mine if r["launches_per_call"]]
         n = [r["launches_per_call"] for r in used]
         b = sum(r["bytes"] / HBM_BYTES_PER_S * k for r, k in zip(used, n))
         o = sum(r["ops"] / F32_FLOPS_PER_S * k for r, k in zip(used, n))
+        forward = name.endswith("fwd") and not name.startswith("moment")
         if name == "axial_eval_fwd":
-            counts = predict_counts
-        elif name.endswith("fwd") and not name.startswith("moment"):
-            counts = serve_counts
+            phase = "predict"
+        elif flash2:
+            phase = "serve512" if forward else "train512"
         else:
-            counts = train_counts
+            phase = "serve" if forward else "train"
         kernels.append({
             "name": name, "route": "cuda", "source": SOURCES[name],
-            "replaces": REPLACES[name], "launches": counts[name],
-            "max_abs_err": max(r["max_abs_err"] for r in mine),
+            "replaces": REPLACES[name], "launches": counts[phase][name],
+            "max_abs_err": max(r["max_abs_err"] for r in rows
+                               if r["kernel"] == name),
             "ms": sum(r["ms"] * k for r, k in zip(used, n)),
             "plain_ms": sum(r["plain_ms"] * k for r, k in zip(used, n)),
             "bound_ms": sum(r["bound_ms"] * k for r, k in zip(used, n)),
@@ -857,25 +1169,24 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(REPO))
     phase = "device"
+    counts = {}
     try:
         smi, name = phase_device(torch)
         phase = "build"
         phase_build()
         phase = "kernels"
         rows = phase_kernels(torch)
-        phase = "serve"
-        serve_counts = phase_serve(torch)
-        phase = "predict"
-        predict_counts = phase_predict(torch)
-        phase = "train"
-        train_counts = phase_train(torch)
-        phase = "tf32"
-        phase_tf32(torch)
+        for phase, fn in (("serve", phase_serve), ("predict", phase_predict),
+                          ("train", phase_train), ("tf32", phase_tf32),
+                          ("serve512", phase_serve512),
+                          ("predict512", phase_predict512),
+                          ("train512", phase_train512),
+                          ("logo512", phase_logo512)):
+            counts[phase] = fn(torch)
     except Exception as e:  # report the phase, then fail without "ok"
         emit(phase, ok=False, error=f"{type(e).__name__}: {e}")
         return 1
-    print(json.dumps(summary(rows, serve_counts, train_counts,
-                             predict_counts)), flush=True)
+    print(json.dumps(summary(rows, counts)), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

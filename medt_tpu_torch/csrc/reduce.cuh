@@ -48,5 +48,29 @@ inline void sum_partials(const float* part, float* out, int P, size_t E,
   sum_partials_kernel<<<blocks, threads, 0, stream>>>(part, out, P, E);
 }
 
+// The attention backward's daff (g, 8) from its (P, g, 4) partials
+// [sum dlog*qk, sum dlog, sum dlog*qr, sum dlog*kr], summed in index order.
+__global__ void daff_finalize_kernel(const float* __restrict__ part,
+                                     float* __restrict__ daff, int P, int g,
+                                     int has_pos) {
+  const int t = blockIdx.x * blockDim.x + threadIdx.x;
+  if (t >= g * 8) return;
+  const int gi = t / 8, col = t - gi * 8;
+  // column -> partial: 0 qk, 1/3/5 the bias sum, 2 qr, 4 kr; 6, 7 zero
+  const int src[8] = {0, 1, 2, 1, 3, 1, -1, -1};
+  const int k = (col >= 2 && !has_pos) ? -1 : src[col];
+  float v = 0.f;
+  if (k >= 0) {
+    for (int p = 0; p < P; ++p) v += part[((size_t)p * g + gi) * 4 + k];
+  }
+  daff[t] = v;
+}
+
+inline void daff_finalize(const float* part, float* daff, int P, int g,
+                          int has_pos, cudaStream_t stream) {
+  daff_finalize_kernel<<<(g * 8 + 127) / 128, 128, 0, stream>>>(
+      part, daff, P, g, has_pos);
+}
+
 }  // namespace
 }  // namespace medt

@@ -1,11 +1,12 @@
 """Build the port's CUDA kernels with plain ``nvcc`` and load them with
 ``ctypes``.
 
-Every ``*.cu`` source under ``medt_tpu_torch/csrc/`` compiles in ONE ``nvcc``
-command into one shared library with an ``extern "C"`` interface. No PyTorch
-header is included and no ``torch.utils.cpp_extension`` is involved, so a
-cold build takes seconds, and there is no lock file that a cut-off build
-could leave behind.
+Every ``*.cu`` source under ``medt_tpu_torch/csrc/`` compiles in its own
+plain ``nvcc -c`` command, all started together, and one more ``nvcc``
+links the objects into one shared library with an ``extern "C"``
+interface: a cold build takes as long as its slowest source. No PyTorch
+header is included and no ``torch.utils.cpp_extension`` is involved, and
+there is no lock file that a cut-off build could leave behind.
 
 The library goes to ``medt_tpu_torch/_build/`` (listed in ``.gitignore``),
 named by a hash of the sources and the flags: a source edit builds a new
@@ -23,6 +24,7 @@ import shutil
 import subprocess
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import Optional
 
@@ -31,7 +33,8 @@ CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+LINK_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-shared")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -41,8 +44,10 @@ _L = ctypes.c_longlong
 SIGNATURES = {
     "medt_lanes_attn_fwd": [_P] * 7 + [_I] * 5 + [_P],
     "medt_flash_lanes_fwd": [_P] * 9 + [_I] * 5 + [_P],
+    "medt_flash2_lanes_fwd": [_P] * 9 + [_I] * 5 + [_P],
     "medt_lanes_attn_bwd": [_P] * 15 + [_I] * 7 + [_P],
     "medt_flash_lanes_bwd": [_P] * 17 + [_I] * 7 + [_P],
+    "medt_flash2_lanes_bwd": [_P] * 17 + [_I] * 7 + [_P],
     "medt_moment_sums_fwd": [_P] * 7 + [_I] * 6 + [_P],
     "medt_moment_sums_bwd": [_P] * 10 + [_I] * 6 + [_P],
     "medt_axial_eval_fwd": [_P] * 9 + [_L] * 6 + [_I] * 5 + [_P],
@@ -58,7 +63,7 @@ def _sources():
 
 
 def source_hash() -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
     for path in _sources():
         h.update(path.name.encode())
         h.update(path.read_bytes())
@@ -85,33 +90,59 @@ class BuildResult:
         self.path, self.seconds, self.log = path, seconds, log
 
 
+def _run(cmd, timeout: float):
+    """One nvcc command: (return code, output)."""
+    try:
+        proc = subprocess.run(cmd, capture_output=True, text=True,
+                              timeout=timeout)
+    except subprocess.TimeoutExpired:
+        return None, f"nvcc timed out after {timeout} s: {' '.join(cmd)}"
+    return proc.returncode, proc.stdout + proc.stderr
+
+
 def build(timeout: float = 600.0) -> BuildResult:
     """Compile every source into ``_build/libmedt_kernels-<hash>.so`` unless
-    that library already exists."""
+    that library already exists: one ``nvcc -c`` per source in parallel,
+    then one link."""
     digest = source_hash()
     target = BUILD_DIR / f"libmedt_kernels-{digest}.so"
     if target.exists():
         return BuildResult(target, 0.0, "")
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     for stale in BUILD_DIR.glob(".tmp-*"):  # left by an earlier cut build
-        stale.unlink(missing_ok=True)
+        if stale.is_dir():
+            shutil.rmtree(stale, ignore_errors=True)
+        else:
+            stale.unlink(missing_ok=True)
     tmp = BUILD_DIR / f".tmp-{os.getpid()}-{digest}.so"
-    cu = [str(p) for p in _sources() if p.suffix == ".cu"]
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), *cu]
+    objdir = BUILD_DIR / f".tmp-{os.getpid()}-{digest}.o"
+    nvcc = nvcc_path()
+    objdir.mkdir()
+    cu = [p for p in _sources() if p.suffix == ".cu"]
+    objs = [str(objdir / f"{p.stem}.o") for p in cu]
+    compiles = [[nvcc, *NVCC_FLAGS, "-c", str(p), "-o", o]
+                for p, o in zip(cu, objs)]
     t0 = time.perf_counter()
     try:
-        proc = subprocess.run(cmd, capture_output=True, text=True,
-                              timeout=timeout)
-    except subprocess.TimeoutExpired as e:
-        tmp.unlink(missing_ok=True)
-        raise BuildError(f"nvcc timed out after {timeout} s") from e
-    seconds = time.perf_counter() - t0
-    log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise BuildError(f"nvcc failed ({proc.returncode}):\n{log}")
-    os.replace(tmp, target)
-    return BuildResult(target, seconds, log)
+        with ThreadPoolExecutor(max_workers=len(compiles)) as pool:
+            results = list(pool.map(lambda c: _run(c, timeout), compiles))
+        log = "".join(out for _, out in results)
+        failed = [(rc, out) for rc, out in results if rc != 0]
+        if not failed:
+            rc, out = _run([nvcc, *LINK_FLAGS, "-o", str(tmp), *objs],
+                           timeout)
+            log += out
+            if rc != 0:
+                failed = [(rc, out)]
+        if failed:
+            tmp.unlink(missing_ok=True)
+            raise BuildError("nvcc failed ("
+                             f"{', '.join(str(rc) for rc, _ in failed)}):\n"
+                             + "\n".join(out for _, out in failed))
+        os.replace(tmp, target)
+    finally:
+        shutil.rmtree(objdir, ignore_errors=True)
+    return BuildResult(target, time.perf_counter() - t0, log)
 
 
 class _Library:

@@ -55,8 +55,10 @@ from torch import nn
 from .attn_core import fold_train_affine, pack_sim_affine, relative_logit_index
 from .axial_eval import EVAL_MAX_SPAN, fused_eval_attention
 from .axial_lanes import (
+    FLASH2_MAX_SPAN,
     FLASH_MAX_SPAN,
     LANES_MAX_SPAN,
+    flash2_lanes_core,
     flash_lanes_core,
     lanes_attn_core,
 )
@@ -80,9 +82,9 @@ _MODES = (MODE_FULL, MODE_GATED, MODE_WOPOS, MODE_GATED_SIG, MODE_GATED_DATA)
 _FUSED_MODES = (MODE_FULL, MODE_GATED, MODE_WOPOS)
 _GATE_NAMES = ("f_qr", "f_kr", "f_sve", "f_sv")
 
-SPAN_TODO = ("fused attention at span {span} > 64 is not ported yet "
-             "(ROADMAP.md, 'Port: flash2 kernel + medt_512' and "
-             "'Port: stripe kernel')")
+SPAN_TODO = ("fused attention at span {span} > 256 has no kernel (flash2 "
+             "takes spans up to 256); build the model with use_fused=False "
+             "for the plain path")
 
 
 # an eval site with fewer stripes than the lanes family's blocks hold takes
@@ -90,23 +92,34 @@ SPAN_TODO = ("fused attention at span {span} > 64 is not ported yet "
 LANES_MIN_STRIPES = 128
 
 def fused_route(span: int, stripes: int, training: bool) -> str:
-    """The core a fused-path site runs: "eval", "lanes" or "flash"."""
+    """The core a fused-path site runs: "eval", "lanes", "flash" or
+    "flash2" (spans 65..256, in both modes at any stripe count); longer
+    spans raise."""
     if not training and span <= EVAL_MAX_SPAN and stripes < LANES_MIN_STRIPES:
         return "eval"
-    return "lanes" if span <= LANES_MAX_SPAN else "flash"
+    if span <= LANES_MAX_SPAN:
+        return "lanes"
+    if span <= FLASH_MAX_SPAN:
+        return "flash"
+    if span <= FLASH2_MAX_SPAN:
+        return "flash2"
+    raise NotImplementedError(SPAN_TODO.format(span=span))
 
 
 def lanes_family_core(qkv, qemb, kemb_t, vemb, sim_affine,
                       plain: bool = False):
     """Route the fused core by span: <= 16 the lanes kernel, 17..64 the
-    flash kernel; longer spans raise. Differentiable. ``plain`` runs the
-    plain versions (forward and backward) on whatever device the input lies
-    on — an explicit choice, never a fallback."""
+    flash kernel, 65..256 the flash2 kernel; longer spans raise.
+    Differentiable; flash and flash2 save m and l for their backward.
+    ``plain`` runs the plain versions (forward and backward) on whatever
+    device the input lies on — an explicit choice, never a fallback."""
     span = qkv.shape[2]
     if span <= LANES_MAX_SPAN:
         return lanes_attn_core(qkv, qemb, kemb_t, vemb, sim_affine, plain)
     if span <= FLASH_MAX_SPAN:
         return flash_lanes_core(qkv, qemb, kemb_t, vemb, sim_affine, plain)
+    if span <= FLASH2_MAX_SPAN:
+        return flash2_lanes_core(qkv, qemb, kemb_t, vemb, sim_affine, plain)
     raise NotImplementedError(SPAN_TODO.format(span=span))
 
 

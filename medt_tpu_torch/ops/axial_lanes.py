@@ -1,8 +1,9 @@
 """Lanes-attention cores: CUDA kernels, their plain versions and autograd.
 
 Port of ``medt_tpu/ops/pallas_axial_lanes.py``: ``lanes_attn_core`` (spans
-<= 16) and ``flash_lanes_core`` (spans 17..64), forward and backward. Same
-contract as the JAX functions::
+<= 16), ``flash_lanes_core`` (spans 17..64) and ``flash2_lanes_core``
+(spans 65..256), forward and backward. Same contract as the JAX
+functions::
 
     qkv     (g, 2gp, L, S)  rows [0:c]=q, [c:gp]=k, [gp:2gp]=v, c = gp//2
     qemb    (c, L, L)       zero-size (0, L, L) tables without positions
@@ -13,17 +14,21 @@ contract as the JAX functions::
 
 and the backward gives ``(dqkv, dqemb, dkemb_t, dvemb, daff)`` from
 ``(dsv, dsve)``. As in JAX, the lanes backward recomputes the softmax from
-the logits, and the flash backward rebuilds it from the forward's saved row
-max ``m`` and denominator ``l`` with delta taken from the saved ``sv, sve``.
+the logits, and the flash and flash2 backwards rebuild it from the
+forward's saved row max ``m`` and denominator ``l`` with delta taken from
+the saved ``sv, sve``. flash2 computes the same function as flash, so
+their plain versions are one function.
 
-:func:`lanes_attn_core` and :func:`flash_lanes_core` are differentiable
-(autograd Functions :class:`LanesAttnCore`, :class:`FlashLanesCore`) and
-dispatch on where their input lies: on CPU tensors they run the plain
+:func:`lanes_attn_core`, :func:`flash_lanes_core` and
+:func:`flash2_lanes_core` are differentiable (autograd Functions
+:class:`LanesAttnCore`, :class:`FlashLanesCore`, :class:`Flash2LanesCore`)
+and dispatch on where their input lies: on CPU tensors they run the plain
 PyTorch versions beside them; on CUDA tensors they launch the kernels of
-``csrc/axial_lanes_fwd.cu`` and ``csrc/axial_lanes_bwd.cu`` through their
-wrappers (:func:`lanes_attn_fwd`, :func:`flash_lanes_fwd`,
-:func:`lanes_attn_bwd`, :func:`flash_lanes_bwd`), which check device,
-dtype, shape and contiguity and raise on anything else. There is no
+``csrc/axial_lanes_{fwd,bwd}.cu`` and ``csrc/axial_flash2_{fwd,bwd}.cu``
+through their wrappers (:func:`lanes_attn_fwd`, :func:`flash_lanes_fwd`,
+:func:`flash2_lanes_fwd`, :func:`lanes_attn_bwd`, :func:`flash_lanes_bwd`,
+:func:`flash2_lanes_bwd`), which check device, dtype, shape and
+contiguity and raise on anything else. There is no
 fallback from a CUDA tensor to a plain version: only an explicit ``plain``
 argument runs the plain versions on the card. Each wrapper counts its
 launches in ``.launches``.
@@ -41,6 +46,7 @@ from .attn_core import attend, attn_logits
 
 LANES_MAX_SPAN = 16
 FLASH_MAX_SPAN = 64
+FLASH2_MAX_SPAN = 256
 KERNEL_GP = (2, 4, 8, 16)
 
 
@@ -170,6 +176,12 @@ def flash_lanes_bwd_plain(qkv, qemb, kemb_t, vemb, sim_affine, m, l, sv, sve,
         qemb, kemb_t, vemb, sim_affine, dsv, dsve, has_pos)
 
 
+# flash2 computes the flash function (the lanes contract with m and l); its
+# plain versions are the flash ones, which take any span
+flash2_lanes_plain = flash_lanes_plain
+flash2_lanes_bwd_plain = flash_lanes_bwd_plain
+
+
 # ---- kernel wrappers --------------------------------------------------------
 
 def _check(qkv, qemb, kemb_t, vemb, sim_affine, max_span: int, name: str,
@@ -228,26 +240,47 @@ def lanes_attn_fwd(qkv, qemb, kemb_t, vemb, sim_affine):
 lanes_attn_fwd.launches = 0
 
 
-def flash_lanes_fwd(qkv, qemb, kemb_t, vemb, sim_affine):
-    """Launch the flash kernel (spans <= 64) on CUDA tensors:
+def _streamed_fwd(name: str, max_span: int, qkv, qemb, kemb_t, vemb,
+                  sim_affine):
+    """Launch the forward kernel ``medt_<name>``, which also saves m and l:
     ``(sv, sve, m, l)``."""
     g, gp, L, S, has_pos = _check(qkv, qemb, kemb_t, vemb, sim_affine,
-                                  FLASH_MAX_SPAN, "flash_lanes_fwd")
+                                  max_span, name)
     dev = qkv.device
     sv = torch.empty((g, gp, L, S), dtype=torch.float32, device=dev)
     sve = torch.empty_like(sv) if has_pos else sv
     m = torch.empty((g, L, S), dtype=torch.float32, device=dev)
     l = torch.empty_like(m)
-    err = library().medt_flash_lanes_fwd(
+    err = getattr(library(), f"medt_{name}")(
         ptr(qkv), ptr(qemb), ptr(kemb_t), ptr(vemb), ptr(sim_affine),
         ptr(sv), ptr(sve), ptr(m), ptr(l), g, gp, L, S, int(has_pos),
         stream(dev))
-    raise_on(err, "flash_lanes_fwd")
-    flash_lanes_fwd.launches += 1
+    raise_on(err, name)
     return sv, (sve if has_pos else _zeros_like_view(sv)), m, l
 
 
+def flash_lanes_fwd(qkv, qemb, kemb_t, vemb, sim_affine):
+    """Launch the flash kernel (spans <= 64) on CUDA tensors:
+    ``(sv, sve, m, l)``."""
+    out = _streamed_fwd("flash_lanes_fwd", FLASH_MAX_SPAN, qkv, qemb, kemb_t,
+                        vemb, sim_affine)
+    flash_lanes_fwd.launches += 1
+    return out
+
+
 flash_lanes_fwd.launches = 0
+
+
+def flash2_lanes_fwd(qkv, qemb, kemb_t, vemb, sim_affine):
+    """Launch the flash2 kernel (spans <= 256) on CUDA tensors:
+    ``(sv, sve, m, l)``."""
+    out = _streamed_fwd("flash2_lanes_fwd", FLASH2_MAX_SPAN, qkv, qemb,
+                        kemb_t, vemb, sim_affine)
+    flash2_lanes_fwd.launches += 1
+    return out
+
+
+flash2_lanes_fwd.launches = 0
 
 
 def _bwd_buffers(qkv, g, gp, L, S, has_pos):
@@ -299,31 +332,55 @@ def lanes_attn_bwd(qkv, qemb, kemb_t, vemb, sim_affine, dsv, dsve):
 lanes_attn_bwd.launches = 0
 
 
-def flash_lanes_bwd(qkv, qemb, kemb_t, vemb, sim_affine, m, l, sv, sve, dsv,
-                    dsve):
-    """Launch the flash backward (spans <= 64) on CUDA tensors, from the
-    forward's saved ``(m, l, sv, sve)``: ``(dqkv, dqemb, dkemb_t, dvemb,
-    daff)``. ``sve``/``dsve`` are ignored without positions."""
+def _streamed_bwd(name: str, max_span: int, qkv, qemb, kemb_t, vemb,
+                  sim_affine, m, l, sv, sve, dsv, dsve):
+    """Launch the backward kernel ``medt_<name>`` from the forward's saved
+    ``(m, l, sv, sve)``: ``(dqkv, dqemb, dkemb_t, dvemb, daff)``."""
     extra = {"m": (m, "row"), "l": (l, "row"), "sv": (sv, "gp"),
              "dsv": (dsv, "gp")}
     if _has_pos(qemb):
         extra.update(sve=(sve, "gp"), dsve=(dsve, "gp"))
     g, gp, L, S, has_pos = _check(qkv, qemb, kemb_t, vemb, sim_affine,
-                                  FLASH_MAX_SPAN, "flash_lanes_bwd", **extra)
+                                  max_span, name, **extra)
     b, n_tab, n_aff = _bwd_buffers(qkv, g, gp, L, S, has_pos)
-    err = library().medt_flash_lanes_bwd(
+    err = getattr(library(), f"medt_{name}")(
         ptr(qkv), ptr(qemb), ptr(kemb_t), ptr(vemb), ptr(sim_affine),
         ptr(m), ptr(l), ptr(sv), ptr(sve if has_pos else sv), ptr(dsv),
         ptr(dsve if has_pos else dsv), ptr(b["dqkv"]), ptr(b["dtables"]),
         ptr(b["daff"]), ptr(b["delta"]), ptr(b["tab_part"]),
         ptr(b["aff_part"]), g, gp, L, S, int(has_pos), n_tab, n_aff,
         stream(qkv.device))
-    raise_on(err, "flash_lanes_bwd")
-    flash_lanes_bwd.launches += 1
+    raise_on(err, name)
     return (b["dqkv"], *_split_tables(b["dtables"], gp, has_pos), b["daff"])
 
 
+def flash_lanes_bwd(qkv, qemb, kemb_t, vemb, sim_affine, m, l, sv, sve, dsv,
+                    dsve):
+    """Launch the flash backward (spans <= 64) on CUDA tensors, from the
+    forward's saved ``(m, l, sv, sve)``: ``(dqkv, dqemb, dkemb_t, dvemb,
+    daff)``. ``sve``/``dsve`` are ignored without positions."""
+    out = _streamed_bwd("flash_lanes_bwd", FLASH_MAX_SPAN, qkv, qemb, kemb_t,
+                        vemb, sim_affine, m, l, sv, sve, dsv, dsve)
+    flash_lanes_bwd.launches += 1
+    return out
+
+
 flash_lanes_bwd.launches = 0
+
+
+def flash2_lanes_bwd(qkv, qemb, kemb_t, vemb, sim_affine, m, l, sv, sve,
+                     dsv, dsve):
+    """Launch the flash2 backward (spans <= 256) on CUDA tensors, from the
+    forward's saved ``(m, l, sv, sve)``: ``(dqkv, dqemb, dkemb_t, dvemb,
+    daff)``. ``sve``/``dsve`` are ignored without positions. The table
+    partials it allocates are (g * ceil(S/128), 2gp, L, L) floats."""
+    out = _streamed_bwd("flash2_lanes_bwd", FLASH2_MAX_SPAN, qkv, qemb,
+                        kemb_t, vemb, sim_affine, m, l, sv, sve, dsv, dsve)
+    flash2_lanes_bwd.launches += 1
+    return out
+
+
+flash2_lanes_bwd.launches = 0
 
 
 # ---- autograd ----------------------------------------------------------------
@@ -380,29 +437,57 @@ class LanesAttnCore(torch.autograd.Function):
         return (*_table_grads(grads, ctx.has_pos), None)
 
 
+def _streamed_forward(ctx, fwd_kernel, fwd_plain, qkv, qemb, kemb_t, vemb,
+                      sim_affine, plain):
+    """Forward of a core that saves m and l: runs it, saves the inputs and
+    the forward's m, l, sv, sve."""
+    ctx.plain = _runs_plain(qkv, plain)
+    ctx.has_pos = _has_pos(qemb)
+    fwd = fwd_plain if ctx.plain else fwd_kernel
+    sv, sve, m, l = fwd(qkv, qemb, kemb_t, vemb, sim_affine)
+    ctx.save_for_backward(qkv, qemb, kemb_t, vemb, sim_affine, m, l, sv, sve)
+    if not ctx.has_pos:
+        ctx.mark_non_differentiable(sve)
+    return sv, sve
+
+
+def _streamed_backward(ctx, bwd_kernel, bwd_plain, dsv, dsve):
+    qkv, qemb, kemb_t, vemb, aff, m, l, sv, sve = ctx.saved_tensors
+    dsv, dsve = _grads_in(qkv, dsv, dsve, ctx.has_pos)
+    fn = bwd_plain if ctx.plain else bwd_kernel
+    grads = fn(qkv, qemb, kemb_t, vemb, aff, m, l, sv, sve, dsv, dsve)
+    return (*_table_grads(grads, ctx.has_pos), None)
+
+
 class FlashLanesCore(torch.autograd.Function):
     """``flash_lanes_core`` with its backward (``_flash_fwd_rule``/
     ``_flash_bwd_rule``): saves the inputs and the forward's m, l, sv, sve."""
 
     @staticmethod
     def forward(ctx, qkv, qemb, kemb_t, vemb, sim_affine, plain=False):
-        ctx.plain = _runs_plain(qkv, plain)
-        ctx.has_pos = _has_pos(qemb)
-        fwd = flash_lanes_plain if ctx.plain else flash_lanes_fwd
-        sv, sve, m, l = fwd(qkv, qemb, kemb_t, vemb, sim_affine)
-        ctx.save_for_backward(qkv, qemb, kemb_t, vemb, sim_affine, m, l, sv,
-                              sve)
-        if not ctx.has_pos:
-            ctx.mark_non_differentiable(sve)
-        return sv, sve
+        return _streamed_forward(ctx, flash_lanes_fwd, flash_lanes_plain,
+                                 qkv, qemb, kemb_t, vemb, sim_affine, plain)
 
     @staticmethod
     def backward(ctx, dsv, dsve):
-        qkv, qemb, kemb_t, vemb, aff, m, l, sv, sve = ctx.saved_tensors
-        dsv, dsve = _grads_in(qkv, dsv, dsve, ctx.has_pos)
-        fn = flash_lanes_bwd_plain if ctx.plain else flash_lanes_bwd
-        grads = fn(qkv, qemb, kemb_t, vemb, aff, m, l, sv, sve, dsv, dsve)
-        return (*_table_grads(grads, ctx.has_pos), None)
+        return _streamed_backward(ctx, flash_lanes_bwd,
+                                  flash_lanes_bwd_plain, dsv, dsve)
+
+
+class Flash2LanesCore(torch.autograd.Function):
+    """``flash2_lanes_core`` with its backward (``_flash2_fwd_rule``/
+    ``_flash2_bwd_rule``): saves the inputs and the forward's m, l, sv,
+    sve, as JAX does."""
+
+    @staticmethod
+    def forward(ctx, qkv, qemb, kemb_t, vemb, sim_affine, plain=False):
+        return _streamed_forward(ctx, flash2_lanes_fwd, flash2_lanes_plain,
+                                 qkv, qemb, kemb_t, vemb, sim_affine, plain)
+
+    @staticmethod
+    def backward(ctx, dsv, dsve):
+        return _streamed_backward(ctx, flash2_lanes_bwd,
+                                  flash2_lanes_bwd_plain, dsv, dsve)
 
 
 def lanes_attn_core(qkv, qemb, kemb_t, vemb, sim_affine, plain=False):
@@ -417,7 +502,14 @@ def flash_lanes_core(qkv, qemb, kemb_t, vemb, sim_affine, plain=False):
     return FlashLanesCore.apply(qkv, qemb, kemb_t, vemb, sim_affine, plain)
 
 
-_WRAPPERS = (lanes_attn_fwd, flash_lanes_fwd, lanes_attn_bwd, flash_lanes_bwd)
+def flash2_lanes_core(qkv, qemb, kemb_t, vemb, sim_affine, plain=False):
+    """Spans 65..256, differentiable: the kernels on CUDA tensors, the plain
+    versions on CPU tensors or when ``plain`` is set."""
+    return Flash2LanesCore.apply(qkv, qemb, kemb_t, vemb, sim_affine, plain)
+
+
+_WRAPPERS = (lanes_attn_fwd, flash_lanes_fwd, flash2_lanes_fwd,
+             lanes_attn_bwd, flash_lanes_bwd, flash2_lanes_bwd)
 
 
 def reset_launch_counts():

@@ -1,11 +1,12 @@
 """Where a served batch's time goes on the card.
 
-    python -m medt_tpu_torch.profile_serve [--batch 1]
+    python -m medt_tpu_torch.profile_serve [--batch 1] [--model medt_512 --img 512]
 
 Serves full MedT-128 batches of 16 (or of ``--batch``: at 1, the batch-1
 evaluation path of the test and predict CLIs, whose attention runs the
-eval and lanes kernels) through ``InferenceEngine`` (seeded random
-weights) and prints one JSON object: the wall time per batch
+eval and lanes kernels; or another ``--model`` at ``--img``, by default
+the model's own size) through ``InferenceEngine`` (seeded random weights)
+and prints one JSON object: the wall time per batch
 (host clock, profiler off), then, from a ``torch.profiler`` window over as
 many batches, the device's summed kernel time per batch, its busy share of
 that wall time, the share of the port's attention kernels and the top
@@ -26,15 +27,19 @@ def _device_us(evt) -> float:
     return 0.0
 
 
-MODEL, IMG = "MedT", 128
 # the port's attention kernels, by kernel name
-PORT_KERNELS = ("axial_lanes_fwd_kernel", "axial_eval_fwd_kernel")
+PORT_KERNELS = ("axial_lanes_fwd_kernel", "axial_eval_fwd_kernel",
+                "flash2_fwd_kernel")
 
 
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--batch", type=int, default=16)
-    batch = parser.parse_args(argv).batch
+    parser.add_argument("--model", default="MedT")
+    parser.add_argument("--img", type=int, default=None,
+                        help="image size (default: the model's own)")
+    args = parser.parse_args(argv)
+    batch, model = args.batch, args.model
     iters = 5 if batch >= 16 else 20
     import numpy as np
     import torch
@@ -43,17 +48,19 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("profile_serve: no CUDA device", file=sys.stderr)
         return 2
-    from .models import build_model
+    from .models import DEFAULT_IMG_SIZE, build_model
     from .serving import InferenceEngine
+
+    img = args.img or DEFAULT_IMG_SIZE.get(model, 128)
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    variables = build_model(MODEL, img_size=IMG, seed=0,
+    variables = build_model(model, img_size=img, seed=0,
                             device="cpu").state_dict()
-    engine = InferenceEngine(MODEL, IMG, variables=variables,
+    engine = InferenceEngine(model, img, variables=variables,
                              batch_size=batch)
     rng = np.random.default_rng(0)
-    images = [rng.integers(0, 256, size=(IMG, IMG, 3),
+    images = [rng.integers(0, 256, size=(img, img, 3),
                            dtype=np.uint8) for _ in range(batch)]
     for _ in range(3):
         engine.predict_batch(images)
@@ -76,8 +83,8 @@ def main(argv=None) -> int:
                   if any(k in e.key for k in PORT_KERNELS)) / iters
     top = sorted(kernels, key=_device_us, reverse=True)[:15]
     out = {
-        "device": torch.cuda.get_device_name(0), "model": MODEL,
-        "img": IMG, "batch": batch, "iters": iters,
+        "device": torch.cuda.get_device_name(0), "model": model,
+        "img": img, "batch": batch, "iters": iters,
         "wall_ms_per_batch": wall * 1e3,
         "wall_ms_per_batch_profiled": wall_profiled * 1e3,
         "device_kernel_ms_per_batch": (total_us / 1e3) if kernels

@@ -1,9 +1,10 @@
 """Where a training step's time goes on the card.
 
-    python -m medt_tpu_torch.profile_train
+    python -m medt_tpu_torch.profile_train [--model medt_512 --img 512 --batch 4]
 
-Trains MedT 128 at batch 16 (full width, seeded random weights, Adam-L2,
-float32 with TF32 off) on a synthetic blob batch and prints one JSON
+Trains MedT 128 at batch 16 (or ``--model`` at ``--img``, by default the
+model's own size, and ``--batch``; full width, seeded random weights,
+Adam-L2, float32 with TF32 off) on a synthetic blob batch and prints one JSON
 object: the wall time per step (host clock, profiler off), then, from a
 ``torch.profiler`` window over as many steps, the device's summed kernel
 time per step, its busy share of that wall time, the kernel launches per
@@ -13,22 +14,31 @@ non-zero without one.
 """
 from __future__ import annotations
 
+import argparse
 import json
 import sys
 import time
 
 from .profile_serve import _device_us
 
-MODEL, IMG, BATCH, ITERS, LR = "MedT", 128, 16, 5, 1e-3
+ITERS, LR = 5, 1e-3
 # the port's hand-written kernels, by the names nvcc gives them
 OWN_KERNELS = ("axial_lanes_fwd_kernel", "lanes_bwd_row_kernel",
-               "lanes_bwd_col_kernel", "daff_finalize_kernel",
+               "lanes_bwd_col_kernel", "flash2_fwd_kernel",
+               "flash2_bwd_row_kernel", "flash2_bwd_col_kernel",
+               "daff_finalize_kernel",
                "sum_partials_kernel", "moments_fwd_kernel",
                "moments_finalize_kernel", "moments_stripe_stats_kernel",
                "moments_bwd_kernel")
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--model", default="MedT")
+    parser.add_argument("--img", type=int, default=None,
+                        help="image size (default: the model's own)")
+    parser.add_argument("--batch", type=int, default=16)
+    args = parser.parse_args(argv)
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -37,15 +47,17 @@ def main() -> int:
         return 2
     from . import ops
     from .data import blob_batch
-    from .models import build_model
+    from .models import DEFAULT_IMG_SIZE, build_model
     from .training import TrainState, adam_l2, train_step
 
+    name, batch_size = args.model, args.batch
+    img = args.img or DEFAULT_IMG_SIZE.get(name, 128)
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    model = build_model(MODEL, img_size=IMG, use_fused=True, seed=0,
+    model = build_model(name, img_size=img, use_fused=True, seed=0,
                         device="cuda")
     state = TrainState(model, adam_l2(model.parameters(), LR))
-    images, masks = blob_batch(BATCH, IMG, seed=0)
+    images, masks = blob_batch(batch_size, img, seed=0)
     batch = {"image": images, "label": masks}
     for _ in range(3):
         train_step(state, batch)
@@ -76,10 +88,10 @@ def main() -> int:
            / ITERS / 1e3 for name in OWN_KERNELS}
     top = sorted(kernels, key=_device_us, reverse=True)[:15]
     out = {
-        "device": torch.cuda.get_device_name(0), "model": MODEL,
-        "img": IMG, "batch": BATCH, "iters": ITERS, "optimizer": "adam_l2",
-        "wall_ms_per_step": wall * 1e3,
-        "images_per_s": BATCH / wall,
+        "device": torch.cuda.get_device_name(0), "model": name,
+        "img": img, "batch": batch_size, "iters": ITERS,
+        "optimizer": "adam_l2", "wall_ms_per_step": wall * 1e3,
+        "images_per_s": batch_size / wall,
         "wall_ms_per_step_profiled": wall_profiled * 1e3,
         "device_kernel_ms_per_step": (total_us / 1e3) if kernels
         else "not measured",

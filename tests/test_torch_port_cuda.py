@@ -53,7 +53,8 @@ def test_kernel_wrappers_reject_cpu_tensors():
     before anything is built (the cores send CPU tensors to the plain
     versions instead)."""
     args = core_inputs(9, g=2, gp=4, L=8, S=128, has_pos=True)
-    for fn in (axial_lanes.lanes_attn_fwd, axial_lanes.flash_lanes_fwd):
+    for fn in (axial_lanes.lanes_attn_fwd, axial_lanes.flash_lanes_fwd,
+               axial_lanes.flash2_lanes_fwd):
         before = fn.launches
         with pytest.raises(ValueError, match="CUDA"):
             fn(*args)
@@ -68,6 +69,8 @@ def test_backward_and_moment_wrappers_reject_cpu_tensors():
     calls = [
         (axial_lanes.lanes_attn_bwd, (qkv, qemb, kemb_t, vemb, aff, d, d)),
         (axial_lanes.flash_lanes_bwd,
+         (qkv, qemb, kemb_t, vemb, aff, row, row, d, d, d, d)),
+        (axial_lanes.flash2_lanes_bwd,
          (qkv, qemb, kemb_t, vemb, aff, row, row, d, d, d, d)),
         (moments.moment_sums_fwd, moment_inputs(13, 2, 4, 8, 128, True)),
         (moments.moment_sums_bwd,
@@ -110,6 +113,10 @@ def test_cores_on_cpu_run_the_plain_versions():
     counts = axial_lanes.launch_counts()
     for got, want in zip(axial_lanes.lanes_attn_core(*args),
                          axial_lanes.lanes_attn_plain(*args)):
+        torch.testing.assert_close(got, want, atol=0, rtol=0)
+    args = core_inputs(11, g=2, gp=4, L=96, S=64, has_pos=True)
+    for got, want in zip(axial_lanes.flash2_lanes_core(*args),
+                         axial_lanes.flash2_lanes_plain(*args)):
         torch.testing.assert_close(got, want, atol=0, rtol=0)
     assert axial_lanes.launch_counts() == counts
 
@@ -418,3 +425,78 @@ def test_eval_kernel_takes_zero_tables_and_dense_operands(cuda_device):
                                   .transpose(0, 1).transpose(2, 3)
                                   .contiguous().transpose(2, 3), k, v,
                                   empty, empty, empty, aff, oa)
+
+
+# ---- flash2: spans 65..256 ---------------------------------------------------
+
+# (span, gp, stripes, has_pos): the medt_512 global sites at a cut stripe
+# count, both variants, every gp, spans that are not a multiple of the key
+# block, a ragged last stripe block
+FLASH2_CARD_GEOMETRIES = [
+    (256, 2, 300, True), (256, 4, 130, True), (128, 4, 300, True),
+    (96, 2, 300, False), (200, 8, 130, True), (72, 16, 130, False),
+    (256, 16, 130, True),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("L,gp,S,has_pos", FLASH2_CARD_GEOMETRIES)
+def test_flash2_kernels_match_plain_on_card(cuda_device, L, gp, S, has_pos):
+    """Forward (sv, sve at 1e-4; m, l also at rtol 1e-5) and backward (per
+    tensor 1e-4 + 1e-4 * max|plain|) against the plain versions, the same
+    bits on a second run, one launch counted per call."""
+    args = core_inputs(24, g=8, gp=gp, L=L, S=S, has_pos=has_pos,
+                       device=cuda_device)
+    fwd, bwd = axial_lanes.flash2_lanes_fwd, axial_lanes.flash2_lanes_bwd
+    before = (fwd.launches, bwd.launches)
+    got, again = fwd(*args), fwd(*args)
+    want = axial_lanes.flash2_lanes_plain(*args)
+    torch.cuda.synchronize()
+    for name, o, a, w in zip(("sv", "sve", "m", "l"), got, again, want):
+        rtol = 1e-5 if name in ("m", "l") else 0.0
+        torch.testing.assert_close(o, w, atol=1e-4, rtol=rtol, msg=name)
+        assert torch.equal(o, a), f"{name} differs between two runs"
+    sv, sve, m, l = want
+    dsv, dsve = _grads_in(25, 8, gp, L, S, cuda_device)
+    saved = (m, l, sv, sve.contiguous())
+    got = bwd(*args, *saved, dsv, dsve)
+    again = bwd(*args, *saved, dsv, dsve)
+    want = axial_lanes.flash2_lanes_bwd_plain(*args, *saved, dsv, dsve)
+    torch.cuda.synchronize()
+    assert (fwd.launches, bwd.launches) == (before[0] + 2, before[1] + 2)
+    for name, o, a, w in zip(("dqkv", "dqemb", "dkemb_t", "dvemb", "daff"),
+                             got, again, want):
+        _close(o, w, name)
+        assert torch.equal(o, a), f"{name} differs between two runs"
+
+
+@pytest.mark.cuda
+def test_flash2_wrappers_refuse_spans_above_256(cuda_device):
+    args = core_inputs(26, g=2, gp=2, L=272, S=128, has_pos=False,
+                       device=cuda_device)
+    with pytest.raises(ValueError, match="span"):
+        axial_lanes.flash2_lanes_fwd(*args)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("gp,L,S", [(2, 256, 300), (4, 256, 130),
+                                    (4, 128, 300)])
+def test_moment_kernels_match_plain_at_long_spans_on_card(cuda_device, gp, L,
+                                                          S):
+    """The moments at the 512 px models' global sites (positions, spans
+    128 and 256: sums of up to S * L * L terms), per tensor at 1e-4 +
+    1e-4 * max|plain|, the same bits on a second run."""
+    ins = moment_inputs(27, 8, gp, L, S, True, device=cuda_device)
+    ct = torch.from_numpy(np.random.default_rng(28).normal(size=(8, 8))
+                          .astype(np.float32)).to(cuda_device)
+    got, again = moments.moment_sums_fwd(*ins), moments.moment_sums_fwd(*ins)
+    _close(got, moments.moment_sums_plain(*ins), "sums")
+    assert torch.equal(got, again)
+    got = moments.moment_sums_bwd(*ins, ct)
+    again = moments.moment_sums_bwd(*ins, ct)
+    want = moments.moment_sums_bwd_plain(*ins, ct)
+    torch.cuda.synchronize()
+    for name, o, a, w in zip(("dqkv", "dr_q", "de_q", "dr_k", "de_k"),
+                             got, again, want):
+        _close(o, w, name)
+        assert torch.equal(o, a), f"{name} differs between two runs"

@@ -137,20 +137,27 @@ def test_fused_route_rule():
     assert fused_route(16, 256, training=False) == "lanes"
     assert fused_route(64, 64, training=True) == "flash"
     assert fused_route(8, 64, training=True) == "lanes"
+    # spans 65..256: flash2 in both modes, at any stripe count
+    for span in (65, 96, 128, 256):
+        for stripes in (1, 64, 128, 1024):
+            for training in (False, True):
+                assert fused_route(span, stripes, training) == "flash2"
+    with pytest.raises(NotImplementedError, match="256"):
+        fused_route(257, 1024, training=True)
 
 
 # ---- routes: the port's sites against JAX's kernel_registry -------------------
 
-def _jax_routes(batch, monkeypatch):
-    """(family, span, g, gp, S, has_pos) of every kernel site of a
-    MedT-128 eval forward (eval_shape: no compute)."""
+def _jax_routes(batch, monkeypatch, name="MedT", img=128):
+    """(family, span, g, gp, S, has_pos) of every kernel site of an eval
+    forward (eval_shape: no compute), MedT-128 unless named."""
     sites = []
     monkeypatch.setattr(
         kernel_registry, "record",
         lambda family, **kw: sites.append(
             (family, kw["span"], kw["g"], kw["gp"], kw["S"], kw["has_pos"])))
-    model = jax_build_model("MedT", img_size=128, use_fused=True)
-    x = jax.ShapeDtypeStruct((batch, 128, 128, 3), jnp.float32)
+    model = jax_build_model(name, img_size=img, use_fused=True)
+    x = jax.ShapeDtypeStruct((batch, img, img, 3), jnp.float32)
     shapes = jax.eval_shape(
         lambda x: model.init(jax.random.PRNGKey(0), x, train=False), x)
     jax.eval_shape(lambda v, x: model.apply(v, x, train=False), shapes, x)
@@ -164,13 +171,13 @@ def _routes(model):
             if isinstance(m, AxialAttention)]
 
 
-def _port_routes(batch):
+def _port_routes(batch, name="MedT", img=128):
     """The port's sites on the meta device (shapes only; the plain cores,
     since the route does not depend on them)."""
-    model = build_model("MedT", img_size=128, use_fused=True,
+    model = build_model(name, img_size=img, use_fused=True,
                         plain_cores=True, device="meta")
     with torch.no_grad():
-        model(torch.zeros((batch, 3, 128, 128), device="meta"))
+        model(torch.zeros((batch, 3, img, img), device="meta"))
     return _routes(model)
 
 
@@ -188,6 +195,35 @@ def test_medt128_routes_match_jax_registry(batch, monkeypatch):
     assert port == jax_sites
     if batch == 16:
         assert not any(r == "eval" for r, *_ in port)
+
+
+# the sites of one medt_512 / logo_512 forward at 512 px, batch 4: (route,
+# span, gp, stripes, has_pos) -> sites; the local branch has positions only
+# in logo_512. At batch 1 the stripe counts are a quarter (>= 128 each).
+SITES_512_B4 = {
+    ("flash2", 256, 2, 1024): 2, ("flash2", 256, 4, 1024): 2,
+    ("flash2", 128, 4, 512): 2,
+    ("flash", 64, 2, 4096): 2, ("flash", 64, 4, 4096): 2,
+    ("flash", 32, 4, 2048): 2, ("flash", 32, 8, 2048): 2,
+    ("lanes", 16, 8, 1024): 6, ("lanes", 16, 16, 1024): 2,
+}
+
+
+@pytest.mark.parametrize("name", ["medt_512", "logo_512"])
+@pytest.mark.parametrize("batch", [1, 4])
+def test_512_routes_match_jax_registry(name, batch, monkeypatch):
+    """Every attention site of the 512 px models, eval forward, against
+    JAX's kernel_registry; the global branch (positions) on flash2, no
+    site on the eval kernel."""
+    port = collections.Counter(_port_routes(batch, name, 512))
+    jax_sites = collections.Counter(_jax_routes(batch, monkeypatch, name,
+                                                512))
+    assert port == jax_sites
+    want = collections.Counter({
+        (r, L, G, gp, S * batch // 4,
+         r == "flash2" or name == "logo_512"): n
+        for (r, L, gp, S), n in SITES_512_B4.items()})
+    assert port == want
 
 
 # ---- whole models at batch 1 ---------------------------------------------------

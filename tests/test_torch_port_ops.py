@@ -264,8 +264,15 @@ def test_axial_attention_plain_zoo_modes_match_jax(mode):
 
 
 def test_fused_path_raises_past_span_64():
+    """Past span 64 the fused path runs the flash2 core, up to span 256;
+    past 256 it raises."""
     top = AxialAttention(4, 8, 96, groups=2, mode="wopos", use_fused=True,
                          device="cpu").eval()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with torch.no_grad():
+        out = top(torch.zeros(1, 4, 96, 2))
+    assert out.shape == (1, 8, 96, 2) and top.last_route[0] == "flash2"
+    top = AxialAttention(4, 8, 272, groups=2, mode="wopos", use_fused=True,
+                         device="cpu").eval()
+    with pytest.raises(NotImplementedError, match="256"):
         with torch.no_grad():
-            top(torch.zeros(1, 4, 96, 2))
+            top(torch.zeros(1, 4, 272, 2))

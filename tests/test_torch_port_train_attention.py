@@ -1,7 +1,7 @@
 """The port's AxialAttention in train mode against the JAX package, on CPU.
 
-Modes wopos, gated and full, the fused path (its lanes or flash core and
-the moments core; the plain versions that CPU tensors dispatch to) and the
+Modes wopos, gated and full, the fused path (its lanes, flash or flash2
+core and the moments core; the plain versions that CPU tensors dispatch to) and the
 plain path, on weights carried by ``medt_tpu_torch.utils.weights``: the
 output, the input gradient, every parameter gradient and the running
 statistics after one call, per tensor at |got - want| <= 1e-5 + 1e-4 *
@@ -22,12 +22,15 @@ from test_torch_port_ops import GATES, _carry, random_variables
 from test_torch_port_train_ops import F32, assert_close
 
 
-# (mode, fused, axis, stride, span, m): spans 8 (lanes) and 32 (flash)
+# (mode, fused, axis, stride, span, m): spans 8 (lanes), 32 (flash) and 96,
+# 128 (flash2; at m 64 JAX too runs its flash2 kernel, in interpret mode)
 TRAIN_ATTN_CASES = [
     ("wopos", True, "h", 1, 8, 64), ("wopos", False, "w", 2, 8, 64),
     ("gated", True, "w", 2, 8, 64), ("gated", False, "h", 1, 8, 64),
     ("full", True, "h", 1, 32, 64), ("full", False, "w", 1, 8, 64),
     ("gated", True, "h", 1, 32, 64),
+    ("gated", True, "h", 1, 128, 8), ("full", True, "w", 2, 96, 8),
+    ("wopos", True, "h", 1, 128, 8), ("gated", True, "w", 1, 128, 64),
 ]
 
 
