@@ -14,8 +14,9 @@ the start of the script) as it ends:
    (MedT 128 at batch 16 and at batch 1; both has_pos variants of each;
    gatedaxialunet's batch-1 geometries for the eval kernel; medt_512 at
    batch 4: flash2, flash, lanes and moments; flash2 without positions at
-   one more geometry), with CUDA-event times of kernel and plain version
-   and the bound of each.
+   one more geometry; the stripe kernels at the batch-1 and batch-2 train
+   sites of MedT and gatedaxialunet at 128 and 64 px and at span 64, gp 8),
+   with CUDA-event times of kernel and plain version and the bound of each.
 4. ``serve``   — the port's ``InferenceEngine`` serving MedT 128 at batch
    16 from a seeded random init: threaded ``submit`` at two priorities plus
    full-batch ``predict_batch`` calls; the launch counters must show every
@@ -57,6 +58,17 @@ the start of the script) as it ends:
    ``train`` phase holds MedT 128.
 11. ``logo512`` — one batch-1 eval forward of logo_512 (positions in both
    branches) on the kernels against plain cores, with its launch counts.
+12. ``train1`` — the training CLI at its default batch 1: ``cli.train``
+   in process, MedT 128 over 16 synthetic 128x128 PNG pairs with 4 for
+   validation, 2 epochs at ``--save_freq 1``, then ``--resume`` for a third
+   epoch under ``--profile_dir``. Every step launches 6 + 6 stripe, 16 + 16
+   lanes and 16 + 16 moments kernels, every validation forward 14 eval and
+   8 lanes kernels; one mask per validation image per epoch at its size, a
+   checkpoint per epoch, finite loss, F1 and IoU in ``train_log.jsonl`` and
+   ``.csv``, the resumed run at epoch 2 with the optimizer step restored, a
+   trace file; ms per step and images/s. Then one MedT-128 batch-1 step on
+   the kernels against plain cores and one gatedaxialunet-128 batch-1 step
+   (8 + 8 stripe launches) likewise, held as ``train`` holds its step.
 
 Then: the per-kernel JSON summary, the card's ``nvidia-smi`` line, and, as
 the last line, ``{"ok": true, "device": ...}``. Any failed phase ends the
@@ -106,6 +118,8 @@ SOURCES = {
     "axial_eval_fwd": "medt_tpu_torch/csrc/axial_eval_fwd.cu",
     "flash2_lanes_fwd": "medt_tpu_torch/csrc/axial_flash2_fwd.cu",
     "flash2_lanes_bwd": "medt_tpu_torch/csrc/axial_flash2_bwd.cu",
+    "stripe_attn_fwd": "medt_tpu_torch/csrc/axial_stripe_fwd.cu",
+    "stripe_attn_bwd": "medt_tpu_torch/csrc/axial_stripe_bwd.cu",
 }
 REPLACES = {
     "lanes_attn_fwd": "medt_tpu/ops/pallas_axial_lanes.py:333",
@@ -117,6 +131,8 @@ REPLACES = {
     "axial_eval_fwd": "medt_tpu/ops/pallas_axial.py:165",
     "flash2_lanes_fwd": "medt_tpu/ops/pallas_axial_lanes.py:1152",
     "flash2_lanes_bwd": "medt_tpu/ops/pallas_axial_lanes.py:1239",
+    "stripe_attn_fwd": "medt_tpu/ops/pallas_axial_train.py:265",
+    "stripe_attn_bwd": "medt_tpu/ops/pallas_axial_train.py:306",
 }
 # The attention sites of MedT 128 at batch 16, g = 8 everywhere:
 # (span, gp, stripes, has_pos, sites). Global branch (gated, positions):
@@ -161,6 +177,30 @@ M512_STEP = {**M512_FORWARD, "flash2_lanes_bwd": 6, "flash_lanes_bwd": 8,
              "moment_sums_bwd": 22}
 
 
+# The stripe kernels' geometries, g = 8: (span, gp, stripes, sites per
+# MedT-128 batch-1 train step). The first three are MedT-128's global branch
+# at batch 1; then gatedaxialunet-128's fourth at batch 1, the batch-2 sites
+# of MedT and gatedaxialunet at 128 px, gatedaxialunet-64's at batch 1, and
+# span 64 at gp 8 off every path. Each with and without positions (the
+# global branch has positions; only those count on the path).
+STRIPE_SITES = [
+    (64, 2, 64, 2), (64, 4, 64, 2), (32, 4, 32, 2), (32, 8, 32, 0),
+    (32, 4, 64, 0), (32, 8, 64, 0), (32, 2, 32, 0), (64, 8, 64, 0),
+]
+# launches per MedT-128 batch-1 train step: the 6 global sites on the stripe
+# kernels, the 16 local sites on the lanes kernel and the moments kernel
+# (the stripe sites take their moments from einsums); per validation
+# forward (batch 1, eval): BATCH1_LAUNCHES
+MEDT_B1_STEP = {"stripe_attn_fwd": 6, "stripe_attn_bwd": 6,
+                "lanes_attn_fwd": 16, "lanes_attn_bwd": 16,
+                "moment_sums_fwd": 16, "moment_sums_bwd": 16}
+# gatedaxialunet-128 at batch 1: 8 stripe sites, 8 lanes sites (span 16
+# with 16 stripes)
+UNET_B1_STEP = {"stripe_attn_fwd": 8, "stripe_attn_bwd": 8,
+                "lanes_attn_fwd": 8, "lanes_attn_bwd": 8,
+                "moment_sums_fwd": 8, "moment_sums_bwd": 8}
+
+
 def _family(span: int) -> str:
     return "lanes" if span <= 16 else "flash" if span <= 64 else "flash2"
 
@@ -169,7 +209,7 @@ def _geometries():
     """(kernel, span, gp, stripes, has_pos, launches per forward or per
     train step, path): launches 0 marks a row off the path; path "medt128"
     (MedT 128 at batch 16, or batch 1 for the eval kernel) or "medt512"
-    (medt_512 at batch 4)."""
+    (medt_512 at batch 4) or "medt128b1" (MedT 128 trained at batch 1)."""
     rows = []
     for fwd, bwd, family in (("flash_lanes_fwd", "flash_lanes_bwd", "flash"),
                              ("lanes_attn_fwd", "lanes_attn_bwd", "lanes")):
@@ -191,6 +231,9 @@ def _geometries():
                  for v in FLASH2_OTHER]
     for kernel in ("moment_sums_fwd", "moment_sums_bwd"):
         rows += [(kernel, *site, "medt512") for site in SITES_512]
+    for kernel in ("stripe_attn_fwd", "stripe_attn_bwd"):
+        rows += [(kernel, L, gp, S, pos, n if pos else 0, "medt128b1")
+                 for L, gp, S, n in STRIPE_SITES for pos in (True, False)]
     return rows
 
 
@@ -317,7 +360,9 @@ def work(kernel, gp, L, S, has_pos):
     forward: qk 2c + affine 2 [+ qr 2c + kr 2c + affines 4 + adds 2], max,
     exp, sum 3, sv 2gp [+ sve 2gp]; per output element 1 divide; online
     rescaling not counted. The eval kernel: the same pairs, and per output
-    element its 1/l scaling and output affine. Backward: the forward's logits and exp again
+    element its 1/l scaling and output affine. The stripe kernels count as
+    the lanes ones (the same work; q, k, v are the qkv's rows, stripe-major).
+    Backward: the forward's logits and exp again
     (the softmax is recomputed or rebuilt from m, l), dsim 2gp [+ 2gp],
     dlog 2, dv 2gp, dq 2c [+ 2c], dk 2c [+ 2c], daff sums 3 [+ 4], table
     gradients [2c + 2c + 2gp]. Moments per (group, position, stripe):
@@ -338,16 +383,19 @@ def work(kernel, gp, L, S, has_pos):
         nbytes = 4 * (qkv + tables + g * 8 + g * 4 * gp + sv)
         ops = pairs * (logit_ops + 3 + 2 * gp * (2 if has_pos else 1)) \
             + sv * (7 if has_pos else 4)
-    elif kernel in ("lanes_attn_fwd", "flash_lanes_fwd", "flash2_lanes_fwd"):
+    elif kernel in ("lanes_attn_fwd", "flash_lanes_fwd", "flash2_lanes_fwd",
+                    "stripe_attn_fwd"):
         outputs = sv * (2 if has_pos else 1)
-        if kernel != "lanes_attn_fwd":
+        if kernel not in ("lanes_attn_fwd", "stripe_attn_fwd"):
             outputs += 2 * row
         nbytes = 4 * (qkv + tables + g * 8 + outputs)
         ops = pairs * (logit_ops + 3 + 2 * gp * (2 if has_pos else 1)) \
             + sv * (2 if has_pos else 1)
-    elif kernel in ("lanes_attn_bwd", "flash_lanes_bwd", "flash2_lanes_bwd"):
+    elif kernel in ("lanes_attn_bwd", "flash_lanes_bwd", "flash2_lanes_bwd",
+                    "stripe_attn_bwd"):
         grads_in = sv * (2 if has_pos else 1)
-        saved = 2 * row + grads_in if kernel != "lanes_attn_bwd" else 0
+        saved = 2 * row + grads_in if kernel not in (
+            "lanes_attn_bwd", "stripe_attn_bwd") else 0
         nbytes = 4 * (qkv + tables + g * 8 + grads_in + saved       # in
                       + qkv + tables + g * 8)                        # out
         per_pair = logit_ops + 2 + 2 * gp + 2 + 2 * gp + 4 * c + 3
@@ -402,12 +450,36 @@ def eval_inputs(torch, gen, gp, L, S, has_pos):
             aff, out_aff)
 
 
+def stripe_inputs(torch, gen, gp, L, S, has_pos):
+    """The stripe kernels' operands at a site: q, k, v as views of one
+    stripe-major (S, g, 2gp, L) qkv (as the attention passes them), the
+    tables (kemb in [c, j, i]; zero-size without positions) and the
+    affine."""
+    qkv, qemb, kemb_t, vemb, aff = core_inputs(torch, gen, gp, L, S, has_pos)
+    c = gp // 2
+    st = qkv.permute(3, 0, 1, 2).contiguous()
+    kemb = kemb_t.transpose(1, 2).contiguous() if has_pos else kemb_t
+    return (st[:, :, :c], st[:, :, c:gp], st[:, :, gp:], qemb, kemb, vemb,
+            aff)
+
+
 def kernel_calls(torch, gen, kernel, gp, L, S, has_pos):
     """(kernel call, plain call, per-output relative tolerance?) with the
     inputs of one geometry bound."""
-    from medt_tpu_torch.ops import axial_eval, axial_lanes, moments
+    from medt_tpu_torch.ops import (axial_eval, axial_lanes, axial_train,
+                                    moments)
 
     g = GROUPS
+    if kernel.startswith("stripe"):
+        ins = stripe_inputs(torch, gen, gp, L, S, has_pos)
+        if kernel == "stripe_attn_fwd":
+            return (lambda: axial_train.stripe_attn_fwd(*ins),
+                    lambda: axial_train.attn_core_plain(*ins,
+                                                        has_pos=has_pos))
+        dsv = torch.randn((S, g, gp, L), generator=gen, device="cuda")
+        dsve = torch.randn((S, g, gp, L), generator=gen, device="cuda")
+        return (lambda: axial_train.stripe_attn_bwd(*ins, dsv, dsve),
+                lambda: axial_train.fused_attn_bwd_plain(*ins, dsv, dsve))
     if kernel == "axial_eval_fwd":
         ins = eval_inputs(torch, gen, gp, L, S, has_pos)
         return (lambda: (axial_eval.axial_eval_fwd(*ins),),
@@ -1119,18 +1191,135 @@ def phase_logo512(torch):
     return counts
 
 
+# ---- 12. the training CLI at batch 1 ------------------------------------------
+
+TRAIN1_IMAGES, TRAIN1_VAL = 16, 4
+
+
+def phase_train1(torch):
+    """``cli.train`` at its default batch 1 (MedT 128): 2 epochs at
+    ``--save_freq 1``, then ``--resume`` for a third under
+    ``--profile_dir``; exact launch counts; the files it writes; then
+    batch-1 train steps of MedT 128 and gatedaxialunet 128 on the kernels
+    against plain cores."""
+    import shutil
+
+    import numpy as np
+
+    from medt_tpu_torch import ops
+    from medt_tpu_torch.cli import train as cli_train
+    from medt_tpu_torch.data import blob_batch, make_png_dataset, read_png
+    from medt_tpu_torch.models import build_model
+
+    root = REPO / "_smoke"
+    shutil.rmtree(root, ignore_errors=True)
+    train_dir = make_png_dataset(str(root / "train"), TRAIN1_IMAGES, IMG,
+                                 seed=0)
+    val_dir = make_png_dataset(str(root / "val"), TRAIN1_VAL, IMG, seed=1)
+    out, prof = root / "out", root / "prof"
+    argv = ["--train_dataset", train_dir, "--val_dataset", val_dir,
+            "--modelname", "MedT", "--imgsize", str(IMG), "--save_freq",
+            "1", "--direc", str(out), "--workers", "2"]
+
+    # -- the main path, counted: two epochs, then a resumed third -------------
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    state = cli_train.main(argv + ["--epochs", "2"])
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    steps = state.step
+    ops.reset_launch_counts()
+    resumed = cli_train.main(argv + ["--epochs", "3", "--resume",
+                                     "--profile_dir", str(prof)])
+    torch.cuda.synchronize()
+    resumed_counts = ops.launch_counts()
+    # -- end of the counted run ----------------------------------------------
+    del state
+
+    def expected(counts, steps, forwards):
+        expect = launches_of(counts, MEDT_B1_STEP, steps)
+        for k, v in BATCH1_LAUNCHES.items():
+            expect[k] += v * forwards
+        return expect
+
+    check(steps == 2 * TRAIN1_IMAGES, f"{steps} steps in two epochs")
+    check(counts == expected(counts, steps, 2 * TRAIN1_VAL),
+          f"launch counts {counts} for {steps} steps")
+    check(resumed.step == 3 * TRAIN1_IMAGES,
+          f"the resumed run ended at step {resumed.step}")
+    check(resumed_counts == expected(resumed_counts, TRAIN1_IMAGES,
+                                     TRAIN1_VAL),
+          f"resumed launch counts {resumed_counts}")
+    for epoch in range(3):
+        masks = sorted((out / str(epoch)).glob("*.png"))
+        check(len(masks) == TRAIN1_VAL and all(
+            read_png(str(m), gray=True).shape == (IMG, IMG) for m in masks),
+            f"epoch {epoch}: masks {[m.name for m in masks]}")
+        check((out / str(epoch) / "ckpt.pth").is_file(),
+              f"no checkpoint for epoch {epoch}")
+    check((out / "final_model" / "ckpt.pth").is_file(), "no final_model")
+    log = [json.loads(line) for line in
+           (out / "train_log.jsonl").read_text().splitlines()]
+    check([e["epoch"] for e in log] == [0, 1, 2],
+          f"train_log.jsonl epochs {[e['epoch'] for e in log]}")
+    check(all(np.isfinite([e["loss"], e["val_f1"], e["val_iou"]]).all()
+              for e in log), f"non-finite scores: {log}")
+    csv_rows = (out / "train_log.csv").read_text().splitlines()
+    row = dict(zip(csv_rows[0].split(","), csv_rows[-1].split(",")))
+    check(len(csv_rows) == 2 and row["epoch"] == "2" and all(
+        np.isfinite(float(row[k])) for k in ("loss", "val_f1", "val_iou")),
+        f"train_log.csv of the resumed run: {csv_rows}")
+    traces = list(prof.glob("*.json"))
+    check(len(traces) == 1 and traces[0].stat().st_size > 0,
+          f"profile_dir holds {traces}")
+
+    # -- batch-1 steps on the kernels vs plain cores --------------------------
+    parity = {}
+    one_image, one_mask = blob_batch(1, IMG, seed=1)
+    for name, per_step in (("MedT", MEDT_B1_STEP),
+                           ("gatedaxialunet", UNET_B1_STEP)):
+        variables = build_model(name, img_size=IMG, seed=0,
+                                device="cpu").state_dict()
+        ops.reset_launch_counts()
+        loss_k, loss_p, checks = step_parity(torch, name, IMG, one_image,
+                                             one_mask, variables)
+        step_counts = ops.launch_counts()   # the plain steps launch nothing
+        bad = [c for c in checks if not c["ok"]]
+        parity[name] = {
+            "loss_kernels": loss_k, "loss_plain": loss_p,
+            "tensors": len(checks), "failed": len(bad),
+            "worst": max(checks, key=lambda c: c["err"] / c["tol"]),
+            "launches": step_counts}
+        check(not bad, f"{name} batch-1 step on kernels vs plain cores: "
+                       f"{bad[:5]}")
+        check(step_counts == launches_of(step_counts, per_step, 1),
+              f"{name} batch-1 step launches {step_counts}")
+    rates = [e["imgs_per_sec"] for e in log]
+    emit("train1", model="MedT", img=IMG, batch=1, images=TRAIN1_IMAGES,
+         val_images=TRAIN1_VAL, steps_counted=steps, launches=counts,
+         resumed_launches=resumed_counts, wall_s_two_epochs=wall_s,
+         imgs_per_sec_by_epoch=rates, ms_per_step=1e3 / rates[1],
+         images_per_s=rates[1], log=log,
+         trace_bytes=traces[0].stat().st_size, parity=parity)
+    shutil.rmtree(root, ignore_errors=True)
+    return counts
+
+
 def summary(rows, counts):
     """One entry per kernel; times per call of its main path: one MedT-128
     batch-16 forward (serving) for the lanes and flash forward cores, one
     MedT-128 train step for their backward and the moments kernels, one
     batch-1 forward (``cli.test``) for the eval kernel, one medt_512
-    batch-4 forward (``serve512``) for the flash2 forward and one medt_512
-    train step for its backward. ``counts`` holds each phase's launch
-    counts by phase name."""
+    batch-4 forward (``serve512``) for the flash2 forward, one medt_512
+    train step for its backward and one MedT-128 batch-1 train step
+    (``train1``) for the stripe kernels. ``counts`` holds each phase's
+    launch counts by phase name."""
     kernels = []
     for name in KERNELS:
         flash2 = name.startswith("flash2")
-        path = "medt512" if flash2 else "medt128"
+        stripe = name.startswith("stripe")
+        path = "medt512" if flash2 else "medt128b1" if stripe else "medt128"
         mine = [r for r in rows if r["kernel"] == name and r["path"] == path]
         used = [r for r in mine if r["launches_per_call"]]
         n = [r["launches_per_call"] for r in used]
@@ -1139,6 +1328,8 @@ def summary(rows, counts):
         forward = name.endswith("fwd") and not name.startswith("moment")
         if name == "axial_eval_fwd":
             phase = "predict"
+        elif stripe:
+            phase = "train1"
         elif flash2:
             phase = "serve512" if forward else "train512"
         else:
@@ -1181,7 +1372,8 @@ def main() -> int:
                           ("serve512", phase_serve512),
                           ("predict512", phase_predict512),
                           ("train512", phase_train512),
-                          ("logo512", phase_logo512)):
+                          ("logo512", phase_logo512),
+                          ("train1", phase_train1)):
             counts[phase] = fn(torch)
     except Exception as e:  # report the phase, then fail without "ok"
         emit(phase, ok=False, error=f"{type(e).__name__}: {e}")

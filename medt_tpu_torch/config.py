@@ -54,7 +54,7 @@ class Config:
     # ("argmax" = corrected decision rule)
     # performance
     use_pallas: str = "yes"          # the port's fused attention (use_fused)
-    remat: bool = False              # rematerialize fwd in bwd (bigger batches)
+    remat: bool = False              # not ported: the trainer rejects it
     dtype: str = "float32"           # float32 only in the port
     # the released reference FREEZES its attention gates (axialnet.py:124-127);
     # "yes" trains them instead — the paper's described setting
@@ -128,5 +128,7 @@ def parse_config(argv=None, description: str = "medt_tpu_torch") -> Config:
                      "port's CLIs run on the card (in-process callers pass "
                      "main(argv, device='cpu'))")
     if cfg.dtype != "float32":
-        parser.error(f"--dtype {cfg.dtype}: the port computes in float32")
+        parser.error(f"--dtype {cfg.dtype}: the port computes in float32 "
+                     "(bf16 is not ported yet: ROADMAP.md, 'bf16 "
+                     "activations, and remat')")
     return cfg

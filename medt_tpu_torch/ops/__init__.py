@@ -1,5 +1,5 @@
 """The port's op library: norms, pooling, convs, attention and its kernels."""
-from . import axial_eval, axial_lanes, moments
+from . import axial_eval, axial_lanes, axial_train, moments
 from .attn_core import relative_logit_index
 from .axial_attention import (
     MODE_FULL,
@@ -19,12 +19,13 @@ def reset_launch_counts():
     axial_lanes.reset_launch_counts()
     moments.reset_launch_counts()
     axial_eval.reset_launch_counts()
+    axial_train.reset_launch_counts()
 
 
 def launch_counts() -> dict:
     """Launches of every kernel wrapper since the last reset, by name."""
     return {**axial_lanes.launch_counts(), **moments.launch_counts(),
-            **axial_eval.launch_counts()}
+            **axial_eval.launch_counts(), **axial_train.launch_counts()}
 
 
 __all__ = [

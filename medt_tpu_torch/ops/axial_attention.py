@@ -27,13 +27,21 @@ Two paths, as in JAX:
   is applied per half (``_bn_apply_split`` in JAX). Autograd assembles the
   BN-coupled backward around the cores: dqkv gets one term from the core
   and one from the moments.
+* the **stripe route** of the fused path: in train mode, at spans 32..64
+  with fewer than 128 stripes (the global branch of a train step at batch
+  1 and 2), the site runs the stripe-major train core (:mod:`.axial_train`,
+  ``fused_attn_core`` in JAX) on a stripe-major q/k/v split, with the
+  similarity-BN moments from the stripe-major einsums of :mod:`.moments`
+  (as JAX computes them there, with XLA and not with the moments kernel);
+  the output BN is applied per half in the stripe-major layout.
 * the **eval route** of the fused path: in eval mode, at spans <= 64 with
   fewer than 128 stripes (batch-1 evaluation), the site runs the fused eval
   kernel (:mod:`.axial_eval`, ``fused_eval_attention`` in JAX) on a
   stripe-major qkv, with both BNs and the gates folded into it, as JAX
   routes such sites to its eval kernel where the lanes family refuses them.
-  The TPU admission checks (VMEM budgets, flash's ``gp * span <= 256``) are
-  not ported; :func:`fused_route` is the whole rule.
+  The TPU admission checks (VMEM budgets, flash's ``gp * span <= 256``,
+  ``fused_train_supported``) are not ported; :func:`fused_route` is the
+  whole rule.
 * the **plain path** (``_jnp_attention`` in JAX), for the other modes and
   whenever ``use_fused`` is off, in both modes.
 
@@ -62,8 +70,14 @@ from .axial_lanes import (
     flash_lanes_core,
     lanes_attn_core,
 )
+from .axial_train import STRIPE_MAX_SPAN, fused_attn_core
 from .initializers import normal_by_fan, uniform_by_fan
-from .moments import logit_moments_lanes_fused, qk_moments_lanes_fused
+from .moments import (
+    logit_moments,
+    logit_moments_lanes_fused,
+    qk_moments,
+    qk_moments_lanes_fused,
+)
 from .norms import (
     BatchNorm,
     batch_norm_eval,
@@ -80,23 +94,30 @@ MODE_GATED_DATA = "gated_data"
 
 _MODES = (MODE_FULL, MODE_GATED, MODE_WOPOS, MODE_GATED_SIG, MODE_GATED_DATA)
 _FUSED_MODES = (MODE_FULL, MODE_GATED, MODE_WOPOS)
-_GATE_NAMES = ("f_qr", "f_kr", "f_sve", "f_sv")
+GATE_NAMES = ("f_qr", "f_kr", "f_sve", "f_sv")
 
 SPAN_TODO = ("fused attention at span {span} > 256 has no kernel (flash2 "
              "takes spans up to 256); build the model with use_fused=False "
              "for the plain path")
 
 
-# an eval site with fewer stripes than the lanes family's blocks hold takes
-# the eval kernel (JAX: lanes_supported and flash_supported need S >= 128)
+# a site with fewer stripes than the lanes family's blocks hold takes the
+# eval kernel in eval mode and, at spans 32..64, the stripe kernel in train
+# mode (JAX: lanes_supported and flash_supported need S >= 128; its stripe
+# kernel takes spans >= FUSED_TRAIN_MIN_SPAN = 32)
 LANES_MIN_STRIPES = 128
+STRIPE_MIN_SPAN = 32
+
 
 def fused_route(span: int, stripes: int, training: bool) -> str:
-    """The core a fused-path site runs: "eval", "lanes", "flash" or
-    "flash2" (spans 65..256, in both modes at any stripe count); longer
+    """The core a fused-path site runs: "eval", "stripe", "lanes", "flash"
+    or "flash2" (spans 65..256, in both modes at any stripe count); longer
     spans raise."""
-    if not training and span <= EVAL_MAX_SPAN and stripes < LANES_MIN_STRIPES:
+    few = stripes < LANES_MIN_STRIPES
+    if not training and span <= EVAL_MAX_SPAN and few:
         return "eval"
+    if training and STRIPE_MIN_SPAN <= span <= STRIPE_MAX_SPAN and few:
+        return "stripe"
     if span <= LANES_MAX_SPAN:
         return "lanes"
     if span <= FLASH_MAX_SPAN:
@@ -173,7 +194,7 @@ class AxialAttention(nn.Module):
                                     dtype=torch.int64, device=device)
             self.register_buffer("flatten_index", index)
         if mode in (MODE_GATED, MODE_GATED_SIG):
-            for name, value in zip(_GATE_NAMES, gate_init):
+            for name, value in zip(GATE_NAMES, gate_init):
                 setattr(self, name, nn.Parameter(
                     torch.tensor(float(value), device=device),
                     requires_grad=trainable_gates))
@@ -197,7 +218,7 @@ class AxialAttention(nn.Module):
             gates = torch.sigmoid(self.gate_fc2(h))          # (n, 4)
             return tuple(gates[:, i].reshape(-1, 1, 1, 1, 1)
                          for i in range(4))
-        gates = tuple(getattr(self, name) for name in _GATE_NAMES)
+        gates = tuple(getattr(self, name) for name in GATE_NAMES)
         if self.mode == MODE_GATED_SIG:
             gates = tuple(torch.sigmoid(v) for v in gates)
         return gates
@@ -207,6 +228,18 @@ class AxialAttention(nn.Module):
         c, gp, L = self.gp // 2, self.gp, self.span
         all_emb = self.relative[:, self.flatten_index].reshape(2 * gp, L, L)
         return all_emb[:c], all_emb[c:gp], all_emb[gp:]
+
+    def _folded_tables(self):
+        """The fused paths' tables with the gates folded in, and the sv
+        gate (None for the full mode). The gates precede each BN in the
+        reference, so folding them into the tables keeps the affine and the
+        moments exact."""
+        q_emb, k_emb, v_emb = self._tables()
+        gates = self._gates(None)
+        if gates is None:
+            return q_emb, k_emb, v_emb, None
+        f_qr, f_kr, f_sve, f_sv = gates
+        return q_emb * f_qr, k_emb * f_kr, v_emb * f_sve, f_sv
 
     def _output_bn_split(self, sv, sve, feature_axes):
         """BN over stack([sv, sve], -1) with (..., 2)-minor parameters,
@@ -248,6 +281,8 @@ class AxialAttention(nn.Module):
                                self.mode != MODE_WOPOS)
             if route == "eval":
                 out = self._eval_attention(qkv)
+            elif route == "stripe":
+                out = self._stripe_attention(qkv)
             else:
                 out = self._fused_attention(qkv)
         else:
@@ -259,20 +294,17 @@ class AxialAttention(nn.Module):
             out = avg_pool(out, self.stride)
         return out
 
-    def _sim_affine(self, qkv_l4, q_emb=None, k_emb=None):
+    def _sim_affine(self, moments):
         """The similarity BN as the ``(g, 8)`` affine: running statistics in
-        eval; in train mode the batch moments of the logits (the running
-        statistics then take the unbiased variance)."""
-        g, plain = self.groups, self.plain_cores
+        eval; in train mode the batch moments of the logits, ``moments()``
+        -> (mean, biased var, count) (the running statistics then take the
+        unbiased variance)."""
+        g = self.groups
         bn = self.bn_similarity
         if not self.training:
             a, b = bn.affine()
         else:
-            if self.mode == MODE_WOPOS:
-                mean, var, count = qk_moments_lanes_fused(qkv_l4, plain)
-            else:
-                mean, var, count = logit_moments_lanes_fused(
-                    qkv_l4, q_emb, k_emb, plain)
+            mean, var, count = moments()
             shape = mean.shape
             a, b = fold_train_affine(bn.weight.view(shape),
                                      bn.bias.view(shape), mean, var, bn.eps)
@@ -290,29 +322,53 @@ class AxialAttention(nn.Module):
         S = n * m
         qkv_l4 = qkv.permute(1, 2, 0, 3).reshape(g, 2 * gp, L, S) \
             .float().contiguous()
+        plain = self.plain_cores
         if self.mode == MODE_WOPOS:
-            aff = self._sim_affine(qkv_l4)
+            aff = self._sim_affine(lambda: qk_moments_lanes_fused(qkv_l4,
+                                                                  plain))
             empty = qkv_l4.new_zeros((0, L, L))
             sv, _ = lanes_family_core(qkv_l4, empty, empty, empty, aff,
-                                      plain=self.plain_cores)
+                                      plain=plain)
             y = self.bn_output(sv, feature_axes=(0, 1))
         else:
-            q_emb, k_emb, v_emb = self._tables()
-            gates = self._gates(None)
-            if gates is not None:
-                f_qr, f_kr, f_sve, f_sv = gates
-                # the gates precede each BN in the reference, so folding
-                # them into the tables keeps the affine (and the moments)
-                # exact
-                q_emb, k_emb, v_emb = q_emb * f_qr, k_emb * f_kr, v_emb * f_sve
-            aff = self._sim_affine(qkv_l4, q_emb, k_emb)
+            q_emb, k_emb, v_emb, f_sv = self._folded_tables()
+            aff = self._sim_affine(lambda: logit_moments_lanes_fused(
+                qkv_l4, q_emb, k_emb, plain))
             sv, sve = lanes_family_core(
                 qkv_l4, q_emb.contiguous(), k_emb.transpose(1, 2).contiguous(),
-                v_emb.contiguous(), aff, plain=self.plain_cores)
-            if gates is not None:
+                v_emb.contiguous(), aff, plain=plain)
+            if f_sv is not None:
                 sv = sv * f_sv
             y = self._output_bn_split(sv, sve, (0, 1))
         out = y.reshape(self.out_planes, L, n, m).permute(2, 0, 1, 3)
+        return out.to(qkv.dtype)
+
+    def _stripe_attention(self, qkv: torch.Tensor) -> torch.Tensor:
+        """Stripe route (train mode; JAX's non-lanes branch of
+        ``_fused_train_attention``): q, k and v as views of one stripe-major
+        copy of qkv, the moments from the stripe-major einsums, the stripe
+        core, then the output BN per half on ``(S, g, gp, L)``."""
+        n, _, L, m = qkv.shape
+        g, gp, c = self.groups, self.gp, self.gp // 2
+        stripes = qkv.permute(0, 3, 1, 2).float().contiguous() \
+            .view(n * m, g, 2 * gp, L)
+        q, k, v = stripes[:, :, :c], stripes[:, :, c:gp], stripes[:, :, gp:]
+        if self.mode == MODE_WOPOS:
+            aff = self._sim_affine(lambda: qk_moments(q, k))
+            empty = q.new_zeros((0, L, L))
+            sv, _ = fused_attn_core(q, k, v, empty, empty, empty, aff,
+                                    plain=self.plain_cores)
+            y = self.bn_output(sv, feature_axes=(1, 2))
+        else:
+            q_emb, k_emb, v_emb, f_sv = self._folded_tables()
+            aff = self._sim_affine(lambda: logit_moments(q, k, q_emb, k_emb))
+            sv, sve = fused_attn_core(q, k, v, q_emb.contiguous(),
+                                      k_emb.contiguous(), v_emb.contiguous(),
+                                      aff, plain=self.plain_cores)
+            if f_sv is not None:
+                sv = sv * f_sv
+            y = self._output_bn_split(sv, sve, (1, 2))
+        out = y.reshape(n, m, self.out_planes, L).permute(0, 2, 3, 1)
         return out.to(qkv.dtype)
 
     def _eval_attention(self, qkv: torch.Tensor) -> torch.Tensor:

@@ -36,7 +36,8 @@ from typing import Optional, Sequence
 import torch
 
 from ..kernels.build import library
-from ..kernels.launch import check_tensor, ptr, raise_on, stream
+from ..kernels.launch import (check_rows, check_tensor, ptr, raise_on,
+                              stream, strides)
 from .attn_core import (attend, attn_logits, fold_train_affine,
                         pack_sim_affine, relative_logit_index)
 
@@ -60,22 +61,6 @@ def axial_attention_fused_plain(q, k, v, q_emb, k_emb, v_emb, sim_affine,
                                                + oa[:, :, 3])
 
 
-def _check_rows(name: str, tname: str, t: torch.Tensor, shape, device):
-    """Stripe-major operand: shape, float32, on ``device``, rows of L
-    contiguous floats (the stripe and group strides are free)."""
-    if t.device != device or t.device.type != "cuda":
-        raise ValueError(f"{name}: {tname} must lie on q's CUDA device, got "
-                         f"{t.device}")
-    if t.dtype != torch.float32:
-        raise TypeError(f"{name}: {tname} must be float32, got {t.dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name}: {tname} shape {tuple(t.shape)} != "
-                         f"{tuple(shape)}")
-    if t.stride(3) != 1 or t.stride(2) != shape[3]:
-        raise ValueError(f"{name}: {tname} rows must be contiguous, got "
-                         f"strides {t.stride()}")
-
-
 def axial_eval_fwd(q, k, v, q_emb, k_emb, v_emb, sim_affine, out_affine):
     """Launch the eval kernel on CUDA tensors: ``(S, g, gp, L)``."""
     name = "axial_eval_fwd"
@@ -91,7 +76,7 @@ def axial_eval_fwd(q, k, v, q_emb, k_emb, v_emb, sim_affine, out_affine):
     dev = q.device
     for tname, t, shape in (("q", q, (S, g, c, L)), ("k", k, (S, g, c, L)),
                             ("v", v, (S, g, gp, L))):
-        _check_rows(name, tname, t, shape, dev)
+        check_rows(name, tname, t, shape, dev)
     has_pos = _has_pos(q_emb)
     tables = {"q_emb": (q_emb, (c, L, L)), "k_emb": (k_emb, (c, L, L)),
               "v_emb": (v_emb, (gp, L, L))}
@@ -105,9 +90,8 @@ def axial_eval_fwd(q, k, v, q_emb, k_emb, v_emb, sim_affine, out_affine):
     out = torch.empty((S, g, gp, L), dtype=torch.float32, device=dev)
     err = library().medt_axial_eval_fwd(
         ptr(q), ptr(k), ptr(v), ptr(q_emb), ptr(k_emb), ptr(v_emb),
-        ptr(sim_affine), ptr(out_affine), ptr(out),
-        q.stride(0), q.stride(1), k.stride(0), k.stride(1), v.stride(0),
-        v.stride(1), S, g, gp, L, int(has_pos), stream(dev))
+        ptr(sim_affine), ptr(out_affine), ptr(out), *strides(q, k, v),
+        S, g, gp, L, int(has_pos), stream(dev))
     raise_on(err, name)
     axial_eval_fwd.launches += 1
     return out

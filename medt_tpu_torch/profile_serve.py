@@ -27,8 +27,9 @@ def _device_us(evt) -> float:
     return 0.0
 
 
-# the port's attention kernels, by kernel name
-PORT_KERNELS = ("axial_lanes_fwd_kernel", "axial_eval_fwd_kernel",
+# the port's attention kernels, by kernel name (the eval kernel is
+# csrc/stripe_softmax.cuh's kernel, named by its epilogue)
+PORT_KERNELS = ("axial_lanes_fwd_kernel", "EvalFwdEpilogue",
                 "flash2_fwd_kernel")
 
 

@@ -1,6 +1,10 @@
 """Training of the port: optimizers, schedules, the train step,
 checkpoints."""
-from .checkpointing import restore_checkpoint, save_checkpoint
+from .checkpointing import (
+    latest_checkpoint,
+    restore_checkpoint,
+    save_checkpoint,
+)
 from .optimizers import OPTIMIZER_REGISTRY, adam_l2, build_optimizer, sgd
 from .schedules import (
     SCHEDULE_REGISTRY,
@@ -18,6 +22,7 @@ __all__ = [
     "build_optimizer",
     "constant",
     "eval_step",
+    "latest_checkpoint",
     "normalize",
     "restore_checkpoint",
     "save_checkpoint",

@@ -6,6 +6,8 @@ Port of ``medt_tpu/training/checkpointing.py`` (Orbax in JAX):
   ``<direc>/final_model/ckpt.pth`` (reference train.py:216-217), holding the
   model's reference-format state dict, the optimizer state (when given) and
   the step;
+* ``latest_checkpoint`` finds the newest numeric epoch directory under
+  ``<direc>`` (or ``final_model`` when there is none), for resuming;
 * ``restore_checkpoint`` reads such a file, or a reference ``.pth`` file (a
   bare state dict, ``torch.save(model.state_dict())``): DataParallel's
   ``module.`` prefix is stripped (reference lib/utils.py:163-167; JAX
@@ -86,3 +88,18 @@ def restore_checkpoint(path: str, model: nn.Module,
         state_dict, step = payload, 0
     model.load_state_dict(_reference_state_dict(state_dict), strict=True)
     return int(step)
+
+
+def latest_checkpoint(direc: str) -> Optional[str]:
+    """The newest numeric epoch checkpoint directory under ``direc``, else
+    its ``final_model``, else None (JAX ``latest_checkpoint``; the
+    reference's resume_model, lib/utils.py:133-141)."""
+    if not os.path.isdir(direc):
+        return None
+    epochs = [d for d in os.listdir(direc) if d.isdigit()
+              and os.path.isfile(os.path.join(direc, d, CKPT_FILE))]
+    if not epochs:
+        final = os.path.join(direc, FINAL_NAME)
+        return final if os.path.isfile(os.path.join(final, CKPT_FILE)) \
+            else None
+    return os.path.join(direc, max(epochs, key=int))

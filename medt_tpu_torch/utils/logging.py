@@ -2,9 +2,9 @@
 
 Port of ``medt_tpu/utils/logging.py``: ``chk_mkdir``, ``Logger``
 (dict-of-lists with CSV export, reference utils.py:245-261, plus JSONL
-streaming) and ``ThroughputMeter`` (the reference's per-batch timer is
-commented out, reference train.py:183-186). The JAX package's
-``profiler_trace`` comes with the port's trainer.
+streaming), ``ThroughputMeter`` (the reference's per-batch timer is
+commented out, reference train.py:183-186) and ``profiler_trace`` (a
+``torch.profiler`` trace where JAX takes a ``jax.profiler`` one).
 """
 from __future__ import annotations
 
@@ -13,6 +13,7 @@ import json
 import os
 import time
 from collections import defaultdict
+from contextlib import contextmanager
 from typing import Optional
 
 
@@ -77,3 +78,24 @@ class ThroughputMeter:
     def steps_per_sec(self) -> float:
         dt = time.perf_counter() - self._t0
         return self._steps / dt if dt > 0 else 0.0
+
+
+@contextmanager
+def profiler_trace(logdir: Optional[str]):
+    """A ``torch.profiler`` trace of the enclosed work (host, and the card
+    when there is one) written to ``<logdir>/trace-<time>-<pid>.json`` in
+    the Chrome trace format when a logdir is given; no-op otherwise."""
+    if not logdir:
+        yield
+        return
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    chk_mkdir(logdir)
+    with profile(activities=activities) as prof:
+        yield
+    prof.export_chrome_trace(os.path.join(
+        logdir, f"trace-{int(time.time())}-{os.getpid()}.json"))

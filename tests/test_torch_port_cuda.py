@@ -19,7 +19,7 @@ import pytest
 import torch
 
 from medt_tpu_torch.kernels import build as kbuild
-from medt_tpu_torch.ops import axial_eval, axial_lanes, moments
+from medt_tpu_torch.ops import axial_eval, axial_lanes, axial_train, moments
 from medt_tpu_torch.ops.attn_core import pack_sim_affine
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
@@ -108,6 +108,29 @@ def test_eval_wrapper_rejects_cpu_tensors():
     assert axial_eval.axial_eval_fwd.launches == before
 
 
+def stripe_inputs(seed, g, gp, L, S, has_pos, device="cpu"):
+    """The stripe core's operands: dense stripe-major q, k, v, the tables
+    (kemb in [c, j, i]; zero-size without positions) and the affine."""
+    qkv, qemb, kemb_t, vemb, aff = core_inputs(seed, g, gp, L, S, has_pos,
+                                               device)
+    c = gp // 2
+    st = qkv.permute(3, 0, 1, 2)
+    kemb = kemb_t.transpose(1, 2).contiguous() if has_pos else kemb_t
+    return (st[:, :, :c].contiguous(), st[:, :, c:gp].contiguous(),
+            st[:, :, gp:].contiguous(), qemb, kemb, vemb, aff)
+
+
+def test_stripe_wrappers_reject_cpu_tensors():
+    args = stripe_inputs(22, g=2, gp=4, L=32, S=8, has_pos=True)
+    d = torch.zeros((8, 2, 4, 32))
+    for fn, extra in ((axial_train.stripe_attn_fwd, ()),
+                      (axial_train.stripe_attn_bwd, (d, d))):
+        before = fn.launches
+        with pytest.raises(ValueError, match="CUDA"):
+            fn(*args, *extra)
+        assert fn.launches == before
+
+
 def test_cores_on_cpu_run_the_plain_versions():
     args = core_inputs(11, g=2, gp=4, L=8, S=64, has_pos=True)
     counts = axial_lanes.launch_counts()
@@ -119,6 +142,13 @@ def test_cores_on_cpu_run_the_plain_versions():
                          axial_lanes.flash2_lanes_plain(*args)):
         torch.testing.assert_close(got, want, atol=0, rtol=0)
     assert axial_lanes.launch_counts() == counts
+    args = stripe_inputs(11, g=2, gp=4, L=32, S=8, has_pos=True)
+    stripe_counts = axial_train.launch_counts()
+    from medt_tpu_torch.ops.attn_core import attn_core_plain
+    for got, want in zip(axial_train.fused_attn_core(*args),
+                         attn_core_plain(*args)):
+        torch.testing.assert_close(got, want, atol=0, rtol=0)
+    assert axial_train.launch_counts() == stripe_counts
 
 
 def test_build_is_atomic_and_keyed_by_source_hash(tmp_path, monkeypatch):
@@ -206,8 +236,10 @@ def test_port_imports_nothing_of_jax_at_runtime():
     code = ("import sys; before = set(sys.modules); "
             "import medt_tpu_torch.serving.engine, medt_tpu_torch.models, "
             "medt_tpu_torch.utils.weights, medt_tpu_torch.cli.test, "
-            "medt_tpu_torch.cli.predict, medt_tpu_torch.data, "
-            "medt_tpu_torch.config, medt_tpu_torch.training; "
+            "medt_tpu_torch.cli.predict, medt_tpu_torch.cli.train, "
+            "medt_tpu_torch.training.trainer, medt_tpu_torch.data, "
+            "medt_tpu_torch.config, medt_tpu_torch.training, "
+            "medt_tpu_torch.ops.axial_train, medt_tpu_torch.profile_train; "
             "print(' '.join(sorted(set(sys.modules) - before)))")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
@@ -500,3 +532,103 @@ def test_moment_kernels_match_plain_at_long_spans_on_card(cuda_device, gp, L,
                              got, again, want):
         _close(o, w, name)
         assert torch.equal(o, a), f"{name} differs between two runs"
+
+
+# ---- the stripe train core: spans 32..64, few stripes --------------------------
+
+# (span, gp, stripes, has_pos): the batch-1 and batch-2 train sites of MedT
+# and gatedaxialunet at 128 and 64 px, both variants; span 64 at gp 8 and
+# 16 off the path; a span that is not a power of two and ragged stripe
+# blocks
+STRIPE_CARD_GEOMETRIES = [
+    (64, 2, 64, True), (64, 4, 64, True), (32, 4, 32, True),
+    (32, 8, 32, True), (32, 4, 64, False), (32, 2, 32, False),
+    (64, 8, 64, True), (64, 16, 37, True), (48, 4, 70, False),
+    (40, 2, 5, True),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("L,gp,S,has_pos", STRIPE_CARD_GEOMETRIES)
+def test_stripe_kernels_match_plain_on_card(cuda_device, L, gp, S, has_pos):
+    """Forward (sv, sve at 1e-4) and backward (per tensor 1e-4 + 1e-4 *
+    max|plain|) against the plain versions, the same bits on a second run,
+    one launch counted per call."""
+    args = stripe_inputs(26, g=8, gp=gp, L=L, S=S, has_pos=has_pos,
+                         device=cuda_device)
+    fwd, bwd = axial_train.stripe_attn_fwd, axial_train.stripe_attn_bwd
+    before = (fwd.launches, bwd.launches)
+    got, again = fwd(*args), fwd(*args)
+    want = axial_train.attn_core_plain(*args, has_pos=has_pos)
+    torch.cuda.synchronize()
+    for name, o, a, w in zip(("sv", "sve"), got, again, want):
+        torch.testing.assert_close(o, w, atol=1e-4, rtol=0, msg=name)
+        assert torch.equal(o, a), f"{name} differs between two runs"
+    rng = np.random.default_rng(27)
+    dsv, dsve = (torch.from_numpy(rng.normal(size=(S, 8, gp, L))
+                                  .astype(np.float32)).to(cuda_device)
+                 for _ in range(2))
+    got = bwd(*args, dsv, dsve)
+    again = bwd(*args, dsv, dsve)
+    want = axial_train.fused_attn_bwd_plain(*args, dsv, dsve)
+    torch.cuda.synchronize()
+    assert (fwd.launches, bwd.launches) == (before[0] + 2, before[1] + 2)
+    names = ("dq", "dk", "dv", "dqemb", "dkemb", "dvemb", "daff")
+    for name, o, a, w in zip(names, got, again, want):
+        if not w.numel():
+            assert not o.numel(), name
+            continue
+        _close(o, w, name)
+        assert torch.equal(o, a), f"{name} differs between two runs"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("has_pos", [True, False])
+def test_stripe_kernels_take_views_of_one_qkv(cuda_device, has_pos):
+    """q, k, v as views of one stripe-major (S, g, 2gp, L) qkv, as the
+    stripe route passes them, give the bits of their dense copies, forward
+    and backward; rows that are not contiguous are refused."""
+    dense = stripe_inputs(30, g=8, gp=4, L=64, S=64, has_pos=has_pos,
+                          device=cuda_device)
+    qkv = torch.cat(dense[:3], dim=2)
+    views = (qkv[:, :, :2], qkv[:, :, 2:4], qkv[:, :, 4:]) + dense[3:]
+    assert not views[0].is_contiguous()
+    fwd, bwd = axial_train.stripe_attn_fwd, axial_train.stripe_attn_bwd
+    dsv = torch.randn((64, 8, 4, 64), device=cuda_device)
+    for got, want in ((fwd(*views), fwd(*dense)),
+                      (bwd(*views, dsv, dsv), bwd(*dense, dsv, dsv))):
+        torch.cuda.synchronize()
+        for o, w in zip(got, want):
+            assert torch.equal(o, w)
+    q = dense[0].transpose(2, 3).contiguous().transpose(2, 3)
+    with pytest.raises(ValueError, match="rows"):
+        fwd(q, *dense[1:])
+
+
+@pytest.mark.cuda
+def test_stripe_kernels_take_zero_tables(cuda_device):
+    """JAX's position-free call (zero tables) gives sv, dq, dk, dv of the
+    zero-size call, a zero sve and, with its zero qr and kr affines, zero
+    dqemb and dkemb."""
+    q, k, v, _, _, _, aff = stripe_inputs(28, g=8, gp=4, L=32, S=32,
+                                          has_pos=False, device=cuda_device)
+    zc = torch.zeros((2, 32, 32), device=cuda_device)
+    zv = torch.zeros((4, 32, 32), device=cuda_device)
+    empty = torch.zeros((0, 32, 32), device=cuda_device)
+    sv_z, sve_z = axial_train.stripe_attn_fwd(q, k, v, zc, zc, zv, aff)
+    sv_e, sve_e = axial_train.stripe_attn_fwd(q, k, v, empty, empty, empty,
+                                              aff)
+    dsv = torch.ones_like(sv_e)
+    gz = axial_train.stripe_attn_bwd(q, k, v, zc, zc, zv, aff, dsv, dsv)
+    ge = axial_train.stripe_attn_bwd(q, k, v, empty, empty, empty, aff, dsv,
+                                     dsv)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(sv_z, sv_e, atol=1e-6, rtol=1e-6)
+    assert not sve_z.any() and not sve_e.any()
+    for a, b in zip(gz[:3], ge[:3]):
+        torch.testing.assert_close(a, b, atol=1e-5, rtol=1e-5)
+    assert not any(t.any() for t in gz[3:5])
+    with pytest.raises(ValueError, match="span"):
+        axial_train.stripe_attn_fwd(
+            *stripe_inputs(29, g=8, gp=4, L=72, S=8, has_pos=False,
+                           device=cuda_device))

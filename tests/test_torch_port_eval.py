@@ -135,7 +135,8 @@ def test_fused_route_rule():
     assert fused_route(64, 128, training=False) == "flash"
     assert fused_route(16, 16, training=False) == "eval"
     assert fused_route(16, 256, training=False) == "lanes"
-    assert fused_route(64, 64, training=True) == "flash"
+    assert fused_route(64, 64, training=True) == "stripe"
+    assert fused_route(64, 128, training=True) == "flash"
     assert fused_route(8, 64, training=True) == "lanes"
     # spans 65..256: flash2 in both modes, at any stripe count
     for span in (65, 96, 128, 256):
