@@ -290,6 +290,22 @@ def phase_build():
          ptxas=ptxas_summary(result.log))
 
 
+def kernel_label(mangled: str) -> str:
+    """``<name><template args>`` of a mangled kernel name: the first
+    length-prefixed identifier that ends in ``_kernel`` (names may hold
+    digits, as flash2's do), else the mangled name."""
+    for i in range(len(mangled)):
+        digits = re.match(r"\d+", mangled[i:])
+        if not digits:
+            continue
+        start = i + digits.end()
+        ident = mangled[start:start + int(digits.group())]
+        if ident.endswith("_kernel") and re.fullmatch(r"[A-Za-z_]\w*", ident):
+            args = re.match(r"I\w*?EE", mangled[start + len(ident):])
+            return ident + (args.group() if args else "")
+    return mangled
+
+
 def ptxas_summary(log: str) -> dict:
     """``-Xptxas -v`` per kernel instance: {"<kernel><template args>": "..."}
     with registers, spills and shared memory."""
@@ -297,9 +313,7 @@ def ptxas_summary(log: str) -> dict:
     for line in log.splitlines():
         if "Compiling entry" in line:
             m = re.search(r"'(_Z\w+)'", line)
-            name = m.group(1) if m else line
-            k = re.search(r"(\d+)([a-z][a-z_]*?_kernel)(I\w*?EE)?", name)
-            label = (k.group(2) + (k.group(3) or "")) if k else name
+            label = kernel_label(m.group(1)) if m else line
             out[label] = ""
         elif label and ("registers" in line or "spill" in line):
             text = line.split(":", 1)[-1].strip()

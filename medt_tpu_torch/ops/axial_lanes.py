@@ -283,21 +283,47 @@ def flash2_lanes_fwd(qkv, qemb, kemb_t, vemb, sim_affine):
 flash2_lanes_fwd.launches = 0
 
 
-def _bwd_buffers(qkv, g, gp, L, S, has_pos):
-    """Outputs and scratch of a backward launch."""
-    dev = qkv.device
-    f32 = dict(dtype=torch.float32, device=dev)
-    blocks = -(-S // BLOCK_STRIPES)
-    n_tab = g * blocks if has_pos else 0
+def _bwd_alloc(qkv, g, gp, L, S, has_pos, n_tab, n_aff, scratch_rows):
+    """Outputs and scratch of a backward launch with ``n_tab`` table-partial
+    and ``n_aff`` daff-partial slots and ``scratch_rows`` (g, L, S) rows of
+    scratch: ``(buffers, n_tab, n_aff)``."""
+    f32 = dict(dtype=torch.float32, device=qkv.device)
     out = dict(
         dqkv=torch.empty((g, 2 * gp, L, S), **f32),
         dtables=torch.empty((2 * gp if has_pos else 0, L, L), **f32),
         daff=torch.empty((g, 8), **f32),
-        delta=torch.empty((g, L, S), **f32),
+        delta=torch.empty((*scratch_rows, g, L, S), **f32),
         tab_part=torch.empty((max(n_tab, 1), 2 * gp if has_pos else 1, L, L),
                              **f32),
-        aff_part=torch.empty((L * blocks, g, 4), **f32))
-    return out, n_tab, L * blocks
+        aff_part=torch.empty((n_aff, g, 4), **f32))
+    return out, n_tab, n_aff
+
+
+def _bwd_buffers(qkv, g, gp, L, S, has_pos):
+    """Outputs and scratch of a lanes or flash backward launch: a slot of
+    partials per block of BLOCK_STRIPES stripes (and per query row for
+    daff); the scratch is delta (g, L, S)."""
+    blocks = -(-S // BLOCK_STRIPES)
+    return _bwd_alloc(qkv, g, gp, L, S, has_pos,
+                      g * blocks if has_pos else 0, L * blocks, ())
+
+
+# The flash2 backward's row-pass tile (csrc/axial_flash2_bwd.cu: kRowStripes,
+# kRowQueries): stripes per block, which is also the stripes per slot of the
+# table partials, and query rows per block by gp
+FLASH2_ROW_STRIPES = 128
+FLASH2_ROW_QUERIES = {2: 8, 4: 8, 8: 4, 16: 2}
+
+
+def _flash2_bwd_buffers(qkv, g, gp, L, S, has_pos):
+    """Outputs and scratch of a flash2 backward launch, sized from its
+    row-pass tile: ``g * ceil(S/128)`` table-partial slots (none without
+    positions), ``ceil(L/rows) * ceil(S/128)`` daff-partial slots; the
+    scratch holds delta and the row normaliser (2, g, L, S)."""
+    chunks = -(-S // FLASH2_ROW_STRIPES)
+    return _bwd_alloc(qkv, g, gp, L, S, has_pos,
+                      g * chunks if has_pos else 0,
+                      -(-L // FLASH2_ROW_QUERIES[gp]) * chunks, (2,))
 
 
 def _split_tables(dtables, gp, has_pos):
@@ -332,17 +358,18 @@ def lanes_attn_bwd(qkv, qemb, kemb_t, vemb, sim_affine, dsv, dsve):
 lanes_attn_bwd.launches = 0
 
 
-def _streamed_bwd(name: str, max_span: int, qkv, qemb, kemb_t, vemb,
-                  sim_affine, m, l, sv, sve, dsv, dsve):
+def _streamed_bwd(name: str, max_span: int, buffers, qkv, qemb, kemb_t,
+                  vemb, sim_affine, m, l, sv, sve, dsv, dsve):
     """Launch the backward kernel ``medt_<name>`` from the forward's saved
-    ``(m, l, sv, sve)``: ``(dqkv, dqemb, dkemb_t, dvemb, daff)``."""
+    ``(m, l, sv, sve)``, with outputs and scratch from ``buffers``:
+    ``(dqkv, dqemb, dkemb_t, dvemb, daff)``."""
     extra = {"m": (m, "row"), "l": (l, "row"), "sv": (sv, "gp"),
              "dsv": (dsv, "gp")}
     if _has_pos(qemb):
         extra.update(sve=(sve, "gp"), dsve=(dsve, "gp"))
     g, gp, L, S, has_pos = _check(qkv, qemb, kemb_t, vemb, sim_affine,
                                   max_span, name, **extra)
-    b, n_tab, n_aff = _bwd_buffers(qkv, g, gp, L, S, has_pos)
+    b, n_tab, n_aff = buffers(qkv, g, gp, L, S, has_pos)
     err = getattr(library(), f"medt_{name}")(
         ptr(qkv), ptr(qemb), ptr(kemb_t), ptr(vemb), ptr(sim_affine),
         ptr(m), ptr(l), ptr(sv), ptr(sve if has_pos else sv), ptr(dsv),
@@ -359,8 +386,9 @@ def flash_lanes_bwd(qkv, qemb, kemb_t, vemb, sim_affine, m, l, sv, sve, dsv,
     """Launch the flash backward (spans <= 64) on CUDA tensors, from the
     forward's saved ``(m, l, sv, sve)``: ``(dqkv, dqemb, dkemb_t, dvemb,
     daff)``. ``sve``/``dsve`` are ignored without positions."""
-    out = _streamed_bwd("flash_lanes_bwd", FLASH_MAX_SPAN, qkv, qemb, kemb_t,
-                        vemb, sim_affine, m, l, sv, sve, dsv, dsve)
+    out = _streamed_bwd("flash_lanes_bwd", FLASH_MAX_SPAN, _bwd_buffers, qkv,
+                        qemb, kemb_t, vemb, sim_affine, m, l, sv, sve, dsv,
+                        dsve)
     flash_lanes_bwd.launches += 1
     return out
 
@@ -374,8 +402,9 @@ def flash2_lanes_bwd(qkv, qemb, kemb_t, vemb, sim_affine, m, l, sv, sve,
     forward's saved ``(m, l, sv, sve)``: ``(dqkv, dqemb, dkemb_t, dvemb,
     daff)``. ``sve``/``dsve`` are ignored without positions. The table
     partials it allocates are (g * ceil(S/128), 2gp, L, L) floats."""
-    out = _streamed_bwd("flash2_lanes_bwd", FLASH2_MAX_SPAN, qkv, qemb,
-                        kemb_t, vemb, sim_affine, m, l, sv, sve, dsv, dsve)
+    out = _streamed_bwd("flash2_lanes_bwd", FLASH2_MAX_SPAN,
+                        _flash2_bwd_buffers, qkv, qemb, kemb_t, vemb,
+                        sim_affine, m, l, sv, sve, dsv, dsve)
     flash2_lanes_bwd.launches += 1
     return out
 

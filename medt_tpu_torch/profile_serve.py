@@ -30,7 +30,7 @@ def _device_us(evt) -> float:
 # the port's attention kernels, by kernel name (the eval kernel is
 # csrc/stripe_softmax.cuh's kernel, named by its epilogue)
 PORT_KERNELS = ("axial_lanes_fwd_kernel", "EvalFwdEpilogue",
-                "flash2_fwd_kernel")
+                "flash2_tiled_fwd_kernel")
 
 
 def main(argv=None) -> int:

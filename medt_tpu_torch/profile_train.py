@@ -25,8 +25,8 @@ ITERS, LR = 5, 1e-3
 # the port's hand-written kernels, by the names nvcc gives them (the
 # stripe forward is csrc/stripe_softmax.cuh's kernel, named by its epilogue)
 OWN_KERNELS = ("axial_lanes_fwd_kernel", "lanes_bwd_row_kernel",
-               "lanes_bwd_col_kernel", "flash2_fwd_kernel",
-               "flash2_bwd_row_kernel", "flash2_bwd_col_kernel",
+               "lanes_bwd_col_kernel", "flash2_tiled_fwd_kernel",
+               "flash2_tiled_bwd_row_kernel", "flash2_tiled_bwd_col_kernel",
                "daff_finalize_kernel",
                "sum_partials_kernel", "moments_fwd_kernel",
                "moments_finalize_kernel", "moments_stripe_stats_kernel",

@@ -11,6 +11,7 @@ kernels give bit-identical results on every run (no atomics).
 """
 import ast
 import pathlib
+import re
 import subprocess
 import sys
 
@@ -19,6 +20,7 @@ import pytest
 import torch
 
 from medt_tpu_torch.kernels import build as kbuild
+from medt_tpu_torch.kernels.launch import BLOCK_STRIPES
 from medt_tpu_torch.ops import axial_eval, axial_lanes, axial_train, moments
 from medt_tpu_torch.ops.attn_core import pack_sim_affine
 
@@ -463,11 +465,15 @@ def test_eval_kernel_takes_zero_tables_and_dense_operands(cuda_device):
 
 # (span, gp, stripes, has_pos): the medt_512 global sites at a cut stripe
 # count, both variants, every gp, spans that are not a multiple of the key
-# block, a ragged last stripe block
+# block, a ragged last stripe block; the (256, 4) site at its full batch-4
+# width; at the path's gp, a span that is no multiple of any query or key
+# tile (100) and one that is no multiple of 4 (99: 4-byte table copies),
+# and fewer stripes than one tile, no multiple of 4 (33)
 FLASH2_CARD_GEOMETRIES = [
     (256, 2, 300, True), (256, 4, 130, True), (128, 4, 300, True),
     (96, 2, 300, False), (200, 8, 130, True), (72, 16, 130, False),
-    (256, 16, 130, True),
+    (256, 16, 130, True), (256, 4, 1024, True), (100, 4, 33, True),
+    (99, 2, 64, True),
 ]
 
 
@@ -500,6 +506,72 @@ def test_flash2_kernels_match_plain_on_card(cuda_device, L, gp, S, has_pos):
                              got, again, want):
         _close(o, w, name)
         assert torch.equal(o, a), f"{name} differs between two runs"
+
+
+def test_flash2_backward_buffers_follow_the_kernel_tiles():
+    """The flash2 backward's partials are sized from its row-pass tile
+    (csrc/axial_flash2_bwd.cu: kRowStripes stripes and kRowQueries[log2 gp]
+    query rows per block), its scratch holds delta and the row normaliser;
+    the lanes and flash backwards keep theirs (kBlockStripes, reduce.cuh).
+    The table partials stay at 134 MB at the medt_512 (256, 4) site."""
+    csrc = REPO / "medt_tpu_torch" / "csrc"
+    src = (csrc / "axial_flash2_bwd.cu").read_text()
+    stripes = int(re.search(r"constexpr int kRowStripes = (\d+);",
+                            src).group(1))
+    rows = [int(x) for x in re.search(r"kRowQueries\[5\] = \{([^}]*)\}",
+                                      src).group(1).split(",")]
+    block = int(re.search(r"kBlockStripes = (\d+);",
+                          (csrc / "reduce.cuh").read_text()).group(1))
+    assert stripes == axial_lanes.FLASH2_ROW_STRIPES
+    assert axial_lanes.FLASH2_ROW_QUERIES == {
+        gp: rows[gp.bit_length() - 1] for gp in (2, 4, 8, 16)}
+    assert block == BLOCK_STRIPES == 128
+    for g, gp, L, S, pos in [(8, 4, 256, 1024, True), (8, 2, 256, 1024, True),
+                             (8, 4, 128, 512, True), (2, 2, 99, 33, True),
+                             (3, 8, 200, 300, True), (8, 16, 72, 130, False)]:
+        qkv = torch.empty((g, 2 * gp, L, S), device="meta")
+        b, n_tab, n_aff = axial_lanes._flash2_bwd_buffers(qkv, g, gp, L, S,
+                                                          pos)
+        chunks = -(-S // stripes)
+        q_rows = rows[gp.bit_length() - 1]
+        assert (n_tab, n_aff) == (g * chunks if pos else 0,
+                                  -(-L // q_rows) * chunks)
+        assert b["tab_part"].shape == ((n_tab, 2 * gp, L, L) if pos
+                                       else (1, 1, L, L))
+        assert b["aff_part"].shape == (n_aff, g, 4)
+        assert b["delta"].shape == (2, g, L, S)
+        assert b["dqkv"].shape == (g, 2 * gp, L, S)
+        assert b["dtables"].shape == (2 * gp if pos else 0, L, L)
+        lb, l_tab, l_aff = axial_lanes._bwd_buffers(qkv, g, gp, L, S, pos)
+        blocks = -(-S // block)
+        assert (l_tab, l_aff) == (g * blocks if pos else 0, L * blocks)
+        assert lb["aff_part"].shape == (L * blocks, g, 4)
+        assert lb["delta"].shape == (g, L, S)
+        if pos:
+            assert lb["tab_part"].shape == (g * blocks, 2 * gp, L, L)
+    qkv = torch.empty((8, 8, 256, 1024), device="meta")
+    b, _, _ = axial_lanes._flash2_bwd_buffers(qkv, 8, 4, 256, 1024, True)
+    assert b["tab_part"].numel() * 4 == 134_217_728
+
+
+def test_smoke_labels_kernels_by_their_mangled_names():
+    """chip_smoke.py's ptxas summary names each kernel by the length-prefixed
+    identifier ending in ``_kernel`` (flash2's names hold a digit; nvcc's
+    anonymous-namespace prefixes hold hashes), with its template args."""
+    sys.path.insert(0, str(REPO))
+    try:
+        from chip_smoke import kernel_label
+    finally:
+        sys.path.remove(str(REPO))
+    prefix = "_ZN36_INTERNAL_5dc0_19_axial_flash2_bwd_cu_463bf0b1"
+    assert kernel_label(prefix + "27flash2_tiled_bwd_col_kernelILi16ELb0EEEvNS_"
+                        "7BwdArgsE") == "flash2_tiled_bwd_col_kernelILi16ELb0EE"
+    assert kernel_label("_ZN4medt36_INTERNAL_8a1c2d3e_18_axial_lanes_bwd_cu_"
+                        "5d7a2c1e19sum_partials_kernelEPKfPfim") \
+        == "sum_partials_kernel"
+    assert kernel_label("_ZN12_GLOBAL__N_120lanes_bwd_row_kernelILi2ELb0EEEv"
+                        "NS_13LanesBwdArgsE") == "lanes_bwd_row_kernelILi2ELb0EE"
+    assert kernel_label("_Z3foov") == "_Z3foov"
 
 
 @pytest.mark.cuda
