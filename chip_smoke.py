@@ -107,12 +107,19 @@ LOGITS_ATOL = 1e-3   # whole model, kernels vs plain cores
 # explains
 STEP_INPUT_NOISE = 1e-6
 STEP_NOISE_FACTOR = 4.0
+# The train phases' loss check. Each phase trains on one repeated batch;
+# within a few steps Adam at lr 1e-3 overfits it, and from then on single
+# steps spike at random (up to 5x the step-0 loss, on plain cores too). So
+# the fall is measured from the step-0 loss, on the median of the counted
+# loss steps, which spikes in fewer than half of them cannot move: the
+# median must lie below LOSS_FALL times the step-0 loss.
+LOSS_FALL = 0.5
 
 SOURCES = {
     "lanes_attn_fwd": "medt_tpu_torch/csrc/axial_lanes_fwd.cu",
     "flash_lanes_fwd": "medt_tpu_torch/csrc/axial_lanes_fwd.cu",
     "lanes_attn_bwd": "medt_tpu_torch/csrc/axial_lanes_bwd.cu",
-    "flash_lanes_bwd": "medt_tpu_torch/csrc/axial_lanes_bwd.cu",
+    "flash_lanes_bwd": "medt_tpu_torch/csrc/axial_flash_bwd.cu",
     "moment_sums_fwd": "medt_tpu_torch/csrc/moments.cu",
     "moment_sums_bwd": "medt_tpu_torch/csrc/moments.cu",
     "axial_eval_fwd": "medt_tpu_torch/csrc/axial_eval_fwd.cu",
@@ -926,6 +933,11 @@ M512, IMG512, BATCH512 = "medt_512", 512, 4   # bench.py: M512_BATCH = 4
 PREDICT512_IMAGES = 4
 
 
+def loss_fell(loss0: float, losses) -> bool:
+    """The train phases' loss check (LOSS_FALL)."""
+    return statistics.median(losses) < LOSS_FALL * loss0
+
+
 def launches_of(counts: dict, per_call: dict, calls: int) -> dict:
     """The launch counts ``calls`` main-path calls must give: ``per_call``
     times ``calls``, every other wrapper 0."""
@@ -1158,6 +1170,7 @@ def phase_train512(torch):
          launches=counts, ms_per_step=step_s * 1e3,
          images_per_s=BATCH512 / step_s, loss_step0=float(loss0),
          loss_first=losses[0], loss_last=losses[-1],
+         loss_median=statistics.median(losses), loss_fall=LOSS_FALL,
          peak_memory_gb=peak_gb, parity_batch=1, loss_kernels=loss_k,
          loss_plain=loss_p, parity_tensors=len(checks),
          parity_failed=len(bad), parity_worst=worst)
@@ -1165,8 +1178,9 @@ def phase_train512(torch):
     check(counts == expect, f"launch counts {counts} != {expect} for "
                             f"{steps} steps")
     check(all(np.isfinite(losses)), "non-finite loss")
-    check(np.mean(losses[-5:]) < np.mean(losses[:5]),
-          f"loss did not fall over 20 steps: {losses}")
+    check(loss_fell(float(loss0), losses),
+          f"the median of 20 loss steps is not below {LOSS_FALL} x the "
+          f"step-0 loss {float(loss0)}: {losses}")
     return counts
 
 

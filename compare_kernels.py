@@ -1,17 +1,25 @@
 #!/usr/bin/env python3
-"""Time the port's flash2 kernels in a given tree, on one card.
+"""Time the port's lanes, flash or flash2 kernels in a given tree, on one card.
 
-    python3 compare_kernels.py [--root DIR] [--out FILE]
+    python3 compare_kernels.py [--root DIR] [--family lanes flash flash2]
+                               [--out FILE]
 
 Runs the ``device``, ``build`` and ``kernels`` phases of ``DIR/chip_smoke.py``
 (default: this checkout) against ``DIR``'s own ``medt_tpu_torch`` package,
-for the flash2 geometries: each kernel held against its plain version (the
-smoke's tolerances, the same bits twice), its CUDA-event time, plain time
-and bound. Then, for each backward
-geometry, a ``torch.profiler`` window over a few calls splits its device
-time by CUDA kernel (row pass, column pass, reductions). Prints and writes
-one JSON object with the rows, the per-call sums over the main path
-(``launches_per_call`` times ms), the split and the card.
+for the geometries of the kernel families named by ``--family`` (default
+flash2): each kernel held against its plain version (the smoke's
+tolerances, the same bits twice), its CUDA-event time over back-to-back
+wrapper calls, plain time and bound. With ``flash`` it also runs the flash2
+backward (which computes the flash contract at any span up to 256) at every
+flash backward geometry, as the baseline a flash design has to beat (rows
+with ``path`` ``"<path>:flash2"``). Then, for each geometry, a
+``torch.profiler`` window over a few calls splits its device time by CUDA
+kernel (row pass, column pass, reductions) and a host clock times the
+wrapper's enqueue alone (``host_ms``: checks, allocations, the ``ctypes``
+call and the launches, the card left to run). Prints and writes one JSON
+object with the rows, the per-call sums over each main path
+(``launches_per_call`` times ms, per kernel and path), the split and the
+card.
 
 To compare a change with its parent on the same card, unpack the parent
 into a directory that ``.gitignore`` lists and run both in one command, in
@@ -27,15 +35,23 @@ from __future__ import annotations
 
 import argparse
 import json
+import re
 import sys
+import time
 from pathlib import Path
 
 HERE = Path(__file__).resolve().parent
-FAMILY = "flash2"   # kernel-name prefix of the geometries to run
+FAMILIES = ("lanes", "flash", "flash2")
+
+
+def family(kernel: str) -> str:
+    """``lanes_attn_bwd`` -> ``lanes``, ``flash2_lanes_fwd`` -> ``flash2``."""
+    return kernel.split("_")[0]
 
 
 def split_by_kernel(torch, fn, calls: int = 5) -> dict:
-    """Device ms per call of ``fn``, by CUDA kernel name."""
+    """Device ms per call of ``fn``, by CUDA kernel name (namespaces and
+    argument lists dropped, template arguments kept)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -49,14 +65,39 @@ def split_by_kernel(torch, fn, calls: int = 5) -> dict:
         us = float(getattr(e, "device_time_total",
                            getattr(e, "cuda_time_total", 0.0)))
         if us > 0:
-            out[e.key[:80]] = us / calls / 1e3
+            key = re.sub(r"\(anonymous namespace\)::|\w+::", "", e.key)
+            key = re.sub(r"\((?!anonymous).*\)$", "", key)[:120]
+            out[key] = out.get(key, 0.0) + us / calls / 1e3
     return out
+
+
+def host_ms(torch, fn, calls: int = 20) -> float:
+    """Host ms per call of ``fn`` enqueued back to back, the card left to
+    run: what the wrapper costs the host (fewer calls than the launch
+    queue holds, so the host never waits for the card)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / calls * 1e3
+
+
+def flash2_baseline(geometries) -> list:
+    """The flash2 backward at every flash backward geometry."""
+    return [("flash2_lanes_bwd", *g[1:6], f"{g[6]}:flash2")
+            for g in geometries if g[0] == "flash_lanes_bwd"]
 
 
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--root", default=str(HERE),
                         help="tree whose chip_smoke.py and package to run")
+    parser.add_argument("--family", nargs="+", choices=FAMILIES,
+                        default=["flash2"],
+                        help="kernel families whose geometries to run")
     parser.add_argument("--out", default=None, help="JSON file to write")
     args = parser.parse_args(argv)
     root = Path(args.root).resolve()
@@ -73,8 +114,10 @@ def main(argv=None) -> int:
         return 2
     import chip_smoke as smoke
 
-    smoke.GEOMETRIES = [g for g in smoke.GEOMETRIES
-                        if g[0].startswith(FAMILY)]
+    chosen = [g for g in smoke.GEOMETRIES if family(g[0]) in args.family]
+    if "flash" in args.family:
+        chosen += flash2_baseline(chosen)
+    smoke.GEOMETRIES = chosen
     smi, name = smoke.phase_device(torch)
     smoke.phase_build()
     try:
@@ -85,14 +128,16 @@ def main(argv=None) -> int:
     gen = torch.Generator(device="cuda").manual_seed(1)
     split = []
     for r in rows:
-        if not r["kernel"].endswith("_bwd"):
-            continue
         fn, _ = smoke.kernel_calls(torch, gen, r["kernel"], r["gp"],
                                    r["span"], r["S"], r["has_pos"])
+        by_kernel = split_by_kernel(torch, fn)
+        r["device_ms"] = sum(by_kernel.values())
+        r["host_ms"] = host_ms(torch, fn)
         split.append({"kernel": r["kernel"], "span": r["span"], "gp": r["gp"],
-                      "S": r["S"], "has_pos": r["has_pos"],
+                      "S": r["S"], "has_pos": r["has_pos"], "path": r["path"],
                       "launches_per_call": r["launches_per_call"],
-                      "ms_by_kernel": split_by_kernel(torch, fn)})
+                      "device_ms": r["device_ms"], "host_ms": r["host_ms"],
+                      "ms_by_kernel": by_kernel})
         del fn
         torch.cuda.empty_cache()
     per_call = {}
@@ -100,14 +145,17 @@ def main(argv=None) -> int:
         k = r["launches_per_call"]
         if not k:
             continue
-        acc = per_call.setdefault(r["kernel"], {"ms": 0.0, "plain_ms": 0.0,
-                                                "bound_ms": 0.0})
+        acc = per_call.setdefault(f"{r['kernel']}@{r['path']}", {
+            "ms": 0.0, "device_ms": 0.0, "host_ms": 0.0, "plain_ms": 0.0,
+            "bound_ms": 0.0})
         for key in acc:
             acc[key] += r[key] * k
     for acc in per_call.values():
         acc["x_bound"] = acc["ms"] / acc["bound_ms"]
+        acc["device_x_bound"] = acc["device_ms"] / acc["bound_ms"]
     out = {"root": str(root), "card": smi, "torch_name": name,
-           "per_main_path_call": per_call, "rows": rows, "bwd_split": split}
+           "families": args.family, "per_main_path_call": per_call,
+           "rows": rows, "split": split}
     text = json.dumps(out)
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)

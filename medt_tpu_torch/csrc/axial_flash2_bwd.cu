@@ -37,32 +37,14 @@
 // (256, 4, 1024)).
 //
 // This design tiles both passes and stages their operands in shared memory
-// by cp.async, in a ring of kStages slots (csrc/flash2_tiles.cuh):
-//   * row pass (dq, delta, the table and daff partials): a block owns one
-//     group, QB query rows and a chunk of kRowStripes = 128 stripes, one
-//     warp per query row (two or four at gp 8, 16); a lane holds SS = 4
-//     (gp <= 4) adjacent stripes of its row. Per key block it stages k and v
-//     for the chunk and the table tile. A thread first sums its table
-//     -gradient terms over its own SS stripes in registers; a warp then
-//     reduce-scatters JS keys x 2gp rows = 32 values over its 32 lanes (31
-//     shuffles per lane, each lane ends with one of the sums) instead of a
-//     warp_sum per value; the warps of a row are summed in a fixed order in
-//     shared memory, and the block writes its slot of the table partials
-//     once per key block. The chunk is 128 stripes, so the partials are
-//     (g * ceil(S/128), 2gp, L, L) floats as before (134 MB at batch 4 for
-//     the (256, 4) site). The row pass also writes delta and the row's
-//     log2 normaliser mm = (m - a1 - a3 - a5) log2(e) + log2(l) for the
-//     column pass (the scratch is (2, g, L, S));
-//   * column pass (dk, dv): a block owns one group, KT keys and 32 stripes
-//     (lane = stripe); a thread holds KJ = 8 (gp <= 4) keys of its stripe.
-//     Per block of QB queries it stages the per-(query, stripe) operands q,
-//     dsv, dsve, delta, mm and the table column tile, so every staged value
-//     serves KJ keys (or, for a table value, the warp's 32 stripes);
-//   * p = exp2(a0' qk + a2' qr + a4' kr - mm), the affines carrying log2(e),
-//     so each pair costs FMAs and one exp2;
-//   * no tensor cores: the contraction depth is c = 1..2 on the path, and
-//     the deep sums (over L keys, and the table gradients over g * S
-//     stripes) would fail the float32 tolerances in TF32.
+// by cp.async: the tiled backward of csrc/tiled_bwd.cuh, which the flash
+// backward (spans up to 64, csrc/axial_flash_bwd.cu) shares. Its tiles
+// (Flash2Tiles): the row pass 8 warps, 8 query rows per block at gp <= 4
+// (4 at gp 8, 2 at gp 16) over 128 stripes, keys staged 16 at a time at
+// gp <= 4; the column pass 4 warps of 8 keys a thread at gp <= 4 (4, 2 at
+// gp 8, 16), 16 queries per stage (8 at gp 8, 16). The table partials are
+// (g * ceil(S/128), 2gp, L, L) floats (134 MB at batch 4 for the (256, 4)
+// site).
 // Measured on an H100 80GB HBM3 at 700 W (PERF.md, kernel row 6): 10.48-
 // 10.51 ms per medt_512 batch-4 train step, 4.3 times its 2.418 ms bound
 // (float32 operations): row pass 6.39 ms, column pass 3.65, reductions
@@ -71,636 +53,30 @@
 // registers a thread): the row pass pays, beside its FMAs, the
 // reduce-scatter's shuffles, selects and adds for every JS keys.
 // Kernels launch on the caller's stream, allocate nothing and do not
-// synchronise; the entry point returns the first CUDA error of its launches.
+// synchronise; the entry point returns the first CUDA error of its launches
+// (three: row pass, column pass, medt::bwd_finalize).
 
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stddef.h>
-
-#include "flash2_tiles.cuh"
-#include "reduce.cuh"
-
-namespace {
-
-using flash2::ex2;
-using flash2::kLog2e;
-using flash2::kStages;
-using flash2::lds;
-using medt::warp_sum;
-
-constexpr int kMaxSpan = 256;
-
-// ---- row pass ----------------------------------------------------------------
-
-constexpr int kRowWarps = 8;
-constexpr int kRowThreads = kRowWarps * 32;
-// stripes per row-pass block, and so per slot of the table partials
-constexpr int kRowStripes = 128;
-// query rows per row-pass block, by log2(gp) (gp = 2, 4, 8, 16); the daff
-// partials are ceil(L / rows) * ceil(S / kRowStripes). Mirrored by
-// ops/axial_lanes.py (FLASH2_ROW_QUERIES, FLASH2_ROW_STRIPES).
-constexpr int kRowQueries[5] = {0, 8, 8, 4, 2};
-
-__host__ __device__ constexpr int log2_gp(int gp) {
-  return gp == 2 ? 1 : gp == 4 ? 2 : gp == 8 ? 3 : 4;
-}
-
-template <int GP>
-struct RowCfg {
-  static constexpr int C = GP / 2;
-  static constexpr int R = 2 * GP;  // table rows: qemb c, kemb_t c, vemb gp
-  static constexpr int SS = GP <= 4 ? 4 : GP == 8 ? 2 : 1;  // stripes/lane
-  static constexpr int WPQ = kRowStripes / (32 * SS);     // warps per row
-  static constexpr int QB = kRowWarps / WPQ;              // rows per block
-  static constexpr int JS = 32 / R;  // keys per reduce-scatter of 32 values
-  static constexpr int KB = GP <= 4 ? 16 : GP == 8 ? 8 : 4;  // keys/stage
-  static constexpr int KV = (C + GP) * KB * kRowStripes;
-  static constexpr int TAB = R * QB * KB;
-  static constexpr int TBUF = kRowWarps * KB * R;
-  static_assert(QB == kRowQueries[log2_gp(GP)], "mirrored row tile");
-  static_assert(KB % JS == 0 && JS * R == 32, "whole reduce-scatters");
-};
-
-template <int GP, bool POS>
-__host__ __device__ constexpr int row_stage_floats() {
-  return RowCfg<GP>::KV + (POS ? RowCfg<GP>::TAB : 0);
-}
-
-template <int GP, bool POS>
-constexpr size_t row_smem_bytes() {
-  return ((size_t)kStages * row_stage_floats<GP, POS>() +
-          (POS ? RowCfg<GP>::TBUF : 0) + kRowWarps * 4) *
-         sizeof(float);
-}
-
-// ---- column pass ---------------------------------------------------------------
-
-constexpr int kColWarps = 4;
-constexpr int kColThreads = kColWarps * 32;
-constexpr int kColStripes = 32;  // one per lane
-
-template <int GP, bool POS>
-struct ColCfg {
-  static constexpr int C = GP / 2;
-  static constexpr int R = 2 * GP;
-  static constexpr int KJ = GP <= 4 ? 8 : GP == 8 ? 4 : 2;  // keys/thread
-  static constexpr int KG = KJ < 4 ? KJ : 4;  // keys per table read
-  static constexpr int KT = kColWarps * KJ;   // keys per block
-  static constexpr int QB = GP <= 4 ? 16 : 8;  // queries per stage
-  // staged per-(query, stripe) operand rows: q (c), dsv (gp), [dsve (gp)],
-  // delta, mm
-  static constexpr int OG = C, OE = C + GP, OD = C + GP + (POS ? GP : 0);
-  static constexpr int OM = OD + 1, ROWS = OM + 1;
-  static constexpr int OPS = ROWS * QB * kColStripes;
-  static constexpr int TAB = POS ? R * QB * KT : 0;
-  static constexpr int STAGE = OPS + TAB;
-};
-
-struct BwdArgs {
-  const float* qkv;
-  const float* qemb;
-  const float* kemb_t;
-  const float* vemb;
-  const float* aff;
-  const float* m;     // the forward's saved row max (g, L, S)
-  const float* l;     // and softmax denominator
-  const float* sv;    // the forward's saved outputs (g, gp, L, S)
-  const float* sve;
-  const float* dsv;
-  const float* dsve;
-  float* scratch;     // (2, g, L, S): delta, then mm; written by the row pass
-  float* dqkv;
-  float* tab_part;    // (g * ceil(S/128), 2gp, L, L) with positions
-  float* aff_part;    // (ceil(L/QB) * ceil(S/128), g, 4)
-  int g, L, S;
-  bool vec_s, vec_l;
-};
-
-// Sum over the warp's lanes of v[lane], left in lane `lane`: five halving
-// exchanges (16 + 8 + 4 + 2 + 1 shuffles), in a fixed order.
-template <int N>
-__device__ __forceinline__ void rs_step(float (&v)[32], int lane) {
-  constexpr int H = N / 2;
-  const bool up = (lane & H) != 0;
-#pragma unroll
-  for (int k = 0; k < H; ++k) {
-    const float send = up ? v[k] : v[k + H];
-    const float keep = up ? v[k + H] : v[k];
-    v[k] = keep + __shfl_xor_sync(0xffffffffu, send, H);
-  }
-}
-
-__device__ __forceinline__ float reduce_scatter32(float (&v)[32], int lane) {
-  rs_step<32>(v, lane);
-  rs_step<16>(v, lane);
-  rs_step<8>(v, lane);
-  rs_step<4>(v, lane);
-  rs_step<2>(v, lane);
-  return v[0];
-}
-
-// One staged key block of the row pass for the thread's SS stripes of row ql.
-template <int GP, bool POS, bool CHECK>
-__device__ __forceinline__ void row_block(
-    const float* kv, const float* tab, float* tb, int ql, int so, int lane,
-    int nvalid, float a0s, float a2s, float a4s,
-    const float (&q)[RowCfg<GP>::SS][GP / 2],
-    const float (&gv)[RowCfg<GP>::SS][GP],
-    const float (&ge)[RowCfg<GP>::SS][GP], const float (&mm)[RowCfg<GP>::SS],
-    const float (&dl)[RowCfg<GP>::SS], float (&A)[RowCfg<GP>::SS][GP / 2],
-    float (&B)[RowCfg<GP>::SS][GP / 2], float& s_kr, float& s_b) {
-  using K = RowCfg<GP>;
-  constexpr int C = K::C, R = K::R, SS = K::SS, QB = K::QB, JS = K::JS,
-                KB = K::KB;
-#pragma unroll 1
-  for (int jb = 0; jb < KB; jb += JS) {
-    if (CHECK && jb >= nvalid) break;
-    float T[32];
-    float qe[C][JS], ke[C][JS], ve[GP][JS];
-    if constexpr (POS) {
-#pragma unroll
-      for (int t = 0; t < 32; ++t) T[t] = 0.f;
-#pragma unroll
-      for (int c = 0; c < C; ++c) {
-        lds<JS>(qe[c], tab + (c * QB + ql) * KB + jb);
-        lds<JS>(ke[c], tab + ((C + c) * QB + ql) * KB + jb);
-      }
-#pragma unroll
-      for (int p = 0; p < GP; ++p)
-        lds<JS>(ve[p], tab + ((2 * C + p) * QB + ql) * KB + jb);
-    }
-#pragma unroll
-    for (int jj = 0; jj < JS; ++jj) {
-      const bool valid = !CHECK || jb + jj < nvalid;
-      float kk[C][SS], vv[GP][SS];
-#pragma unroll
-      for (int c = 0; c < C; ++c)
-        lds<SS>(kk[c], kv + (c * KB + jb + jj) * kRowStripes + so);
-#pragma unroll
-      for (int p = 0; p < GP; ++p)
-        lds<SS>(vv[p], kv + ((C + p) * KB + jb + jj) * kRowStripes + so);
-#pragma unroll
-      for (int u = 0; u < SS; ++u) {
-        float qk = 0.f, qr = 0.f, kr = 0.f;
-#pragma unroll
-        for (int c = 0; c < C; ++c) {
-          qk = fmaf(q[u][c], kk[c][u], qk);
-          if constexpr (POS) {
-            qr = fmaf(q[u][c], qe[c][jj], qr);
-            kr = fmaf(kk[c][u], ke[c][jj], kr);
-          }
-        }
-        float x = fmaf(a0s, qk, -mm[u]);
-        if constexpr (POS) x = fmaf(a4s, kr, fmaf(a2s, qr, x));
-        float pr = ex2(x);
-        if (CHECK && !valid) pr = 0.f;
-        float dsim = -dl[u];
-#pragma unroll
-        for (int p = 0; p < GP; ++p) {
-          dsim = fmaf(gv[u][p], vv[p][u], dsim);
-          if constexpr (POS) dsim = fmaf(ge[u][p], ve[p][jj], dsim);
-        }
-        const float dlog = pr * dsim;
-        s_b += dlog;
-#pragma unroll
-        for (int c = 0; c < C; ++c) A[u][c] = fmaf(dlog, kk[c][u], A[u][c]);
-        if constexpr (POS) {
-          s_kr = fmaf(dlog, kr, s_kr);
-#pragma unroll
-          for (int c = 0; c < C; ++c) {
-            B[u][c] = fmaf(dlog, qe[c][jj], B[u][c]);
-            T[jj * R + c] = fmaf(dlog, q[u][c], T[jj * R + c]);
-            T[jj * R + C + c] = fmaf(dlog, kk[c][u], T[jj * R + C + c]);
-          }
-#pragma unroll
-          for (int p = 0; p < GP; ++p)
-            T[jj * R + 2 * C + p] = fmaf(pr, ge[u][p], T[jj * R + 2 * C + p]);
-        }
-      }
-    }
-    // lane t now holds, for value t = (key jb + t / R, table row t % R),
-    // the sum over the warp's 32 * SS stripes
-    if constexpr (POS) tb[jb * R + lane] = reduce_scatter32(T, lane);
-  }
-}
-
-template <int GP, bool POS>
-__global__ void __launch_bounds__(kRowThreads)
-flash2_tiled_bwd_row_kernel(BwdArgs a) {
-  using K = RowCfg<GP>;
-  constexpr int C = K::C, R = K::R, SS = K::SS, WPQ = K::WPQ, QB = K::QB,
-                KB = K::KB;
-  constexpr int STAGE = row_stage_floats<GP, POS>();
-  extern __shared__ __align__(16) float smem[];
-  float* tbuf = smem + kStages * STAGE;           // [warp][KB][R]
-  float* wsum = tbuf + (POS ? K::TBUF : 0);       // [warp][4]
-
-  const int L = a.L, S = a.S;
-  const int i0 = blockIdx.x * QB, s0 = blockIdx.y * kRowStripes;
-  const int gi = blockIdx.z;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int ql = warp / WPQ;
-  const int so = (warp % WPQ) * 32 * SS + lane * SS;  // stripe in the chunk
-  const int i = i0 + ql;
-  const size_t LS = (size_t)L * S, LL = (size_t)L * L;
-  const float* qkv = a.qkv + (size_t)gi * 2 * GP * LS;
-  const int nkb = (L + KB - 1) / KB;
-
-  auto load = [&](int kb) {
-    float* st = smem + (kb % kStages) * STAGE;
-    const int j0 = kb * KB;
-    flash2::stage<C + GP, KB, kRowStripes, kRowThreads>(
-        st, qkv + C * LS + (size_t)j0 * S + s0, LS, S, L - j0, S - s0,
-        a.vec_s, threadIdx.x);
-    if constexpr (POS) {
-      const size_t off = (size_t)i0 * L + j0;
-      float* t = st + K::KV;
-      flash2::stage<C, QB, KB, kRowThreads>(t, a.qemb + off, LL, L, L - i0,
-                                            L - j0, a.vec_l, threadIdx.x);
-      flash2::stage<C, QB, KB, kRowThreads>(t + C * QB * KB, a.kemb_t + off,
-                                            LL, L, L - i0, L - j0, a.vec_l,
-                                            threadIdx.x);
-      flash2::stage<GP, QB, KB, kRowThreads>(t + 2 * C * QB * KB,
-                                             a.vemb + off, LL, L, L - i0,
-                                             L - j0, a.vec_l, threadIdx.x);
-    }
-  };
-#pragma unroll
-  for (int kb = 0; kb < kStages - 1; ++kb) {
-    if (kb < nkb) load(kb);
-    flash2::cp_async_commit();
-  }
-
-  const float* af = a.aff + gi * 8;
-  const float a0 = af[0], a2 = af[2], a4 = af[4];
-  const float a0s = a0 * kLog2e, a2s = a2 * kLog2e, a4s = a4 * kLog2e;
-  const float bias = POS ? (af[1] + af[3]) + af[5] : af[1];
-
-  // Per (row i, stripe): a stripe past the edge (or a row past the span)
-  // has zero q and upstream gradient, so every sum it joins gets 0 from it.
-  float q[SS][C], gv[SS][GP], ge[SS][GP], mm[SS], dl[SS], A[SS][C], B[SS][C];
-#pragma unroll
-  for (int u = 0; u < SS; ++u) {
-    const int s = s0 + so + u;
-    const bool ok = i < L && s < S;
-    const size_t io = (size_t)gi * GP * LS + (size_t)i * S + s;
-    const size_t row = ((size_t)gi * L + i) * S + s;
-    float delta = 0.f;
-#pragma unroll
-    for (int c = 0; c < C; ++c) {
-      q[u][c] = ok ? qkv[c * LS + (size_t)i * S + s] : 0.f;
-      A[u][c] = 0.f;
-      B[u][c] = 0.f;
-    }
-#pragma unroll
-    for (int p = 0; p < GP; ++p) {
-      gv[u][p] = ok ? a.dsv[io + p * LS] : 0.f;
-      ge[u][p] = (POS && ok) ? a.dsve[io + p * LS] : 0.f;
-      if (ok) {
-        delta += gv[u][p] * a.sv[io + p * LS];
-        if constexpr (POS) delta += ge[u][p] * a.sve[io + p * LS];
-      }
-    }
-    dl[u] = delta;
-    mm[u] = ok ? (a.m[row] - bias) * kLog2e + log2f(a.l[row]) : 0.f;
-    if (ok) {
-      a.scratch[row] = delta;
-      a.scratch[(size_t)a.g * LS + row] = mm[u];
-    }
-  }
-
-  float s_kr = 0.f, s_b = 0.f;
-  float* part = a.tab_part +
-                ((size_t)gi * gridDim.y + blockIdx.y) * R * LL;
-  for (int kb = 0; kb < nkb; ++kb) {
-    flash2::cp_async_wait<kStages - 2>();
-    __syncthreads();
-    if (kb + kStages - 1 < nkb) load(kb + kStages - 1);
-    flash2::cp_async_commit();
-    const float* kv = smem + (kb % kStages) * STAGE;
-    const float* tab = kv + K::KV;
-    float* tb = tbuf + warp * KB * R;
-    const int nvalid = L - kb * KB;
-    if (nvalid >= KB) {
-      row_block<GP, POS, false>(kv, tab, tb, ql, so, lane, nvalid, a0s, a2s,
-                                a4s, q, gv, ge, mm, dl, A, B, s_kr, s_b);
-    } else {
-      row_block<GP, POS, true>(kv, tab, tb, ql, so, lane, nvalid, a0s, a2s,
-                               a4s, q, gv, ge, mm, dl, A, B, s_kr, s_b);
-    }
-    if constexpr (POS) {
-      // the block's slot of the table partials for this key block: the
-      // warps of each row summed in order, rows of KB keys coalesced
-      __syncthreads();
-      const int j0 = kb * KB;
-#pragma unroll 1
-      for (int e = threadIdx.x; e < QB * R * KB; e += kRowThreads) {
-        const int jj = e % KB, r = (e / KB) % R, qq = e / (KB * R);
-        if (i0 + qq >= L || j0 + jj >= L) continue;
-        float v = 0.f;
-#pragma unroll
-        for (int w = 0; w < WPQ; ++w)
-          v += tbuf[((qq * WPQ + w) * KB + jj) * R + r];
-        const float scale = r < C ? a2 : r < 2 * C ? a4 : 1.f;
-        part[((size_t)r * L + i0 + qq) * L + j0 + jj] = v * scale;
-      }
-    }
-  }
-
-  float s_qk = 0.f, s_qr = 0.f;
-#pragma unroll
-  for (int u = 0; u < SS; ++u) {
-    const int s = s0 + so + u;
-#pragma unroll
-    for (int c = 0; c < C; ++c) {
-      s_qk = fmaf(q[u][c], A[u][c], s_qk);
-      s_qr = fmaf(q[u][c], B[u][c], s_qr);
-    }
-    if (i < L && s < S) {
-      const size_t dq0 = (size_t)gi * 2 * GP * LS + (size_t)i * S + s;
-#pragma unroll
-      for (int c = 0; c < C; ++c) {
-        const float d = POS ? fmaf(a2, B[u][c], a0 * A[u][c]) : a0 * A[u][c];
-        a.dqkv[dq0 + c * LS] = d;
-      }
-    }
-  }
-  const float sums[4] = {s_qk, s_b, s_qr, s_kr};
-#pragma unroll
-  for (int k = 0; k < 4; ++k) {
-    const float v = warp_sum(sums[k]);
-    if (lane == 0) wsum[warp * 4 + k] = v;
-  }
-  __syncthreads();
-  if (threadIdx.x < 4) {
-    float v = 0.f;
-    for (int w = 0; w < kRowWarps; ++w) v += wsum[w * 4 + threadIdx.x];
-    a.aff_part[(((size_t)blockIdx.x * gridDim.y + blockIdx.y) * a.g + gi) *
-                   4 +
-               threadIdx.x] = v;
-  }
-}
-
-// One staged query block of the column pass for the thread's KJ keys.
-template <int GP, bool POS>
-__device__ __forceinline__ void col_block(
-    const float* ops, const float* tab, int kt0, int lane, float a0,
-    float a4, float a0s, float a2s, float a4s,
-    const float (&k)[ColCfg<GP, POS>::KJ][GP / 2],
-    const float (&v)[ColCfg<GP, POS>::KJ][GP],
-    float (&dk)[ColCfg<GP, POS>::KJ][GP / 2],
-    float (&dv)[ColCfg<GP, POS>::KJ][GP]) {
-  using K = ColCfg<GP, POS>;
-  constexpr int C = K::C, KJ = K::KJ, KG = K::KG, KT = K::KT, QB = K::QB;
-  constexpr int RS = QB * kColStripes;  // operand row stride
-#pragma unroll 1
-  for (int ii = 0; ii < QB; ++ii) {
-    const float* o = ops + ii * kColStripes + lane;
-    float q[C], aq[C], gv[GP], ge[GP];
-#pragma unroll
-    for (int c = 0; c < C; ++c) {
-      q[c] = o[c * RS];
-      aq[c] = a0 * q[c];
-    }
-#pragma unroll
-    for (int p = 0; p < GP; ++p) {
-      gv[p] = o[(K::OG + p) * RS];
-      if constexpr (POS) ge[p] = o[(K::OE + p) * RS];
-    }
-    const float dl = o[K::OD * RS], mmv = o[K::OM * RS];
-#pragma unroll
-    for (int kg = 0; kg < KJ; kg += KG) {
-      float qe[C][KG], ke[C][KG], ve[GP][KG];
-      if constexpr (POS) {
-#pragma unroll
-        for (int c = 0; c < C; ++c) {
-          lds<KG>(qe[c], tab + (c * QB + ii) * KT + kt0 + kg);
-          lds<KG>(ke[c], tab + ((C + c) * QB + ii) * KT + kt0 + kg);
-        }
-#pragma unroll
-        for (int p = 0; p < GP; ++p)
-          lds<KG>(ve[p], tab + ((2 * C + p) * QB + ii) * KT + kt0 + kg);
-      }
-#pragma unroll
-      for (int jj = 0; jj < KG; ++jj) {
-        const int kk = kg + jj;
-        float qk = 0.f, qr = 0.f, kr = 0.f;
-#pragma unroll
-        for (int c = 0; c < C; ++c) {
-          qk = fmaf(q[c], k[kk][c], qk);
-          if constexpr (POS) {
-            qr = fmaf(q[c], qe[c][jj], qr);
-            kr = fmaf(k[kk][c], ke[c][jj], kr);
-          }
-        }
-        float x = fmaf(a0s, qk, -mmv);
-        if constexpr (POS) x = fmaf(a4s, kr, fmaf(a2s, qr, x));
-        const float pr = ex2(x);
-        float dsim = -dl;
-#pragma unroll
-        for (int p = 0; p < GP; ++p) {
-          dsim = fmaf(gv[p], v[kk][p], dsim);
-          if constexpr (POS) dsim = fmaf(ge[p], ve[p][jj], dsim);
-        }
-        const float dlog = pr * dsim;
-#pragma unroll
-        for (int c = 0; c < C; ++c) {
-          const float w = POS ? fmaf(a4, ke[c][jj], aq[c]) : aq[c];
-          dk[kk][c] = fmaf(dlog, w, dk[kk][c]);
-        }
-#pragma unroll
-        for (int p = 0; p < GP; ++p) dv[kk][p] = fmaf(pr, gv[p], dv[kk][p]);
-      }
-    }
-  }
-}
-
-template <int GP, bool POS>
-__global__ void __launch_bounds__(kColThreads)
-flash2_tiled_bwd_col_kernel(BwdArgs a) {
-  using K = ColCfg<GP, POS>;
-  constexpr int C = K::C, KJ = K::KJ, KT = K::KT, QB = K::QB;
-  constexpr int RS = QB * kColStripes;
-  extern __shared__ __align__(16) float smem[];
-
-  const int L = a.L, S = a.S;
-  const int j0 = blockIdx.x * KT, s0 = blockIdx.y * kColStripes;
-  const int gi = blockIdx.z;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int s = s0 + lane;
-  const size_t LS = (size_t)L * S, LL = (size_t)L * L;
-  const float* qkv = a.qkv + (size_t)gi * 2 * GP * LS;
-  const size_t grow = (size_t)gi * GP * LS;  // group offset of dsv, dsve
-  const int nqb = (L + QB - 1) / QB;
-
-  auto load = [&](int qb) {
-    float* st = smem + (qb % kStages) * K::STAGE;
-    const int i0 = qb * QB;
-    const size_t at = (size_t)i0 * S + s0;
-    const int vb = L - i0, vx = S - s0;
-    const bool vs = a.vec_s;
-    const int t = threadIdx.x;
-    flash2::stage<C, QB, kColStripes, kColThreads>(st, qkv + at, LS, S, vb,
-                                                   vx, vs, t);
-    flash2::stage<GP, QB, kColStripes, kColThreads>(
-        st + K::OG * RS, a.dsv + grow + at, LS, S, vb, vx, vs, t);
-    if constexpr (POS) {
-      flash2::stage<GP, QB, kColStripes, kColThreads>(
-          st + K::OE * RS, a.dsve + grow + at, LS, S, vb, vx, vs, t);
-    }
-    flash2::stage<1, QB, kColStripes, kColThreads>(
-        st + K::OD * RS, a.scratch + (size_t)gi * LS + at, 0, S, vb, vx, vs,
-        t);
-    flash2::stage<1, QB, kColStripes, kColThreads>(
-        st + K::OM * RS, a.scratch + (size_t)(a.g + gi) * LS + at, 0, S, vb,
-        vx, vs, t);
-    if constexpr (POS) {
-      const size_t off = (size_t)i0 * L + j0;
-      float* tb = st + K::OPS;
-      const int vk = L - j0;
-      flash2::stage<C, QB, KT, kColThreads>(tb, a.qemb + off, LL, L, vb, vk,
-                                            a.vec_l, t);
-      flash2::stage<C, QB, KT, kColThreads>(tb + C * QB * KT, a.kemb_t + off,
-                                            LL, L, vb, vk, a.vec_l, t);
-      flash2::stage<GP, QB, KT, kColThreads>(tb + 2 * C * QB * KT,
-                                             a.vemb + off, LL, L, vb, vk,
-                                             a.vec_l, t);
-    }
-  };
-#pragma unroll
-  for (int qb = 0; qb < kStages - 1; ++qb) {
-    if (qb < nqb) load(qb);
-    flash2::cp_async_commit();
-  }
-
-  const float* af = a.aff + gi * 8;
-  const float a0 = af[0], a4 = af[4];
-  const float a0s = a0 * kLog2e, a2s = af[2] * kLog2e, a4s = a4 * kLog2e;
-  const int kt0 = warp * KJ;  // the thread's first key in the block
-  float k[KJ][C], v[KJ][GP], dk[KJ][C], dv[KJ][GP];
-#pragma unroll
-  for (int kk = 0; kk < KJ; ++kk) {
-    const int j = j0 + kt0 + kk;
-    const bool ok = j < L && s < S;
-#pragma unroll
-    for (int c = 0; c < C; ++c) {
-      k[kk][c] = ok ? qkv[(C + c) * LS + (size_t)j * S + s] : 0.f;
-      dk[kk][c] = 0.f;
-    }
-#pragma unroll
-    for (int p = 0; p < GP; ++p) {
-      v[kk][p] = ok ? qkv[(GP + p) * LS + (size_t)j * S + s] : 0.f;
-      dv[kk][p] = 0.f;
-    }
-  }
-
-  // Rows past the span and stripes past the edge are staged as zeros: their
-  // dsim, delta and dsv are 0, so they add exactly 0 to dk and dv.
-  for (int qb = 0; qb < nqb; ++qb) {
-    flash2::cp_async_wait<kStages - 2>();
-    __syncthreads();
-    if (qb + kStages - 1 < nqb) load(qb + kStages - 1);
-    flash2::cp_async_commit();
-    const float* ops = smem + (qb % kStages) * K::STAGE;
-    col_block<GP, POS>(ops, ops + K::OPS, kt0, lane, a0, a4, a0s, a2s, a4s,
-                       k, v, dk, dv);
-  }
-
-  if (s >= S) return;
-#pragma unroll
-  for (int kk = 0; kk < KJ; ++kk) {
-    const int j = j0 + kt0 + kk;
-    if (j >= L) break;
-    const size_t out0 = (size_t)gi * 2 * GP * LS + (size_t)j * S + s;
-#pragma unroll
-    for (int c = 0; c < C; ++c) a.dqkv[out0 + (C + c) * LS] = dk[kk][c];
-#pragma unroll
-    for (int p = 0; p < GP; ++p) a.dqkv[out0 + (GP + p) * LS] = dv[kk][p];
-  }
-}
-
-template <int GP, bool POS>
-cudaError_t launch_variant(const BwdArgs& a, cudaStream_t stream) {
-  using KR = RowCfg<GP>;
-  using KC = ColCfg<GP, POS>;
-  auto row = flash2_tiled_bwd_row_kernel<GP, POS>;
-  auto col = flash2_tiled_bwd_col_kernel<GP, POS>;
-  const size_t row_smem = row_smem_bytes<GP, POS>();
-  const size_t col_smem = (size_t)kStages * KC::STAGE * sizeof(float);
-  cudaError_t err = flash2::allow_smem(row, row_smem);
-  if (err != cudaSuccess) return err;
-  err = flash2::allow_smem(col, col_smem);
-  if (err != cudaSuccess) return err;
-  const dim3 row_grid((a.L + KR::QB - 1) / KR::QB,
-                      (a.S + kRowStripes - 1) / kRowStripes, a.g);
-  row<<<row_grid, kRowThreads, row_smem, stream>>>(a);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  const dim3 col_grid((a.L + KC::KT - 1) / KC::KT,
-                      (a.S + kColStripes - 1) / kColStripes, a.g);
-  col<<<col_grid, kColThreads, col_smem, stream>>>(a);
-  return cudaGetLastError();
-}
-
-template <int GP>
-cudaError_t launch_gp(const BwdArgs& a, bool has_pos, cudaStream_t stream) {
-  return has_pos ? launch_variant<GP, true>(a, stream)
-                 : launch_variant<GP, false>(a, stream);
-}
-
-}  // namespace
+#include "tiled_bwd.cuh"
 
 extern "C" {
 
-// m, l, sv, sve are the forward's saved outputs; delta is scratch of
-// 2 * g * L * S floats (delta, then the row normaliser mm). dtables:
-// (2gp, L, L) = dqemb (c rows), dkemb_t (c rows), dvemb (gp rows), not
-// written without positions. Partials: tab_part (g * ceil(S/128), 2gp, L,
-// L) (unused without positions), aff_part (ceil(L/QB) * ceil(S/128), g, 4)
-// with QB = kRowQueries by gp. sve and dsve are not read without positions.
+// m, l, sv, sve are the forward's saved outputs; scratch holds 2 * g * L * S
+// floats (delta, then the row normaliser mm). Partials: tab_part (g *
+// ceil(S/128), 2gp, L, L) (unused without positions), aff_part (ceil(L/QB)
+// * ceil(S/128), g, 4), QB by gp as Flash2Tiles gives it (8, 8, 4, 2).
 int medt_flash2_lanes_bwd(const float* qkv, const float* qemb,
                           const float* kemb_t, const float* vemb,
                           const float* aff, const float* m, const float* l,
                           const float* sv, const float* sve, const float* dsv,
                           const float* dsve, float* dqkv, float* dtables,
-                          float* daff, float* delta, float* tab_part,
+                          float* daff, float* scratch, float* tab_part,
                           float* aff_part, int g, int gp, int L, int S,
                           int has_pos, int n_tab_part, int n_aff_part,
-                          void* stream_ptr) {
-  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  if (gp != 2 && gp != 4 && gp != 8 && gp != 16) {
-    return (int)cudaErrorInvalidValue;
-  }
-  const int chunks = (S + kRowStripes - 1) / kRowStripes;
-  const int rows = kRowQueries[log2_gp(gp)];
-  if (g < 1 || S < 1 || L < 1 || L > kMaxSpan || g > 65535 ||
-      (S + kColStripes - 1) / kColStripes > 65535 ||
-      n_aff_part != ((L + rows - 1) / rows) * chunks ||
-      (has_pos && n_tab_part != g * chunks)) {
-    return (int)cudaErrorInvalidValue;
-  }
-  const bool pos = has_pos != 0;
-  using flash2::aligned16;
-  const bool vec_s = S % 4 == 0 && aligned16(qkv) && aligned16(dsv) &&
-                     aligned16(delta) && (!pos || aligned16(dsve));
-  const bool vec_l = pos && L % 4 == 0 && aligned16(qemb) &&
-                     aligned16(kemb_t) && aligned16(vemb);
-  const BwdArgs a{qkv, qemb, kemb_t, vemb, aff, m, l, sv, sve, dsv, dsve,
-                  delta, dqkv, tab_part, aff_part, g, L, S, vec_s, vec_l};
-  cudaError_t err;
-  switch (gp) {
-    case 2: err = launch_gp<2>(a, pos, stream); break;
-    case 4: err = launch_gp<4>(a, pos, stream); break;
-    case 8: err = launch_gp<8>(a, pos, stream); break;
-    default: err = launch_gp<16>(a, pos, stream); break;
-  }
-  if (err != cudaSuccess) return (int)err;
-  if (pos) {
-    medt::sum_partials(tab_part, dtables, n_tab_part,
-                       (size_t)2 * gp * L * L, stream);
-  }
-  medt::daff_finalize(aff_part, daff, n_aff_part, g, has_pos, stream);
-  return (int)cudaGetLastError();
+                          void* stream) {
+  return flash2::tiled_bwd<flash2::Flash2Tiles>(
+      qkv, qemb, kemb_t, vemb, aff, m, l, sv, sve, dsv, dsve, dqkv, dtables,
+      daff, scratch, tab_part, aff_part, g, gp, L, S, has_pos, n_tab_part,
+      n_aff_part, stream);
 }
 
 }  // extern "C"

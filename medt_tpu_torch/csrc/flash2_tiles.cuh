@@ -1,5 +1,6 @@
-// Tile staging shared by the flash2 forward and backward kernels
-// (csrc/axial_flash2_fwd.cu, csrc/axial_flash2_bwd.cu) and by nothing else.
+// Tile staging shared by the flash2 forward (csrc/axial_flash2_fwd.cu), the
+// tiled flash and flash2 backward (csrc/tiled_bwd.cuh) and the lanes
+// backward (csrc/axial_lanes_bwd.cu).
 //
 // A block copies the tiles it is about to compute on from device memory into
 // shared memory with cp.async, into a ring of kStages slots, so the next key
@@ -46,31 +47,34 @@ __device__ __forceinline__ void cp_async_wait() {
 }
 
 // Stage the box (A, B, X): element (a, b, x) comes from
-// src[a * sa + b * sb + x] and lands at dst[(a * B + b) * X + x]; it is zero
-// where b >= vb or x >= vx. X is a multiple of 4. With vec the copies are 16
-// bytes (the caller guarantees 16-byte aligned runs and vx % 4 == 0, so a
+// src[a * sa + b * sb + x] and lands at dst[(a * B + b) * XP + x] (XP = X
+// unless the caller pads the rows against bank conflicts); it is zero where
+// b >= vb or x >= vx. X and XP are multiples of 4. With vec the copies are
+// 16 bytes (the caller guarantees 16-byte aligned runs and vx % 4 == 0, so a
 // chunk is all valid or all past the edge), else 4 bytes each. NT threads
 // share the work; tid is this thread's index among them.
-template <int A, int B, int X, int NT>
+template <int A, int B, int X, int NT, int XP = X>
 __device__ __forceinline__ void stage(float* dst, const float* src, size_t sa,
                                       size_t sb, int vb, int vx, bool vec,
                                       int tid) {
-  static_assert(X % 4 == 0, "runs of whole 16-byte chunks");
+  static_assert(X % 4 == 0 && XP % 4 == 0 && XP >= X,
+                "runs of whole 16-byte chunks");
   if (vec) {
     constexpr int X4 = X / 4, N = A * B * X4;
 #pragma unroll 4
     for (int e = tid; e < N; e += NT) {
-      const int x = (e % X4) * 4, b = (e / X4) % B, a = e / (X4 * B);
+      const int x = (e % X4) * 4, ab = e / X4, b = ab % B, a = ab / B;
       const bool ok = b < vb && x < vx;
-      cp_async16(dst + e * 4, ok ? src + a * sa + b * sb + x : src, ok);
+      cp_async16(dst + ab * XP + x, ok ? src + a * sa + b * sb + x : src,
+                 ok);
     }
   } else {
     constexpr int N = A * B * X;
 #pragma unroll 4
     for (int e = tid; e < N; e += NT) {
-      const int x = e % X, b = (e / X) % B, a = e / (X * B);
+      const int x = e % X, ab = e / X, b = ab % B, a = ab / B;
       const bool ok = b < vb && x < vx;
-      cp_async4(dst + e, ok ? src + a * sa + b * sb + x : src, ok);
+      cp_async4(dst + ab * XP + x, ok ? src + a * sa + b * sb + x : src, ok);
     }
   }
 }

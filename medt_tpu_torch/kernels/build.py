@@ -45,7 +45,7 @@ SIGNATURES = {
     "medt_lanes_attn_fwd": [_P] * 7 + [_I] * 5 + [_P],
     "medt_flash_lanes_fwd": [_P] * 9 + [_I] * 5 + [_P],
     "medt_flash2_lanes_fwd": [_P] * 9 + [_I] * 5 + [_P],
-    "medt_lanes_attn_bwd": [_P] * 15 + [_I] * 7 + [_P],
+    "medt_lanes_attn_bwd": [_P] * 12 + [_I] * 7 + [_P],
     "medt_flash_lanes_bwd": [_P] * 17 + [_I] * 7 + [_P],
     "medt_flash2_lanes_bwd": [_P] * 17 + [_I] * 7 + [_P],
     "medt_moment_sums_fwd": [_P] * 7 + [_I] * 6 + [_P],

@@ -7,8 +7,8 @@ import ctypes
 
 import torch
 
-# stripes per CUDA block of the backward and moments kernels
-# (kBlockStripes in csrc/reduce.cuh); sizes their partial buffers
+# stripes per CUDA block of the moments kernels (kBlockStripes in
+# csrc/reduce.cuh); sizes their partial buffers
 BLOCK_STRIPES = 128
 
 

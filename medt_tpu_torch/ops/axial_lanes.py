@@ -24,8 +24,10 @@ their plain versions are one function.
 :class:`LanesAttnCore`, :class:`FlashLanesCore`, :class:`Flash2LanesCore`)
 and dispatch on where their input lies: on CPU tensors they run the plain
 PyTorch versions beside them; on CUDA tensors they launch the kernels of
-``csrc/axial_lanes_{fwd,bwd}.cu`` and ``csrc/axial_flash2_{fwd,bwd}.cu``
-through their wrappers (:func:`lanes_attn_fwd`, :func:`flash_lanes_fwd`,
+``csrc/axial_lanes_{fwd,bwd}.cu``, ``csrc/axial_flash_bwd.cu`` and
+``csrc/axial_flash2_{fwd,bwd}.cu`` (the flash and flash2 backwards are one
+tiled kernel pair, ``csrc/tiled_bwd.cuh``, under two tile policies) through
+their wrappers (:func:`lanes_attn_fwd`, :func:`flash_lanes_fwd`,
 :func:`flash2_lanes_fwd`, :func:`lanes_attn_bwd`, :func:`flash_lanes_bwd`,
 :func:`flash2_lanes_bwd`), which check device, dtype, shape and
 contiguity and raise on anything else. There is no
@@ -41,7 +43,7 @@ from __future__ import annotations
 import torch
 
 from ..kernels.build import library
-from ..kernels.launch import BLOCK_STRIPES, check_tensor, ptr, raise_on, stream
+from ..kernels.launch import check_tensor, ptr, raise_on, stream
 from .attn_core import attend, attn_logits
 
 LANES_MAX_SPAN = 16
@@ -283,47 +285,61 @@ def flash2_lanes_fwd(qkv, qemb, kemb_t, vemb, sim_affine):
 flash2_lanes_fwd.launches = 0
 
 
-def _bwd_alloc(qkv, g, gp, L, S, has_pos, n_tab, n_aff, scratch_rows):
-    """Outputs and scratch of a backward launch with ``n_tab`` table-partial
-    and ``n_aff`` daff-partial slots and ``scratch_rows`` (g, L, S) rows of
-    scratch: ``(buffers, n_tab, n_aff)``."""
+# The lanes backward's tile (csrc/axial_lanes_bwd.cu: kThreads, kGridBlocks,
+# span_bucket): a block of 256 threads is one (query or key, stripe) pair
+# each of a chunk of 256 / LP stripes, LP the span rounded up to 4, 8 or 16;
+# with positions a block walks several chunks, at most ceil(1056 / g)
+# blocks per group
+LANES_THREADS = 256
+LANES_GRID_BLOCKS = 1056
+
+# The tiled flash and flash2 backwards' row-pass tile, one for both
+# (csrc/tiled_bwd.cuh: kRowStripes; Flash2Tiles::kRowQueries): stripes per
+# block, which is also the stripes per slot of the table partials, and
+# query rows per block by gp
+ROW_STRIPES = 128
+ROW_QUERIES = {2: 8, 4: 8, 8: 4, 16: 2}
+
+
+def lanes_blocks(g: int, L: int, S: int, has_pos: bool) -> int:
+    """Blocks per group of a lanes backward launch (its partial slots)."""
+    lp = 4 if L <= 4 else 8 if L <= 8 else 16
+    chunks = -(-S // (LANES_THREADS // lp))
+    return min(chunks, -(-LANES_GRID_BLOCKS // g)) if has_pos else chunks
+
+
+def bwd_partials(kind: str, g: int, gp: int, L: int, S: int,
+                 has_pos: bool):
+    """``(n_tab, n_aff, scratch_rows)`` of a backward launch of ``kind``
+    (``"lanes"``, or ``"tiled"`` for flash and flash2): its table-partial
+    slots (0 without positions), daff-partial slots and (g, L, S) scratch
+    rows."""
+    if kind == "lanes":
+        blocks = lanes_blocks(g, L, S, has_pos)
+        return (g * blocks if has_pos else 0), blocks, 0
+    chunks = -(-S // ROW_STRIPES)
+    return (g * chunks if has_pos else 0), -(-L // ROW_QUERIES[gp]) * chunks, 2
+
+
+def _bwd_buffers(qkv, kind: str, g, gp, L, S, has_pos):
+    """Outputs and scratch of a backward launch of ``kind`` in three
+    allocations: dqkv; dtables (2gp, L, L) then daff (g, 8); the scratch
+    rows (delta and the row normaliser, (2, g, L, S), tiled only), then the table partials (n_tab, 2gp, L, L) and the daff partials
+    (n_aff, g, 4). ``(buffers, n_tab, n_aff)``."""
+    n_tab, n_aff, rows = bwd_partials(kind, g, gp, L, S, has_pos)
     f32 = dict(dtype=torch.float32, device=qkv.device)
-    out = dict(
-        dqkv=torch.empty((g, 2 * gp, L, S), **f32),
-        dtables=torch.empty((2 * gp if has_pos else 0, L, L), **f32),
-        daff=torch.empty((g, 8), **f32),
-        delta=torch.empty((*scratch_rows, g, L, S), **f32),
-        tab_part=torch.empty((max(n_tab, 1), 2 * gp if has_pos else 1, L, L),
-                             **f32),
-        aff_part=torch.empty((n_aff, g, 4), **f32))
-    return out, n_tab, n_aff
-
-
-def _bwd_buffers(qkv, g, gp, L, S, has_pos):
-    """Outputs and scratch of a lanes or flash backward launch: a slot of
-    partials per block of BLOCK_STRIPES stripes (and per query row for
-    daff); the scratch is delta (g, L, S)."""
-    blocks = -(-S // BLOCK_STRIPES)
-    return _bwd_alloc(qkv, g, gp, L, S, has_pos,
-                      g * blocks if has_pos else 0, L * blocks, ())
-
-
-# The flash2 backward's row-pass tile (csrc/axial_flash2_bwd.cu: kRowStripes,
-# kRowQueries): stripes per block, which is also the stripes per slot of the
-# table partials, and query rows per block by gp
-FLASH2_ROW_STRIPES = 128
-FLASH2_ROW_QUERIES = {2: 8, 4: 8, 8: 4, 16: 2}
-
-
-def _flash2_bwd_buffers(qkv, g, gp, L, S, has_pos):
-    """Outputs and scratch of a flash2 backward launch, sized from its
-    row-pass tile: ``g * ceil(S/128)`` table-partial slots (none without
-    positions), ``ceil(L/rows) * ceil(S/128)`` daff-partial slots; the
-    scratch holds delta and the row normaliser (2, g, L, S)."""
-    chunks = -(-S // FLASH2_ROW_STRIPES)
-    return _bwd_alloc(qkv, g, gp, L, S, has_pos,
-                      g * chunks if has_pos else 0,
-                      -(-L // FLASH2_ROW_QUERIES[gp]) * chunks, (2,))
+    e = 2 * gp * L * L if has_pos else 0
+    out = torch.empty(e + g * 8, **f32)
+    n_rows, n_tabs = rows * g * L * S, n_tab * e
+    scratch = torch.empty(n_rows + n_tabs + n_aff * g * 4, **f32)
+    b = dict(dqkv=torch.empty((g, 2 * gp, L, S), **f32),
+             dtables=out[:e].view(2 * gp if has_pos else 0, L, L),
+             daff=out[e:].view(g, 8),
+             scratch=scratch[:n_rows].view(rows, g, L, S),
+             tab_part=scratch[n_rows:n_rows + n_tabs].view(
+                 n_tab, 2 * gp if has_pos else 0, L, L),
+             aff_part=scratch[n_rows + n_tabs:].view(n_aff, g, 4))
+    return b, n_tab, n_aff
 
 
 def _split_tables(dtables, gp, has_pos):
@@ -342,14 +358,13 @@ def lanes_attn_bwd(qkv, qemb, kemb_t, vemb, sim_affine, dsv, dsve):
         extra["dsve"] = (dsve, "gp")
     g, gp, L, S, has_pos = _check(qkv, qemb, kemb_t, vemb, sim_affine,
                                   LANES_MAX_SPAN, "lanes_attn_bwd", **extra)
-    b, n_tab, n_aff = _bwd_buffers(qkv, g, gp, L, S, has_pos)
-    m, l = torch.empty_like(b["delta"]), torch.empty_like(b["delta"])
+    b, n_tab, n_aff = _bwd_buffers(qkv, "lanes", g, gp, L, S, has_pos)
     err = library().medt_lanes_attn_bwd(
         ptr(qkv), ptr(qemb), ptr(kemb_t), ptr(vemb), ptr(sim_affine),
         ptr(dsv), ptr(dsve if has_pos else dsv), ptr(b["dqkv"]),
-        ptr(b["dtables"]), ptr(b["daff"]), ptr(m), ptr(l),
-        ptr(b["delta"]), ptr(b["tab_part"]), ptr(b["aff_part"]),
-        g, gp, L, S, int(has_pos), n_tab, n_aff, stream(qkv.device))
+        ptr(b["dtables"]), ptr(b["daff"]), ptr(b["tab_part"]),
+        ptr(b["aff_part"]), g, gp, L, S, int(has_pos), n_tab, n_aff,
+        stream(qkv.device))
     raise_on(err, "lanes_attn_bwd")
     lanes_attn_bwd.launches += 1
     return (b["dqkv"], *_split_tables(b["dtables"], gp, has_pos), b["daff"])
@@ -358,23 +373,22 @@ def lanes_attn_bwd(qkv, qemb, kemb_t, vemb, sim_affine, dsv, dsve):
 lanes_attn_bwd.launches = 0
 
 
-def _streamed_bwd(name: str, max_span: int, buffers, qkv, qemb, kemb_t,
-                  vemb, sim_affine, m, l, sv, sve, dsv, dsve):
-    """Launch the backward kernel ``medt_<name>`` from the forward's saved
-    ``(m, l, sv, sve)``, with outputs and scratch from ``buffers``:
-    ``(dqkv, dqemb, dkemb_t, dvemb, daff)``."""
+def _streamed_bwd(name: str, max_span: int, qkv, qemb, kemb_t, vemb,
+                  sim_affine, m, l, sv, sve, dsv, dsve):
+    """Launch the tiled backward ``medt_<name>`` from the forward's saved
+    ``(m, l, sv, sve)``: ``(dqkv, dqemb, dkemb_t, dvemb, daff)``."""
     extra = {"m": (m, "row"), "l": (l, "row"), "sv": (sv, "gp"),
              "dsv": (dsv, "gp")}
     if _has_pos(qemb):
         extra.update(sve=(sve, "gp"), dsve=(dsve, "gp"))
     g, gp, L, S, has_pos = _check(qkv, qemb, kemb_t, vemb, sim_affine,
                                   max_span, name, **extra)
-    b, n_tab, n_aff = buffers(qkv, g, gp, L, S, has_pos)
+    b, n_tab, n_aff = _bwd_buffers(qkv, "tiled", g, gp, L, S, has_pos)
     err = getattr(library(), f"medt_{name}")(
         ptr(qkv), ptr(qemb), ptr(kemb_t), ptr(vemb), ptr(sim_affine),
         ptr(m), ptr(l), ptr(sv), ptr(sve if has_pos else sv), ptr(dsv),
         ptr(dsve if has_pos else dsv), ptr(b["dqkv"]), ptr(b["dtables"]),
-        ptr(b["daff"]), ptr(b["delta"]), ptr(b["tab_part"]),
+        ptr(b["daff"]), ptr(b["scratch"]), ptr(b["tab_part"]),
         ptr(b["aff_part"]), g, gp, L, S, int(has_pos), n_tab, n_aff,
         stream(qkv.device))
     raise_on(err, name)
@@ -386,9 +400,8 @@ def flash_lanes_bwd(qkv, qemb, kemb_t, vemb, sim_affine, m, l, sv, sve, dsv,
     """Launch the flash backward (spans <= 64) on CUDA tensors, from the
     forward's saved ``(m, l, sv, sve)``: ``(dqkv, dqemb, dkemb_t, dvemb,
     daff)``. ``sve``/``dsve`` are ignored without positions."""
-    out = _streamed_bwd("flash_lanes_bwd", FLASH_MAX_SPAN, _bwd_buffers, qkv,
-                        qemb, kemb_t, vemb, sim_affine, m, l, sv, sve, dsv,
-                        dsve)
+    out = _streamed_bwd("flash_lanes_bwd", FLASH_MAX_SPAN, qkv, qemb, kemb_t,
+                        vemb, sim_affine, m, l, sv, sve, dsv, dsve)
     flash_lanes_bwd.launches += 1
     return out
 
@@ -402,9 +415,8 @@ def flash2_lanes_bwd(qkv, qemb, kemb_t, vemb, sim_affine, m, l, sv, sve,
     forward's saved ``(m, l, sv, sve)``: ``(dqkv, dqemb, dkemb_t, dvemb,
     daff)``. ``sve``/``dsve`` are ignored without positions. The table
     partials it allocates are (g * ceil(S/128), 2gp, L, L) floats."""
-    out = _streamed_bwd("flash2_lanes_bwd", FLASH2_MAX_SPAN,
-                        _flash2_bwd_buffers, qkv, qemb, kemb_t, vemb,
-                        sim_affine, m, l, sv, sve, dsv, dsve)
+    out = _streamed_bwd("flash2_lanes_bwd", FLASH2_MAX_SPAN, qkv, qemb, kemb_t,
+                        vemb, sim_affine, m, l, sv, sve, dsv, dsve)
     flash2_lanes_bwd.launches += 1
     return out
 

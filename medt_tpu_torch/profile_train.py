@@ -16,17 +16,22 @@ from __future__ import annotations
 
 import argparse
 import json
+import re
 import sys
 import time
 
 from .profile_serve import _device_us
 
 ITERS, LR = 5, 1e-3
-# the port's hand-written kernels, by the names nvcc gives them (the
-# stripe forward is csrc/stripe_softmax.cuh's kernel, named by its epilogue)
-OWN_KERNELS = ("axial_lanes_fwd_kernel", "lanes_bwd_row_kernel",
-               "lanes_bwd_col_kernel", "flash2_tiled_fwd_kernel",
-               "flash2_tiled_bwd_row_kernel", "flash2_tiled_bwd_col_kernel",
+# the port's hand-written kernels, by (a part of) the names nvcc gives
+# them with their namespaces dropped: the stripe forward is
+# csrc/stripe_softmax.cuh's kernel, named by its epilogue; the flash and
+# flash2 backwards are csrc/tiled_bwd.cuh's, named by their tile policies
+OWN_KERNELS = ("axial_lanes_fwd_kernel", "lanes_bwd_kernel",
+               "flash2_tiled_fwd_kernel", "tiled_bwd_row_kernel<FlashTiles",
+               "tiled_bwd_col_kernel<FlashTiles",
+               "tiled_bwd_row_kernel<Flash2Tiles",
+               "tiled_bwd_col_kernel<Flash2Tiles", "bwd_finalize_kernel",
                "daff_finalize_kernel",
                "sum_partials_kernel", "moments_fwd_kernel",
                "moments_finalize_kernel", "moments_stripe_stats_kernel",
@@ -86,8 +91,10 @@ def main(argv=None) -> int:
                and not getattr(e, "is_user_annotation", False)
                and not e.key.startswith("Optimizer.")]
     total_us = sum(_device_us(e) for e in kernels) / ITERS
-    own = {name: sum(_device_us(e) for e in kernels if name in e.key)
-           / ITERS / 1e3 for name in OWN_KERNELS}
+    names = [re.sub(r"\(anonymous namespace\)::|\w+::", "", e.key)
+             for e in kernels]
+    own = {name: sum(_device_us(e) for e, key in zip(kernels, names)
+                     if name in key) / ITERS / 1e3 for name in OWN_KERNELS}
     top = sorted(kernels, key=_device_us, reverse=True)[:15]
     out = {
         "device": torch.cuda.get_device_name(0), "model": name,

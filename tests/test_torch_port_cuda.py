@@ -20,7 +20,6 @@ import pytest
 import torch
 
 from medt_tpu_torch.kernels import build as kbuild
-from medt_tpu_torch.kernels.launch import BLOCK_STRIPES
 from medt_tpu_torch.ops import axial_eval, axial_lanes, axial_train, moments
 from medt_tpu_torch.ops.attn_core import pack_sim_affine
 
@@ -312,17 +311,31 @@ def _grads_in(seed, g, gp, L, S, device):
             for _ in range(2)]
 
 
+# (kernel, span, gp, has_pos, stripes): stripe counts ragged for every tile
+# (128 stripes a flash row-pass block, 32 a column-pass block, 256 / LP a
+# lanes chunk); the path geometries of both kernels, both variants; S below
+# one block; with positions, a lanes launch whose blocks walk several
+# chunks; lanes spans below their bucket LP (rows past the span idle)
+BACKWARD_CARD_GEOMETRIES = [
+    ("lanes", 12, 4, True, 300), ("lanes", 5, 2, False, 77),
+    ("lanes", 1, 16, False, 33), ("lanes", 3, 8, True, 130),
+    ("lanes", 16, 2, False, 300), ("lanes", 4, 16, False, 300),
+    ("lanes", 8, 4, True, 300), ("lanes", 16, 16, True, 300),
+    ("lanes", 16, 16, False, 300), ("lanes", 4, 8, False, 300),
+    ("lanes", 16, 8, True, 9), ("lanes", 16, 2, True, 4301),
+    ("flash", 64, 2, True, 300), ("flash", 32, 4, True, 300),
+    ("flash", 64, 4, False, 300), ("flash", 20, 8, True, 300),
+    ("flash", 64, 4, True, 300), ("flash", 32, 8, False, 300),
+    ("flash", 64, 2, False, 300), ("flash", 64, 4, True, 50),
+]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("kernel,L,gp,has_pos", [
-    ("lanes", 16, 2, False), ("lanes", 4, 16, False), ("lanes", 8, 4, True),
-    ("lanes", 16, 16, True), ("flash", 64, 2, True), ("flash", 32, 4, True),
-    ("flash", 64, 4, False), ("flash", 20, 8, True),
-])
+@pytest.mark.parametrize("kernel,L,gp,has_pos,S", BACKWARD_CARD_GEOMETRIES)
 def test_backward_kernel_matches_plain_on_card(cuda_device, kernel, L, gp,
-                                               has_pos):
-    """The five gradients; an odd stripe count (a ragged last block); the
-    same bits on a second run."""
-    S = 300
+                                               has_pos, S):
+    """The five gradients; a ragged last block; the same bits on a second
+    run."""
     args = core_inputs(14, g=8, gp=gp, L=L, S=S, has_pos=has_pos,
                        device=cuda_device)
     dsv, dsve = _grads_in(15, 8, gp, L, S, cuda_device)
@@ -509,49 +522,80 @@ def test_flash2_kernels_match_plain_on_card(cuda_device, L, gp, S, has_pos):
 
 
 def test_flash2_backward_buffers_follow_the_kernel_tiles():
-    """The flash2 backward's partials are sized from its row-pass tile
-    (csrc/axial_flash2_bwd.cu: kRowStripes stripes and kRowQueries[log2 gp]
-    query rows per block), its scratch holds delta and the row normaliser;
-    the lanes and flash backwards keep theirs (kBlockStripes, reduce.cuh).
-    The table partials stay at 134 MB at the medt_512 (256, 4) site."""
+    """The lanes, flash and flash2 backwards' partials are sized from their
+    kernels' own tiles, read here from the sources: the tiled flash and
+    flash2 row pass (csrc/tiled_bwd.cuh: kRowStripes stripes; kRowQueries of
+    Flash2Tiles, which FlashTiles shares, query rows per block by gp), whose
+    scratch holds delta and the row normaliser; the lanes kernel (csrc/axial_lanes_bwd.cu: kThreads
+    threads, one per (row, stripe) of a chunk of kThreads / LP stripes, LP
+    the span's bucket; with positions at most ceil(kGridBlocks / g) blocks
+    per group), which needs no scratch. At the largest path sites the
+    partials are: lanes (16, 2, 4096) 32 KB of daff partials (with
+    positions, off the path, 4.3 MB of table partials); flash (64, 4, 1024)
+    with positions 8 MB of table partials and 4 MB of scratch, (64, 4,
+    4096) without 16 MB of scratch; flash2 (256, 4, 1024) 134 MB of table
+    partials."""
     csrc = REPO / "medt_tpu_torch" / "csrc"
-    src = (csrc / "axial_flash2_bwd.cu").read_text()
-    stripes = int(re.search(r"constexpr int kRowStripes = (\d+);",
-                            src).group(1))
-    rows = [int(x) for x in re.search(r"kRowQueries\[5\] = \{([^}]*)\}",
-                                      src).group(1).split(",")]
-    block = int(re.search(r"kBlockStripes = (\d+);",
-                          (csrc / "reduce.cuh").read_text()).group(1))
-    assert stripes == axial_lanes.FLASH2_ROW_STRIPES
-    assert axial_lanes.FLASH2_ROW_QUERIES == {
+
+    def const(name, text):
+        return int(re.search(rf"constexpr int {name} = (\d+);", text).group(1))
+
+    tiled_src = (csrc / "tiled_bwd.cuh").read_text()
+    stripes = const("kRowStripes", tiled_src)
+    vals = re.search(r"kRowQueries\[5\] = \{([^}]*)\}", tiled_src).group(1)
+    rows = [int(x) for x in vals.split(",")]
+    lanes_src = (csrc / "axial_lanes_bwd.cu").read_text()
+    assert stripes == axial_lanes.ROW_STRIPES
+    assert axial_lanes.ROW_QUERIES == {
         gp: rows[gp.bit_length() - 1] for gp in (2, 4, 8, 16)}
-    assert block == BLOCK_STRIPES == 128
+    assert "struct FlashTiles : Flash2Tiles {" in tiled_src
+    assert const("kThreads", lanes_src) == axial_lanes.LANES_THREADS
+    assert const("kGridBlocks", lanes_src) == axial_lanes.LANES_GRID_BLOCKS
+    assert "return L <= 4 ? 4 : L <= 8 ? 8 : 16;" in lanes_src
     for g, gp, L, S, pos in [(8, 4, 256, 1024, True), (8, 2, 256, 1024, True),
                              (8, 4, 128, 512, True), (2, 2, 99, 33, True),
-                             (3, 8, 200, 300, True), (8, 16, 72, 130, False)]:
+                             (3, 8, 200, 300, True), (8, 16, 72, 130, False),
+                             (8, 4, 64, 1024, True), (8, 8, 32, 2048, False),
+                             (8, 2, 16, 4096, False), (8, 2, 16, 4096, True),
+                             (8, 16, 4, 1024, False), (3, 8, 12, 300, True),
+                             (8, 4, 3, 9, True), (8, 8, 20, 300, True)]:
         qkv = torch.empty((g, 2 * gp, L, S), device="meta")
-        b, n_tab, n_aff = axial_lanes._flash2_bwd_buffers(qkv, g, gp, L, S,
-                                                          pos)
-        chunks = -(-S // stripes)
-        q_rows = rows[gp.bit_length() - 1]
-        assert (n_tab, n_aff) == (g * chunks if pos else 0,
-                                  -(-L // q_rows) * chunks)
-        assert b["tab_part"].shape == ((n_tab, 2 * gp, L, L) if pos
-                                       else (1, 1, L, L))
-        assert b["aff_part"].shape == (n_aff, g, 4)
-        assert b["delta"].shape == (2, g, L, S)
-        assert b["dqkv"].shape == (g, 2 * gp, L, S)
-        assert b["dtables"].shape == (2 * gp if pos else 0, L, L)
-        lb, l_tab, l_aff = axial_lanes._bwd_buffers(qkv, g, gp, L, S, pos)
-        blocks = -(-S // block)
-        assert (l_tab, l_aff) == (g * blocks if pos else 0, L * blocks)
-        assert lb["aff_part"].shape == (L * blocks, g, 4)
-        assert lb["delta"].shape == (g, L, S)
-        if pos:
-            assert lb["tab_part"].shape == (g * blocks, 2 * gp, L, L)
-    qkv = torch.empty((8, 8, 256, 1024), device="meta")
-    b, _, _ = axial_lanes._flash2_bwd_buffers(qkv, 8, 4, 256, 1024, True)
-    assert b["tab_part"].numel() * 4 == 134_217_728
+        kinds = ["tiled"] + (["lanes"] if L <= 16 else [])
+        for kind in kinds:
+            b, n_tab, n_aff = axial_lanes._bwd_buffers(qkv, kind, g, gp, L, S,
+                                                       pos)
+            if kind == "lanes":
+                ns = const("kThreads", lanes_src) // (
+                    4 if L <= 4 else 8 if L <= 8 else 16)
+                blocks = -(-S // ns)
+                if pos:
+                    blocks = min(blocks, -(-const("kGridBlocks", lanes_src)
+                                           // g))
+                want = (g * blocks if pos else 0, blocks, 0)
+            else:
+                q_rows = rows[gp.bit_length() - 1]
+                chunks = -(-S // stripes)
+                want = (g * chunks if pos else 0, -(-L // q_rows) * chunks, 2)
+            assert (n_tab, n_aff, b["scratch"].shape[0]) == want, (kind, L)
+            assert b["tab_part"].shape == (n_tab, 2 * gp if pos else 0, L, L)
+            assert b["aff_part"].shape == (n_aff, g, 4)
+            assert b["scratch"].shape == (want[2], g, L, S)
+            assert b["dqkv"].shape == (g, 2 * gp, L, S)
+            assert b["dtables"].shape == (2 * gp if pos else 0, L, L)
+            assert b["daff"].shape == (g, 8)
+
+    def nbytes(kind, g, gp, L, S, pos):
+        qkv = torch.empty((g, 2 * gp, L, S), device="meta")
+        b, _, _ = axial_lanes._bwd_buffers(qkv, kind, g, gp, L, S, pos)
+        return (b["tab_part"].numel() * 4, b["aff_part"].numel() * 4,
+                b["scratch"].numel() * 4)
+
+    assert nbytes("lanes", 8, 2, 16, 4096, False) == (0, 32_768, 0)
+    assert nbytes("lanes", 8, 2, 16, 4096, True) == (4_325_376, 16_896, 0)
+    assert nbytes("tiled", 8, 4, 64, 1024, True) == (8_388_608, 8_192,
+                                                      4_194_304)
+    assert nbytes("tiled", 8, 4, 64, 4096, False) == (0, 32_768, 16_777_216)
+    assert nbytes("tiled", 8, 4, 256, 1024, True)[0] == 134_217_728
 
 
 def test_smoke_labels_kernels_by_their_mangled_names():
@@ -571,6 +615,9 @@ def test_smoke_labels_kernels_by_their_mangled_names():
         == "sum_partials_kernel"
     assert kernel_label("_ZN12_GLOBAL__N_120lanes_bwd_row_kernelILi2ELb0EEEv"
                         "NS_13LanesBwdArgsE") == "lanes_bwd_row_kernelILi2ELb0EE"
+    assert kernel_label("_ZN6flash212_GLOBAL__N_120tiled_bwd_row_kernelIN12_"
+                        "GLOBAL__N_110FlashTilesELi4ELb1EEEvNS0_7BwdArgsE") \
+        == "tiled_bwd_row_kernelIN12_GLOBAL__N_110FlashTilesELi4ELb1EE"
     assert kernel_label("_Z3foov") == "_Z3foov"
 
 
