@@ -117,7 +117,7 @@ LOSS_FALL = 0.5
 
 SOURCES = {
     "lanes_attn_fwd": "medt_tpu_torch/csrc/axial_lanes_fwd.cu",
-    "flash_lanes_fwd": "medt_tpu_torch/csrc/axial_lanes_fwd.cu",
+    "flash_lanes_fwd": "medt_tpu_torch/csrc/axial_flash_fwd.cu",
     "lanes_attn_bwd": "medt_tpu_torch/csrc/axial_lanes_bwd.cu",
     "flash_lanes_bwd": "medt_tpu_torch/csrc/axial_flash_bwd.cu",
     "moment_sums_fwd": "medt_tpu_torch/csrc/moments.cu",

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""Time the port's lanes, flash or flash2 kernels in a given tree, on one card.
+"""Time one or more families of the port's kernels in a given tree, on one card.
 
-    python3 compare_kernels.py [--root DIR] [--family lanes flash flash2]
+    python3 compare_kernels.py [--root DIR]
+                               [--family lanes flash flash2 moments]
                                [--out FILE]
 
 Runs the ``device``, ``build`` and ``kernels`` phases of ``DIR/chip_smoke.py``
@@ -10,9 +11,10 @@ for the geometries of the kernel families named by ``--family`` (default
 flash2): each kernel held against its plain version (the smoke's
 tolerances, the same bits twice), its CUDA-event time over back-to-back
 wrapper calls, plain time and bound. With ``flash`` it also runs the flash2
-backward (which computes the flash contract at any span up to 256) at every
-flash backward geometry, as the baseline a flash design has to beat (rows
-with ``path`` ``"<path>:flash2"``). Then, for each geometry, a
+forward and backward (which compute the flash contract at any span up to
+256) at every flash forward and backward geometry, as the baseline a flash
+design has to beat (rows with ``path`` ``"<path>:flash2"``); ``moments``
+runs the moments forward and backward. Then, for each geometry, a
 ``torch.profiler`` window over a few calls splits its device time by CUDA
 kernel (row pass, column pass, reductions) and a host clock times the
 wrapper's enqueue alone (``host_ms``: checks, allocations, the ``ctypes``
@@ -41,12 +43,14 @@ import time
 from pathlib import Path
 
 HERE = Path(__file__).resolve().parent
-FAMILIES = ("lanes", "flash", "flash2")
+FAMILIES = ("lanes", "flash", "flash2", "moments")
 
 
 def family(kernel: str) -> str:
-    """``lanes_attn_bwd`` -> ``lanes``, ``flash2_lanes_fwd`` -> ``flash2``."""
-    return kernel.split("_")[0]
+    """``lanes_attn_bwd`` -> ``lanes``, ``flash2_lanes_fwd`` -> ``flash2``,
+    ``moment_sums_bwd`` -> ``moments``."""
+    first = kernel.split("_")[0]
+    return "moments" if first == "moment" else first
 
 
 def split_by_kernel(torch, fn, calls: int = 5) -> dict:
@@ -86,9 +90,11 @@ def host_ms(torch, fn, calls: int = 20) -> float:
 
 
 def flash2_baseline(geometries) -> list:
-    """The flash2 backward at every flash backward geometry."""
-    return [("flash2_lanes_bwd", *g[1:6], f"{g[6]}:flash2")
-            for g in geometries if g[0] == "flash_lanes_bwd"]
+    """The flash2 forward and backward at every flash forward and backward
+    geometry."""
+    return [(g[0].replace("flash_", "flash2_"), *g[1:6], f"{g[6]}:flash2")
+            for g in geometries
+            if g[0] in ("flash_lanes_fwd", "flash_lanes_bwd")]
 
 
 def main(argv=None) -> int:

@@ -1,24 +1,23 @@
-// Forward axial attention over the stripe-lane layout, for Hopper (sm_90a).
+// Forward axial attention over the stripe-lane layout at spans up to 16,
+// for Hopper (sm_90a).
 //
-// Replaces two Pallas TPU kernels of medt_tpu/ops/pallas_axial_lanes.py:
-//   * lanes_attn_core, body _fwd_kernel (spans <= 16: whole (L, L) tile);
-//   * flash_lanes_core, body _flash_fwd_kernel (spans 32..64: online
-//     softmax over key blocks of 16; also writes the row max m and the
-//     softmax denominator l that the backward will rebuild from).
-// Both compute, per group gi, query row i and stripe s:
+// Replaces the Pallas TPU kernel lanes_attn_core of
+// medt_tpu/ops/pallas_axial_lanes.py (body _fwd_kernel: spans <= 16, the
+// whole (L, L) tile). The flash contract (spans 17..64) has its own tiled
+// forward, csrc/axial_flash_fwd.cu. Per group gi, query row i and stripe s:
 //   logit[j] = qk*a0 + a1 [+ qr*a2 + a3 + kr*a4 + a5]
 //     qk = sum_c q[c,i,s] k[c,j,s]
 //     qr = sum_c q[c,i,s] qemb[c,i,j],  kr = sum_c k[c,j,s] kemb_t[c,i,j]
 //   sim = softmax_j(logit)
 //   sv[p,i,s] = sum_j sim[j] v[p,j,s],  sve[p,i,s] = sum_j sim[j] vemb[p,i,j]
 // on the fused qkv tensor (g, 2gp, L, S): rows [0:c] = q, [c:gp] = k,
-// [gp:2gp] = v, c = gp/2; outputs sv, sve (g, gp, L, S), m, l (g, L, S).
+// [gp:2gp] = v, c = gp/2; outputs sv, sve (g, gp, L, S).
 // Everything is float32.
 //
 // What bounds it on the H100: per (i, j) pair the kernel does ~6c + 4gp + 8
-// flops on operands that it loads once per query row, so at L = 64 the
-// arithmetic (float32, outside the tensor cores: contraction depths c <= 8
-// are far too shallow for wgmma) and the L2 traffic both exceed the
+// flops on operands that it loads once per query row, so the arithmetic
+// (float32, outside the tensor cores: contraction depths c <= 8 are far
+// too shallow for wgmma) and the L2 traffic both exceed the
 // compulsory device-memory traffic (each qkv element read once, each
 // output written once). What the design does about it:
 //   * one thread per (gi, i, s); s is the minor axis of every tensor, so a
@@ -29,10 +28,8 @@
 //   * the group-shared tables are read at row i only: the block stages
 //     qemb[:, i, :], kemb_t[:, i, :] and vemb[:, i, :] (<= 8 KB) in shared
 //     memory, where every thread of the block reads the same address;
-//   * logits of one key block stay in registers (all of them for L <= 16,
-//     the "lanes" entry point; 16 at a time with an online max and
-//     rescaling for the "flash" entry point); gp <= 16 accumulators for sv
-//     and sve live in registers;
+//   * the logits of all L <= 16 keys stay in registers; gp <= 16
+//     accumulators for sv and sve live in registers;
 //   * no shared-memory tiling of k/v and no tensor cores yet: making it fast
 //     is later work (PERF.md records its time against the bound).
 // Kernels launch on the caller's stream, allocate nothing and do not
@@ -44,10 +41,10 @@
 namespace {
 
 constexpr int kThreads = 128;   // stripes per block
-constexpr int kKeyBlock = 16;   // keys per online-softmax step
-constexpr int kMaxSpan = 64;    // table rows staged in shared memory
+constexpr int kKeyBlock = 16;   // keys per softmax step
+constexpr int kMaxSpan = 16;    // the whole span is one key block
 
-template <int GP, bool HAS_POS, bool WRITE_ML>
+template <int GP, bool HAS_POS>
 __global__ void __launch_bounds__(kThreads)
 axial_lanes_fwd_kernel(const float* __restrict__ qkv,
                        const float* __restrict__ qemb,
@@ -55,7 +52,6 @@ axial_lanes_fwd_kernel(const float* __restrict__ qkv,
                        const float* __restrict__ vemb,
                        const float* __restrict__ aff,
                        float* __restrict__ sv, float* __restrict__ sve,
-                       float* __restrict__ m_out, float* __restrict__ l_out,
                        int L, int S) {
   constexpr int C = GP / 2;
   __shared__ float t_q[HAS_POS ? C * kMaxSpan : 1];
@@ -156,50 +152,20 @@ axial_lanes_fwd_kernel(const float* __restrict__ qkv,
     sv[out0 + p * LS] = acc_v[p] * inv_l;
     if constexpr (HAS_POS) sve[out0 + p * LS] = acc_e[p] * inv_l;
   }
-  if constexpr (WRITE_ML) {
-    const size_t row = ((size_t)gi * L + i) * S + s;
-    m_out[row] = m;
-    l_out[row] = l;
-  }
 }
 
-template <int GP, bool WRITE_ML>
+template <int GP>
 void launch_gp(const float* qkv, const float* qemb, const float* kemb_t,
                const float* vemb, const float* aff, float* sv, float* sve,
-               float* m, float* l, int g, int L, int S, bool has_pos,
-               cudaStream_t stream) {
+               int g, int L, int S, bool has_pos, cudaStream_t stream) {
   const dim3 grid(L, (S + kThreads - 1) / kThreads, g);
   if (has_pos) {
-    axial_lanes_fwd_kernel<GP, true, WRITE_ML><<<grid, kThreads, 0, stream>>>(
-        qkv, qemb, kemb_t, vemb, aff, sv, sve, m, l, L, S);
+    axial_lanes_fwd_kernel<GP, true><<<grid, kThreads, 0, stream>>>(
+        qkv, qemb, kemb_t, vemb, aff, sv, sve, L, S);
   } else {
-    axial_lanes_fwd_kernel<GP, false, WRITE_ML><<<grid, kThreads, 0, stream>>>(
-        qkv, qemb, kemb_t, vemb, aff, sv, sve, m, l, L, S);
+    axial_lanes_fwd_kernel<GP, false><<<grid, kThreads, 0, stream>>>(
+        qkv, qemb, kemb_t, vemb, aff, sv, sve, L, S);
   }
-}
-
-template <bool WRITE_ML>
-int launch(const float* qkv, const float* qemb, const float* kemb_t,
-           const float* vemb, const float* aff, float* sv, float* sve,
-           float* m, float* l, int g, int gp, int L, int S, int has_pos,
-           void* stream_ptr) {
-  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  if (g < 1 || S < 1 || L < 1 || L > kMaxSpan || g > 65535 ||
-      (S + kThreads - 1) / kThreads > 65535) {
-    return (int)cudaErrorInvalidValue;
-  }
-  switch (gp) {
-    case 2: launch_gp<2, WRITE_ML>(qkv, qemb, kemb_t, vemb, aff, sv, sve, m, l,
-                                   g, L, S, has_pos != 0, stream); break;
-    case 4: launch_gp<4, WRITE_ML>(qkv, qemb, kemb_t, vemb, aff, sv, sve, m, l,
-                                   g, L, S, has_pos != 0, stream); break;
-    case 8: launch_gp<8, WRITE_ML>(qkv, qemb, kemb_t, vemb, aff, sv, sve, m, l,
-                                   g, L, S, has_pos != 0, stream); break;
-    case 16: launch_gp<16, WRITE_ML>(qkv, qemb, kemb_t, vemb, aff, sv, sve, m,
-                                     l, g, L, S, has_pos != 0, stream); break;
-    default: return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -210,20 +176,25 @@ extern "C" {
 int medt_lanes_attn_fwd(const float* qkv, const float* qemb,
                         const float* kemb_t, const float* vemb,
                         const float* aff, float* sv, float* sve, int g, int gp,
-                        int L, int S, int has_pos, void* stream) {
-  if (L > kKeyBlock) return (int)cudaErrorInvalidValue;
-  return launch<false>(qkv, qemb, kemb_t, vemb, aff, sv, sve, nullptr,
-                       nullptr, g, gp, L, S, has_pos, stream);
-}
-
-// Spans 17..64 (flash_lanes_core): also writes m and l, (g, L, S) each.
-int medt_flash_lanes_fwd(const float* qkv, const float* qemb,
-                         const float* kemb_t, const float* vemb,
-                         const float* aff, float* sv, float* sve, float* m,
-                         float* l, int g, int gp, int L, int S, int has_pos,
-                         void* stream) {
-  return launch<true>(qkv, qemb, kemb_t, vemb, aff, sv, sve, m, l, g, gp, L,
-                      S, has_pos, stream);
+                        int L, int S, int has_pos, void* stream_ptr) {
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  if (g < 1 || S < 1 || L < 1 || L > kMaxSpan || g > 65535 ||
+      (S + kThreads - 1) / kThreads > 65535) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const bool pos = has_pos != 0;
+  switch (gp) {
+    case 2: launch_gp<2>(qkv, qemb, kemb_t, vemb, aff, sv, sve, g, L, S, pos,
+                         stream); break;
+    case 4: launch_gp<4>(qkv, qemb, kemb_t, vemb, aff, sv, sve, g, L, S, pos,
+                         stream); break;
+    case 8: launch_gp<8>(qkv, qemb, kemb_t, vemb, aff, sv, sve, g, L, S, pos,
+                         stream); break;
+    case 16: launch_gp<16>(qkv, qemb, kemb_t, vemb, aff, sv, sve, g, L, S,
+                           pos, stream); break;
+    default: return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
 }
 
 }  // extern "C"

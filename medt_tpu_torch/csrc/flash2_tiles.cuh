@@ -1,6 +1,7 @@
-// Tile staging shared by the flash2 forward (csrc/axial_flash2_fwd.cu), the
-// tiled flash and flash2 backward (csrc/tiled_bwd.cuh) and the lanes
-// backward (csrc/axial_lanes_bwd.cu).
+// Tile staging shared by the tiled flash and flash2 forward
+// (csrc/tiled_fwd.cuh) and backward (csrc/tiled_bwd.cuh), the lanes
+// backward (csrc/axial_lanes_bwd.cu) and the moments backward
+// (csrc/moments.cu).
 //
 // A block copies the tiles it is about to compute on from device memory into
 // shared memory with cp.async, into a ring of kStages slots, so the next key
@@ -75,6 +76,34 @@ __device__ __forceinline__ void stage(float* dst, const float* src, size_t sa,
       const int x = e % X, ab = e / X, b = ab % B, a = ab / B;
       const bool ok = b < vb && x < vx;
       cp_async4(dst + ab * XP + x, ok ? src + a * sa + b * sb + x : src, ok);
+    }
+  }
+}
+
+// Stage nb runs of X floats, nb known only at run time: run b comes from
+// src[b * sb + x] and lands at dst[b * X + x], zero where x >= vx. Copies
+// as in stage(): 16 bytes with vec (aligned runs, vx % 4 == 0), else 4.
+template <int X, int NT>
+__device__ __forceinline__ void stage_runs(float* dst, const float* src,
+                                           size_t sb, int nb, int vx,
+                                           bool vec, int tid) {
+  static_assert(X % 4 == 0, "runs of whole 16-byte chunks");
+  if (vec) {
+    constexpr int X4 = X / 4;
+    const int n = nb * X4;
+#pragma unroll 4
+    for (int e = tid; e < n; e += NT) {
+      const int x = (e % X4) * 4, b = e / X4;
+      const bool ok = x < vx;
+      cp_async16(dst + b * X + x, ok ? src + b * sb + x : src, ok);
+    }
+  } else {
+    const int n = nb * X;
+#pragma unroll 4
+    for (int e = tid; e < n; e += NT) {
+      const int x = e % X, b = e / X;
+      const bool ok = x < vx;
+      cp_async4(dst + b * X + x, ok ? src + b * sb + x : src, ok);
     }
   }
 }

@@ -49,7 +49,7 @@ SIGNATURES = {
     "medt_flash_lanes_bwd": [_P] * 17 + [_I] * 7 + [_P],
     "medt_flash2_lanes_bwd": [_P] * 17 + [_I] * 7 + [_P],
     "medt_moment_sums_fwd": [_P] * 7 + [_I] * 6 + [_P],
-    "medt_moment_sums_bwd": [_P] * 10 + [_I] * 6 + [_P],
+    "medt_moment_sums_bwd": [_P] * 9 + [_I] * 6 + [_P],
     "medt_axial_eval_fwd": [_P] * 9 + [_L] * 6 + [_I] * 5 + [_P],
     "medt_stripe_attn_fwd": [_P] * 9 + [_L] * 6 + [_I] * 5 + [_P],
     "medt_stripe_attn_bwd": [_P] * 19 + [_L] * 6 + [_I] * 7 + [_P],

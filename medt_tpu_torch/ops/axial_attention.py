@@ -42,8 +42,10 @@ Two paths, as in JAX:
   The TPU admission checks (VMEM budgets, flash's ``gp * span <= 256``,
   ``fused_train_supported``) are not ported; :func:`fused_route` is the
   whole rule.
-* the **plain path** (``_jnp_attention`` in JAX), for the other modes and
-  whenever ``use_fused`` is off, in both modes.
+* the **plain path** (``_jnp_attention`` in JAX), for the other modes,
+  whenever ``use_fused`` is off, and on the fused path at spans over 256
+  (route ``"plain"``: no kernel takes them, and JAX runs XLA attention
+  there), in both modes.
 
 Parameters carry the reference's names and shapes (``qkv_transform.weight``
 (2*out, in, 1), ``bn_qkv``, ``bn_similarity``, ``bn_output``, ``relative``,
@@ -97,8 +99,8 @@ _FUSED_MODES = (MODE_FULL, MODE_GATED, MODE_WOPOS)
 GATE_NAMES = ("f_qr", "f_kr", "f_sve", "f_sv")
 
 SPAN_TODO = ("fused attention at span {span} > 256 has no kernel (flash2 "
-             "takes spans up to 256); build the model with use_fused=False "
-             "for the plain path")
+             "takes spans up to 256); fused_route sends such a site to the "
+             "plain attention before it reaches the core")
 
 
 # a site with fewer stripes than the lanes family's blocks hold takes the
@@ -112,7 +114,12 @@ STRIPE_MIN_SPAN = 32
 def fused_route(span: int, stripes: int, training: bool) -> str:
     """The core a fused-path site runs: "eval", "stripe", "lanes", "flash"
     or "flash2" (spans 65..256, in both modes at any stripe count); longer
-    spans raise."""
+    spans take "plain", the module's plain attention, in both modes. No
+    kernel of either package takes them: JAX sends them to XLA attention
+    (train mode admits span <= 256, eval mode the flash2 or eval-kernel
+    admission)."""
+    if span > FLASH2_MAX_SPAN:
+        return "plain"
     few = stripes < LANES_MIN_STRIPES
     if not training and span <= EVAL_MAX_SPAN and few:
         return "eval"
@@ -122,15 +129,14 @@ def fused_route(span: int, stripes: int, training: bool) -> str:
         return "lanes"
     if span <= FLASH_MAX_SPAN:
         return "flash"
-    if span <= FLASH2_MAX_SPAN:
-        return "flash2"
-    raise NotImplementedError(SPAN_TODO.format(span=span))
+    return "flash2"
 
 
 def lanes_family_core(qkv, qemb, kemb_t, vemb, sim_affine,
                       plain: bool = False):
     """Route the fused core by span: <= 16 the lanes kernel, 17..64 the
-    flash kernel, 65..256 the flash2 kernel; longer spans raise.
+    flash kernel, 65..256 the flash2 kernel; longer spans raise (the
+    route, :func:`fused_route`, never brings them here).
     Differentiable; flash and flash2 save m and l for their backward.
     ``plain`` runs the plain versions (forward and backward) on whatever
     device the input lies on — an explicit choice, never a fallback."""
@@ -283,6 +289,8 @@ class AxialAttention(nn.Module):
                 out = self._eval_attention(qkv)
             elif route == "stripe":
                 out = self._stripe_attention(qkv)
+            elif route == "plain":
+                out = self._plain_attention(qkv, x_in)
             else:
                 out = self._fused_attention(qkv)
         else:

@@ -24,9 +24,10 @@ their plain versions are one function.
 :class:`LanesAttnCore`, :class:`FlashLanesCore`, :class:`Flash2LanesCore`)
 and dispatch on where their input lies: on CPU tensors they run the plain
 PyTorch versions beside them; on CUDA tensors they launch the kernels of
-``csrc/axial_lanes_{fwd,bwd}.cu``, ``csrc/axial_flash_bwd.cu`` and
-``csrc/axial_flash2_{fwd,bwd}.cu`` (the flash and flash2 backwards are one
-tiled kernel pair, ``csrc/tiled_bwd.cuh``, under two tile policies) through
+``csrc/axial_lanes_{fwd,bwd}.cu``, ``csrc/axial_flash_{fwd,bwd}.cu`` and
+``csrc/axial_flash2_{fwd,bwd}.cu`` (the flash and flash2 forwards are one
+tiled kernel, ``csrc/tiled_fwd.cuh``, and their backwards one tiled kernel
+pair, ``csrc/tiled_bwd.cuh``, each under two tile policies) through
 their wrappers (:func:`lanes_attn_fwd`, :func:`flash_lanes_fwd`,
 :func:`flash2_lanes_fwd`, :func:`lanes_attn_bwd`, :func:`flash_lanes_bwd`,
 :func:`flash2_lanes_bwd`), which check device, dtype, shape and

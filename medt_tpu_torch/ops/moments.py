@@ -140,24 +140,56 @@ def moment_sums_fwd(qkv, r_q, e_q, r_k, e_k):
 moment_sums_fwd.launches = 0
 
 
+# The moments backward's tile (csrc/moments.cu: kSlabFloats, kMinTile,
+# kMaxTile, kMinBlocks, kMaxBwdSpan and bwd_tile): a block owns one group
+# and TS stripes, TS the largest of 32, 16, 8 whose q/k slab (2c x L x TS
+# floats) fits the budget and whose grid has at least 132 blocks; its table
+# partials have one slot per block
+BWD_SLAB_FLOATS = 16384
+BWD_MIN_TILE = 8
+BWD_MAX_TILE = 32
+BWD_MIN_BLOCKS = 132
+BWD_MAX_SPAN = 256
+
+
+def bwd_tile(c: int, L: int, S: int, g: int) -> int:
+    """Stripes per block of a moments backward launch."""
+    ts = BWD_MAX_TILE
+    while ts > BWD_MIN_TILE and (2 * c * L * ts > BWD_SLAB_FLOATS
+                                 or g * -(-S // ts) < BWD_MIN_BLOCKS):
+        ts //= 2
+    return ts
+
+
+def bwd_buffers(qkv, g, gp, L, S, has_pos):
+    """dqkv and, in one more allocation, dtables (2c + 2c^2, L) then the
+    table partials (n_part, 2c + 2c^2, L), both empty without positions:
+    ``(dqkv, dtables, part, n_part)``."""
+    c = gp // 2
+    rows = 2 * c + 2 * c * c if has_pos else 0
+    n_part = g * -(-S // bwd_tile(c, L, S, g)) if has_pos else 0
+    f32 = dict(dtype=torch.float32, device=qkv.device)
+    dqkv = torch.empty(tuple(qkv.shape), **f32)
+    tables = torch.empty(((1 + n_part) * rows * L,), **f32)
+    dtables = tables[:rows * L].view(rows, L)
+    part = tables[rows * L:].view(n_part, rows, L)
+    return dqkv, dtables, part, n_part
+
+
 def moment_sums_bwd(qkv, r_q, e_q, r_k, e_k, ct):
-    """Launch the moments backward on CUDA tensors: ``(dqkv, dr_q, de_q,
-    dr_k, de_k)``."""
-    g, gp, L, S, has_pos, blocks = _check(
+    """Launch the moments backward on CUDA tensors (spans up to 256):
+    ``(dqkv, dr_q, de_q, dr_k, de_k)``."""
+    g, gp, L, S, has_pos, _ = _check(
         qkv, r_q, e_q, r_k, e_k, "moment_sums_bwd",
         ct=(ct, (qkv.shape[0], 8)))
+    if L > BWD_MAX_SPAN:
+        raise ValueError(f"moment_sums_bwd: span {L} > {BWD_MAX_SPAN}")
     c = gp // 2
-    f32 = dict(dtype=torch.float32, device=qkv.device)
-    rows = 2 * c + 2 * c * c if has_pos else 0
-    dqkv = torch.empty(tuple(qkv.shape), **f32)
-    dtables = torch.empty((rows, L), **f32)
-    stats = torch.empty((g, 2 * c + c * (c + 1), S), **f32)
-    n_part = g * blocks if has_pos else 0
-    part = torch.empty((max(n_part, 1), max(rows, 1), L), **f32)
+    dqkv, dtables, part, n_part = bwd_buffers(qkv, g, gp, L, S, has_pos)
     err = library().medt_moment_sums_bwd(
         ptr(qkv), ptr(r_q), ptr(e_q), ptr(r_k), ptr(e_k), ptr(ct),
-        ptr(dqkv), ptr(dtables), ptr(stats), ptr(part), g, gp, L, S,
-        int(has_pos), n_part, stream(qkv.device))
+        ptr(dqkv), ptr(dtables), ptr(part), g, gp, L, S, int(has_pos),
+        n_part, stream(qkv.device))
     raise_on(err, "moment_sums_bwd")
     moment_sums_bwd.launches += 1
     if not has_pos:

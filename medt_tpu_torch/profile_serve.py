@@ -28,9 +28,10 @@ def _device_us(evt) -> float:
 
 
 # the port's attention kernels, by kernel name (the eval kernel is
-# csrc/stripe_softmax.cuh's kernel, named by its epilogue)
+# csrc/stripe_softmax.cuh's kernel, named by its epilogue; the flash and
+# flash2 forwards are csrc/tiled_fwd.cuh's)
 PORT_KERNELS = ("axial_lanes_fwd_kernel", "EvalFwdEpilogue",
-                "flash2_tiled_fwd_kernel")
+                "tiled_fwd_kernel")
 
 
 def main(argv=None) -> int:

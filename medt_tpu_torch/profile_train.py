@@ -26,17 +26,21 @@ ITERS, LR = 5, 1e-3
 # the port's hand-written kernels, by (a part of) the names nvcc gives
 # them with their namespaces dropped: the stripe forward is
 # csrc/stripe_softmax.cuh's kernel, named by its epilogue; the flash and
-# flash2 backwards are csrc/tiled_bwd.cuh's, named by their tile policies
+# flash2 forwards and backwards are csrc/tiled_fwd.cuh's and
+# csrc/tiled_bwd.cuh's, named by their tile policies
 OWN_KERNELS = ("axial_lanes_fwd_kernel", "lanes_bwd_kernel",
-               "flash2_tiled_fwd_kernel", "tiled_bwd_row_kernel<FlashTiles",
+               "tiled_fwd_kernel<FlashFwdTiles",
+               "tiled_fwd_kernel<Flash2FwdTiles",
+               "tiled_bwd_row_kernel<FlashTiles",
                "tiled_bwd_col_kernel<FlashTiles",
                "tiled_bwd_row_kernel<Flash2Tiles",
                "tiled_bwd_col_kernel<Flash2Tiles", "bwd_finalize_kernel",
                "daff_finalize_kernel",
                "sum_partials_kernel", "moments_fwd_kernel",
-               "moments_finalize_kernel", "moments_stripe_stats_kernel",
-               "moments_bwd_kernel", "StripeFwdEpilogue",
-               "stripe_bwd_row_kernel", "stripe_bwd_col_kernel")
+               "moments_finalize_kernel", "moments_bwd_kernel",
+               "tab_finalize_kernel",
+               "StripeFwdEpilogue", "stripe_bwd_row_kernel",
+               "stripe_bwd_col_kernel")
 
 
 def main(argv=None) -> int:

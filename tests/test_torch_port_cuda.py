@@ -282,6 +282,36 @@ def test_kernel_matches_plain_on_card(cuda_device, kernel, L, gp, has_pos):
         torch.testing.assert_close(o, w, atol=1e-4, rtol=1e-4)
 
 
+# (span, gp, stripes, has_pos): spans that no key step divides, with S =
+# 301 (no multiple of 4, so the 16-byte copies are off), both variants; the
+# medt_512 site (64, 4, 4096) without positions, at its full width
+FLASH_FWD_CARD_GEOMETRIES = [
+    (17, 2, 301, True), (33, 4, 301, False), (63, 8, 301, True),
+    (17, 16, 301, False), (33, 2, 301, True), (63, 4, 301, True),
+    (64, 4, 4096, False),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("L,gp,S,has_pos", FLASH_FWD_CARD_GEOMETRIES)
+def test_flash_forward_matches_plain_on_card(cuda_device, L, gp, S, has_pos):
+    """The tiled flash forward: sv, sve at 1e-4, m and l also at rtol
+    1e-5, against the plain version; the same bits on a second run; one
+    launch counted per call."""
+    args = core_inputs(29, g=8, gp=gp, L=L, S=S, has_pos=has_pos,
+                       device=cuda_device)
+    fn = axial_lanes.flash_lanes_fwd
+    before = fn.launches
+    got, again = fn(*args), fn(*args)
+    want = axial_lanes.flash_lanes_plain(*args)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 2
+    for name, o, a, w in zip(("sv", "sve", "m", "l"), got, again, want):
+        rtol = 1e-5 if name in ("m", "l") else 0.0
+        torch.testing.assert_close(o, w, atol=1e-4, rtol=rtol, msg=name)
+        assert torch.equal(o, a), f"{name} differs between two runs"
+
+
 @pytest.mark.cuda
 def test_kernel_wrappers_refuse_what_the_kernel_does_not_take(cuda_device):
     qkv, qemb, kemb_t, vemb, aff = core_inputs(12, g=2, gp=4, L=8, S=128,
@@ -378,6 +408,101 @@ def test_moment_kernels_match_plain_on_card(cuda_device, gp, L, has_pos):
                              got, again, want):
         _close(o, w, name)
         assert torch.equal(o, a), f"{name} differs between two runs"
+
+
+# (span, gp, stripes, has_pos): spans 1, 3 and 256 at ragged stripe counts
+# (no multiple of any stripe tile, nor of 4), both variants, every gp at the
+# short spans; at span 256 the path's gp 2 and 4 and gp 16 (the smallest
+# stripe tile, whose slab is largest)
+MOMENTS_BWD_CARD_GEOMETRIES = [
+    (1, 2, 301, True), (1, 16, 77, False), (3, 4, 301, False),
+    (3, 8, 130, True), (256, 2, 301, True), (256, 4, 301, False),
+    (256, 4, 1030, True), (256, 16, 77, True),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("L,gp,S,has_pos", MOMENTS_BWD_CARD_GEOMETRIES)
+def test_moments_backward_matches_plain_on_card(cuda_device, L, gp, S,
+                                                has_pos):
+    """The one-launch moments backward: dqkv (v rows zero) and the table
+    gradients per tensor at 1e-4 + 1e-4 * max|plain|; the same bits on a
+    second run; one launch counted per call."""
+    ins = moment_inputs(30, 8, gp, L, S, has_pos, device=cuda_device)
+    ct = torch.from_numpy(np.random.default_rng(31).normal(size=(8, 8))
+                          .astype(np.float32)).to(cuda_device)
+    fn = moments.moment_sums_bwd
+    before = fn.launches
+    got = fn(*ins, ct)
+    again = fn(*ins, ct)
+    want = moments.moment_sums_bwd_plain(*ins, ct)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 2
+    assert not got[0][:, gp:].any(), "v rows of dqkv must be zero"
+    for name, o, a, w in zip(("dqkv", "dr_q", "de_q", "dr_k", "de_k"),
+                             got, again, want):
+        _close(o, w, name)
+        assert torch.equal(o, a), f"{name} differs between two runs"
+
+
+def test_moments_backward_buffers_follow_the_kernel_tile():
+    """The moments backward's table partials have one slot per block, and
+    the wrapper sizes them from the kernel's own tile rule, read here from
+    csrc/moments.cu (kSlabFloats, kMinTile, kMaxTile, kMinBlocks,
+    kMaxBwdSpan): the largest stripe tile of 32, 16, 8 whose q/k slab fits
+    and whose grid has at least kMinBlocks blocks. Every moments site of
+    the MedT-128 batch-16 and medt_512 batch-4 paths gets at least 132
+    blocks; at (256, 4, 1024) the partials take 6 MB."""
+    src = (REPO / "medt_tpu_torch" / "csrc" / "moments.cu").read_text()
+
+    def const(name):
+        return int(re.search(rf"constexpr int {name} = (\d+);", src)
+                   .group(1))
+
+    assert (const("kSlabFloats"), const("kMinTile"), const("kMaxTile"),
+            const("kMinBlocks"), const("kMaxBwdSpan")) == (
+        moments.BWD_SLAB_FLOATS, moments.BWD_MIN_TILE, moments.BWD_MAX_TILE,
+        moments.BWD_MIN_BLOCKS, moments.BWD_MAX_SPAN)
+    assert "while (ts > kMinTile &&" in src and "ts /= 2;" in src
+
+    def tile(c, L, S, g):
+        ts = const("kMaxTile")
+        while ts > const("kMinTile") and (
+                2 * c * L * ts > const("kSlabFloats")
+                or g * -(-S // ts) < const("kMinBlocks")):
+            ts //= 2
+        return ts
+
+    path = [(64, 2, 1024), (64, 4, 1024), (32, 4, 512), (16, 2, 4096),
+            (16, 4, 4096), (8, 4, 2048), (8, 8, 2048), (4, 8, 1024),
+            (4, 16, 1024), (256, 2, 1024), (256, 4, 1024), (128, 4, 512),
+            (64, 2, 4096), (64, 4, 4096), (32, 4, 2048), (32, 8, 2048),
+            (16, 8, 1024), (16, 16, 1024)]
+    for L, gp, S in path + [(1, 2, 301), (3, 8, 130), (256, 16, 77)]:
+        c = gp // 2
+        ts = tile(c, L, S, 8)
+        assert moments.bwd_tile(c, L, S, 8) == ts
+        if (L, gp, S) in path:
+            assert 8 * -(-S // ts) >= 132, (L, gp, S, ts)
+        for pos in (True, False):
+            qkv = torch.empty((8, 2 * gp, L, S), device="meta")
+            dqkv, dtables, part, n_part = moments.bwd_buffers(
+                qkv, 8, gp, L, S, pos)
+            rows = 2 * c + 2 * c * c if pos else 0
+            assert n_part == (8 * -(-S // ts) if pos else 0)
+            assert dqkv.shape == (8, 2 * gp, L, S)
+            assert dtables.shape == (rows, L)
+            assert part.shape == (n_part, rows, L)
+    _, _, part, _ = moments.bwd_buffers(
+        torch.empty((8, 8, 256, 1024), device="meta"), 8, 4, 256, 1024, True)
+    assert part.numel() * 4 == 6_291_456
+
+
+@pytest.mark.cuda
+def test_moments_backward_refuses_spans_above_256(cuda_device):
+    ins = moment_inputs(32, 2, 2, 272, 64, False, device=cuda_device)
+    with pytest.raises(ValueError, match="span"):
+        moments.moment_sums_bwd(*ins, torch.zeros((2, 8), device=cuda_device))
 
 
 @pytest.mark.cuda
@@ -618,6 +743,9 @@ def test_smoke_labels_kernels_by_their_mangled_names():
     assert kernel_label("_ZN6flash212_GLOBAL__N_120tiled_bwd_row_kernelIN12_"
                         "GLOBAL__N_110FlashTilesELi4ELb1EEEvNS0_7BwdArgsE") \
         == "tiled_bwd_row_kernelIN12_GLOBAL__N_110FlashTilesELi4ELb1EE"
+    assert kernel_label("_ZN6flash212_GLOBAL__N_116tiled_fwd_kernelINS0_13"
+                        "FlashFwdTilesELi4ELb0EEEvNS0_7FwdArgsE") \
+        == "tiled_fwd_kernelINS0_13FlashFwdTilesELi4ELb0EE"
     assert kernel_label("_Z3foov") == "_Z3foov"
 
 

@@ -143,8 +143,12 @@ def test_fused_route_rule():
         for stripes in (1, 64, 128, 1024):
             for training in (False, True):
                 assert fused_route(span, stripes, training) == "flash2"
-    with pytest.raises(NotImplementedError, match="256"):
-        fused_route(257, 1024, training=True)
+    # past 256 no kernel of either package: the plain attention, as JAX
+    # sends such a site to XLA attention
+    for stripes in (1, 64, 128, 1024):
+        for training in (False, True):
+            assert fused_route(257, stripes, training) == "plain"
+            assert fused_route(272, stripes, training) == "plain"
 
 
 # ---- routes: the port's sites against JAX's kernel_registry -------------------
@@ -245,6 +249,29 @@ def test_batch1_eval_forward_matches_jax(name, img):
     np.testing.assert_allclose(got.numpy(), want, atol=2e-4, rtol=0)
 
 
+def test_axialunet_544_runs_the_plain_route_above_span_256():
+    """axialunet at 544 px, batch 1, eval: the first stage attends over span
+    272, past every kernel, so those sites take route "plain" (JAX: XLA
+    attention) and the model runs with ``use_fused=True`` where it used to
+    raise; the other sites keep their kernels' routes. Logits against JAX's
+    at the batch-1 tolerance."""
+    name, img = "axialunet", 544
+    variables = jax_variables(name, img, seed=54)
+    x = np.random.default_rng(55).uniform(size=(1, img, img, 3)) \
+        .astype(np.float32)
+    jmodel = jax_build_model(name, img_size=img, use_fused=True)
+    want = np.asarray(jax.jit(lambda v, x: jmodel.apply(v, x, train=False))(
+        variables, jnp.asarray(x))).transpose(0, 3, 1, 2)
+    model = build_model(name, img_size=img, use_fused=True, device="cpu")
+    model.load_state_dict(carried(name, variables), strict=True)
+    with torch.no_grad():
+        got = model(torch.from_numpy(x.transpose(0, 3, 1, 2).copy()))
+    routes = _routes(model)
+    assert {r[0] for r in routes if r[1] > 256} == {"plain"}
+    assert all(r[0] != "plain" for r in routes if r[1] <= 256)
+    np.testing.assert_allclose(got.numpy(), want, atol=2e-4, rtol=0)
+
+
 # ---- the CLIs, JAX vs port --------------------------------------------------------
 
 CLI_MODEL, CLI_IMG = "gatedaxialunet", 32
@@ -255,6 +282,7 @@ def cli_setup(tmp_path_factory):
     """A PNG set, unlabelled images of three sizes, random JAX weights in an
     orbax checkpoint and the same weights as a reference ``.pth``."""
     from medt_tpu.config import parse_config as jax_parse_config
+    from medt_tpu.parallel import kernel_mesh_scope
     from medt_tpu.training.checkpointing import save_checkpoint
     from medt_tpu.training.trainer import setup_state
     from medt_tpu_torch.data import write_png
@@ -270,7 +298,10 @@ def cli_setup(tmp_path_factory):
     variables = jax_variables(CLI_MODEL, CLI_IMG, seed=52)
     cfg = jax_parse_config(["--modelname", CLI_MODEL, "--imgsize",
                             str(CLI_IMG)])
-    state = setup_state(cfg, steps_per_epoch=1)
+    # setup_state installs JAX's kernel mesh (8 CPU devices here); scoped,
+    # so it does not leak into later JAX forwards and steps in this worker
+    with kernel_mesh_scope():
+        state = setup_state(cfg, steps_per_epoch=1)
     state = state.replace(
         params=jax.tree_util.tree_map(jnp.asarray, variables["params"]),
         batch_stats=jax.tree_util.tree_map(jnp.asarray,

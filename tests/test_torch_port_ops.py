@@ -22,7 +22,8 @@ from medt_tpu.ops.pallas_axial_lanes import lanes_attn_core as jax_lanes_core
 from medt_tpu.ops.pallas_axial_train import attn_core_xla
 from medt_tpu.ops.pallas_axial_train import pack_sim_affine as jax_pack
 from medt_tpu_torch.ops import attn_core, axial_lanes
-from medt_tpu_torch.ops.axial_attention import AxialAttention
+from medt_tpu_torch.ops.axial_attention import (AxialAttention,
+                                                 lanes_family_core)
 from medt_tpu_torch.ops.norms import BatchNorm, batch_norm_eval
 from medt_tpu_torch.ops.pooling import avg_pool, upsample_bilinear_2x
 from medt_tpu_torch.utils.weights import export_state_dict, to_state_dict
@@ -265,14 +266,30 @@ def test_axial_attention_plain_zoo_modes_match_jax(mode):
 
 def test_fused_path_raises_past_span_64():
     """Past span 64 the fused path runs the flash2 core, up to span 256;
-    past 256 it raises."""
+    past 256 it runs the module's plain attention (route "plain"), in
+    both modes, and gives what the plain path gives; only the core itself,
+    which the route no longer reaches there, raises."""
     top = AxialAttention(4, 8, 96, groups=2, mode="wopos", use_fused=True,
                          device="cpu").eval()
     with torch.no_grad():
         out = top(torch.zeros(1, 4, 96, 2))
     assert out.shape == (1, 8, 96, 2) and top.last_route[0] == "flash2"
+    x = torch.from_numpy(np.random.default_rng(30).normal(
+        size=(1, 4, 272, 2)).astype(np.float32))
     top = AxialAttention(4, 8, 272, groups=2, mode="wopos", use_fused=True,
-                         device="cpu").eval()
-    with pytest.raises(NotImplementedError, match="256"):
+                         device="cpu")
+    plain = AxialAttention(4, 8, 272, groups=2, mode="wopos",
+                           use_fused=False, device="cpu")
+    plain.load_state_dict(top.state_dict())
+    for train in (False, True):
+        top.train(train)
+        plain.train(train)
         with torch.no_grad():
-            top(torch.zeros(1, 4, 272, 2))
+            out = top(x)
+            want = plain(x)
+        assert out.shape == (1, 8, 272, 2) and top.last_route[0] == "plain"
+        torch.testing.assert_close(out, want, atol=0, rtol=0)
+    empty = torch.zeros((0, 272, 272))
+    with pytest.raises(NotImplementedError, match="256"):
+        lanes_family_core(torch.zeros(2, 8, 272, 2), empty, empty, empty,
+                          torch.zeros(2, 8))

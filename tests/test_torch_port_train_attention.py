@@ -42,7 +42,14 @@ def test_axial_attention_train_matches_jax(mode, fused, axis, stride, span,
     gradient is 0 in exact arithmetic (softmax is shift-invariant), so both
     sides hold rounding noise of a sum over S*L*L terms: it is held at the
     scale of its weight gradient (the same sums)."""
-    n, cin, out, groups = 2, 6, 8, 2
+    check_train_call(mode, fused, axis, stride, span, m)
+
+
+def check_train_call(mode, fused, axis, stride, span, m, n=2):
+    """One train-mode call of the port's AxialAttention against JAX's, as
+    :func:`test_axial_attention_train_matches_jax` states; returns the
+    port's module."""
+    cin, out, groups = 6, 8, 2
     hw = (span, m) if axis == "h" else (m, span)
     rng = np.random.default_rng(50)
     x = rng.normal(size=(n, *hw, cin)).astype(F32)
@@ -94,3 +101,38 @@ def test_axial_attention_train_matches_jax(mode, fused, axis, stride, span,
     for name, b in top.named_buffers():
         if name in running:
             assert_close(b, running[name], name)
+    return top
+
+
+# (mode, axis, stripes along the other axis): span 272, past flash2's 256
+SPAN_272_CASES = [("wopos", "h", 2), ("gated", "w", 3)]
+
+
+@pytest.mark.parametrize("mode,axis,m", SPAN_272_CASES)
+def test_axial_attention_above_span_256_matches_jax(mode, axis, m):
+    """At span 272 no kernel of either package applies: the port's fused
+    path takes route "plain" (the module's plain attention) in both modes,
+    as JAX's router sends the site to XLA attention. Eval mode: the output
+    at 1e-5 + 1e-4 * max|want|; train mode: one forward and backward held
+    as :func:`test_axial_attention_train_matches_jax` holds its cases
+    (output, input and parameter gradients, running statistics)."""
+    span, n, cin, out, groups = 272, 1, 6, 8, 2
+    top = check_train_call(mode, True, axis, 1, span, m, n=n)
+    assert top.last_route[0] == "plain"
+    hw = (span, m) if axis == "h" else (m, span)
+    x = np.random.default_rng(52).normal(size=(n, *hw, cin)).astype(F32)
+    kw = dict(in_planes=cin, out_planes=out, span=span, groups=groups,
+              axis=axis, mode=mode, gate_init=GATES)
+    jop = JaxAxialAttention(use_fused=True, **kw)
+    shapes = jax.eval_shape(
+        lambda x: jop.init(jax.random.PRNGKey(0), x, train=False), x)
+    variables = random_variables(shapes, seed=53)
+    want = jop.apply(variables, jnp.asarray(x), train=False)
+    top = AxialAttention(cin, out, span, groups=groups, axis=axis, mode=mode,
+                         gate_init=GATES, use_fused=True, device="cpu")
+    top.load_state_dict(_carry(variables, mode, GATES), strict=True)
+    top.eval()
+    with torch.no_grad():
+        got = top(torch.from_numpy(x.transpose(0, 3, 1, 2).copy()))
+    assert top.last_route[0] == "plain"
+    assert_close(got.permute(0, 2, 3, 1), want, "eval output")

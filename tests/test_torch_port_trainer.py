@@ -34,6 +34,7 @@ import torch
 
 from medt_tpu.cli import train as jax_cli_train
 from medt_tpu.config import parse_config as jax_parse_config
+from medt_tpu.parallel import kernel_mesh_scope
 from medt_tpu.training.checkpointing import (
     restore_checkpoint as jax_restore_checkpoint,
 )
@@ -89,8 +90,9 @@ def runs(tmp_path_factory):
     make_png_dataset(str(root / "val"), N_VAL, IMG, seed=1)
     jax_cli_train.main(_argv(root, root / "jax") + ["--use_pallas", "no"])
 
-    jstate = jax_setup_state(jax_parse_config(_argv(root, root / "jax")),
-                             N_TRAIN)
+    with kernel_mesh_scope():  # setup_state installs JAX's kernel mesh
+        jstate = jax_setup_state(jax_parse_config(_argv(root, root / "jax")),
+                                 N_TRAIN)
     sd = weights.to_state_dict(weights.export_for_model(
         MODEL, jstate.params, jstate.batch_stats))
     state = _port_run(_argv(root, root / "port"), sd)
@@ -165,7 +167,8 @@ def first_step(tmp_path_factory):
     make_png_dataset(str(root / "one"), 1, IMG, seed=0)
     argv = _argv(root, root / "jax", epochs=1, val=False, train="one")
     jax_cli_train.main(argv + ["--use_pallas", "no"])
-    jstate = jax_setup_state(jax_parse_config(argv), 1)
+    with kernel_mesh_scope():
+        jstate = jax_setup_state(jax_parse_config(argv), 1)
     before = weights.to_state_dict(weights.export_for_model(
         MODEL, jstate.params, jstate.batch_stats))
     jstate = jax_restore_checkpoint(str(root / "jax" / "0"), jstate)

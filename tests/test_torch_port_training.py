@@ -21,6 +21,7 @@ import torch
 
 from medt_tpu import losses as jlosses
 from medt_tpu.models import build_model as jax_build_model
+from medt_tpu.parallel import kernel_mesh_scope, set_kernel_mesh
 from medt_tpu.training import optimizers as joptim
 from medt_tpu.training import schedules as jsched
 from medt_tpu.training.state import TrainState as JaxTrainState
@@ -207,8 +208,15 @@ def check_train_step(name, img, batch=2, loss_spread=False, **kw):
         apply_fn=jax_model.apply, params=variables["params"],
         batch_stats=variables["batch_stats"], tx=joptim.sgd(LR))
     images, masks = blob_batch(batch, img, seed=3)
-    new, metrics = jax.jit(jax_train_step)(
-        jstate, {"image": jnp.asarray(images), "label": jnp.asarray(masks)})
+    # the reference is JAX's unsharded step: a kernel mesh that an earlier
+    # test in this process left installed (JAX's setup_state installs one
+    # over the 8 CPU devices) would run its kernels as shard_map islands,
+    # which moves MedT's step by up to 0.19 in a local-branch weight
+    with kernel_mesh_scope():
+        set_kernel_mesh(None)
+        new, metrics = jax.jit(jax_train_step)(
+            jstate, {"image": jnp.asarray(images),
+                     "label": jnp.asarray(masks)})
     want = carried(name, jax.tree_util.tree_map(
         np.asarray, {"params": new.params, "batch_stats": new.batch_stats}))
     before = carried(name, variables)
