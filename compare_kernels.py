@@ -2,7 +2,8 @@
 """Time one or more families of the port's kernels in a given tree, on one card.
 
     python3 compare_kernels.py [--root DIR]
-                               [--family lanes flash flash2 moments]
+                               [--family lanes flash flash2 moments
+                                         stripe eval]
                                [--out FILE]
 
 Runs the ``device``, ``build`` and ``kernels`` phases of ``DIR/chip_smoke.py``
@@ -14,11 +15,14 @@ wrapper calls, plain time and bound. With ``flash`` it also runs the flash2
 forward and backward (which compute the flash contract at any span up to
 256) at every flash forward and backward geometry, as the baseline a flash
 design has to beat (rows with ``path`` ``"<path>:flash2"``); ``moments``
-runs the moments forward and backward. Then, for each geometry, a
+runs the moments forward and backward, ``stripe`` the stripe train core's
+forward and backward, ``eval`` the batch-1 eval kernel. Then, for each geometry, a
 ``torch.profiler`` window over a few calls splits its device time by CUDA
 kernel (row pass, column pass, reductions) and a host clock times the
 wrapper's enqueue alone (``host_ms``: checks, allocations, the ``ctypes``
-call and the launches, the card left to run). Prints and writes one JSON
+call and the launches, the card left to run), and ``out_sha256`` hashes its
+outputs on those seeded inputs (two trees give the same bits where the
+hashes agree). Prints and writes one JSON
 object with the rows, the per-call sums over each main path
 (``launches_per_call`` times ms, per kernel and path), the split and the
 card.
@@ -36,6 +40,7 @@ Needs a card; exits non-zero without one.
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import re
 import sys
@@ -43,14 +48,15 @@ import time
 from pathlib import Path
 
 HERE = Path(__file__).resolve().parent
-FAMILIES = ("lanes", "flash", "flash2", "moments")
+FAMILIES = ("lanes", "flash", "flash2", "moments", "stripe", "eval")
 
 
 def family(kernel: str) -> str:
     """``lanes_attn_bwd`` -> ``lanes``, ``flash2_lanes_fwd`` -> ``flash2``,
-    ``moment_sums_bwd`` -> ``moments``."""
+    ``moment_sums_bwd`` -> ``moments``, ``stripe_attn_bwd`` -> ``stripe``,
+    ``axial_eval_fwd`` -> ``eval``."""
     first = kernel.split("_")[0]
-    return "moments" if first == "moment" else first
+    return {"moment": "moments", "axial": "eval"}.get(first, first)
 
 
 def split_by_kernel(torch, fn, calls: int = 5) -> dict:
@@ -87,6 +93,14 @@ def host_ms(torch, fn, calls: int = 20) -> float:
     t1 = time.perf_counter()
     torch.cuda.synchronize()
     return (t1 - t0) / calls * 1e3
+
+
+def out_sha256(torch, outputs) -> str:
+    """sha256 of a kernel call's outputs, in order."""
+    h = hashlib.sha256()
+    for t in outputs:
+        h.update(t.detach().contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
 
 
 def flash2_baseline(geometries) -> list:
@@ -139,6 +153,7 @@ def main(argv=None) -> int:
         by_kernel = split_by_kernel(torch, fn)
         r["device_ms"] = sum(by_kernel.values())
         r["host_ms"] = host_ms(torch, fn)
+        r["out_sha256"] = out_sha256(torch, fn())
         split.append({"kernel": r["kernel"], "span": r["span"], "gp": r["gp"],
                       "S": r["S"], "has_pos": r["has_pos"], "path": r["path"],
                       "launches_per_call": r["launches_per_call"],

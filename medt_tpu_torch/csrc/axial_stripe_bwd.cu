@@ -11,8 +11,7 @@
 //   sv[p,i] = sum_j p_ij v[p,j],  sve[p,i] = sum_j p_ij vemb[p,i,j]
 // Given dsv, dsve (S, g, gp, L), with
 //   dsim_ij = sum_p dsv[p,i] v[p,j] + dsve[p,i] vemb[p,i,j]
-//   delta_i = sum_j p_ij dsim_ij = sum_p dsv[p,i] sv[p,i] + dsve[p,i] sve[p,i]
-//   dlog_ij = p_ij (dsim_ij - delta_i)
+//   delta_i = sum_j p_ij dsim_ij,   dlog_ij = p_ij (dsim_ij - delta_i)
 // it writes
 //   dq[s,gi,c,i] = sum_j dlog_ij (a0 k[c,j] + a2 qemb[c,i,j])
 //   dk[s,gi,c,j] = sum_i dlog_ij (a0 q[c,i] + a4 kemb[c,j,i])
@@ -25,55 +24,132 @@
 //                    sum dlog*kr, sum dlog, 0, 0] (columns 2..5 zero
 //                    without positions), as _bwd_kernel lays it out.
 //
-// The TPU kernel walks stripe blocks in order and accumulates the table and
-// affine gradients in VMEM blocks that stay resident across its grid. Here
-// blocks run in parallel, so the scheme of csrc/axial_lanes_bwd.cu is
-// taken over to the stripe-major layout:
-//   * row pass, one thread per (stripe s, group gi, query i), a block one
-//     warp of 32 stripes at one (i, gi): the softmax statistics m, l
-//     recomputed by an online pass (which also gives sv, sve and so
-//     delta), then dq, and per key j the table-gradient terms of row i,
-//     summed over the warp's stripes by shuffles and written by lane 0 to
-//     the block's slot of a partial buffer; likewise the daff sums;
-//   * column pass, one thread per (s, gi, key j): rebuilds p_ij from the row
-//     pass's (m, l, delta) and sums dk, dv over i, the column sums that a
-//     row thread cannot form without atomics;
-//   * two small kernels (csrc/reduce.cuh) sum the partials in index order.
-// No atomics: every call gives the same bits. The partial buffers, from the
-// wrapper (ops/axial_train.py): tables (g * ceil(S/32), 2gp, L, L) floats
-// with positions, none without; daff (L * ceil(S/32), g, 4) floats. At the
-// batch-1 sites (g = 8): span 64, gp 2, S 64: 16 x 4 x 64 x 64 (1 MB);
-// span 64, gp 4, S 64: 16 x 8 x 64 x 64 (2 MB); span 32, gp 4, S 32:
-// 8 x 8 x 32 x 32 (256 KB); span 32, gp 8, S 32: 8 x 16 x 32 x 32
-// (512 KB); off the path, span 64, gp 8, S 64: 16 x 16 x 64 x 64 (4 MB).
-// Besides it keeps m, l, delta (S, g, L) as scratch.
+// The first CUDA design (PR 8) ran two kernels of one-warp blocks, grid
+// (L, ceil(S/32), g): a row kernel, one thread per (stripe, query), that
+// built the softmax twice (an online pass for m, l and delta, then the
+// gradient pass) and per key j reduced 2c + gp table-gradient terms over
+// its warp by shuffles, lane 0 scattering them into a (g * ceil(S/32), 2gp,
+// L, L) partial; a column kernel that rebuilt every logit from m, l and
+// delta kept in device memory; then two reductions: four launches a call.
+// On an H100 80GB HBM3 at 700 W it took 172-192 us of device time a call,
+// about 110 times its bound (PERF.md, kernel row 11).
 //
-// What bounds it on the H100: at batch 1 a call moves a few MB (the
-// partials included) and does about 0.1-0.3 GFLOP, a few microseconds at
-// the card's peaks, so launch latency and the short grids dominate: a
-// simple kernel that is right, with a warp per block so the stripes of a
-// warp share the reductions. Each pass recomputes the logits from k and
-// the table rows, read through L1 (the per-stripe rows are strided in the
-// stripe-major layout); the block's table row or column is staged in shared
-// memory. Kernels launch on the caller's stream, allocate nothing (the
-// wrapper passes scratch) and do not synchronise; the entry point returns
-// cudaGetLastError().
+// This design is the card's counterpart of the TPU kernel's whole-tile
+// program, after csrc/axial_lanes_bwd.cu: one launch in which a block of
+// kThreads threads owns one group and a chunk of NS stripes (chunk_stripes:
+// 4 with positions at spans 33..64 below gp kWideGp, else 2, so that even
+// a batch-1 call has 128 blocks). It stages the chunk's q, k, v, dsv (and
+// dsve) rows in shared memory by cp.async (16-byte copies where the rows
+// allow; ragged stripes and keys past the span zero-filled), and kemb
+// transposed with an odd row stride, then:
+//   * row phase: a warp per query i, a half-warp per stripe of it, its 16
+//     lanes over the keys (KPL = LP / 16 each, LP the span rounded up to
+//     16, 32 or 64), so the qemb and vemb rows it reads from L2 are
+//     coalesced (and loaded one query ahead); one pass gives the logits
+//     and dsim, the max, exp2 weights, l and delta by half-warp shuffles,
+//     then p and dlog, stored in shared memory, and dq, written at once.
+//     The query's dqemb and dvemb terms are summed over its stripes in
+//     registers and written to the block's slot of the partials;
+//   * column phase: a thread per (key j, stripe) forms dk and dv from the
+//     stored p and dlog, with no logit recomputed;
+//   * table phase, positions only: a thread per (j, i) sums dkemb[c, j, i]
+//     over the chunk's stripes in index order, lanes over i so that its
+//     writes stay coalesced.
+// The daff sums need no logit again: sum dlog*qk = sum_ci q[c,i] dA[c,i]
+// with dA[c,i] = sum_j dlog_ij k[c,j] (dq's own sum), and likewise qr from
+// dq's table sum and kr from dk's. Strides are chosen so that the half-
+// warps of a warp (two stripes of one query) and the lanes of each phase
+// fall in distinct banks. A second launch (medt::bwd_finalize) sums the
+// table and daff partials in a fixed order: two launches a call, no float
+// atomics, the same bits every run. The partials have one slot per block:
+// tables (g * ceil(S/NS), 2gp, L, L) floats with positions, daff
+// (ceil(S/NS), g, 4). At the batch-1 path sites (g = 8): span 64, gp 2 or
+// 4, S 64: 128 slots, 8 or 16 MB; span 32, gp 4, S 32: 128 slots, 4 MB;
+// the first design's were 1, 2 and 0.25 MB. Walking several chunks per
+// block would keep them at that size, at the price of that many times
+// fewer blocks: a block cannot hold the p and dlog of more stripes at span
+// 64 (32 KB a stripe).
+// Measured on an H100 80GB HBM3 at 700 W (PERF.md, kernel row 11): 24.8,
+// 35.9 and 12.7 us of device time a call at (span, gp, S) = (64, 2, 64),
+// (64, 4, 64), (32, 4, 32) with positions, against 147.4, 319.1 and 67.7
+// for the first design; the finalize takes 2.5-3.9 us of them. The first
+// layout of this design, whose table phase summed all 2gp table rows and
+// whose row phase loaded the table rows as it went, took 59.8 us at (64,
+// 4, 64).
+// What bounds it on the H100: at batch 1 a call moves a few MB and does
+// about 0.1-0.3 GFLOP, a few microseconds at the card's peaks; the kernel
+// is bound by latency (one tile load, three phases per block, about one
+// block per SM, few warps) and the partials' traffic. No tensor cores:
+// contraction depths c <= 8 are too shallow.
+// Kernels launch on the caller's stream, allocate nothing (the wrapper
+// passes the partials) and do not synchronise; the entry point returns the
+// first CUDA error of its launches.
 
 #include <cuda_runtime.h>
 #include <stddef.h>
 
+#include "flash2_tiles.cuh"
 #include "reduce.cuh"
 
 namespace {
 
+using flash2::ex2;
+using flash2::kLog2e;
 using medt::warp_sum;
 
-constexpr int kStripes = 32;  // threads per block: one warp of stripes
 constexpr int kMaxSpan = 64;
+constexpr int kThreads = 256;  // threads per block
+constexpr int kWarps = kThreads / 32;
+// from this many group planes a block at span bucket 64 holds 2 stripes,
+// not 4. Mirrored by ops/axial_train.py (BWD_WIDE_GP).
+constexpr int kWideGp = 8;
+// dynamic shared memory a block may use on an H100 (227 KB)
+constexpr int kMaxSmemBytes = 232448;
 
-inline int stripe_blocks(int S) { return (S + kStripes - 1) / kStripes; }
+// The span rounded up to the kernel's bucket (16, 32 or 64).
+inline int span_bucket(int L) { return L <= 16 ? 16 : L <= 32 ? 32 : 64; }
 
-struct BwdArgs {
+// Stripes per block: 4 with positions at span bucket 64 below kWideGp
+// group planes, else 2. The fewer stripes a block holds, the more blocks
+// share a call's few stripes, but with positions each block writes a table
+// partial of 2gp L^2 floats. Mirrored by ops/axial_train.py
+// (bwd_chunk_stripes).
+__host__ __device__ constexpr int chunk_stripes(int gp, int lp, bool pos) {
+  return pos && lp == 64 && gp < kWideGp ? 4 : 2;
+}
+
+template <int GP, int LP, bool POS>
+struct Cfg {
+  static constexpr int C = GP / 2;
+  static constexpr int R = 2 * GP;  // table rows: qemb c, kemb c, vemb gp
+  static constexpr int NS = chunk_stripes(GP, LP, POS);
+  static constexpr int KPL = LP / 16;  // keys per lane in the row phase
+  // staged tile: rows q (c), k (c), v (gp), dsv (gp), [dsve (gp)], each
+  // NS stripes of XP floats; XP % 32 == 16 puts the two stripes that a
+  // warp's half-warps read on distinct banks
+  static constexpr int XP = LP == 16 ? 16 : LP + 16;
+  static constexpr int OQ = 0, OK = C, OV = GP, OG = 2 * GP, OE = 3 * GP;
+  static constexpr int ROWS = 3 * GP + (POS ? GP : 0);
+  static constexpr int RS = NS * XP;  // one staged row, all stripes
+  static constexpr int TILE = ROWS * RS;
+  // p and dlog, [stripe][i][j]: row stride IS = LP + 1 (odd), stripe
+  // stride SS with SS % 32 == 16
+  static constexpr int IS = LP + 1;
+  static constexpr int SS = LP * IS + (48 - LP * IS % 32) % 32;
+  static constexpr int PD = NS * SS;
+  // kemb as [c][j][i] with row stride IS, where it fits beside the rest
+  static constexpr int TKF = C * LP * IS;
+  static constexpr int REST = TILE + 2 * PD + kWarps * 4;
+  static constexpr bool STAGE_TK =
+      POS && (REST + TKF) * (int)sizeof(float) <= kMaxSmemBytes;
+  static constexpr int TK = STAGE_TK ? TKF : 0;
+  static constexpr int FLOATS = REST + TK;
+  static_assert(NS % 2 == 0 && LP % 16 == 0, "stripe pairs, 16-key runs");
+  static_assert(FLOATS * (int)sizeof(float) <= kMaxSmemBytes,
+                "the block's shared memory");
+};
+
+struct Args {
   const float* q;       // (S, g, c, L), strides q_ss, q_sg
   const float* k;       // (S, g, c, L), strides k_ss, k_sg
   const float* v;       // (S, g, gp, L), strides v_ss, v_sg
@@ -86,286 +162,368 @@ struct BwdArgs {
   float* dq;
   float* dk;
   float* dv;
-  float* m;             // scratch (S, g, L): the row pass writes, the
-  float* l;             // column pass reads
-  float* delta;
   float* tab_part;      // (g * blocks, 2gp, L, L) with positions
-  float* aff_part;      // (L * blocks, g, 4)
+  float* aff_part;      // (blocks, g, 4)
   long long q_ss, q_sg, k_ss, k_sg, v_ss, v_sg;
   int S, g, L;
+  bool vec;             // 16-byte copies of the tile rows
 };
 
-// Dynamic shared memory of the row pass: the block's row of the three
-// tables, (2c + gp) * L floats, with positions.
-inline size_t row_smem_bytes(int gp, int L, bool has_pos) {
-  return has_pos ? (size_t)(2 * gp) * L * sizeof(float) : 0;
-}
+template <int GP, int LP, bool POS>
+__global__ void __launch_bounds__(kThreads) stripe_bwd_kernel(Args a) {
+  using K = Cfg<GP, LP, POS>;
+  constexpr int C = K::C, NS = K::NS, XP = K::XP, RS = K::RS, IS = K::IS,
+                SS = K::SS, KPL = K::KPL;
+  extern __shared__ __align__(16) float smem[];
+  float* tile = smem;
+  float* sp = tile + K::TILE;  // p
+  float* sd = sp + K::PD;      // dlog
+  float* tk = sd + K::PD;      // kemb [c][j][i], if staged
+  float* wsum = tk + K::TK;    // [warp][4]
 
-template <int GP, bool HAS_POS>
-__global__ void __launch_bounds__(kStripes)
-stripe_bwd_row_kernel(BwdArgs a) {
-  constexpr int C = GP / 2;
-  constexpr int T = 2 * GP;  // table-gradient rows: dqemb c, dkemb c, dvemb gp
-  extern __shared__ float smem[];
-  const int L = a.L, S = a.S, g = a.g;
-  float* t_q = smem;         // qemb[c, i, :]  as [c][j]
-  float* t_k = t_q + C * L;  // kemb[c, :, i]  as [c][j]
-  float* t_v = t_k + C * L;  // vemb[p, i, :]  as [p][j]
-
-  const int i = blockIdx.x;
-  const int gi = blockIdx.z;
-  const int s = blockIdx.y * kStripes + threadIdx.x;
-  const bool valid = s < S;
-  // A thread past the ragged edge computes stripe 0 with a zero upstream
-  // gradient: every sum it joins gets exactly 0 from it.
-  const int sc = valid ? s : 0;
-  const int lane = threadIdx.x;
-
-  if constexpr (HAS_POS) {
-    for (int t = lane; t < C * L; t += kStripes) {
-      const int c = t / L, j = t - c * L;
-      t_q[t] = a.qemb[((size_t)c * L + i) * L + j];
-      t_k[t] = a.kemb[((size_t)c * L + j) * L + i];
-    }
-    for (int t = lane; t < GP * L; t += kStripes) {
-      const int p = t / L, j = t - p * L;
-      t_v[t] = a.vemb[((size_t)p * L + i) * L + j];
-    }
-    __syncthreads();
-  }
-
-  const float* af = a.aff + gi * 8;
-  const float a0 = af[0], a1 = af[1];
-  float a2 = 0.f, a3 = 0.f, a4 = 0.f, a5 = 0.f;
-  if constexpr (HAS_POS) {
-    a2 = af[2]; a3 = af[3]; a4 = af[4]; a5 = af[5];
-  }
-  const size_t sg = (size_t)sc * g + gi;
-  const float* qs = a.q + sc * a.q_ss + gi * a.q_sg;   // q[s, gi, c, :]
-  const float* ks = a.k + sc * a.k_ss + gi * a.k_sg;
-  const float* vs = a.v + sc * a.v_ss + gi * a.v_sg;
-
-  float q[C], gv[GP], ge[GP];
-#pragma unroll
-  for (int c = 0; c < C; ++c) q[c] = qs[c * L + i];
-#pragma unroll
-  for (int p = 0; p < GP; ++p) {
-    gv[p] = valid ? a.dsv[(sg * GP + p) * L + i] : 0.f;
-    ge[p] = (HAS_POS && valid) ? a.dsve[(sg * GP + p) * L + i] : 0.f;
-  }
-
-  auto logit_parts = [&](int j, const float* kj, float& qk, float& qr,
-                         float& kr) {
-    qk = qr = kr = 0.f;
-#pragma unroll
-    for (int c = 0; c < C; ++c) {
-      qk += q[c] * kj[c];
-      if constexpr (HAS_POS) {
-        qr += q[c] * t_q[c * L + j];
-        kr += kj[c] * t_k[c * L + j];
-      }
-    }
-  };
-  auto logit = [&](float qk, float qr, float kr) {
-    float x = qk * a0 + a1;
-    if constexpr (HAS_POS) x += (qr * a2 + a3) + (kr * a4 + a5);
-    return x;
-  };
-
-  // online softmax over the keys: m, l and the outputs, for delta
-  float acc_v[GP], acc_e[GP];
-#pragma unroll
-  for (int p = 0; p < GP; ++p) acc_v[p] = acc_e[p] = 0.f;
-  float m = -1e30f, l = 0.f;
-  for (int j = 0; j < L; ++j) {
-    float kj[C], qk, qr, kr;
-#pragma unroll
-    for (int c = 0; c < C; ++c) kj[c] = ks[c * L + j];
-    logit_parts(j, kj, qk, qr, kr);
-    const float x = logit(qk, qr, kr);
-    const float m_new = fmaxf(m, x);
-    const float alpha = expf(m - m_new);
-    const float e = expf(x - m_new);
-    l = l * alpha + e;
-#pragma unroll
-    for (int p = 0; p < GP; ++p) {
-      acc_v[p] = acc_v[p] * alpha + e * vs[p * L + j];
-      if constexpr (HAS_POS) acc_e[p] = acc_e[p] * alpha + e * t_v[p * L + j];
-    }
-    m = m_new;
-  }
-  const float inv_l = 1.f / l;
-  float delta = 0.f;
-#pragma unroll
-  for (int p = 0; p < GP; ++p) {
-    delta += gv[p] * (acc_v[p] * inv_l);
-    if constexpr (HAS_POS) delta += ge[p] * (acc_e[p] * inv_l);
-  }
-
-  const int blocks = gridDim.y;
-  float* part = a.tab_part + ((size_t)gi * blocks + blockIdx.y) * T * L * L;
+  const int L = a.L, S = a.S, g = a.g, gi = blockIdx.y;
+  const int s0 = blockIdx.x * NS;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int vs = min(NS, S - s0);  // valid stripes of the chunk
   const size_t LL = (size_t)L * L;
-  float dq[C];
-#pragma unroll
-  for (int c = 0; c < C; ++c) dq[c] = 0.f;
-  float s_qk = 0.f, s_b = 0.f, s_qr = 0.f, s_kr = 0.f;
-  for (int j = 0; j < L; ++j) {
-    float kj[C], qk, qr, kr;
-#pragma unroll
-    for (int c = 0; c < C; ++c) kj[c] = ks[c * L + j];
-    logit_parts(j, kj, qk, qr, kr);
-    const float pj = expf(logit(qk, qr, kr) - m) * inv_l;
-    float dsim = 0.f;
-#pragma unroll
-    for (int p = 0; p < GP; ++p) {
-      dsim += gv[p] * vs[p * L + j];
-      if constexpr (HAS_POS) dsim += ge[p] * t_v[p * L + j];
+
+  // -- stage the chunk's rows (and kemb) -------------------------------------
+  {
+    const long long d_ss = (long long)g * GP * L;  // dense (S, g, gp, L)
+    const size_t d0 = ((size_t)s0 * g + gi) * GP * L;
+    flash2::stage<C, NS, LP, kThreads, XP>(
+        tile + K::OQ * RS, a.q + s0 * a.q_ss + gi * a.q_sg, L, a.q_ss, vs, L,
+        a.vec, tid);
+    flash2::stage<C, NS, LP, kThreads, XP>(
+        tile + K::OK * RS, a.k + s0 * a.k_ss + gi * a.k_sg, L, a.k_ss, vs, L,
+        a.vec, tid);
+    flash2::stage<GP, NS, LP, kThreads, XP>(
+        tile + K::OV * RS, a.v + s0 * a.v_ss + gi * a.v_sg, L, a.v_ss, vs, L,
+        a.vec, tid);
+    flash2::stage<GP, NS, LP, kThreads, XP>(tile + K::OG * RS, a.dsv + d0, L,
+                                            d_ss, vs, L, a.vec, tid);
+    if constexpr (POS) {
+      flash2::stage<GP, NS, LP, kThreads, XP>(tile + K::OE * RS,
+                                              a.dsve + d0, L, d_ss, vs, L,
+                                              a.vec, tid);
     }
-    const float dlog = pj * (dsim - delta);
-    s_b += dlog;
-    s_qk += dlog * qk;
-#pragma unroll
-    for (int c = 0; c < C; ++c) {
-      dq[c] += (dlog * a0) * kj[c];
-      if constexpr (HAS_POS) dq[c] += (dlog * a2) * t_q[c * L + j];
-    }
-    if constexpr (HAS_POS) {
-      s_qr += dlog * qr;
-      s_kr += dlog * kr;
-#pragma unroll
-      for (int c = 0; c < C; ++c) {
-        const float tq = warp_sum((dlog * a2) * q[c]);
-        const float tk = warp_sum((dlog * a4) * kj[c]);
-        if (lane == 0) {
-          part[c * LL + (size_t)i * L + j] = tq;         // dqemb[c, i, j]
-          part[(C + c) * LL + (size_t)j * L + i] = tk;   // dkemb[c, j, i]
+    if constexpr (K::STAGE_TK) {
+      for (int rw = warp; rw < C * L; rw += kWarps) {  // rw = c * L + j
+        const int c = rw / L, j = rw - c * L;
+        for (int i = lane; i < L; i += 32) {
+          flash2::cp_async4(tk + (c * LP + j) * IS + i,
+                            a.kemb + (size_t)rw * L + i, true);
         }
       }
+    }
+    flash2::cp_async_commit();
+    flash2::cp_async_wait<0>();
+    __syncthreads();
+  }
+  // A stripe past the edge is staged as zeros: its dsim and delta are 0,
+  // so its dlog is 0 and its p meets only zero dsv and dsve.
+
+  const float* af = a.aff + gi * 8;
+  const float a0 = af[0];
+  const float a2 = POS ? af[2] : 0.f, a4 = POS ? af[4] : 0.f;
+  const float a0s = a0 * kLog2e, a2s = a2 * kLog2e, a4s = a4 * kLog2e;
+  // kemb[c, j, i]: staged, or from L2 (gp 16 at span bucket 64, off every
+  // path)
+  auto kemb_at = [&](int c, int j, int i) {
+    return K::STAGE_TK ? tk[(c * LP + j) * IS + i]
+                       : __ldg(a.kemb + c * LL + (size_t)j * L + i);
+  };
+  float s_qk = 0.f, s_b = 0.f, s_qr = 0.f, s_kr = 0.f;
+
+  // -- row phase: a warp per query i, a half-warp per stripe of it, lanes
+  // over the keys ---------------------------------------------------------------
+  {
+    constexpr int NP = NS / 2;  // half-warp h: stripes 2 * pair + h
+    const int h = lane >> 4, l16 = lane & 15;
+    float* part = a.tab_part + ((size_t)gi * gridDim.x + blockIdx.x) * K::R * LL;
+    // The qemb and vemb values of a query come from L2: they are loaded one
+    // query ahead, so that the latency hides behind a query's passes.
+    float tqn[KPL][C], tvn[KPL][GP];
+    auto load_tables = [&](int i) {
 #pragma unroll
-      for (int p = 0; p < GP; ++p) {
-        const float tv = warp_sum(pj * ge[p]);
-        if (lane == 0) part[(2 * C + p) * LL + (size_t)i * L + j] = tv;
+      for (int t = 0; t < KPL; ++t) {
+        const int j = l16 + 16 * t;
+        const bool ok = POS && i < L && j < L;
+        const size_t ij = (size_t)i * L + j;
+#pragma unroll
+        for (int c = 0; c < C; ++c)
+          tqn[t][c] = ok ? __ldg(a.qemb + c * LL + ij) : 0.f;
+#pragma unroll
+        for (int p = 0; p < GP; ++p)
+          tvn[t][p] = ok ? __ldg(a.vemb + p * LL + ij) : 0.f;
+      }
+    };
+    if constexpr (POS) load_tables(warp);
+    for (int i = warp; i < L; i += kWarps) {
+      float tqv[KPL][C], tvv[KPL][GP];
+      // the query's dqemb and dvemb terms, summed over the stripes of this
+      // half-warp, then of the warp
+      float aq[KPL][C], av[KPL][GP];
+      if constexpr (POS) {
+#pragma unroll
+        for (int t = 0; t < KPL; ++t) {
+#pragma unroll
+          for (int c = 0; c < C; ++c) {
+            tqv[t][c] = tqn[t][c];
+            aq[t][c] = 0.f;
+          }
+#pragma unroll
+          for (int p = 0; p < GP; ++p) {
+            tvv[t][p] = tvn[t][p];
+            av[t][p] = 0.f;
+          }
+        }
+        load_tables(i + kWarps);
+      }
+#pragma unroll
+      for (int pair = 0; pair < NP; ++pair) {
+        const int s = 2 * pair + h;
+        const float* col = tile + s * XP;  // staged row r at col[r * RS]
+        float q[C], gv[GP], ge[GP];
+#pragma unroll
+        for (int c = 0; c < C; ++c) q[c] = col[(K::OQ + c) * RS + i];
+#pragma unroll
+        for (int p = 0; p < GP; ++p) {
+          gv[p] = col[(K::OG + p) * RS + i];
+          ge[p] = POS ? col[(K::OE + p) * RS + i] : 0.f;
+        }
+        float xs[KPL], ds[KPL], kv[KPL][C];
+        float mx = -3.0e38f;
+#pragma unroll
+        for (int t = 0; t < KPL; ++t) {
+          const int j = l16 + 16 * t;
+          xs[t] = ds[t] = 0.f;
+#pragma unroll
+          for (int c = 0; c < C; ++c) kv[t][c] = 0.f;
+          if (j < L) {
+            float qk = 0.f, qr = 0.f, kr = 0.f;
+#pragma unroll
+            for (int c = 0; c < C; ++c) {
+              const float kc = col[(K::OK + c) * RS + j];
+              kv[t][c] = kc;
+              qk = fmaf(q[c], kc, qk);
+              if constexpr (POS) {
+                qr = fmaf(q[c], tqv[t][c], qr);
+                kr = fmaf(kc, kemb_at(c, j, i), kr);
+              }
+            }
+            float x = a0s * qk;  // log2 units; the biases cancel
+            if constexpr (POS) x = fmaf(a4s, kr, fmaf(a2s, qr, x));
+            float d = 0.f;
+#pragma unroll
+            for (int p = 0; p < GP; ++p) {
+              d = fmaf(gv[p], col[(K::OV + p) * RS + j], d);
+              if constexpr (POS) d = fmaf(ge[p], tvv[t][p], d);
+            }
+            xs[t] = x;
+            ds[t] = d;
+            mx = fmaxf(mx, x);
+          }
+        }
+#pragma unroll
+        for (int o = 8; o > 0; o >>= 1)
+          mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+        float l = 0.f, wd = 0.f;
+#pragma unroll
+        for (int t = 0; t < KPL; ++t) {
+          if (l16 + 16 * t < L) {
+            const float e = ex2(xs[t] - mx);
+            xs[t] = e;
+            l += e;
+            wd = fmaf(e, ds[t], wd);
+          }
+        }
+#pragma unroll
+        for (int o = 8; o > 0; o >>= 1) {
+          l += __shfl_xor_sync(0xffffffffu, l, o);
+          wd += __shfl_xor_sync(0xffffffffu, wd, o);
+        }
+        const float inv_l = 1.f / l;
+        const float delta = wd * inv_l;
+        float* prow = sp + s * SS + i * IS;
+        float* drow = sd + s * SS + i * IS;
+        float dA[C], dB[C];
+#pragma unroll
+        for (int c = 0; c < C; ++c) dA[c] = dB[c] = 0.f;
+#pragma unroll
+        for (int t = 0; t < KPL; ++t) {
+          const int j = l16 + 16 * t;
+          if (j < L) {
+            const float pj = xs[t] * inv_l;
+            const float dl = pj * (ds[t] - delta);
+            prow[j] = pj;
+            drow[j] = dl;
+            s_b += dl;
+#pragma unroll
+            for (int c = 0; c < C; ++c) {
+              dA[c] = fmaf(dl, kv[t][c], dA[c]);
+              if constexpr (POS) {
+                dB[c] = fmaf(dl, tqv[t][c], dB[c]);
+                aq[t][c] = fmaf(dl, q[c], aq[t][c]);
+              }
+            }
+            if constexpr (POS) {
+#pragma unroll
+              for (int p = 0; p < GP; ++p) av[t][p] = fmaf(pj, ge[p], av[t][p]);
+            }
+          }
+        }
+#pragma unroll
+        for (int c = 0; c < C; ++c) {
+#pragma unroll
+          for (int o = 8; o > 0; o >>= 1) {
+            dA[c] += __shfl_xor_sync(0xffffffffu, dA[c], o);
+            if constexpr (POS)
+              dB[c] += __shfl_xor_sync(0xffffffffu, dB[c], o);
+          }
+        }
+        if (l16 == 0) {
+#pragma unroll
+          for (int c = 0; c < C; ++c) {
+            s_qk = fmaf(q[c], dA[c], s_qk);
+            if constexpr (POS) s_qr = fmaf(q[c], dB[c], s_qr);
+          }
+        }
+        if (l16 < C && s0 + s < S) {  // lane c writes dq[s, gi, c, i]
+          float out = 0.f;
+#pragma unroll
+          for (int c = 0; c < C; ++c) {
+            if (c == l16) out = POS ? fmaf(a2, dB[c], a0 * dA[c]) : a0 * dA[c];
+          }
+          a.dq[(((size_t)(s0 + s) * g + gi) * C + l16) * L + i] = out;
+        }
+      }
+      if constexpr (POS) {
+        // the two half-warps' sums, added in one order on both; half 0
+        // writes the query's dqemb row, half 1 its dvemb row
+#pragma unroll
+        for (int t = 0; t < KPL; ++t) {
+#pragma unroll
+          for (int c = 0; c < C; ++c)
+            aq[t][c] += __shfl_xor_sync(0xffffffffu, aq[t][c], 16);
+#pragma unroll
+          for (int p = 0; p < GP; ++p)
+            av[t][p] += __shfl_xor_sync(0xffffffffu, av[t][p], 16);
+          const int j = l16 + 16 * t;
+          if (j < L) {
+            const size_t ij = (size_t)i * L + j;
+            if (h == 0) {
+#pragma unroll
+              for (int c = 0; c < C; ++c) part[c * LL + ij] = a2 * aq[t][c];
+            } else {
+#pragma unroll
+              for (int p = 0; p < GP; ++p)
+                part[(2 * C + p) * LL + ij] = av[t][p];
+            }
+          }
+        }
       }
     }
   }
+  __syncthreads();
 
-  if (valid) {
+  // -- column phase: thread (key j, stripe) ------------------------------------
+  for (int it = tid; it < LP * NS; it += kThreads) {
+    const int j = it % LP, s = it / LP;
+    if (j >= L) continue;
+    const float* col = tile + s * XP;
+    const float* pc = sp + s * SS + j;  // p[s][i][j] at pc[i * IS]
+    const float* dc = sd + s * SS + j;
+    float dKA[C], dKB[C], dvv[GP];
 #pragma unroll
-    for (int c = 0; c < C; ++c) a.dq[(sg * C + c) * L + i] = dq[c];
-    const size_t row = sg * L + i;
-    a.m[row] = m;
-    a.l[row] = l;
-    a.delta[row] = delta;
+    for (int c = 0; c < C; ++c) dKA[c] = dKB[c] = 0.f;
+#pragma unroll
+    for (int p = 0; p < GP; ++p) dvv[p] = 0.f;
+    for (int i = 0; i < L; ++i) {
+      const float dl = dc[i * IS], pj = pc[i * IS];
+#pragma unroll
+      for (int c = 0; c < C; ++c) {
+        dKA[c] = fmaf(dl, col[(K::OQ + c) * RS + i], dKA[c]);
+        if constexpr (POS) dKB[c] = fmaf(dl, kemb_at(c, j, i), dKB[c]);
+      }
+#pragma unroll
+      for (int p = 0; p < GP; ++p)
+        dvv[p] = fmaf(pj, col[(K::OG + p) * RS + i], dvv[p]);
+    }
+    if constexpr (POS) {
+#pragma unroll
+      for (int c = 0; c < C; ++c)
+        s_kr = fmaf(col[(K::OK + c) * RS + j], dKB[c], s_kr);
+    }
+    if (s0 + s < S) {
+      const size_t sg = (size_t)(s0 + s) * g + gi;
+#pragma unroll
+      for (int c = 0; c < C; ++c) {
+        a.dk[(sg * C + c) * L + j] =
+            POS ? fmaf(a4, dKB[c], a0 * dKA[c]) : a0 * dKA[c];
+      }
+#pragma unroll
+      for (int p = 0; p < GP; ++p) a.dv[(sg * GP + p) * L + j] = dvv[p];
+    }
+  }
+
+  // -- table phase (positions): dkemb[c, j, i], summed over the chunk's
+  // stripes in index order; thread per (j, i), lanes over i ------------------
+  if constexpr (POS) {
+    float* part = a.tab_part + ((size_t)gi * gridDim.x + blockIdx.x) * K::R * LL;
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      const float* kc = tile + (K::OK + c) * RS;
+#pragma unroll 4
+      for (int e = tid; e < LP * LP; e += kThreads) {
+        const int j = e / LP, i = e % LP;
+        if (j < L && i < L) {
+          const float* w = sd + i * IS + j;  // dlog[s][i][j] at w[s * SS]
+          float v = 0.f;
+#pragma unroll
+          for (int s = 0; s < NS; ++s) v = fmaf(w[s * SS], kc[s * XP + j], v);
+          part[(C + c) * LL + (size_t)j * L + i] = a4 * v;
+        }
+      }
+    }
   }
 
   const float sums[4] = {s_qk, s_b, s_qr, s_kr};
 #pragma unroll
   for (int t = 0; t < 4; ++t) {
     const float v = warp_sum(sums[t]);
-    if (lane == 0) {
-      a.aff_part[(((size_t)i * blocks + blockIdx.y) * g + gi) * 4 + t] = v;
-    }
+    if (lane == 0) wsum[warp * 4 + t] = v;
+  }
+  __syncthreads();
+  if (tid < 4) {
+    float v = 0.f;
+    for (int w = 0; w < kWarps; ++w) v += wsum[w * 4 + tid];
+    a.aff_part[((size_t)blockIdx.x * g + gi) * 4 + tid] = v;
   }
 }
 
-template <int GP, bool HAS_POS>
-__global__ void __launch_bounds__(kStripes)
-stripe_bwd_col_kernel(BwdArgs a) {
-  constexpr int C = GP / 2;
-  __shared__ float c_q[HAS_POS ? C * kMaxSpan : 1];   // qemb[c, :, j]
-  __shared__ float c_k[HAS_POS ? C * kMaxSpan : 1];   // kemb[c, j, :]
-  __shared__ float c_v[HAS_POS ? GP * kMaxSpan : 1];  // vemb[p, :, j]
-  const int L = a.L, S = a.S, g = a.g;
-  const int j = blockIdx.x;
-  const int gi = blockIdx.z;
-  const int s = blockIdx.y * kStripes + threadIdx.x;
-
-  if constexpr (HAS_POS) {
-    for (int t = threadIdx.x; t < C * L; t += kStripes) {
-      const int c = t / L, i = t - c * L;
-      c_q[t] = a.qemb[((size_t)c * L + i) * L + j];
-      c_k[t] = a.kemb[((size_t)c * L + j) * L + i];
-    }
-    for (int t = threadIdx.x; t < GP * L; t += kStripes) {
-      const int p = t / L, i = t - p * L;
-      c_v[t] = a.vemb[((size_t)p * L + i) * L + j];
-    }
-    __syncthreads();
-  }
-  if (s >= S) return;
-
-  const float* af = a.aff + gi * 8;
-  const float a0 = af[0], a1 = af[1];
-  float a2 = 0.f, a3 = 0.f, a4 = 0.f, a5 = 0.f;
-  if constexpr (HAS_POS) {
-    a2 = af[2]; a3 = af[3]; a4 = af[4]; a5 = af[5];
-  }
-  const size_t sg = (size_t)s * g + gi;
-  const float* qs = a.q + s * a.q_ss + gi * a.q_sg;
-  const float* ks = a.k + s * a.k_ss + gi * a.k_sg;
-  const float* vs = a.v + s * a.v_ss + gi * a.v_sg;
-  const float* gvs = a.dsv + sg * GP * L;
-  const float* ges = HAS_POS ? a.dsve + sg * GP * L : nullptr;
-  const float* mrow = a.m + sg * L;
-  const float* lrow = a.l + sg * L;
-  const float* drow = a.delta + sg * L;
-
-  float kj[C], vj[GP], dk[C], dv[GP];
-#pragma unroll
-  for (int c = 0; c < C; ++c) {
-    kj[c] = ks[c * L + j];
-    dk[c] = 0.f;
-  }
-#pragma unroll
-  for (int p = 0; p < GP; ++p) {
-    vj[p] = vs[p * L + j];
-    dv[p] = 0.f;
-  }
-
-  for (int i = 0; i < L; ++i) {
-    float qi[C], qk = 0.f, qr = 0.f, kr = 0.f;
-#pragma unroll
-    for (int c = 0; c < C; ++c) {
-      qi[c] = qs[c * L + i];
-      qk += qi[c] * kj[c];
-      if constexpr (HAS_POS) {
-        qr += qi[c] * c_q[c * L + i];
-        kr += kj[c] * c_k[c * L + i];
-      }
-    }
-    float x = qk * a0 + a1;
-    if constexpr (HAS_POS) x += (qr * a2 + a3) + (kr * a4 + a5);
-    const float pij = expf(x - mrow[i]) * (1.f / lrow[i]);
-    float dsim = 0.f;
-    float gi_v[GP];
-#pragma unroll
-    for (int p = 0; p < GP; ++p) {
-      gi_v[p] = gvs[p * L + i];
-      dsim += gi_v[p] * vj[p];
-      if constexpr (HAS_POS) dsim += ges[p * L + i] * c_v[p * L + i];
-    }
-    const float dlog = pij * (dsim - drow[i]);
-#pragma unroll
-    for (int c = 0; c < C; ++c) {
-      dk[c] += (dlog * a0) * qi[c];
-      if constexpr (HAS_POS) dk[c] += (dlog * a4) * c_k[c * L + i];
-    }
-#pragma unroll
-    for (int p = 0; p < GP; ++p) dv[p] += pij * gi_v[p];
-  }
-
-#pragma unroll
-  for (int c = 0; c < C; ++c) a.dk[(sg * C + c) * L + j] = dk[c];
-#pragma unroll
-  for (int p = 0; p < GP; ++p) a.dv[(sg * GP + p) * L + j] = dv[p];
+template <int GP, int LP, bool POS>
+cudaError_t launch_variant(const Args& a, cudaStream_t stream) {
+  using K = Cfg<GP, LP, POS>;
+  auto kernel = stripe_bwd_kernel<GP, LP, POS>;
+  const size_t smem = (size_t)K::FLOATS * sizeof(float);
+  const cudaError_t err = flash2::allow_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((a.S + K::NS - 1) / K::NS, a.g);
+  kernel<<<grid, kThreads, smem, stream>>>(a);
+  return cudaGetLastError();
 }
 
-template <int GP, bool HAS_POS>
-void launch_gp(const BwdArgs& a, cudaStream_t stream) {
-  const dim3 grid(a.L, stripe_blocks(a.S), a.g);
-  stripe_bwd_row_kernel<GP, HAS_POS>
-      <<<grid, kStripes, row_smem_bytes(GP, a.L, HAS_POS), stream>>>(a);
-  stripe_bwd_col_kernel<GP, HAS_POS><<<grid, kStripes, 0, stream>>>(a);
+template <int GP>
+cudaError_t launch_gp(const Args& a, bool pos, cudaStream_t stream) {
+  switch (span_bucket(a.L)) {
+    case 16: return pos ? launch_variant<GP, 16, true>(a, stream)
+                        : launch_variant<GP, 16, false>(a, stream);
+    case 32: return pos ? launch_variant<GP, 32, true>(a, stream)
+                        : launch_variant<GP, 32, false>(a, stream);
+    default: return pos ? launch_variant<GP, 64, true>(a, stream)
+                        : launch_variant<GP, 64, false>(a, stream);
+  }
 }
 
 }  // namespace
@@ -376,50 +534,49 @@ extern "C" {
 // contiguous floats; dsv, dsve, dq, dk, dv dense.
 // dtables: (2gp, L, L) = dqemb (c rows, [c, i, j]), dkemb (c rows,
 // [c, j, i]), dvemb (gp rows, [p, i, j]); not written without positions.
-// m, l, delta: scratch (S, g, L). Partials: tab_part (g * ceil(S/32), 2gp,
-// L, L) with positions, aff_part (L * ceil(S/32), g, 4).
+// Partials, with B = ceil(S / NS) blocks per group (NS = chunk_stripes(gp,
+// span_bucket(L))): tab_part (g * B, 2gp, L, L) with positions (unused
+// without), aff_part (B, g, 4). dsve is not read without positions.
 int medt_stripe_attn_bwd(const float* q, const float* k, const float* v,
                          const float* qemb, const float* kemb,
                          const float* vemb, const float* aff,
                          const float* dsv, const float* dsve, float* dq,
                          float* dk, float* dv, float* dtables, float* daff,
-                         float* m, float* l, float* delta, float* tab_part,
-                         float* aff_part, long long q_ss, long long q_sg,
-                         long long k_ss, long long k_sg, long long v_ss,
-                         long long v_sg, int S, int g, int gp, int L,
-                         int has_pos, int n_tab_part, int n_aff_part,
+                         float* tab_part, float* aff_part, long long q_ss,
+                         long long q_sg, long long k_ss, long long k_sg,
+                         long long v_ss, long long v_sg, int S, int g, int gp,
+                         int L, int has_pos, int n_tab_part, int n_aff_part,
                          void* stream_ptr) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  const int blocks = S > 0 ? stripe_blocks(S) : 0;
-  if (g < 1 || S < 1 || L < 1 || L > kMaxSpan || g > 65535 ||
-      blocks > 65535 || n_aff_part != L * blocks ||
-      (has_pos && n_tab_part != g * blocks)) {
+  const bool pos = has_pos != 0;
+  if (g < 1 || g > 65535 || S < 1 || L < 1 || L > kMaxSpan ||
+      (gp != 2 && gp != 4 && gp != 8 && gp != 16)) {
     return (int)cudaErrorInvalidValue;
   }
-  const BwdArgs a{q, k, v, qemb, kemb, vemb, aff, dsv, dsve, dq, dk, dv,
-                  m, l, delta, tab_part, aff_part, q_ss, q_sg, k_ss, k_sg,
-                  v_ss, v_sg, S, g, L};
-  const bool pos = has_pos != 0;
+  const int ns = chunk_stripes(gp, span_bucket(L), pos);
+  const int blocks = (S + ns - 1) / ns;
+  if (n_aff_part != blocks || (pos && n_tab_part != g * blocks)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  using flash2::aligned16;
+  const bool vec = L % 4 == 0 && q_ss % 4 == 0 && q_sg % 4 == 0 &&
+                   k_ss % 4 == 0 && k_sg % 4 == 0 && v_ss % 4 == 0 &&
+                   v_sg % 4 == 0 && aligned16(q) && aligned16(k) &&
+                   aligned16(v) && aligned16(dsv) && (!pos || aligned16(dsve));
+  const Args a{q, k, v, qemb, kemb, vemb, aff, dsv, dsve, dq, dk, dv,
+               tab_part, aff_part, q_ss, q_sg, k_ss, k_sg, v_ss, v_sg, S, g,
+               L, vec};
+  cudaError_t err;
   switch (gp) {
-    case 2:
-      pos ? launch_gp<2, true>(a, stream) : launch_gp<2, false>(a, stream);
-      break;
-    case 4:
-      pos ? launch_gp<4, true>(a, stream) : launch_gp<4, false>(a, stream);
-      break;
-    case 8:
-      pos ? launch_gp<8, true>(a, stream) : launch_gp<8, false>(a, stream);
-      break;
-    case 16:
-      pos ? launch_gp<16, true>(a, stream) : launch_gp<16, false>(a, stream);
-      break;
-    default: return (int)cudaErrorInvalidValue;
+    case 2: err = launch_gp<2>(a, pos, stream); break;
+    case 4: err = launch_gp<4>(a, pos, stream); break;
+    case 8: err = launch_gp<8>(a, pos, stream); break;
+    default: err = launch_gp<16>(a, pos, stream); break;
   }
-  if (pos) {
-    medt::sum_partials(tab_part, dtables, n_tab_part,
-                       (size_t)2 * gp * L * L, stream);
-  }
-  medt::daff_finalize(aff_part, daff, n_aff_part, g, has_pos, stream);
+  if (err != cudaSuccess) return (int)err;
+  medt::bwd_finalize(tab_part, dtables, pos ? n_tab_part : 0,
+                     (size_t)2 * gp * L * L, aff_part, daff, n_aff_part, g,
+                     has_pos, stream);
   return (int)cudaGetLastError();
 }
 

@@ -25,13 +25,28 @@
 // What bounds it on the H100: device memory. Each q/k element is read once
 // for ~c^2 operations, far below the card's 20 float32 operations per byte;
 // the backward also writes every dqkv element once (three times the
-// forward's bytes). Design:
-//   * forward, one thread per (gi, stripe s) walking the span: the
-//     per-stripe sums qs, ks, qq, kk and the table terms stay in registers;
-//     warp shuffles and a fixed-order sum of the block's warps give one
-//     (g, block) partial of the six sums, summed in index order by a
-//     second kernel — the TPU kernel's resident (g, 8) block becomes a
-//     deterministic two-level reduction;
+// forward's bytes). The TPU kernel's resident (g, 8) block becomes a
+// deterministic two-level reduction: per-block partials summed in a fixed
+// order by a second launch. Design:
+//   * forward (moments_fwd_kernel below), and its finalize. The first CUDA
+//     design (PR 5) ran one thread per (group, stripe), g * ceil(S/128)
+//     blocks of 128 threads, each thread walking all L rows with dependent
+//     loads and the r and e tables read from L2 inside its row loop: 64
+//     blocks for 132 SMs at the (256, 4, 1024) medt_512 site, 13.5 times
+//     its bound there, and 0.59 ms of device time per medt_512 batch-4 step
+//     (22 launches, bound 0.093 ms) on an H100 80GB HBM3 at 700 W. Now a
+//     block owns 32 stripes (g * ceil(S/32) blocks, 128 or more at every
+//     path site), stages their q/k slab in shared memory once, and spreads
+//     the sums of a stripe over its eight warps, a q-side sum and its
+//     k-side twin a warp; the tables are staged too. Every sum keeps the
+//     first design's order and rounding, per stripe and across stripes, so
+//     the forward gives its bits (compare_kernels.py's out_sha256 at every
+//     path geometry). The backward's tile, whose rows are spread over
+//     threads and combined by shuffles, ran in 0.165 ms per medt_512 step
+//     on the same card, but its sums, as accurate, moved the MedT-128
+//     batch-16 train step on the kernels 2.8 times beyond the smoke's
+//     parity bound against plain cores (PERF.md, PR 12): the order costs
+//     the long spans their parallelism, as each stripe's sum is one chain;
 //   * backward, one launch (moments_bwd_kernel below), and with positions
 //     a fixed-order finalize (tab_finalize_kernel). The first CUDA design
 //     made three launches a call: a stats pass of g * ceil(S/128) blocks (64 at
@@ -59,8 +74,6 @@
 
 namespace {
 
-using medt::kBlockStripes;
-using medt::kWarps;
 using medt::warp_sum;
 
 __host__ __device__ constexpr int pairs(int C) { return C * (C + 1) / 2; }
@@ -71,102 +84,263 @@ __host__ __device__ constexpr int pair_index(int c, int d, int C) {
                 : d * C - d * (d - 1) / 2 + (c - d);
 }
 
-template <int C, bool HAS_POS>
-__global__ void __launch_bounds__(kBlockStripes)
-moments_fwd_kernel(const float* __restrict__ qkv, const float* __restrict__ r_q,
-                   const float* __restrict__ e_q, const float* __restrict__ r_k,
-                   const float* __restrict__ e_k, float* __restrict__ part,
-                   int L, int S) {
-  __shared__ float w_part[kWarps][6];
-  const int gi = blockIdx.y;
-  const int s = blockIdx.x * kBlockStripes + threadIdx.x;
-  const bool valid = s < S;
+// (c, d) of the t-th pair of the row-major upper triangle
+template <int C>
+__device__ __forceinline__ void pair_of(int t, int& c, int& d) {
+  c = 0;
+  while (t >= C - c) {
+    t -= C - c;
+    ++c;
+  }
+  d = c + t;
+}
+
+// The forward's tile (the wrapper mirrors these: ops/moments.py,
+// FWD_STRIPES): a block of kFwdThreads threads owns one group and
+// kFwdStripes stripes, the lanes of a warp; the finalize adds its tiles'
+// partials kFwdGroupTiles at a time, then the groups in order, as the
+// first design added its warps within a block of 128 stripes, then its
+// blocks.
+constexpr int kFwdStripes = 32;
+constexpr int kFwdThreads = 256;
+constexpr int kFwdWarps = kFwdThreads / 32;
+constexpr int kFwdGroupTiles = 4;
+// the largest q/k slab (2c rows x L x kFwdStripes floats) the forward
+// stages in shared memory; past it the items read device memory
+constexpr int kFwdSlabFloats = 32768;
+
+struct MomFwdArgs {
+  const float* qkv;
+  const float* r_q;
+  const float* e_q;
+  const float* r_k;
+  const float* e_k;
+  float* part;     // (g * tiles, 6) tile partials
+  int L, S;
+  bool slab;       // stage the tile's q/k slab in shared memory
+  bool vec;        // with 16-byte copies along the stripe axis
+};
+
+// The forward's shared memory: the q/k slab when staged, the tables when
+// staged (TAB: r_q, the symmetrised e_q pairs, r_k, the e_k pairs, 2c +
+// 2 pairs(c) rows of L) and each item's per-stripe sum.
+template <int C, bool HAS_POS, bool TAB>
+constexpr size_t fwd_smem_floats(int L, bool slab) {
+  constexpr int T1 = 2 * C + 2 * pairs(C);
+  return (slab ? (size_t)2 * C * L * kFwdStripes : 0) +
+         (TAB ? (size_t)T1 * L : 0) +
+         (size_t)(T1 + (HAS_POS ? 4 : 0)) * kFwdStripes;
+}
+
+// One launch per call, then moments_finalize. The block stages its tile's
+// q/k slab in shared memory by cp.async (16-byte copies where S % 4 == 0),
+// each element read once from device memory; a slab over kFwdSlabFloats
+// (gp * L over 1024, off every path) is read from device memory by the
+// items instead. Each of the block's items is one per-stripe sum over the
+// span, taken by one warp (lane = stripe) in row order: qs[c], ks[c] (c
+// each), qq[c,d], kk[c,d] (the pairs c <= d) and, with positions, the
+// table terms s1_qr, s2_qr, s1_kr, s2_kr; the items run on all eight
+// warps, each warp a q-side sum and its k-side twin at once. Then warp 0
+// forms each stripe's s1_qk, s2_qk, and warp_sum gives the tile's partial
+// of six. Every sum, per stripe and across stripes, is taken in the first
+// design's order and rounding, so the forward gives its bits: the train
+// step on the kernels is held to plain cores within a bound set by float32
+// spread, and other orders of the same accuracy moved a MedT-128 batch-16
+// step beyond it (up to 2.8 times, PERF.md). With TAB the tables are
+// staged in shared memory, the e tables as their symmetrised pairs e[c,d]
+// + e[d,c] (c < d) and e[c,c].
+template <int C, bool HAS_POS, bool TAB>
+__global__ void __launch_bounds__(kFwdThreads)
+moments_fwd_kernel(MomFwdArgs a) {
+  constexpr int P = pairs(C);
+  constexpr int T1 = 2 * C + 2 * P;
+  static_assert(HAS_POS || !TAB, "tables only with positions");
+  extern __shared__ __align__(16) float smem[];
+  const int L = a.L, S = a.S, gi = blockIdx.y;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int s = blockIdx.x * kFwdStripes + lane;
+  const bool valid = s < S;
   const size_t LS = (size_t)L * S;
-  const float* base = qkv + (size_t)gi * 4 * C * LS + (valid ? s : 0);
+  float* slab = smem;                         // (2c, L, kFwdStripes)
+  float* tabs = slab + (a.slab ? 2 * C * L * kFwdStripes : 0);
+  float* sums = tabs + (TAB ? T1 * L : 0);    // (T1 + 4, kFwdStripes)
+  // A stripe past the edge reads zeros: every sum gets 0 from it.
+  const float* tile = a.qkv + (size_t)gi * 4 * C * LS;
+  if (a.slab) {
+    flash2::stage_runs<kFwdStripes, kFwdThreads>(
+        slab, tile + blockIdx.x * kFwdStripes, S, 2 * C * L,
+        S - blockIdx.x * kFwdStripes, a.vec, threadIdx.x);
+    flash2::cp_async_commit();
+  }
+  auto at = [&](int row, int l) {
+    return a.slab ? slab[(row * L + l) * kFwdStripes + lane]
+                  : (valid ? __ldg(tile + row * LS + (size_t)l * S + s)
+                           : 0.f);
+  };
 
-  float qs[C], ks[C], qq[pairs(C)], kk[pairs(C)];
-#pragma unroll
-  for (int c = 0; c < C; ++c) qs[c] = ks[c] = 0.f;
-#pragma unroll
-  for (int t = 0; t < pairs(C); ++t) qq[t] = kk[t] = 0.f;
-  float s1qr = 0.f, s2qr = 0.f, s1kr = 0.f, s2kr = 0.f;
-
-  for (int l = 0; l < L; ++l) {
-    float q[C], k[C];
-#pragma unroll
-    for (int c = 0; c < C; ++c) {
-      q[c] = valid ? base[c * LS + (size_t)l * S] : 0.f;
-      k[c] = valid ? base[(C + c) * LS + (size_t)l * S] : 0.f;
-      qs[c] += q[c];
-      ks[c] += k[c];
+  if constexpr (TAB) {
+    for (int e = threadIdx.x; e < T1 * L; e += kFwdThreads) {
+      const int row = e / L, l = e - row * L;
+      const bool on_k = row >= C + P;
+      const int rk = on_k ? row - (C + P) : row;  // within q's or k's rows
+      float v;
+      if (rk < C) {
+        v = __ldg((on_k ? a.r_k : a.r_q) + rk * L + l);
+      } else {
+        const float* x = on_k ? a.e_k : a.e_q;
+        int c, d;
+        pair_of<C>(rk - C, c, d);
+        v = d == c ? __ldg(x + (c * C + d) * L + l)
+                   : __ldg(x + (c * C + d) * L + l) +
+                         __ldg(x + (d * C + c) * L + l);
+      }
+      tabs[e] = v;
     }
-    int t = 0;
+  }
+  flash2::cp_async_wait<0>();
+  __syncthreads();
+  // r[c, l] and the symmetrised e pair t at row l, of q's (K = 0) or k's
+  // (K = 1) tables
+  auto r_at = [&](int K, int c, int l) {
+    if constexpr (TAB) return tabs[(K * (C + P) + c) * L + l];
+    return __ldg((K ? a.r_k : a.r_q) + c * L + l);
+  };
+  auto e_at = [&](int K, int t, int c, int d, int l) {
+    if constexpr (TAB) return tabs[(K * (C + P) + C + t) * L + l];
+    const float* x = K ? a.e_k : a.e_q;
+    const size_t cd = ((size_t)c * C + d) * L + l;
+    const size_t dc = ((size_t)d * C + c) * L + l;
+    return d == c ? __ldg(x + cd) : __ldg(x + cd) + __ldg(x + dc);
+  };
+
+  // Each warp takes a q-side sum and its k-side twin together, two
+  // independent chains; the longest (the table terms) go first.
+  // Pair j: j < 2 with positions: (s2_qr, s2_kr), (s1_qr, s1_kr); then
+  // the pairs (qq[t], kk[t]); then (qs[c], ks[c]).
+  constexpr int NT = HAS_POS ? 2 : 0;  // table pairs
+  for (int j = warp; j < NT + P + C; j += kFwdWarps) {
+    float acc[2] = {0.f, 0.f};
+    int slot[2];                       // items of the two sums
+    if (j < NT) {
+      const bool second = j == 0;      // s2 (pairs) before s1
+      slot[0] = T1 + (second ? 1 : 0);
+      slot[1] = T1 + (second ? 3 : 2);
+      if (second) {
+        for (int l = 0; l < L; ++l) {
 #pragma unroll
-    for (int c = 0; c < C; ++c) {
+          for (int K = 0; K < 2; ++K) {
+            float x[C];
 #pragma unroll
-      for (int d = c; d < C; ++d, ++t) {
-        const float wq = q[c] * q[d], wk = k[c] * k[d];
-        qq[t] += wq;
-        kk[t] += wk;
-        if constexpr (HAS_POS) {
-          const size_t cd = ((size_t)c * C + d) * L + l;
-          const size_t dc = ((size_t)d * C + c) * L + l;
-          const float eq = d == c ? e_q[cd] : e_q[cd] + e_q[dc];
-          const float ek = d == c ? e_k[cd] : e_k[cd] + e_k[dc];
-          s2qr += wq * eq;
-          s2kr += wk * ek;
+            for (int c = 0; c < C; ++c) x[c] = at(K * C + c, l);
+            int t = 0;
+#pragma unroll
+            for (int c = 0; c < C; ++c) {
+#pragma unroll
+              for (int d = c; d < C; ++d, ++t) {
+                const float w = x[c] * x[d];
+                acc[K] += w * e_at(K, t, c, d, l);
+              }
+            }
+          }
+        }
+      } else {
+        for (int l = 0; l < L; ++l) {
+#pragma unroll
+          for (int K = 0; K < 2; ++K) {
+#pragma unroll
+            for (int c = 0; c < C; ++c)
+              acc[K] += at(K * C + c, l) * r_at(K, c, l);
+          }
         }
       }
-    }
-    if constexpr (HAS_POS) {
+    } else if (j < NT + P) {           // qq[c, d], kk[c, d]
+      const int t = j - NT;
+      int c, d;
+      pair_of<C>(t, c, d);
+      slot[0] = 2 * C + t;
+      slot[1] = 2 * C + P + t;
+#pragma unroll 8
+      for (int l = 0; l < L; ++l) {
 #pragma unroll
-      for (int c = 0; c < C; ++c) {
-        s1qr += q[c] * r_q[c * L + l];
-        s1kr += k[c] * r_k[c * L + l];
+        for (int K = 0; K < 2; ++K) {
+          // with positions the first design shared the rounded product
+          // with s2_qr, so it added it rounded; without, it fused the two
+          const float x = at(K * C + c, l), y = at(K * C + d, l);
+          acc[K] = HAS_POS ? __fadd_rn(acc[K], __fmul_rn(x, y))
+                           : fmaf(x, y, acc[K]);
+        }
+      }
+    } else {                           // qs[c], ks[c]
+      const int c = j - NT - P;
+      slot[0] = c;
+      slot[1] = C + c;
+#pragma unroll 8
+      for (int l = 0; l < L; ++l) {
+        acc[0] += at(c, l);
+        acc[1] += at(C + c, l);
       }
     }
+    sums[slot[0] * kFwdStripes + lane] = acc[0];
+    sums[slot[1] * kFwdStripes + lane] = acc[1];
   }
-  float s1qk = 0.f, s2qk = 0.f;
+  __syncthreads();
+  if (warp == 0) {
+    const float* st = sums + lane;  // this stripe's item it at st[it * 32]
+    float s1qk = 0.f, s2qk = 0.f;
 #pragma unroll
-  for (int c = 0; c < C; ++c) s1qk += qs[c] * ks[c];
-  {
+    for (int c = 0; c < C; ++c)
+      s1qk += st[c * kFwdStripes] * st[(C + c) * kFwdStripes];
     int t = 0;
 #pragma unroll
     for (int c = 0; c < C; ++c) {
 #pragma unroll
       for (int d = c; d < C; ++d, ++t) {
-        s2qk += (d == c ? 1.f : 2.f) * (qq[t] * kk[t]);
+        s2qk += (d == c ? 1.f : 2.f) * (st[(2 * C + t) * kFwdStripes] *
+                                        st[(2 * C + P + t) * kFwdStripes]);
       }
     }
-  }
-
-  const float sums[6] = {s1qk, s2qk, s1qr, s2qr, s1kr, s2kr};
+    float v[6] = {s1qk, s2qk, 0.f, 0.f, 0.f, 0.f};
+    if constexpr (HAS_POS) {
 #pragma unroll
-  for (int k = 0; k < 6; ++k) {
-    const float v = warp_sum(sums[k]);
-    if (lane == 0) w_part[warp][k] = v;
-  }
-  __syncthreads();
-  if (threadIdx.x < 6) {
-    float v = 0.f;
-    for (int w = 0; w < kWarps; ++w) v += w_part[w][threadIdx.x];
-    part[((size_t)gi * gridDim.x + blockIdx.x) * 6 + threadIdx.x] = v;
+      for (int k = 0; k < 4; ++k) v[2 + k] = st[(T1 + k) * kFwdStripes];
+    }
+#pragma unroll
+    for (int k = 0; k < 6; ++k) {
+      const float w = warp_sum(v[k]);
+      if (lane == 0)
+        a.part[((size_t)gi * gridDim.x + blockIdx.x) * 6 + k] = w;
+    }
   }
 }
 
-// (g, 8) from the (g, blocks, 6) partials; columns 6, 7 zero.
-__global__ void moments_finalize_kernel(const float* __restrict__ part,
-                                        float* __restrict__ out, int blocks,
-                                        int g) {
-  const int t = blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= g * 8) return;
-  const int gi = t / 8, col = t - gi * 8;
+// (g, 8) from the (g, tiles, 6) partials of the forward, columns 6, 7
+// zero: a warp per (group, column); lane l adds the kFwdGroupTiles
+// partials of groups l, l + 32, ... in order, then lane 0 adds the groups
+// in order.
+__global__ void __launch_bounds__(kFwdThreads)
+moments_finalize_kernel(const float* __restrict__ part,
+                        float* __restrict__ out, int tiles, int g) {
+  const int w = (int)((blockIdx.x * kFwdThreads + threadIdx.x) >> 5);
+  const int lane = threadIdx.x & 31;
+  if (w >= g * 8) return;
+  const int gi = w / 8, col = w - gi * 8;
+  const float* p = part + (size_t)gi * tiles * 6 + col;
+  const int groups = (tiles + kFwdGroupTiles - 1) / kFwdGroupTiles;
   float v = 0.f;
-  if (col < 6) {
-    for (int b = 0; b < blocks; ++b) v += part[((size_t)gi * blocks + b) * 6 + col];
+  for (int g0 = 0; col < 6 && g0 < groups; g0 += 32) {
+    const int b = g0 + lane;
+    float vb = 0.f;
+    if (b < groups) {
+#pragma unroll
+      for (int k = 0; k < kFwdGroupTiles; ++k) {
+        const int t = b * kFwdGroupTiles + k;
+        vb += t < tiles ? p[(size_t)t * 6] : 0.f;
+      }
+    }
+    const int n = min(32, groups - g0);
+    for (int i = 0; i < n; ++i) v += __shfl_sync(0xffffffffu, vb, i);
   }
-  out[t] = v;
+  if (lane == 0) out[w] = v;
 }
 
 // The backward's tile (the wrapper mirrors these: ops/moments.py). A block
@@ -218,17 +392,6 @@ struct MomBwdArgs {
   int L, S;
   bool vec;      // 16-byte copies along the stripe axis
 };
-
-// (c, d) of the t-th pair of the row-major upper triangle
-template <int C>
-__device__ __forceinline__ void pair_of(int t, int& c, int& d) {
-  c = 0;
-  while (t >= C - c) {
-    t -= C - c;
-    ++c;
-  }
-  d = c + t;
-}
 
 // One launch per call (and, with positions, tab_finalize after it).
 // Thread t of a block works on stripe s = t % TS of the tile and rows
@@ -417,13 +580,27 @@ moments_bwd_kernel(MomBwdArgs a) {
   }
 }
 
-template <int C, bool HAS_POS>
-void fwd_c(const float* qkv, const float* r_q, const float* e_q,
-           const float* r_k, const float* e_k, float* part, int g, int L,
-           int S, cudaStream_t stream) {
-  const dim3 grid(medt::stripe_blocks(S), g);
-  moments_fwd_kernel<C, HAS_POS><<<grid, kBlockStripes, 0, stream>>>(
-      qkv, r_q, e_q, r_k, e_k, part, L, S);
+template <int C, bool HAS_POS, bool TAB>
+cudaError_t fwd_variant(const MomFwdArgs& a, int g, cudaStream_t stream) {
+  const size_t smem =
+      fwd_smem_floats<C, HAS_POS, TAB>(a.L, a.slab) * sizeof(float);
+  auto kernel = moments_fwd_kernel<C, HAS_POS, TAB>;
+  const cudaError_t err = flash2::allow_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((a.S + kFwdStripes - 1) / kFwdStripes, g);
+  kernel<<<grid, kFwdThreads, smem, stream>>>(a);
+  return cudaGetLastError();
+}
+
+// With positions the tables are staged at c <= 4 and spans up to
+// kMaxBwdSpan, else read from L2 (gp 16, or longer spans: off every path).
+template <int C>
+cudaError_t fwd_c(const MomFwdArgs& a, int g, bool pos, cudaStream_t stream) {
+  if (!pos) return fwd_variant<C, false, false>(a, g, stream);
+  if constexpr (C <= 4) {
+    if (a.L <= kMaxBwdSpan) return fwd_variant<C, true, true>(a, g, stream);
+  }
+  return fwd_variant<C, true, false>(a, g, stream);
 }
 
 // dtables[e] = sum_{p < P} part[p * E + e]: a block takes 32 consecutive
@@ -482,7 +659,6 @@ cudaError_t bwd_c(const MomBwdArgs& a, int g, int ts, bool pos,
 
 bool bad_geometry(int g, int gp, int L, int S) {
   return g < 1 || g > 65535 || S < 1 || L < 1 || L > 65535 ||
-         medt::stripe_blocks(S) > 65535 ||
          !(gp == 2 || gp == 4 || gp == 8 || gp == 16);
 }
 
@@ -490,29 +666,30 @@ bool bad_geometry(int g, int gp, int L, int S) {
 
 extern "C" {
 
-// Forward: out (g, 8); part scratch (g * ceil(S/128), 6).
+// Forward: out (g, 8); part scratch (g * ceil(S / kFwdStripes), 6).
 int medt_moment_sums_fwd(const float* qkv, const float* r_q, const float* e_q,
                          const float* r_k, const float* e_k, float* out,
                          float* part, int g, int gp, int L, int S,
                          int has_pos, int n_part, void* stream_ptr) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  const int blocks = medt::stripe_blocks(S);
-  if (bad_geometry(g, gp, L, S) || n_part != g * blocks) {
+  const int tiles = (S + kFwdStripes - 1) / kFwdStripes;
+  if (bad_geometry(g, gp, L, S) || n_part != g * tiles) {
     return (int)cudaErrorInvalidValue;
   }
   const bool pos = has_pos != 0;
-#define MEDT_FWD(C) \
-  (pos ? fwd_c<C, true>(qkv, r_q, e_q, r_k, e_k, part, g, L, S, stream) \
-       : fwd_c<C, false>(qkv, r_q, e_q, r_k, e_k, part, g, L, S, stream))
+  const MomFwdArgs a{qkv, r_q, e_q, r_k, e_k, part, L, S,
+                     (long long)gp * L * kFwdStripes <= kFwdSlabFloats,
+                     S % 4 == 0 && flash2::aligned16(qkv)};
+  cudaError_t err;
   switch (gp / 2) {
-    case 1: MEDT_FWD(1); break;
-    case 2: MEDT_FWD(2); break;
-    case 4: MEDT_FWD(4); break;
-    case 8: MEDT_FWD(8); break;
+    case 1: err = fwd_c<1>(a, g, pos, stream); break;
+    case 2: err = fwd_c<2>(a, g, pos, stream); break;
+    case 4: err = fwd_c<4>(a, g, pos, stream); break;
+    default: err = fwd_c<8>(a, g, pos, stream); break;
   }
-#undef MEDT_FWD
-  moments_finalize_kernel<<<(g * 8 + 127) / 128, 128, 0, stream>>>(
-      part, out, blocks, g);
+  if (err != cudaSuccess) return (int)err;
+  moments_finalize_kernel<<<(g * 8 * 32 + kFwdThreads - 1) / kFwdThreads,
+                            kFwdThreads, 0, stream>>>(part, out, tiles, g);
   return (int)cudaGetLastError();
 }
 

@@ -52,7 +52,7 @@ SIGNATURES = {
     "medt_moment_sums_bwd": [_P] * 9 + [_I] * 6 + [_P],
     "medt_axial_eval_fwd": [_P] * 9 + [_L] * 6 + [_I] * 5 + [_P],
     "medt_stripe_attn_fwd": [_P] * 9 + [_L] * 6 + [_I] * 5 + [_P],
-    "medt_stripe_attn_bwd": [_P] * 19 + [_L] * 6 + [_I] * 7 + [_P],
+    "medt_stripe_attn_bwd": [_P] * 16 + [_L] * 6 + [_I] * 7 + [_P],
 }
 
 

@@ -7,10 +7,6 @@ import ctypes
 
 import torch
 
-# stripes per CUDA block of the moments kernels (kBlockStripes in
-# csrc/reduce.cuh); sizes their partial buffers
-BLOCK_STRIPES = 128
-
 
 def check_tensor(name: str, tname: str, t: torch.Tensor, shape, device):
     """``t`` must be a contiguous float32 tensor of ``shape`` on ``device``,

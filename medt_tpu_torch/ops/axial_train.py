@@ -37,6 +37,8 @@ not ported: :func:`..axial_attention.fused_route` decides where it runs.
 """
 from __future__ import annotations
 
+import math
+
 import torch
 
 from ..kernels.build import library
@@ -46,9 +48,16 @@ from .attn_core import attn_core_plain
 from .axial_lanes import KERNEL_GP
 
 STRIPE_MAX_SPAN = 64
-# stripes per block of the backward kernels (kStripes in
-# csrc/axial_stripe_bwd.cu); sizes their partial buffers
-BWD_BLOCK_STRIPES = 32
+# The backward's block (csrc/axial_stripe_bwd.cu: kWideGp, span_bucket,
+# chunk_stripes): a block owns one group and a chunk of 4 stripes with
+# positions at spans over 32 below BWD_WIDE_GP group planes, else 2; its
+# partials have one slot per block
+BWD_WIDE_GP = 8
+
+
+def bwd_chunk_stripes(gp: int, L: int, has_pos: bool) -> int:
+    """Stripes per block of a stripe backward launch."""
+    return 4 if has_pos and L > 32 and gp < BWD_WIDE_GP else 2
 
 
 def _has_pos(qemb: torch.Tensor) -> bool:
@@ -153,12 +162,36 @@ def stripe_attn_fwd(q, k, v, qemb, kemb, vemb, sim_affine):
 stripe_attn_fwd.launches = 0
 
 
+def bwd_buffers(device, S: int, g: int, gp: int, L: int,
+                has_pos: bool) -> dict:
+    """The backward's outputs and partials, in two allocations: dq, dk (S,
+    g, c, L) and dv (S, g, gp, L); then dtables (2gp, L, L) (empty without
+    positions), daff (g, 8), the table partials (n_tab, 2gp, L, L) and the
+    daff partials (n_aff, g, 4), with n_aff = ceil(S / bwd_chunk_stripes(gp,
+    L, has_pos)) blocks per group and n_tab = g * n_aff with positions, else
+    0."""
+    c = gp // 2
+    n_aff = -(-S // bwd_chunk_stripes(gp, L, has_pos))
+    n_tab = g * n_aff if has_pos else 0
+    rows = 2 * gp if has_pos else 0
+    shapes = {"dq": (S, g, c, L), "dk": (S, g, c, L), "dv": (S, g, gp, L),
+              "dtables": (rows, L, L), "daff": (g, 8),
+              "tab_part": (n_tab, rows, L, L), "aff_part": (n_aff, g, 4)}
+    out = {}
+    for names in (("dq", "dk", "dv"),
+                  ("dtables", "daff", "tab_part", "aff_part")):
+        sizes = [math.prod(shapes[n]) for n in names]
+        buf = torch.empty((sum(sizes),), dtype=torch.float32, device=device)
+        for n, view in zip(names, buf.split(sizes)):
+            out[n] = view.view(shapes[n])
+    return out
+
+
 def stripe_attn_bwd(q, k, v, qemb, kemb, vemb, sim_affine, dsv, dsve):
-    """Launch the backward kernels on CUDA tensors: ``(dq, dk, dv, dqemb,
-    dkemb, dvemb, daff)``. ``dsve`` is ignored (and may be any tensor)
-    without positions. Scratch: the row statistics m, l, delta (S, g, L),
-    the table partials (g * ceil(S/32), 2gp, L, L) floats with positions
-    and the daff partials (L * ceil(S/32), g, 4)."""
+    """Launch the backward kernel and its finalize on CUDA tensors: ``(dq,
+    dk, dv, dqemb, dkemb, dvemb, daff)``. ``dsve`` is ignored (and may be
+    any tensor) without positions. Scratch: the partials of
+    :func:`bwd_buffers`."""
     name = "stripe_attn_bwd"
     extra = {"dsv": dsv}
     if _has_pos(qemb):
@@ -166,27 +199,18 @@ def stripe_attn_bwd(q, k, v, qemb, kemb, vemb, sim_affine, dsv, dsve):
     S, g, gp, L, has_pos = _check(q, k, v, qemb, kemb, vemb, sim_affine,
                                   name, **extra)
     c = gp // 2
-    f32 = dict(dtype=torch.float32, device=q.device)
-    blocks = -(-S // BWD_BLOCK_STRIPES)
-    rows = 2 * gp if has_pos else 0
-    n_tab = g * blocks if has_pos else 0
-    n_aff = L * blocks
-    dq, dk = torch.empty((S, g, c, L), **f32), torch.empty((S, g, c, L), **f32)
-    dv = torch.empty((S, g, gp, L), **f32)
-    dtables = torch.empty((rows, L, L), **f32)
-    daff = torch.empty((g, 8), **f32)
-    stats = torch.empty((3, S, g, L), **f32)                 # m, l, delta
-    tab_part = torch.empty((max(n_tab, 1), max(rows, 1), L, L), **f32)
-    aff_part = torch.empty((n_aff, g, 4), **f32)
+    b = bwd_buffers(q.device, S, g, gp, L, has_pos)
     err = library().medt_stripe_attn_bwd(
         ptr(q), ptr(k), ptr(v), ptr(qemb), ptr(kemb), ptr(vemb),
-        ptr(sim_affine), ptr(dsv), ptr(dsve if has_pos else dsv), ptr(dq),
-        ptr(dk), ptr(dv), ptr(dtables), ptr(daff), ptr(stats[0]),
-        ptr(stats[1]), ptr(stats[2]), ptr(tab_part), ptr(aff_part),
-        *strides(q, k, v), S, g, gp, L, int(has_pos), n_tab, n_aff,
-        stream(q.device))
+        ptr(sim_affine), ptr(dsv), ptr(dsve if has_pos else dsv),
+        ptr(b["dq"]), ptr(b["dk"]), ptr(b["dv"]), ptr(b["dtables"]),
+        ptr(b["daff"]), ptr(b["tab_part"]), ptr(b["aff_part"]),
+        *strides(q, k, v), S, g, gp, L, int(has_pos),
+        b["tab_part"].shape[0], b["aff_part"].shape[0], stream(q.device))
     raise_on(err, name)
     stripe_attn_bwd.launches += 1
+    dq, dk, dv, dtables, daff = (b[key] for key in
+                                 ("dq", "dk", "dv", "dtables", "daff"))
     if not has_pos:
         return dq, dk, dv, qemb, kemb, vemb, daff        # zero-size tables
     return dq, dk, dv, dtables[:c], dtables[c:gp], dtables[gp:], daff

@@ -28,7 +28,7 @@ from __future__ import annotations
 import torch
 
 from ..kernels.build import library
-from ..kernels.launch import BLOCK_STRIPES, check_tensor, ptr, raise_on, stream
+from ..kernels.launch import check_tensor, ptr, raise_on, stream
 from .axial_lanes import KERNEL_GP
 
 
@@ -94,8 +94,8 @@ def moment_sums_bwd_plain(qkv, r_q, e_q, r_k, e_k, ct):
 
 
 def _check(qkv, r_q, e_q, r_k, e_k, name, **extra):
-    """Validate what a moments kernel takes; returns (g, gp, L, S, has_pos,
-    blocks)."""
+    """Validate what a moments kernel takes; returns (g, gp, L, S,
+    has_pos)."""
     if qkv.dim() != 4:
         raise ValueError(f"{name}: qkv must be (g, 2gp, L, S), got "
                          f"{tuple(qkv.shape)}")
@@ -118,20 +118,31 @@ def _check(qkv, r_q, e_q, r_k, e_k, name, **extra):
     shapes.update(extra)
     for tname, (t, shape) in shapes.items():
         check_tensor(name, tname, t, shape, qkv.device)
-    return g, gp, L, S, has_pos, -(-S // BLOCK_STRIPES)
+    return g, gp, L, S, has_pos
+
+
+# stripes per block of the moments forward (csrc/moments.cu: kFwdStripes)
+FWD_STRIPES = 32
+
+
+def fwd_buffers(qkv, g, gp, L, S):
+    """The forward's (g, 8) sums and, in the same allocation, its tile
+    partials (n_part, 6), one per block of FWD_STRIPES stripes: ``(out,
+    part, n_part)``."""
+    n_part = g * -(-S // FWD_STRIPES)
+    buf = torch.empty((g * 8 + n_part * 6,), dtype=torch.float32,
+                      device=qkv.device)
+    return buf[:g * 8].view(g, 8), buf[g * 8:].view(n_part, 6), n_part
 
 
 def moment_sums_fwd(qkv, r_q, e_q, r_k, e_k):
-    """Launch the moments kernel on CUDA tensors: the (g, 8) sums."""
-    g, gp, L, S, has_pos, blocks = _check(qkv, r_q, e_q, r_k, e_k,
-                                          "moment_sums_fwd")
-    f32 = dict(dtype=torch.float32, device=qkv.device)
-    out = torch.empty((g, 8), **f32)
-    part = torch.empty((g * blocks, 6), **f32)
+    """Launch the moments kernel and its finalize on CUDA tensors: the
+    (g, 8) sums."""
+    g, gp, L, S, has_pos = _check(qkv, r_q, e_q, r_k, e_k, "moment_sums_fwd")
+    out, part, n_part = fwd_buffers(qkv, g, gp, L, S)
     err = library().medt_moment_sums_fwd(
         ptr(qkv), ptr(r_q), ptr(e_q), ptr(r_k), ptr(e_k), ptr(out),
-        ptr(part), g, gp, L, S, int(has_pos), g * blocks,
-        stream(qkv.device))
+        ptr(part), g, gp, L, S, int(has_pos), n_part, stream(qkv.device))
     raise_on(err, "moment_sums_fwd")
     moment_sums_fwd.launches += 1
     return out
@@ -179,7 +190,7 @@ def bwd_buffers(qkv, g, gp, L, S, has_pos):
 def moment_sums_bwd(qkv, r_q, e_q, r_k, e_k, ct):
     """Launch the moments backward on CUDA tensors (spans up to 256):
     ``(dqkv, dr_q, de_q, dr_k, de_k)``."""
-    g, gp, L, S, has_pos, _ = _check(
+    g, gp, L, S, has_pos = _check(
         qkv, r_q, e_q, r_k, e_k, "moment_sums_bwd",
         ct=(ct, (qkv.shape[0], 8)))
     if L > BWD_MAX_SPAN:

@@ -35,12 +35,9 @@ OWN_KERNELS = ("axial_lanes_fwd_kernel", "lanes_bwd_kernel",
                "tiled_bwd_col_kernel<FlashTiles",
                "tiled_bwd_row_kernel<Flash2Tiles",
                "tiled_bwd_col_kernel<Flash2Tiles", "bwd_finalize_kernel",
-               "daff_finalize_kernel",
-               "sum_partials_kernel", "moments_fwd_kernel",
-               "moments_finalize_kernel", "moments_bwd_kernel",
-               "tab_finalize_kernel",
-               "StripeFwdEpilogue", "stripe_bwd_row_kernel",
-               "stripe_bwd_col_kernel")
+               "moments_fwd_kernel", "moments_finalize_kernel",
+               "moments_bwd_kernel", "tab_finalize_kernel",
+               "StripeFwdEpilogue", "stripe_bwd_kernel")
 
 
 def main(argv=None) -> int:

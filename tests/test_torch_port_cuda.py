@@ -498,6 +498,114 @@ def test_moments_backward_buffers_follow_the_kernel_tile():
     assert part.numel() * 4 == 6_291_456
 
 
+# (span, gp, stripes, has_pos): the moments forward at the edges of its
+# 32-stripe tile (csrc/moments.cu: kFwdStripes): stripe counts that are no
+# multiple of 4 (the slab staged without 16-byte copies) or of the tile,
+# fewer stripes than one tile, more than 32 groups of 4 tiles (the
+# finalize in two rounds), tables staged (c <= 4, spans up to 256) or read
+# from L2 (gp 16, and span 300), and slabs too large to stage (gp * L over
+# 1024: the sums read device memory)
+MOMENTS_FWD_CARD_GEOMETRIES = [
+    (1, 2, 301, True), (3, 16, 77, False), (64, 4, 1030, True),
+    (16, 8, 6, True), (256, 4, 301, True), (256, 16, 77, True),
+    (300, 4, 33, True), (64, 2, 4099, False),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("L,gp,S,has_pos", MOMENTS_FWD_CARD_GEOMETRIES)
+def test_moments_forward_matches_plain_on_card(cuda_device, L, gp, S,
+                                               has_pos):
+    """The moments forward (one tile launch and its finalize): the (g, 8)
+    sums at 1e-4 + 1e-4 * max|plain|, the same bits on a second run, one
+    launch counted per call."""
+    ins = moment_inputs(33, 8, gp, L, S, has_pos, device=cuda_device)
+    fn = moments.moment_sums_fwd
+    before = fn.launches
+    got, again = fn(*ins), fn(*ins)
+    want = moments.moment_sums_plain(*ins)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 2
+    _close(got, want, "sums")
+    assert torch.equal(got, again), "sums differ between two runs"
+
+
+def test_moments_forward_buffers_follow_the_kernel_tile():
+    """The moments forward has one (g, tile) partial of six per block of
+    kFwdStripes stripes (csrc/moments.cu), which the wrapper mirrors; every
+    moments site of the MedT-128 batch-16 and medt_512 batch-4 paths gets
+    at least 128 blocks (the first design: 16 to 256 blocks of 128 stripes),
+    and the sums and partials share one allocation."""
+    src = (REPO / "medt_tpu_torch" / "csrc" / "moments.cu").read_text()
+    stripes = int(re.search(r"constexpr int kFwdStripes = (\d+);", src)
+                  .group(1))
+    assert stripes == moments.FWD_STRIPES
+    fwd = src[src.index("int medt_moment_sums_fwd("):]
+    assert "n_part != g * tiles" in fwd
+    sys.path.insert(0, str(REPO))
+    import chip_smoke
+
+    sites = [(L, gp, S) for L, gp, S, _, _ in
+             chip_smoke.SITES + chip_smoke.SITES_512]
+    for L, gp, S in sites + [(1, 2, 301), (3, 16, 77), (300, 4, 33)]:
+        qkv = torch.empty((8, 2 * gp, L, S), device="meta")
+        out, part, n_part = moments.fwd_buffers(qkv, 8, gp, L, S)
+        assert n_part == 8 * -(-S // stripes)
+        if (L, gp, S) in sites:
+            assert n_part >= 128, (L, gp, S)
+        assert out.shape == (8, 8) and part.shape == (n_part, 6)
+        assert part.storage_offset() == out.numel()
+
+
+def test_stripe_backward_buffers_follow_the_kernel_chunks():
+    """The stripe backward's partials have one slot per block, and the
+    wrapper sizes them from the kernel's own chunk rule, read here from
+    csrc/axial_stripe_bwd.cu (kWideGp, span_bucket, chunk_stripes): 4
+    stripes a block with positions at span bucket 64 (spans 33..64) below
+    kWideGp group planes, else 2. At every site of the smoke's STRIPE_SITES and at ragged
+    stripe counts; at the batch-1 path sites the table partials take 8 MB
+    (64, 2, 64), 16 MB (64, 4, 64) and 4 MB (32, 4, 32)."""
+    src = (REPO / "medt_tpu_torch" / "csrc" /
+           "axial_stripe_bwd.cu").read_text()
+    wide = int(re.search(r"constexpr int kWideGp = (\d+);", src).group(1))
+    assert wide == axial_train.BWD_WIDE_GP
+    assert "return L <= 16 ? 16 : L <= 32 ? 32 : 64;" in src
+    assert "return pos && lp == 64 && gp < kWideGp ? 4 : 2;" in src
+
+    def chunk(gp, L, pos):
+        lp = 16 if L <= 16 else 32 if L <= 32 else 64
+        return 4 if pos and lp == 64 and gp < wide else 2
+
+    sys.path.insert(0, str(REPO))
+    import chip_smoke
+
+    sites = [(L, gp, S) for L, gp, S, _ in chip_smoke.STRIPE_SITES]
+    ragged = [(64, 4, 3), (64, 2, 70), (32, 8, 37), (48, 8, 21), (40, 4, 30),
+              (37, 2, 11), (64, 16, 9), (12, 4, 19), (1, 2, 1)]
+    for L, gp, S in sites + ragged:
+        for pos in (True, False):
+            ns = chunk(gp, L, pos)
+            assert axial_train.bwd_chunk_stripes(gp, L, pos) == ns
+            b = axial_train.bwd_buffers("meta", S, 8, gp, L, pos)
+            blocks = -(-S // ns)
+            rows = 2 * gp if pos else 0
+            assert b["aff_part"].shape == (blocks, 8, 4)
+            assert b["tab_part"].shape == (8 * blocks if pos else 0, rows,
+                                           L, L)
+            assert b["dtables"].shape == (rows, L, L)
+            assert b["dq"].shape == b["dk"].shape == (S, 8, gp // 2, L)
+            assert b["dv"].shape == (S, 8, gp, L)
+            assert b["daff"].shape == (8, 8)
+
+    def tab_bytes(L, gp, S):
+        return axial_train.bwd_buffers("meta", S, 8, gp, L,
+                                       True)["tab_part"].numel() * 4
+
+    assert tab_bytes(64, 2, 64) == 8_388_608
+    assert tab_bytes(64, 4, 64) == 16_777_216
+    assert tab_bytes(32, 4, 32) == 4_194_304
+
+
 @pytest.mark.cuda
 def test_moments_backward_refuses_spans_above_256(cuda_device):
     ins = moment_inputs(32, 2, 2, 272, 64, False, device=cuda_device)
@@ -786,12 +894,21 @@ def test_moment_kernels_match_plain_at_long_spans_on_card(cuda_device, gp, L,
 # (span, gp, stripes, has_pos): the batch-1 and batch-2 train sites of MedT
 # and gatedaxialunet at 128 and 64 px, both variants; span 64 at gp 8 and
 # 16 off the path; a span that is not a power of two and ragged stripe
-# blocks
+# blocks. Then the edges of the backward's chunks (csrc/axial_stripe_bwd.cu:
+# 4 stripes a block with positions at spans 33..64 below gp 8, else 2):
+# fewer stripes than one chunk, stripe counts that are no multiple of it,
+# spans 40 and 48 (keys past the span bucket), a span that is no multiple
+# of 4 (the tile staged without 16-byte copies), gp 16 with positions at
+# span buckets 32 (kemb staged) and 64 (kemb from L2), and a short span
 STRIPE_CARD_GEOMETRIES = [
     (64, 2, 64, True), (64, 4, 64, True), (32, 4, 32, True),
     (32, 8, 32, True), (32, 4, 64, False), (32, 2, 32, False),
     (64, 8, 64, True), (64, 16, 37, True), (48, 4, 70, False),
     (40, 2, 5, True),
+    (64, 4, 3, True), (32, 4, 1, True), (64, 2, 1, False),
+    (32, 4, 5, True), (64, 2, 70, True), (32, 8, 37, False),
+    (40, 4, 30, True), (48, 8, 21, True), (37, 2, 11, True),
+    (32, 16, 12, True), (64, 16, 9, True), (12, 4, 19, True),
 ]
 
 
