@@ -11,7 +11,8 @@ the start of the script) as it ends:
    command into a ``ctypes``-loaded library.
 3. ``kernels`` — each kernel held against its plain PyTorch version on the
    card at every geometry the serving, training and batch-1 paths give it
-   (MedT 128 at batch 16 and at batch 1; both has_pos variants of each;
+   (MedT 128 at batch 16 and at batch 1, the lanes forward's batch-1 sites
+   included; both has_pos variants of each;
    gatedaxialunet's batch-1 geometries for the eval kernel; medt_512 at
    batch 4: flash2, flash, lanes and moments; flash2 without positions at
    one more geometry; the stripe kernels at the batch-1 and batch-2 train
@@ -161,8 +162,13 @@ EVAL_SITES = [
     (64, 2, 64, True, 2), (64, 4, 64, True, 2),
     (16, 8, 16, True, 0), (16, 16, 16, True, 0), (32, 8, 32, True, 0),
 ]
-# lanes sites of the same batch-1 forward: (8, 4, 128), (8, 8, 128),
-# (16, 2, 256), (16, 4, 256), two each
+# the lanes sites of the same batch-1 forward (the other 8 of the 22),
+# (span, gp, stripes, has_pos, sites): fewer than two blocks per SM of
+# whole query rows, so the lanes forward splits its rows into chunks there
+LANES_B1_SITES = [
+    (8, 4, 128, False, 2), (8, 8, 128, False, 2), (16, 2, 256, False, 2),
+    (16, 4, 256, False, 2),
+]
 BATCH1_LAUNCHES = {"axial_eval_fwd": 14, "lanes_attn_fwd": 8}
 
 # The attention sites of medt_512 at batch 4 (bench.py's M512_BATCH), g = 8:
@@ -216,7 +222,8 @@ def _geometries():
     """(kernel, span, gp, stripes, has_pos, launches per forward or per
     train step, path): launches 0 marks a row off the path; path "medt128"
     (MedT 128 at batch 16, or batch 1 for the eval kernel) or "medt512"
-    (medt_512 at batch 4) or "medt128b1" (MedT 128 trained at batch 1)."""
+    (medt_512 at batch 4) or "medt128b1" (MedT 128 trained at batch 1) or
+    "medt128b1fwd" (the lanes sites of one MedT 128 batch-1 forward)."""
     rows = []
     for fwd, bwd, family in (("flash_lanes_fwd", "flash_lanes_bwd", "flash"),
                              ("lanes_attn_fwd", "lanes_attn_bwd", "lanes")):
@@ -228,6 +235,8 @@ def _geometries():
         rows += [(kernel, *site, "medt128") for site in SITES]
         rows += [(kernel, *v, 0, "medt128") for v in OTHER_VARIANT.values()]
     rows += [("axial_eval_fwd", *site, "medt128") for site in EVAL_SITES]
+    rows += [("lanes_attn_fwd", *site, "medt128b1fwd")
+             for site in LANES_B1_SITES]
     for direction in ("fwd", "bwd"):
         for site in SITES_512:
             family = _family(site[0])

@@ -1,39 +1,43 @@
 #!/usr/bin/env python3
 """Time one or more families of the port's kernels in a given tree, on one card.
 
-    python3 compare_kernels.py [--root DIR]
+    python3 compare_kernels.py [--root DIR] [--sites DIR2]
                                [--family lanes flash flash2 moments
                                          stripe eval]
                                [--out FILE]
 
 Runs the ``device``, ``build`` and ``kernels`` phases of ``DIR/chip_smoke.py``
 (default: this checkout) against ``DIR``'s own ``medt_tpu_torch`` package,
-for the geometries of the kernel families named by ``--family`` (default
-flash2): each kernel held against its plain version (the smoke's
+for the geometries (those of ``DIR2/chip_smoke.py`` where given) of the
+kernel families named by ``--family`` (default flash2): each kernel held against its plain version (the smoke's
 tolerances, the same bits twice), its CUDA-event time over back-to-back
 wrapper calls, plain time and bound. With ``flash`` it also runs the flash2
 forward and backward (which compute the flash contract at any span up to
 256) at every flash forward and backward geometry, as the baseline a flash
 design has to beat (rows with ``path`` ``"<path>:flash2"``); ``moments``
 runs the moments forward and backward, ``stripe`` the stripe train core's
-forward and backward, ``eval`` the batch-1 eval kernel. Then, for each geometry, a
-``torch.profiler`` window over a few calls splits its device time by CUDA
-kernel (row pass, column pass, reductions) and a host clock times the
+forward and backward, ``eval`` the batch-1 eval kernel. Then, for each
+geometry, on inputs seeded by the geometry alone, a ``torch.profiler``
+window over a few calls splits its device time by CUDA kernel (row pass,
+column pass, reductions) and a host clock times the
 wrapper's enqueue alone (``host_ms``: checks, allocations, the ``ctypes``
 call and the launches, the card left to run), and ``out_sha256`` hashes its
 outputs on those seeded inputs (two trees give the same bits where the
-hashes agree). Prints and writes one JSON
-object with the rows, the per-call sums over each main path
-(``launches_per_call`` times ms, per kernel and path), the split and the
-card.
+hashes agree). Writes one JSON object with the rows, the per-call sums
+over each main path (``launches_per_call`` times ms, per kernel and path),
+the split and the card; prints the card, the per-call sums and, per site,
+the events, device and host ms with the output hash.
 
 To compare a change with its parent on the same card, unpack the parent
 into a directory that ``.gitignore`` lists and run both in one command, in
 turns::
 
     git archive HEAD | tar -x -C _archive/parent    # before the change
-    python3 compare_kernels.py --root _archive/parent --out a.json
+    python3 compare_kernels.py --root _archive/parent --sites . --out a.json
     python3 compare_kernels.py --out b.json
+
+(``--sites .`` times the parent at this checkout's geometries, sites that
+the parent's own list may lack included.)
 
 Needs a card; exits non-zero without one.
 """
@@ -41,6 +45,7 @@ from __future__ import annotations
 
 import argparse
 import hashlib
+import importlib.util
 import json
 import re
 import sys
@@ -103,6 +108,14 @@ def out_sha256(torch, outputs) -> str:
     return h.hexdigest()[:16]
 
 
+def row_seed(row) -> int:
+    """The seed of a row's inputs: a function of its kernel and geometry
+    alone, so that two runs (two trees, two family lists) hash the same
+    inputs."""
+    key = "{kernel}:{span}:{gp}:{S}:{has_pos}".format(**row)
+    return int(hashlib.sha256(key.encode()).hexdigest()[:8], 16)
+
+
 def flash2_baseline(geometries) -> list:
     """The flash2 forward and backward at every flash forward and backward
     geometry."""
@@ -118,6 +131,10 @@ def main(argv=None) -> int:
     parser.add_argument("--family", nargs="+", choices=FAMILIES,
                         default=["flash2"],
                         help="kernel families whose geometries to run")
+    parser.add_argument("--sites", default=None,
+                        help="tree whose chip_smoke.py geometries to run "
+                             "(default: --root's own), so that two trees "
+                             "are timed at the same sites")
     parser.add_argument("--out", default=None, help="JSON file to write")
     args = parser.parse_args(argv)
     root = Path(args.root).resolve()
@@ -134,7 +151,14 @@ def main(argv=None) -> int:
         return 2
     import chip_smoke as smoke
 
-    chosen = [g for g in smoke.GEOMETRIES if family(g[0]) in args.family]
+    geometries = smoke.GEOMETRIES
+    if args.sites:
+        spec = importlib.util.spec_from_file_location(
+            "sites_smoke", Path(args.sites).resolve() / "chip_smoke.py")
+        sites = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(sites)
+        geometries = sites.GEOMETRIES
+    chosen = [g for g in geometries if family(g[0]) in args.family]
     if "flash" in args.family:
         chosen += flash2_baseline(chosen)
     smoke.GEOMETRIES = chosen
@@ -145,12 +169,14 @@ def main(argv=None) -> int:
     except smoke.PhaseFailed as e:
         print(f"compare_kernels: {e}", file=sys.stderr)
         return 1
-    gen = torch.Generator(device="cuda").manual_seed(1)
     split = []
     for r in rows:
+        gen = torch.Generator(device="cuda").manual_seed(row_seed(r))
         fn, _ = smoke.kernel_calls(torch, gen, r["kernel"], r["gp"],
                                    r["span"], r["S"], r["has_pos"])
         by_kernel = split_by_kernel(torch, fn)
+        if not by_kernel:  # the profiler kept no events: once more
+            by_kernel = split_by_kernel(torch, fn)
         r["device_ms"] = sum(by_kernel.values())
         r["host_ms"] = host_ms(torch, fn)
         r["out_sha256"] = out_sha256(torch, fn())
@@ -181,8 +207,13 @@ def main(argv=None) -> int:
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(text)
+    sites = [{k: r[k] for k in ("kernel", "span", "gp", "S", "has_pos",
+                                 "path", "launches_per_call", "ms",
+                                 "device_ms", "host_ms", "out_sha256")}
+             for r in rows]
     print(json.dumps({"card": smi, "root": str(root),
-                      "per_main_path_call": per_call}), flush=True)
+                      "per_main_path_call": per_call, "sites": sites}),
+          flush=True)
     return 0 if all(r["ok"] for r in rows) else 1
 
 

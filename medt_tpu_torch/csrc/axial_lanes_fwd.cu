@@ -14,158 +14,328 @@
 // [gp:2gp] = v, c = gp/2; outputs sv, sve (g, gp, L, S).
 // Everything is float32.
 //
-// What bounds it on the H100: per (i, j) pair the kernel does ~6c + 4gp + 8
-// flops on operands that it loads once per query row, so the arithmetic
-// (float32, outside the tensor cores: contraction depths c <= 8 are far
-// too shallow for wgmma) and the L2 traffic both exceed the
-// compulsory device-memory traffic (each qkv element read once, each
-// output written once). What the design does about it:
-//   * one thread per (gi, i, s); s is the minor axis of every tensor, so a
-//     warp's loads and stores are 128 contiguous bytes;
-//   * the grid's fastest axis is the query row i: the L blocks that read the
-//     same k/v columns run together, so k/v come from L2 after the first
-//     read and device memory sees each byte about once;
-//   * the group-shared tables are read at row i only: the block stages
-//     qemb[:, i, :], kemb_t[:, i, :] and vemb[:, i, :] (<= 8 KB) in shared
-//     memory, where every thread of the block reads the same address;
-//   * the logits of all L <= 16 keys stay in registers; gp <= 16
-//     accumulators for sv and sve live in registers;
-//   * no shared-memory tiling of k/v and no tensor cores yet: making it fast
-//     is later work (PERF.md records its time against the bound).
+// What bounds it on the H100: device memory at its bound (each qkv element
+// read once, each output written once), but in practice instruction issue
+// and shared-memory reads: per (i, j) pair the kernel does ~6c + 4gp + 8
+// flops plus the first design's expf (8 instructions), on operands of which
+// c + gp come from shared memory, and contraction depths c <= 8 are far
+// too shallow for the tensor cores. The first design read every key and
+// value column from global memory once per query row, so about L times the
+// compulsory bytes went through L2. What this design does about it:
+//   * a block owns one group and a tile of 32 stripes, lane = stripe, so
+//     every load and store of a warp is 128 contiguous bytes;
+//   * the block stages its tile's k and v rows, (c + gp) L x 32 floats, and
+//     the q rows of its query rows, once in shared memory with cp.async
+//     (16-byte copies where S % 4 == 0 and qkv is 16-byte aligned, else
+//     4-byte; the ragged last tile zero-filled by the copy itself); with
+//     positions it stages the table rows of its query rows too, which every
+//     thread then reads at the same address;
+//   * each warp takes RI query rows (4 at gp <= 4, else 2; fewer at spans
+//     up to 8, whose few rows are better spread over more warps), so every
+//     k and v value it reads from shared memory serves RI rows; each row's
+//     sv (and sve) are written once, coalesced;
+//   * where g * ceil(S / 32) blocks would not give about two blocks per SM
+//     (kTargetBlocks), the query rows are split into chunks, a second grid
+//     axis (each chunk stages the tile's k and v again, from L2), as long
+//     as a chunk keeps two warps' rows and four rows: the batch-1 sites
+//     (S = 128, 256) and the medt_512 sites (16, gp, 1024); splits into
+//     blocks of one or two rows (span 4) ran slower on the card;
+//   * the shared-memory layout is strided by the span bucket (4, 8 or 16
+//     keys), so its offsets in the unrolled loops are immediates;
+//   * each output keeps the first design's arithmetic in its order (c
+//     ascending, keys ascending, one 16-key online-softmax step, expf), so
+//     only the data movement changed and the outputs keep its bits: the
+//     forward feeds every train step, whose parity against plain cores is
+//     sensitive to summation order;
+//   * the logits of all L <= 16 keys and gp <= 16 accumulators for sv and
+//     sve of each of the RI rows stay in registers.
 // Kernels launch on the caller's stream, allocate nothing and do not
 // synchronise; each entry point returns cudaGetLastError() after its launch.
 
 #include <cuda_runtime.h>
 #include <stddef.h>
 
+#include "flash2_tiles.cuh"
+
 namespace {
 
-constexpr int kThreads = 128;   // stripes per block
-constexpr int kKeyBlock = 16;   // keys per softmax step
+constexpr int kTile = 32;       // stripes per block: lane = stripe
+constexpr int kWarps = 8;       // warps per block, at most
 constexpr int kMaxSpan = 16;    // the whole span is one key block
+// blocks below which the query rows split into chunks: about two per SM
+// on the H100's 132
+constexpr int kTargetBlocks = 264;
 
-template <int GP, bool HAS_POS>
-__global__ void __launch_bounds__(kThreads)
+// Shared memory of one block, in floats, for spans up to LB (the span
+// bucket, which is also the one key block): q rows [R][C][kTile], k and v
+// rows [C + GP][LB][kTile], then with positions the table rows
+// [R][C][LB], [R][C][LB], [R][GP][LB]. Strides are compile-time where the
+// unrolled loops index them, so every shared-memory offset there is an
+// immediate.
+template <int GP, bool HAS_POS, int LB>
+size_t smem_floats(int R) {
+  constexpr int C = GP / 2;
+  return (size_t)kTile * (R * C + (C + GP) * LB) +
+         (HAS_POS ? (size_t)R * (2 * C + GP) * LB : 0);
+}
+
+// n runs of kTile floats of qkv into shared memory: run b comes from
+// src + off(b) and lands at dst + dst_run(b) * kTile; floats at or past vx
+// (the stripes left in the tile) are zero-filled.
+template <class Off, class Dst>
+__device__ __forceinline__ void stage_tile(float* dst, const float* src,
+                                           int n, Off off, Dst dst_run,
+                                           int vx, bool vec, int tid,
+                                           int nt) {
+  if (vec) {
+    constexpr int X4 = kTile / 4;
+    for (int e = tid; e < n * X4; e += nt) {
+      const int b = e / X4, x = (e - b * X4) * 4;
+      const bool ok = x < vx;
+      flash2::cp_async16(dst + dst_run(b) * kTile + x,
+                         ok ? src + off(b) + x : src, ok);
+    }
+  } else {
+    for (int e = tid; e < n * kTile; e += nt) {
+      const int b = e / kTile, x = e - b * kTile;
+      const bool ok = x < vx;
+      flash2::cp_async4(dst + dst_run(b) * kTile + x,
+                        ok ? src + off(b) + x : src, ok);
+    }
+  }
+}
+
+template <int GP, bool HAS_POS, int LB, int RI>
+__global__ void __launch_bounds__(kWarps * 32)
 axial_lanes_fwd_kernel(const float* __restrict__ qkv,
                        const float* __restrict__ qemb,
                        const float* __restrict__ kemb_t,
                        const float* __restrict__ vemb,
                        const float* __restrict__ aff,
                        float* __restrict__ sv, float* __restrict__ sve,
-                       int L, int S) {
+                       int L, int S, int R, bool vec) {
   constexpr int C = GP / 2;
-  __shared__ float t_q[HAS_POS ? C * kMaxSpan : 1];
-  __shared__ float t_k[HAS_POS ? C * kMaxSpan : 1];
-  __shared__ float t_v[HAS_POS ? GP * kMaxSpan : 1];
+  extern __shared__ __align__(16) float smem[];
+  float* s_q = smem;                        // [R][C][kTile]
+  float* s_k = s_q + R * C * kTile;         // [C][LB][kTile]
+  float* s_v = s_k + C * LB * kTile;        // [GP][LB][kTile]
+  float* t_q = s_v + GP * LB * kTile;       // [R][C][LB]
+  float* t_k = t_q + R * C * LB;            // [R][C][LB]
+  float* t_v = t_k + R * C * LB;            // [R][GP][LB]
 
-  const int i = blockIdx.x;
+  const int s0 = blockIdx.x * kTile;
+  const int i0 = blockIdx.y * R;
   const int gi = blockIdx.z;
-  const int s = blockIdx.y * kThreads + threadIdx.x;
+  const int rows = min(R, L - i0);          // query rows of this block
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const int lane = tid & 31, warp = tid >> 5;
 
+  const size_t LS = (size_t)L * S;
+  const float* base = qkv + (size_t)gi * 2 * GP * LS + s0;
+  const int vx = S - s0;
+  // A run of kTile floats (row, position) lies at ((row) * L + position) *
+  // S: q run b = (il, c) -> row c, position i0 + il; k and v run b -> row
+  // C + b / L (v continues k), position b % L.
+  stage_tile(s_q, base, rows * C,
+             [&](int b) {
+               const int il = b / C, c = b - il * C;
+               return ((size_t)c * L + i0 + il) * S;
+             },
+             [](int b) { return b; }, vx, vec, tid, nt);
+  stage_tile(s_k, base, (C + GP) * L,
+             [&](int b) { return ((size_t)C * L + b) * S; },
+             [&](int b) {
+               const int r = b / L;
+               return r * LB + (b - r * L);
+             },
+             vx, vec, tid, nt);
   if constexpr (HAS_POS) {
-    for (int t = threadIdx.x; t < C * L; t += kThreads) {
-      const int c = t / L, j = t - c * L;
-      const size_t src = ((size_t)c * L + i) * L + j;
-      t_q[t] = qemb[src];
-      t_k[t] = kemb_t[src];
+    // table rows i0 .. i0 + rows: qemb and kemb_t [c, i, j] land at
+    // [il][c][j], vemb [p, i, j] at [il][p][j]
+    for (int e = tid; e < rows * C * L; e += nt) {
+      const int j = e % L, ic = e / L, c = ic % C, il = ic / C;
+      const size_t src = ((size_t)c * L + i0 + il) * L + j;
+      flash2::cp_async4(t_q + ic * LB + j, qemb + src, true);
+      flash2::cp_async4(t_k + ic * LB + j, kemb_t + src, true);
     }
-    for (int t = threadIdx.x; t < GP * L; t += kThreads) {
-      const int p = t / L, j = t - p * L;
-      t_v[t] = vemb[((size_t)p * L + i) * L + j];
+    for (int e = tid; e < rows * GP * L; e += nt) {
+      const int j = e % L, ip = e / L, p = ip % GP, il = ip / GP;
+      flash2::cp_async4(t_v + ip * LB + j,
+                        vemb + ((size_t)p * L + i0 + il) * L + j, true);
     }
-    __syncthreads();
   }
-  if (s >= S) return;
-
+  flash2::cp_async_commit();
+  // the affine is read while the copies are in flight
   const float a0 = aff[gi * 8 + 0], a1 = aff[gi * 8 + 1];
   const float a2 = aff[gi * 8 + 2], a3 = aff[gi * 8 + 3];
   const float a4 = aff[gi * 8 + 4], a5 = aff[gi * 8 + 5];
+  flash2::cp_async_wait<0>();
+  __syncthreads();
 
-  const size_t LS = (size_t)L * S;
-  // element (row r, position j) of this group and stripe: base[r*LS + j*S]
-  const float* base = qkv + (size_t)gi * 2 * GP * LS + s;
-
-  float q[C];
+  // each warp takes RI query rows at a time, so that every k and v value
+  // read from shared memory serves RI rows (the kernel is bound by
+  // shared-memory reads as much as by issue); each row's arithmetic is
+  // the first design's, in its order
+  const int s = s0 + lane;
+  for (int il0 = warp * RI; il0 < rows; il0 += (nt >> 5) * RI) {
+    float q[RI][C];
+    const float* tq[RI];
+    const float* tk[RI];
+    const float* tv[RI];
 #pragma unroll
-  for (int c = 0; c < C; ++c) q[c] = base[c * LS + (size_t)i * S];
-
-  float m = -1e30f, l = 0.f;
-  float acc_v[GP], acc_e[GP];
+    for (int u = 0; u < RI; ++u) {
+      const int il = min(il0 + u, rows - 1);
 #pragma unroll
-  for (int p = 0; p < GP; ++p) {
-    acc_v[p] = 0.f;
-    acc_e[p] = 0.f;
-  }
+      for (int c = 0; c < C; ++c) q[u][c] = s_q[(il * C + c) * kTile + lane];
+      tq[u] = t_q + il * C * LB;            // + c * LB + j
+      tk[u] = t_k + il * C * LB;
+      tv[u] = t_v + il * GP * LB;           // + p * LB + j
+    }
 
-  for (int j0 = 0; j0 < L; j0 += kKeyBlock) {
-    float lg[kKeyBlock];
-    float bmax = -1e30f;
+    // one online-softmax step over all LB >= L keys, as the first design's
+    // first (and only) 16-key block; that step also scaled l and the sums,
+    // still 0, by expf(-1e30 - m_new), a product that is exactly 0 and is
+    // left out
+    float lg[RI][LB], bmax[RI];
 #pragma unroll
-    for (int jj = 0; jj < kKeyBlock; ++jj) {
-      const int j = j0 + jj;
-      lg[jj] = -1e30f;
+    for (int u = 0; u < RI; ++u) bmax[u] = -1e30f;
+#pragma unroll
+    for (int j = 0; j < LB; ++j) {
       if (j < L) {
-        float qk = 0.f, qr = 0.f, kr = 0.f;
+        float kv[C];
 #pragma unroll
-        for (int c = 0; c < C; ++c) {
-          const float kv = base[(C + c) * LS + (size_t)j * S];
-          qk += q[c] * kv;
-          if constexpr (HAS_POS) {
-            qr += q[c] * t_q[c * L + j];
-            kr += kv * t_k[c * L + j];
+        for (int c = 0; c < C; ++c) kv[c] = s_k[(c * LB + j) * kTile + lane];
+#pragma unroll
+        for (int u = 0; u < RI; ++u) {
+          float qk = 0.f, qr = 0.f, kr = 0.f;
+#pragma unroll
+          for (int c = 0; c < C; ++c) {
+            qk += q[u][c] * kv[c];
+            if constexpr (HAS_POS) {
+              qr += q[u][c] * tq[u][c * LB + j];
+              kr += kv[c] * tk[u][c * LB + j];
+            }
           }
+          float x = qk * a0 + a1;
+          if constexpr (HAS_POS) x += (qr * a2 + a3) + (kr * a4 + a5);
+          lg[u][j] = x;
+          bmax[u] = fmaxf(bmax[u], x);
         }
-        float x = qk * a0 + a1;
-        if constexpr (HAS_POS) x += (qr * a2 + a3) + (kr * a4 + a5);
-        lg[jj] = x;
-        bmax = fmaxf(bmax, x);
       }
     }
-    const float m_new = fmaxf(m, bmax);
-    const float alpha = expf(m - m_new);
-    l *= alpha;
+    float m_new[RI], l[RI], acc_v[RI][GP], acc_e[RI][GP];
 #pragma unroll
-    for (int p = 0; p < GP; ++p) {
-      acc_v[p] *= alpha;
-      if constexpr (HAS_POS) acc_e[p] *= alpha;
+    for (int u = 0; u < RI; ++u) {
+      m_new[u] = fmaxf(-1e30f, bmax[u]);
+      l[u] = 0.f;
+#pragma unroll
+      for (int p = 0; p < GP; ++p) {
+        acc_v[u][p] = 0.f;
+        acc_e[u][p] = 0.f;
+      }
     }
 #pragma unroll
-    for (int jj = 0; jj < kKeyBlock; ++jj) {
-      const int j = j0 + jj;
+    for (int j = 0; j < LB; ++j) {
       if (j < L) {
-        const float e = expf(lg[jj] - m_new);
-        l += e;
+        float e[RI];
+#pragma unroll
+        for (int u = 0; u < RI; ++u) {
+          e[u] = expf(lg[u][j] - m_new[u]);
+          l[u] += e[u];
+        }
 #pragma unroll
         for (int p = 0; p < GP; ++p) {
-          acc_v[p] += e * base[(GP + p) * LS + (size_t)j * S];
-          if constexpr (HAS_POS) acc_e[p] += e * t_v[p * L + j];
+          const float vv = s_v[(p * LB + j) * kTile + lane];
+#pragma unroll
+          for (int u = 0; u < RI; ++u) {
+            acc_v[u][p] += e[u] * vv;
+            if constexpr (HAS_POS) acc_e[u][p] += e[u] * tv[u][p * LB + j];
+          }
         }
       }
     }
-    m = m_new;
-  }
 
-  const float inv_l = 1.f / l;
-  const size_t out0 = (size_t)gi * GP * LS + (size_t)i * S + s;
+    if (s < S) {
 #pragma unroll
-  for (int p = 0; p < GP; ++p) {
-    sv[out0 + p * LS] = acc_v[p] * inv_l;
-    if constexpr (HAS_POS) sve[out0 + p * LS] = acc_e[p] * inv_l;
+      for (int u = 0; u < RI; ++u) {
+        if (il0 + u < rows) {
+          const float inv_l = 1.f / l[u];
+          const size_t out0 =
+              (size_t)gi * GP * LS + (size_t)(i0 + il0 + u) * S + s;
+#pragma unroll
+          for (int p = 0; p < GP; ++p) {
+            sv[out0 + p * LS] = acc_v[u][p] * inv_l;
+            if constexpr (HAS_POS) sve[out0 + p * LS] = acc_e[u][p] * inv_l;
+          }
+        }
+      }
+    }
   }
 }
 
-template <int GP>
-void launch_gp(const float* qkv, const float* qemb, const float* kemb_t,
-               const float* vemb, const float* aff, float* sv, float* sve,
-               int g, int L, int S, bool has_pos, cudaStream_t stream) {
-  const dim3 grid(L, (S + kThreads - 1) / kThreads, g);
-  if (has_pos) {
-    axial_lanes_fwd_kernel<GP, true><<<grid, kThreads, 0, stream>>>(
-        qkv, qemb, kemb_t, vemb, aff, sv, sve, L, S);
-  } else {
-    axial_lanes_fwd_kernel<GP, false><<<grid, kThreads, 0, stream>>>(
-        qkv, qemb, kemb_t, vemb, aff, sv, sve, L, S);
+// Query rows a warp takes at a time: what the registers allow at the
+// longest spans, and at span buckets 4 and 8 fewer, which leaves more warps
+// for a short span's few rows.
+template <int GP, int LB>
+constexpr int rows_at_once() {
+  return (GP <= 4 ? 4 : 2) < LB / 4 ? (GP <= 4 ? 4 : 2) : LB / 4;
+}
+
+// The query rows per block: all L, or chunks of them while the grid of
+// g * tiles blocks would hold fewer than kTargetBlocks and a chunk still
+// holds two warps' RI rows, and four rows at least.
+inline int rows_per_block(int g, int tiles, int L, int RI) {
+  int chunks = 1;
+  while ((long long)g * tiles * chunks < kTargetBlocks &&
+         L / (2 * chunks) >= (RI > 2 ? 2 * RI : 4)) {
+    chunks *= 2;
   }
+  return (L + chunks - 1) / chunks;
+}
+
+template <int GP, bool HAS_POS, int LB>
+int launch(const float* qkv, const float* qemb, const float* kemb_t,
+           const float* vemb, const float* aff, float* sv, float* sve, int g,
+           int L, int S, cudaStream_t stream) {
+  constexpr int RI = rows_at_once<GP, LB>();
+
+  const int tiles = (S + kTile - 1) / kTile;
+  const int R = rows_per_block(g, tiles, L, RI);
+  const dim3 grid(tiles, (L + R - 1) / R, g);
+  const int threads = 32 * min(kWarps, (R + RI - 1) / RI);
+  const size_t bytes = sizeof(float) * smem_floats<GP, HAS_POS, LB>(R);
+  auto kernel = axial_lanes_fwd_kernel<GP, HAS_POS, LB, RI>;
+  const cudaError_t err = flash2::allow_smem(kernel, bytes);
+  if (err != cudaSuccess) return (int)err;
+  const bool vec = S % 4 == 0 && flash2::aligned16(qkv);
+  kernel<<<grid, threads, bytes, stream>>>(qkv, qemb, kemb_t, vemb, aff, sv,
+                                           sve, L, S, R, vec);
+  return (int)cudaGetLastError();
+}
+
+template <int GP, bool HAS_POS>
+int launch_span(const float* qkv, const float* qemb, const float* kemb_t,
+                const float* vemb, const float* aff, float* sv, float* sve,
+                int g, int L, int S, cudaStream_t stream) {
+#define MEDT_LANES_LAUNCH(LB)                                               \
+  return launch<GP, HAS_POS, LB>(qkv, qemb, kemb_t, vemb, aff, sv, sve, g, \
+                                 L, S, stream)
+  if (L <= 4) MEDT_LANES_LAUNCH(4);
+  if (L <= 8) MEDT_LANES_LAUNCH(8);
+  MEDT_LANES_LAUNCH(kMaxSpan);
+#undef MEDT_LANES_LAUNCH
+}
+
+template <int GP>
+int launch_gp(const float* qkv, const float* qemb, const float* kemb_t,
+              const float* vemb, const float* aff, float* sv, float* sve,
+              int g, int L, int S, bool has_pos, cudaStream_t stream) {
+  if (has_pos) {
+    return launch_span<GP, true>(qkv, qemb, kemb_t, vemb, aff, sv, sve, g, L,
+                                 S, stream);
+  }
+  return launch_span<GP, false>(qkv, qemb, kemb_t, vemb, aff, sv, sve, g, L,
+                                S, stream);
 }
 
 }  // namespace
@@ -178,23 +348,21 @@ int medt_lanes_attn_fwd(const float* qkv, const float* qemb,
                         const float* aff, float* sv, float* sve, int g, int gp,
                         int L, int S, int has_pos, void* stream_ptr) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  if (g < 1 || S < 1 || L < 1 || L > kMaxSpan || g > 65535 ||
-      (S + kThreads - 1) / kThreads > 65535) {
+  if (g < 1 || S < 1 || L < 1 || L > kMaxSpan || g > 65535) {
     return (int)cudaErrorInvalidValue;
   }
   const bool pos = has_pos != 0;
   switch (gp) {
-    case 2: launch_gp<2>(qkv, qemb, kemb_t, vemb, aff, sv, sve, g, L, S, pos,
-                         stream); break;
-    case 4: launch_gp<4>(qkv, qemb, kemb_t, vemb, aff, sv, sve, g, L, S, pos,
-                         stream); break;
-    case 8: launch_gp<8>(qkv, qemb, kemb_t, vemb, aff, sv, sve, g, L, S, pos,
-                         stream); break;
-    case 16: launch_gp<16>(qkv, qemb, kemb_t, vemb, aff, sv, sve, g, L, S,
-                           pos, stream); break;
+    case 2: return launch_gp<2>(qkv, qemb, kemb_t, vemb, aff, sv, sve, g, L,
+                                S, pos, stream);
+    case 4: return launch_gp<4>(qkv, qemb, kemb_t, vemb, aff, sv, sve, g, L,
+                                S, pos, stream);
+    case 8: return launch_gp<8>(qkv, qemb, kemb_t, vemb, aff, sv, sve, g, L,
+                                S, pos, stream);
+    case 16: return launch_gp<16>(qkv, qemb, kemb_t, vemb, aff, sv, sve, g,
+                                  L, S, pos, stream);
     default: return (int)cudaErrorInvalidValue;
   }
-  return (int)cudaGetLastError();
 }
 
 }  // extern "C"

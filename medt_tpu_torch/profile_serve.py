@@ -27,10 +27,9 @@ def _device_us(evt) -> float:
     return 0.0
 
 
-# the port's attention kernels, by kernel name (the eval kernel is
-# csrc/stripe_softmax.cuh's kernel, named by its epilogue; the flash and
-# flash2 forwards are csrc/tiled_fwd.cuh's)
-PORT_KERNELS = ("axial_lanes_fwd_kernel", "EvalFwdEpilogue",
+# the port's attention kernels, by kernel name (the flash and flash2
+# forwards are csrc/tiled_fwd.cuh's)
+PORT_KERNELS = ("axial_lanes_fwd_kernel", "axial_eval_fwd_kernel",
                 "tiled_fwd_kernel")
 
 

@@ -312,6 +312,44 @@ def test_flash_forward_matches_plain_on_card(cuda_device, L, gp, S, has_pos):
         assert torch.equal(o, a), f"{name} differs between two runs"
 
 
+# (span, gp, stripes, has_pos): every path site of the lanes forward at its
+# full width, both variants (MedT 128 at batch 16; medt_512; the MedT 128
+# batch-1 sites, where the query rows split into chunks); then S no
+# multiple of 4 (4-byte copies) with a ragged last tile, S under one tile,
+# spans 1-3, and gp 16 with positions (the largest staging)
+LANES_FWD_SITES = [
+    (16, 2, 4096), (16, 4, 4096), (8, 4, 2048), (8, 8, 2048), (4, 8, 1024),
+    (4, 16, 1024), (16, 8, 1024), (16, 16, 1024), (8, 4, 128), (8, 8, 128),
+    (16, 2, 256), (16, 4, 256),
+]
+LANES_FWD_CARD_GEOMETRIES = [
+    (L, gp, S, pos) for L, gp, S in LANES_FWD_SITES for pos in (False, True)
+] + [
+    (16, 4, 301, False), (12, 8, 301, True), (8, 2, 20, True),
+    (16, 16, 7, False), (1, 2, 33, True), (2, 8, 70, False),
+    (3, 4, 130, True), (16, 16, 300, True), (5, 16, 64, True),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("L,gp,S,has_pos", LANES_FWD_CARD_GEOMETRIES)
+def test_lanes_forward_matches_plain_on_card(cuda_device, L, gp, S, has_pos):
+    """The lanes forward: sv and sve within 1e-4 of the plain version, the
+    same bits on a second run, one launch counted per call."""
+    args = core_inputs(31, g=8, gp=gp, L=L, S=S, has_pos=has_pos,
+                       device=cuda_device)
+    fn = axial_lanes.lanes_attn_fwd
+    before = fn.launches
+    got = fn(*args)
+    assert fn.launches == before + 1
+    again = fn(*args)
+    want = axial_lanes.lanes_attn_plain(*args)
+    torch.cuda.synchronize()
+    for name, o, a, w in zip(("sv", "sve"), got, again, want):
+        torch.testing.assert_close(o, w, atol=1e-4, rtol=1e-4, msg=name)
+        assert torch.equal(o, a), f"{name} differs between two runs"
+
+
 @pytest.mark.cuda
 def test_kernel_wrappers_refuse_what_the_kernel_does_not_take(cuda_device):
     qkv, qemb, kemb_t, vemb, aff = core_inputs(12, g=2, gp=4, L=8, S=128,
@@ -665,7 +703,15 @@ EVAL_GEOMETRIES = [
     (64, 2, 64, True), (64, 4, 64, True), (16, 8, 16, True),
     (16, 16, 16, True), (32, 8, 32, True),
     (6, 4, 37, True), (20, 16, 9, False), (64, 16, 5, True), (1, 2, 3, True),
-]
+] + [
+    # spans over 16, where a query row's keys are spread over lanes: spans
+    # that fill no bucket (17, 33, 48, 63; the odd ones take 4-byte
+    # copies), both variants, ragged stripe counts; S = 1; gp 16 at span 64
+    (L, gp, S, pos) for L, gp, S in ((17, 4, 37), (33, 8, 21), (48, 2, 64),
+                                     (63, 16, 5))
+    for pos in (True, False)
+] + [(40, 4, 1, True), (64, 2, 1, False), (64, 16, 64, True),
+     (64, 16, 33, False)]
 
 
 @pytest.mark.cuda
