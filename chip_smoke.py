@@ -16,7 +16,8 @@ the start of the script) as it ends:
    gatedaxialunet's batch-1 geometries for the eval kernel; medt_512 at
    batch 4: flash2, flash, lanes and moments; flash2 without positions at
    one more geometry; the stripe kernels at the batch-1 and batch-2 train
-   sites of MedT and gatedaxialunet at 128 and 64 px and at span 64, gp 8),
+   sites of MedT and gatedaxialunet at 128 and 64 px and at span 64, gp 8,
+   and the stripe forward at the edges of its warp-over-keys body),
    with CUDA-event times of kernel and plain version and the bound of each.
 4. ``serve``   — the port's ``InferenceEngine`` serving MedT 128 at batch
    16 from a seeded random init: threaded ``submit`` at two priorities plus
@@ -200,6 +201,22 @@ STRIPE_SITES = [
     (64, 2, 64, 2), (64, 4, 64, 2), (32, 4, 32, 2), (32, 8, 32, 0),
     (32, 4, 64, 0), (32, 8, 64, 0), (32, 2, 32, 0), (64, 8, 64, 0),
 ]
+# The stripe forward off every path, at the edges of its warp-over-keys
+# body (csrc/stripe_attn_fwd.cuh), g = 8: (span, gp, stripes, has_pos).
+# Spans that fill no span bucket (the odd ones take 4-byte copies) at
+# ragged stripe counts, both variants; S = 1; gp 16 at span 64; stripe
+# counts that leave the last block of pairs half full at each span bucket
+# (blocks of fewer warps among them: the grids under 66 blocks).
+STRIPE_EDGES = [
+    (L, gp, S, pos) for L, gp, S in ((17, 4, 37), (33, 8, 21), (48, 2, 19),
+                                     (63, 16, 5))
+    for pos in (True, False)
+] + [
+    (40, 4, 1, True), (64, 8, 1, True), (64, 16, 64, True),
+    (64, 16, 33, False), (4, 4, 527, True), (8, 4, 527, False),
+    (16, 4, 527, True), (32, 4, 263, True), (32, 8, 263, False),
+    (64, 2, 131, False), (64, 4, 33, True), (64, 8, 17, True),
+]
 # launches per MedT-128 batch-1 train step: the 6 global sites on the stripe
 # kernels, the 16 local sites on the lanes kernel and the moments kernel
 # (the stripe sites take their moments from einsums); per validation
@@ -250,6 +267,8 @@ def _geometries():
     for kernel in ("stripe_attn_fwd", "stripe_attn_bwd"):
         rows += [(kernel, L, gp, S, pos, n if pos else 0, "medt128b1")
                  for L, gp, S, n in STRIPE_SITES for pos in (True, False)]
+    rows += [("stripe_attn_fwd", *edge, 0, "medt128b1")
+             for edge in STRIPE_EDGES]
     return rows
 
 

@@ -21,35 +21,46 @@
 //
 // What bounds it on the H100: at the batch-1 shapes (S = 32 or 64 stripes)
 // one launch moves about 2 MB and does under 0.1 GFLOP (at span 64, gp 4:
-// ~0.7 us of device memory at 3.35 TB/s), so launch latency dominates. The
-// logits -> softmax -> sv/sve chain, its block shape and its staging are
-// the eval kernel's (csrc/stripe_softmax.cuh, shared with
-// csrc/axial_eval_fwd.cu); here the epilogue writes sv and sve themselves,
-// where the eval kernel applies the folded output BN. The kernel launches
-// on the caller's stream, allocates nothing and does not synchronise; the
-// entry point returns cudaGetLastError().
+// ~0.7 us of device memory at 3.35 TB/s), so latency, shared-memory reads
+// and the L2 traffic of restaging the tables bound it. The logits ->
+// softmax -> sv/sve body, its tiles and its staging are the eval kernel's
+// (csrc/stripe_attn_fwd.cuh, shared with csrc/axial_eval_fwd.cu), and so
+// is its arithmetic: log2 units, exp2, the per-group shifts a1, a3, a5
+// dropped (exact for a softmax; the backward recomputes the softmax its own
+// way from the saved inputs). This source holds only its epilogue, which
+// stages no affine past the similarity one and writes sv and sve
+// themselves for the planes each lane holds after the reduce-scatter. The
+// kernel launches on the caller's stream, allocates nothing and does not
+// synchronise; the entry point returns cudaGetLastError().
 
 #include <cuda_runtime.h>
 #include <stddef.h>
 
-#include "stripe_softmax.cuh"
+#include "stripe_attn_fwd.cuh"
 
 namespace {
 
-struct StripeFwdEpilogue {
+struct TrainEpilogue {
   struct Params {
     float* sv;   // (S, g, gp, L)
     float* sve;  // (S, g, gp, L), with positions
   };
-  template <int GP, bool HAS_POS>
+  static constexpr int kAffinePerPlane = 0;
+  // a small grid takes blocks of fewer warps (kMinBlocks)
+  static constexpr bool kFillGrid = true;
+  __device__ __forceinline__ static const float* affine(const Params&, int,
+                                                        int, int) {
+    return nullptr;  // nothing is staged past the similarity affine
+  }
+  template <int GP, bool HAS_POS, int NP>
   __device__ __forceinline__ static void store(
-      const Params& e, size_t off, int gi, int L, const float (&acc_v)[GP],
-      const float (&acc_e)[GP], float inv_l) {
+      const Params& e, const float*, size_t off, int L, int p0,
+      const float (&acc_v)[GP], const float (&acc_e)[GP], float inv_l) {
 #pragma unroll
-    for (int p = 0; p < GP; ++p) e.sv[off + p * L] = acc_v[p] * inv_l;
-    if constexpr (HAS_POS) {
-#pragma unroll
-      for (int p = 0; p < GP; ++p) e.sve[off + p * L] = acc_e[p] * inv_l;
+    for (int t = 0; t < NP; ++t) {
+      const size_t o = off + (size_t)(p0 + t) * L;
+      e.sv[o] = acc_v[t] * inv_l;
+      if constexpr (HAS_POS) e.sve[o] = acc_e[t] * inv_l;
     }
   }
 };
@@ -68,11 +79,11 @@ int medt_stripe_attn_fwd(const float* q, const float* k, const float* v,
                          long long k_ss, long long k_sg, long long v_ss,
                          long long v_sg, int S, int g, int gp, int L,
                          int has_pos, void* stream_ptr) {
-  const medt::StripeOperands x{q, k, v, qemb, kemb, vemb, sim_aff,
-                               q_ss, q_sg, k_ss, k_sg, v_ss, v_sg,
-                               S, g, L, 0, 0};
-  return medt::launch_stripe_softmax<StripeFwdEpilogue>(
-      x, gp, has_pos, {sv, sve}, stream_ptr);
+  const medt::StripeArgs x{q, k, v, qemb, kemb, vemb, sim_aff,
+                           q_ss, q_sg, k_ss, k_sg, v_ss, v_sg,
+                           S, g, L, 0, false, false};
+  return medt::launch_stripe_fwd<TrainEpilogue>(x, gp, has_pos, {sv, sve},
+                                                stream_ptr);
 }
 
 }  // extern "C"

@@ -16,6 +16,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import re
 import sys
 import time
 
@@ -27,10 +28,12 @@ def _device_us(evt) -> float:
     return 0.0
 
 
-# the port's attention kernels, by kernel name (the flash and flash2
+# the port's attention kernels, by (a part of) the names nvcc gives them
+# with their namespaces dropped (the eval kernel is
+# csrc/stripe_attn_fwd.cuh's, named by its epilogue; the flash and flash2
 # forwards are csrc/tiled_fwd.cuh's)
-PORT_KERNELS = ("axial_lanes_fwd_kernel", "axial_eval_fwd_kernel",
-                "tiled_fwd_kernel")
+PORT_KERNELS = ("axial_lanes_fwd_kernel",
+                "stripe_attn_fwd_kernel<EvalEpilogue", "tiled_fwd_kernel")
 
 
 def main(argv=None) -> int:
@@ -80,8 +83,10 @@ def main(argv=None) -> int:
                if e.device_type == torch.autograd.DeviceType.CUDA
                and _device_us(e) > 0]
     total_us = sum(_device_us(e) for e in kernels) / iters
-    attn_us = sum(_device_us(e) for e in kernels
-                  if any(k in e.key for k in PORT_KERNELS)) / iters
+    names = [re.sub(r"\(anonymous namespace\)::|\w+::", "", e.key)
+             for e in kernels]
+    attn_us = sum(_device_us(e) for e, key in zip(kernels, names)
+                  if any(k in key for k in PORT_KERNELS)) / iters
     top = sorted(kernels, key=_device_us, reverse=True)[:15]
     out = {
         "device": torch.cuda.get_device_name(0), "model": model,

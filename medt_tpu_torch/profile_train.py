@@ -25,7 +25,7 @@ from .profile_serve import _device_us
 ITERS, LR = 5, 1e-3
 # the port's hand-written kernels, by (a part of) the names nvcc gives
 # them with their namespaces dropped: the stripe forward is
-# csrc/stripe_softmax.cuh's kernel, named by its epilogue; the flash and
+# csrc/stripe_attn_fwd.cuh's kernel, named by its epilogue; the flash and
 # flash2 forwards and backwards are csrc/tiled_fwd.cuh's and
 # csrc/tiled_bwd.cuh's, named by their tile policies
 OWN_KERNELS = ("axial_lanes_fwd_kernel", "lanes_bwd_kernel",
@@ -37,7 +37,8 @@ OWN_KERNELS = ("axial_lanes_fwd_kernel", "lanes_bwd_kernel",
                "tiled_bwd_col_kernel<Flash2Tiles", "bwd_finalize_kernel",
                "moments_fwd_kernel", "moments_finalize_kernel",
                "moments_bwd_kernel", "tab_finalize_kernel",
-               "StripeFwdEpilogue", "stripe_bwd_kernel")
+               "stripe_attn_fwd_kernel<TrainEpilogue",
+               "stripe_bwd_kernel")
 
 
 def main(argv=None) -> int:

@@ -201,6 +201,24 @@ def test_sources_include_no_torch_header():
         assert "#include <torch" not in text and "ATen" not in text, path
 
 
+def test_sources_include_headers_that_exist_and_use_every_header():
+    """Every ``#include "..."`` in csrc/ names a file there, and every
+    header there is included by at least one ``.cu``: a header that no
+    source builds is dead code that the build never checks."""
+    csrc = REPO / "medt_tpu_torch" / "csrc"
+    names = {path.name for path in csrc.iterdir()}
+    included_by_cu = set()
+    for path in sorted(csrc.iterdir()):
+        for name in re.findall(r'^\s*#\s*include\s+"([^"]+)"',
+                               path.read_text(), flags=re.M):
+            assert name in names, f"{path.name} includes missing {name}"
+            if path.suffix == ".cu":
+                included_by_cu.add(name)
+    headers = {name for name in names if name.endswith(".cuh")}
+    assert headers, "no headers found"
+    assert headers <= included_by_cu, sorted(headers - included_by_cu)
+
+
 # ---- nothing of JAX in the port ---------------------------------------------
 
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "PIL", "medt_tpu",
@@ -955,6 +973,25 @@ STRIPE_CARD_GEOMETRIES = [
     (32, 4, 5, True), (64, 2, 70, True), (32, 8, 37, False),
     (40, 4, 30, True), (48, 8, 21, True), (37, 2, 11, True),
     (32, 16, 12, True), (64, 16, 9, True), (12, 4, 19, True),
+] + [
+    # the edges of the forward's warp-over-keys body (csrc/stripe_attn_fwd
+    # .cuh): spans that fill no bucket (17, 33, 48, 63; the odd ones take
+    # 4-byte copies), both variants, at ragged stripe counts
+    (L, gp, S, pos) for L, gp, S in ((17, 4, 37), (33, 8, 21), (48, 2, 19),
+                                     (63, 16, 5))
+    for pos in (True, False)
+] + [
+    # S = 1 at spans 40 and 64; gp 16 at span 64 in both variants
+    (40, 4, 1, True), (64, 8, 1, True), (64, 16, 64, True),
+    (64, 16, 33, False),
+    # a last block of pairs that is ragged at each span bucket: g = 8 and a
+    # block takes PB = 16 pairs at these stripe counts (PB doubles from 2-8
+    # while the grid keeps 264 blocks; 16 from the start at span 64 with
+    # positions), so an odd S leaves it half full; (64, 8, 17) in blocks of
+    # 8 warps, which a grid under 66 blocks takes
+    (4, 4, 527, True), (8, 4, 527, False), (16, 4, 527, True),
+    (32, 4, 263, True), (32, 8, 263, False), (64, 2, 131, False),
+    (64, 4, 33, True), (64, 8, 17, True),
 ]
 
 
@@ -990,6 +1027,32 @@ def test_stripe_kernels_match_plain_on_card(cuda_device, L, gp, S, has_pos):
             continue
         _close(o, w, name)
         assert torch.equal(o, a), f"{name} differs between two runs"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("L,gp,S,has_pos", [
+    (64, 2, 64, True), (64, 4, 64, True), (32, 4, 32, True),
+    (32, 8, 32, True), (32, 4, 64, False), (63, 16, 5, True),
+    (17, 4, 37, False), (8, 8, 19, True),
+])
+def test_stripe_forward_shares_the_eval_body_on_card(cuda_device, L, gp, S,
+                                                     has_pos):
+    """The stripe forward and the eval kernel run one body
+    (csrc/stripe_attn_fwd.cuh) with one arithmetic: on the same operands
+    the eval kernel's output under an identity output affine (oa0 = 1, oa1
+    = oa2 = oa3 = 0) is the stripe forward's sv, bit for bit, and under
+    (0, 0, 1, 0) its sve."""
+    args = stripe_inputs(31, g=8, gp=gp, L=L, S=S, has_pos=has_pos,
+                         device=cuda_device)
+    sv, sve = axial_train.stripe_attn_fwd(*args)
+    for plane, want in ((0, sv), (2, sve)):
+        if plane and not has_pos:
+            continue
+        oa = torch.zeros((8, 4, gp), device=cuda_device)
+        oa[:, plane] = 1.0
+        out = axial_eval.axial_eval_fwd(*args, oa)
+        torch.cuda.synchronize()
+        assert torch.equal(out, want), (plane, float((out - want).abs().max()))
 
 
 @pytest.mark.cuda
