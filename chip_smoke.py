@@ -71,6 +71,31 @@ the start of the script) as it ends:
    trace file; ms per step and images/s. Then one MedT-128 batch-1 step on
    the kernels against plain cores and one gatedaxialunet-128 batch-1 step
    (8 + 8 stripe launches) likewise, held as ``train`` holds its step.
+   The run's epoch masks and labels stay under ``_smoke/`` for the sweep.
+13. ``http`` — ``cli.serve.make_server`` on an ephemeral port over
+   ``InferenceEngine("MedT", 128, loaddirec=<a seeded checkpoint>,
+   batch_size=16, window_stride=64)``: 32 concurrent 128x128 PNG POSTs
+   from 8 client threads at two ``X-Priority`` values, then 2 POSTs of a
+   256x192 PNG (the window route: 6 tiles in one batch), counted; every
+   forward launches 16 lanes + 6 flash kernels. Each response mask equals
+   ``predict_batch`` (or ``predict``) of its image; ``/healthz``, a 404, a
+   400 on a body that is not a PNG and a 503 with ``Retry-After`` from a
+   full queue; any other status fails the phase. Requests/s, client p50
+   and max ms of the 32, as observations (the rate and tail over a window
+   of hundreds of requests: ``python -m medt_tpu_torch.profile_http``).
+14. ``zoo`` — each kernel at the zoo paths' geometries that no earlier
+   phase holds, against its plain version; gated_sig-128 (sigmoid gates
+   folded into the fused train route) trained at batch 16 (8 + 8 flash,
+   8 + 8 lanes, 16 + 16 moments launches per step) and at batch 1 (8 + 8
+   stripe, 8 + 8 lanes, 8 + 8 moments): counted and timed steps, then one
+   step on the kernels against plain cores; axialunet_wopos-128 eval
+   forwards at batch 16 (8 flash + 8 lanes) and 1 (16 eval) against plain
+   cores at ``LOGITS_ATOL``; gated_data, convnet_ablation, mix_net_gated_d,
+   unetplusplus (its deep-supervision tuple), shallow and autoencoder: a
+   batch-1 forward and a train step each, finite, of the right shapes,
+   with no kernel launch (JAX runs them without kernels); then
+   ``evaluation.sweep.sweep_checkpoint_grid`` over ``train1``'s epochs 0-2
+   against its labels.
 
 Then: the per-kernel JSON summary, the card's ``nvidia-smi`` line, and, as
 the last line, ``{"ok": true, "device": ...}``. Any failed phase ends the
@@ -1358,7 +1383,401 @@ def phase_train1(torch):
          imgs_per_sec_by_epoch=rates, ms_per_step=1e3 / rates[1],
          images_per_s=rates[1], log=log,
          trace_bytes=traces[0].stat().st_size, parity=parity)
+    # the run's epoch masks and labels stay for the zoo phase's sweep
+    return counts
+
+
+# ---- 13. the HTTP front -----------------------------------------------------
+
+HTTP_REQUESTS, HTTP_CLIENTS = 32, 8
+HTTP_WINDOW = (256, 192)        # the window route: 6 tiles at stride 64
+HTTP_STRIDE = 64
+MEDT_FORWARD = {"lanes_attn_fwd": 16, "flash_lanes_fwd": 6}
+
+
+def _http(port, path, body=None, headers=None):
+    """(status, headers, body, seconds) of one request, errors included."""
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{path}", data=body,
+                                 headers=headers or {})
+    t0 = time.perf_counter()
+    try:
+        with urllib.request.urlopen(req, timeout=300) as r:
+            out = (r.status, dict(r.headers), r.read())
+    except urllib.error.HTTPError as e:
+        out = (e.code, dict(e.headers), e.read())
+    return out + (time.perf_counter() - t0,)
+
+
+def _serving(make_server, engine):
+    server = make_server(engine, 0)   # an ephemeral port
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    return server, thread
+
+
+def phase_http(torch):
+    """``cli.serve`` over ``InferenceEngine("MedT", 128, loaddirec=...)``
+    at batch 16 with window stride 64: 32 concurrent 128x128 POSTs from 8
+    client threads at two priorities, then 2 POSTs of a 256x192 PNG (the
+    window route), counted; every forward at batch 16 launches 16 lanes + 6
+    flash kernels. Each 128 px mask equals ``predict_batch`` of its image,
+    each window mask ``predict``; ``/healthz``, 404, 400 on a body that is
+    not a PNG, and 503 with ``Retry-After`` from a full queue. Any other
+    status than the expected one fails the phase (the handler turns a
+    kernel failure into a 400)."""
+    import shutil
+
+    import numpy as np
+
+    from medt_tpu_torch import ops
+    from medt_tpu_torch.cli.serve import make_server
+    from medt_tpu_torch.data.png import decode_png, encode_png
+    from medt_tpu_torch.models import build_model
+    from medt_tpu_torch.serving import InferenceEngine
+    from medt_tpu_torch.training import save_checkpoint
+
+    root = REPO / "_smoke" / "http"
     shutil.rmtree(root, ignore_errors=True)
+    save_checkpoint(str(root / "ckpt"), 0,
+                    build_model("MedT", img_size=IMG, seed=0, device="cpu"))
+    ckpt = str(root / "ckpt" / "final_model")
+    engine = InferenceEngine("MedT", IMG, loaddirec=ckpt, batch_size=BATCH,
+                             window_stride=HTTP_STRIDE, max_wait_ms=5.0)
+    engine.warmup()
+    rng = np.random.default_rng(3)
+    images = [rng.integers(0, 256, size=(IMG, IMG, 3), dtype=np.uint8)
+              for _ in range(HTTP_REQUESTS)]
+    bodies = [encode_png(im) for im in images]
+    big = rng.integers(0, 256, size=HTTP_WINDOW + (3,), dtype=np.uint8)
+    server, thread = _serving(make_server, engine)
+    port = server.server_address[1]
+    replies = [None] * HTTP_REQUESTS
+    try:
+        # -- the main path, counted ------------------------------------------
+        ops.reset_launch_counts()
+        batches0 = engine.batches_run
+
+        def client(k):
+            for i in range(k, HTTP_REQUESTS, HTTP_CLIENTS):
+                replies[i] = _http(port, "/predict", bodies[i],
+                                   {"X-Priority": "0" if i % 3 else "5"})
+
+        threads = [threading.Thread(target=client, args=(k,))
+                   for k in range(HTTP_CLIENTS)]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+        burst_s = time.perf_counter() - t0
+        check(not any(t.is_alive() for t in threads), "client threads hung")
+        forwards = engine.batches_run - batches0
+        burst_counts = ops.launch_counts()
+        window = [_http(port, "/predict", encode_png(big))
+                  for _ in range(2)]
+        counts = ops.launch_counts()
+        # -- end of the counted run ------------------------------------------
+
+        bad = [(i, r[0], r[2][:200]) for i, r in enumerate(replies)
+               if r is None or r[0] != 200]
+        bad += [("window", r[0], r[2][:200]) for r in window if r[0] != 200]
+        check(not bad, f"unexpected statuses: {bad}")
+        check(burst_counts == launches_of(burst_counts, MEDT_FORWARD,
+                                          forwards),
+              f"launch counts {burst_counts} for {forwards} forwards")
+        check(counts == launches_of(counts, MEDT_FORWARD, forwards + 2),
+              f"launch counts {counts} for {forwards} + 2 forwards")
+        masks = [decode_png(r[2], gray=True) for r in replies]
+        want = engine.predict_batch(images)
+        differ = [i for i, (m, w) in enumerate(zip(masks, want))
+                  if not np.array_equal(m, w * 255)]
+        check(not differ, f"responses {differ} differ from predict_batch")
+        big_want = engine.predict(big) * 255
+        for r in window:
+            got = decode_png(r[2], gray=True)
+            check(got.shape == HTTP_WINDOW and np.array_equal(got, big_want),
+                  f"window response {got.shape} differs from predict")
+
+        status, _, body, _ = _http(port, "/healthz")
+        health = json.loads(body) if status == 200 else {}
+        check(status == 200 and health.get("status") == "ok" and
+              {"batches_run", "images_run", "batch_size", "imgsize",
+               "latency_ms"} <= set(health), f"/healthz: {status} {body}")
+        status, _, body, _ = _http(port, "/nowhere")
+        check(status == 404, f"GET /nowhere: {status} {body[:200]}")
+        status, _, body, _ = _http(port, "/predict", b"not a png")
+        check(status == 400, f"a body that is not a PNG: {status}")
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join()
+        engine.stop()
+
+    full = InferenceEngine("MedT", IMG, loaddirec=ckpt, batch_size=BATCH,
+                           max_queue=0)
+    server, thread = _serving(make_server, full)
+    try:
+        status, headers, body, _ = _http(server.server_address[1],
+                                         "/predict", bodies[0])
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join()
+        full.stop()
+    check(status == 503 and headers.get("Retry-After") == "1",
+          f"a full queue: {status} {headers} {body[:200]}")
+    lat = sorted(r[3] * 1e3 for r in replies)
+    emit("http", model="MedT", img=IMG, batch=BATCH, requests=HTTP_REQUESTS,
+         clients=HTTP_CLIENTS, priorities=[0, 5], forwards=forwards,
+         launches=counts, requests_per_s=HTTP_REQUESTS / burst_s,
+         client_p50_ms=statistics.median(lat), client_max_ms=lat[-1],
+         window_image=list(HTTP_WINDOW), window_stride=HTTP_STRIDE,
+         window_ms=[r[3] * 1e3 for r in window],
+         engine_latency_ms=health.get("latency_ms"))
+    shutil.rmtree(root, ignore_errors=True)
+    return counts
+
+
+# ---- 14. the segmentation zoo and the best-checkpoint sweep ---------------------
+
+# launches per gated_sig-128 train step (its sigmoid gates fold into the
+# tables of the fused train route): at batch 16, 8 flash and 8 lanes sites,
+# each with the moments kernel; at batch 1, gatedaxialunet's UNET_B1_STEP
+GATED_SIG_B16_STEP = {"flash_lanes_fwd": 8, "flash_lanes_bwd": 8,
+                      "lanes_attn_fwd": 8, "lanes_attn_bwd": 8,
+                      "moment_sums_fwd": 16, "moment_sums_bwd": 16}
+# launches per axialunet_wopos-128 eval forward: at batch 16 8 flash and 8
+# lanes sites; at batch 1 every site has fewer than 128 stripes
+WOPOS_B16_FORWARD = {"flash_lanes_fwd": 8, "lanes_attn_fwd": 8}
+WOPOS_B1_FORWARD = {"axial_eval_fwd": 16}
+# the geometries of those paths that no earlier phase holds, g = 8:
+# (kernel, span, gp, stripes, has_pos)
+ZOO_GEOMETRIES = [
+    (k, *site) for k in ("flash_lanes_fwd", "flash_lanes_bwd",
+                         "moment_sums_fwd", "moment_sums_bwd")
+    for site in ((32, 8, 512, True),)
+] + [
+    (k, *site) for k in ("lanes_attn_fwd", "lanes_attn_bwd",
+                         "moment_sums_fwd", "moment_sums_bwd")
+    for site in ((16, 8, 256, True), (16, 16, 256, True),
+                 (16, 8, 16, True), (16, 16, 16, True))
+] + [
+    ("flash_lanes_fwd", *site) for site in ((64, 2, 1024, False),
+                                            (32, 4, 512, False),
+                                            (32, 8, 512, False))
+] + [
+    ("lanes_attn_fwd", *site) for site in ((16, 8, 256, False),
+                                           (16, 16, 256, False))
+] + [
+    ("axial_eval_fwd", *site) for site in (
+        (64, 2, 64, False), (64, 4, 64, False), (32, 4, 32, False),
+        (32, 8, 32, False), (16, 8, 16, False), (16, 16, 16, False))
+]
+# run once (batch-1 eval forward, train step at batch 2) with no kernel
+# launch: JAX runs these on its XLA path too
+ZOO_PLAIN = ("gated_data", "convnet_ablation", "mix_net_gated_d",
+             "unetplusplus", "shallow", "autoencoder")
+ZOO_STEPS = 3   # timed steps per gated_sig batch
+
+
+def _zoo_geometries(torch):
+    """Each kernel at the zoo's geometries against its plain version."""
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    rows = []
+    for kernel, L, gp, S, has_pos in ZOO_GEOMETRIES:
+        fn, plain = kernel_calls(torch, gen, kernel, gp, L, S, has_pos)
+        got, want = fn(), plain()
+        torch.cuda.synchronize()
+        err, ok = compare(torch, kernel, got, want)
+        rows.append({"kernel": kernel, "span": L, "gp": gp, "S": S,
+                     "has_pos": has_pos, "max_abs_err": err, "ok": ok})
+    return rows
+
+
+def _gated_sig_steps(torch, batch):
+    """Counted: ZOO_STEPS + 1 gated_sig train steps at ``batch`` (the
+    first a warm-up); then one step on the kernels vs plain cores."""
+    from medt_tpu_torch import ops
+    from medt_tpu_torch.data import blob_batch
+    from medt_tpu_torch.models import build_model
+    from medt_tpu_torch.training import TrainState, adam_l2, train_step
+
+    variables = build_model("gated_sig", img_size=IMG, seed=0,
+                            device="cpu").state_dict()
+    images, masks = blob_batch(batch, IMG, seed=0)
+    model = build_model("gated_sig", img_size=IMG, use_fused=True,
+                        device="cuda")
+    model.load_state_dict(variables, strict=True)
+    state = TrainState(model, adam_l2(model.parameters(), TRAIN_LR))
+    ops.reset_launch_counts()
+    losses = [train_step(state, {"image": images, "label": masks})["loss"]]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(ZOO_STEPS):
+        losses.append(train_step(state, {"image": images, "label": masks})
+                      ["loss"])
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) / ZOO_STEPS * 1e3
+    counts = ops.launch_counts()
+    del state, model
+    loss_k, loss_p, checks = step_parity(torch, "gated_sig", IMG, images,
+                                         masks, variables)
+    bad = [c for c in checks if not c["ok"]]
+    return counts, {
+        "batch": batch, "ms_per_step": step_ms,
+        "losses": torch.stack(losses).tolist(), "loss_kernels": loss_k,
+        "loss_plain": loss_p, "tensors": len(checks), "failed": len(bad),
+        "worst": max(checks, key=lambda c: c["err"] / c["tol"]),
+        "bad": bad[:5]}
+
+
+def _wopos_forwards(torch):
+    """axialunet_wopos-128 eval forwards at batch 16 and 1 on the kernels
+    (counted) against plain cores."""
+    import numpy as np
+
+    from medt_tpu_torch import ops
+    from medt_tpu_torch.models import build_model
+
+    variables = build_model("axialunet_wopos", img_size=IMG, seed=0,
+                            device="cpu").state_dict()
+    out = {}
+    for batch, per_call in ((BATCH, WOPOS_B16_FORWARD),
+                            (1, WOPOS_B1_FORWARD)):
+        x = torch.from_numpy(np.random.default_rng(batch).uniform(
+            size=(batch, 3, IMG, IMG)).astype(np.float32)).cuda()
+        got = {}
+        for plain in (False, True):
+            model = build_model("axialunet_wopos", img_size=IMG,
+                                use_fused=True, plain_cores=plain,
+                                device="cuda")
+            model.load_state_dict(variables, strict=True)
+            with torch.inference_mode():
+                model(x)                          # warm-up
+                torch.cuda.synchronize()
+                ops.reset_launch_counts()
+                t0 = time.perf_counter()
+                got[plain] = model(x)
+                torch.cuda.synchronize()
+                ms = (time.perf_counter() - t0) * 1e3
+            if not plain:
+                counts, kernel_ms = ops.launch_counts(), ms
+        err = float((got[False] - got[True]).abs().max())
+        check(counts == launches_of(counts, per_call, 1),
+              f"axialunet_wopos batch {batch}: launch counts {counts}")
+        check(bool(torch.isfinite(got[False]).all()),
+              f"axialunet_wopos batch {batch}: non-finite logits")
+        check(err <= LOGITS_ATOL, f"axialunet_wopos batch {batch}: logits "
+                                  f"vs plain cores {err} > {LOGITS_ATOL}")
+        out[batch] = {"launches": counts, "forward_ms": kernel_ms,
+                      "plain_forward_ms": ms, "logits_max_abs_err": err}
+    return out
+
+
+def _plain_zoo(torch):
+    """The zoo models JAX runs without kernels: one batch-1 eval forward
+    and one train step at batch 2 each, with use_fused on; finite outputs
+    of the right shapes and no kernel launch."""
+    import numpy as np
+
+    from medt_tpu_torch import ops
+    from medt_tpu_torch.data import blob_batch
+    from medt_tpu_torch.models import build_model
+    from medt_tpu_torch.training import TrainState, adam_l2, train_step
+
+    images, masks = blob_batch(2, IMG, seed=2)
+    x = torch.from_numpy(images[:1]).cuda().permute(0, 3, 1, 2).float() / 255
+    out = {}
+    for name in ZOO_PLAIN:
+        model = build_model(name, img_size=IMG, use_fused=True, seed=0,
+                            device="cuda")
+        ops.reset_launch_counts()
+        with torch.inference_mode():
+            y = model(x)
+        state = TrainState(model, adam_l2(model.parameters(), TRAIN_LR))
+        loss = float(train_step(state, {"image": images, "label": masks})
+                     ["loss"])
+        counts = ops.launch_counts()
+        main = y[0] if isinstance(y, tuple) else y
+        shape = (1, 3 if name == "autoencoder" else 2, IMG, IMG)
+        check(tuple(main.shape) == shape, f"{name}: output {main.shape}")
+        check(bool(torch.isfinite(main).all()) and np.isfinite(loss),
+              f"{name}: non-finite output or loss {loss}")
+        check(not any(counts.values()), f"{name}: kernel launches {counts}")
+        row = {"loss": loss, "shape": list(main.shape)}
+        if name == "unetplusplus":
+            check(isinstance(y, tuple) and len(y[1]) == 4, "unetplusplus "
+                  "must give (logits, 4 auxiliary heads)")
+            aux = [list(a.shape) for a in y[1]]
+            check(aux == [[1, 2, IMG // f, IMG // f] for f in (2, 4, 8, 16)]
+                  and all(bool(torch.isfinite(a).all()) for a in y[1]),
+                  f"unetplusplus auxiliary heads {aux}")
+            row["aux_shapes"] = aux
+        out[name] = row
+        del state, model
+    return out
+
+
+def phase_zoo(torch):
+    """The zoo on the card: each kernel at the zoo's new geometries against
+    its plain version; gated_sig-128 train steps at batch 16 and 1 on the
+    fused train route (counted, timed, held against plain cores);
+    axialunet_wopos-128 forwards at batch 16 and 1; the six models JAX runs
+    without kernels; then ``evaluation.sweep`` over ``train1``'s epochs."""
+    import math
+    import shutil
+
+    from medt_tpu_torch.evaluation.sweep import sweep_checkpoint_grid
+
+    geometries = _zoo_geometries(torch)
+    failed = [r for r in geometries if not r["ok"]]
+    check(not failed, f"kernel disagrees with its plain version: {failed}")
+
+    steps = {}
+    counts = {}
+    for batch, per_step in ((BATCH, GATED_SIG_B16_STEP), (1, UNET_B1_STEP)):
+        # -- the main path, counted: the gated_sig steps at this batch ------
+        step_counts, steps[batch] = _gated_sig_steps(torch, batch)
+        # -- end of the counted run ------------------------------------------
+        check(not steps[batch]["bad"], f"gated_sig batch {batch} step on "
+              f"kernels vs plain cores: {steps[batch]['bad']}")
+        check(step_counts == launches_of(step_counts, per_step,
+                                         ZOO_STEPS + 1),
+              f"gated_sig batch {batch}: launch counts {step_counts}")
+        check(all(math.isfinite(v) for v in steps[batch]["losses"]),
+              f"gated_sig batch {batch}: non-finite loss")
+        for k, v in step_counts.items():
+            counts[k] = counts.get(k, 0) + v
+    wopos = _wopos_forwards(torch)
+    for row in wopos.values():
+        for k, v in row["launches"].items():
+            counts[k] = counts.get(k, 0) + v
+    plain = _plain_zoo(torch)
+
+    root = REPO / "_smoke"
+    grid = sweep_checkpoint_grid(str(root / "out"),
+                                 str(root / "val" / "labelcol"))
+    per_epoch = grid["per_epoch"]
+    check(sorted(per_epoch) == [0, 1, 2] and all(
+        s["images"] == TRAIN1_VAL for s in per_epoch.values()),
+        f"sweep over train1's epochs: {per_epoch}")
+    check(grid["best_epoch"] in (0, 1, 2) and all(
+        0.0 <= s[k] <= 1.0 for s in per_epoch.values()
+        for k in ("f1", "miou", "pa")), f"sweep scores: {grid}")
+    # the same masks and labels under the same protocol: the validation
+    # F1 and IoU that train1's log holds
+    log = [json.loads(line) for line in
+           (root / "out" / "train_log.jsonl").read_text().splitlines()]
+    check(all(abs(per_epoch[e["epoch"]]["f1"] - e["val_f1"]) <= 1e-6 and
+              abs(per_epoch[e["epoch"]]["miou"] - e["val_iou"]) <= 1e-6
+              for e in log), f"sweep {per_epoch} vs train1's log {log}")
+    shutil.rmtree(root, ignore_errors=True)
+    emit("zoo", img=IMG, geometries=geometries, gated_sig=steps,
+         axialunet_wopos=wopos, plain_models=plain, launches=counts,
+         sweep=grid, tolerance=LOGITS_ATOL)
     return counts
 
 
@@ -1429,7 +1848,8 @@ def main() -> int:
                           ("predict512", phase_predict512),
                           ("train512", phase_train512),
                           ("logo512", phase_logo512),
-                          ("train1", phase_train1)):
+                          ("train1", phase_train1), ("http", phase_http),
+                          ("zoo", phase_zoo)):
             counts[phase] = fn(torch)
     except Exception as e:  # report the phase, then fail without "ok"
         emit(phase, ok=False, error=f"{type(e).__name__}: {e}")

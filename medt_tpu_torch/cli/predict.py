@@ -10,7 +10,8 @@ it). One mask PNG per image, of the image's size, under ``--direc``.
         --modelname MedT --imgsize 128 --loaddirec ./results/final_model \\
         --direc ./preds
 
-It runs on the card; an in-process caller may pass ``device="cpu"``.
+A deep-supervision model's main logits make the mask. It runs on the
+card; an in-process caller may pass ``device="cpu"``.
 """
 from __future__ import annotations
 
@@ -24,6 +25,7 @@ from ..data.png import write_mask_png
 from ..device import resolve_device
 from ..evaluation.sliding_window import sliding_window_inference
 from ..metrics import logits_to_foreground
+from ..models import main_logits
 from ..utils import chk_mkdir
 from .test import load_model
 
@@ -38,6 +40,9 @@ def main(argv=None, device=None) -> list:
     ds = Image2D(cfg.val_dataset, gray=cfg.gray == "yes")
     model = load_model(cfg, device)
 
+    def forward(x):
+        return main_logits(model(x))
+
     chk_mkdir(cfg.direc)
     written = []
     with torch.inference_mode():
@@ -45,10 +50,10 @@ def main(argv=None, device=None) -> list:
             image, name = ds[i]                      # (H, W, C) float32
             if image.shape[:2] == (cfg.imgsize, cfg.imgsize):
                 x = torch.from_numpy(image).to(device).permute(2, 0, 1)
-                logits = model(x[None])[0]
+                logits = forward(x[None])[0]
             else:
                 logits = sliding_window_inference(
-                    image, model, window=cfg.imgsize,
+                    image, forward, window=cfg.imgsize,
                     stride=max(cfg.imgsize // 2, 1), device=device)
             fg = logits_to_foreground(logits[None], mode=cfg.pred_mode)[0]
             mask = fg.cpu().numpy()

@@ -5,7 +5,7 @@ undefined ``args.aug`` read fixed and its discarded metrics kept): the
 same flags (``config.py``), one mask PNG per image under ``--direc`` and a
 ``metrics.json`` with ``per_image_f1``, ``per_image_iou``, ``mean_f1``,
 ``mean_iou`` and ``images``. The model runs at batch 1, as the reference's
-loader does.
+loader does; a deep-supervision model's main logits make the mask.
 
     python -m medt_tpu_torch.cli.test --val_dataset <dir> --modelname MedT \\
         --imgsize 128 --loaddirec ./results/final_model --direc ./preds
@@ -26,7 +26,7 @@ from ..data import DataLoader, ImageToImage2D, JointTransform2D, to_device
 from ..data.png import write_mask_png
 from ..device import resolve_device
 from ..metrics import binary_seg_scores, logits_to_foreground
-from ..models import build_model
+from ..models import build_model, main_logits
 from ..training.checkpointing import restore_checkpoint
 from ..utils import chk_mkdir
 
@@ -63,7 +63,8 @@ def main(argv=None, device=None) -> dict:
         for batch in loader:
             t0 = time.perf_counter()
             dev = to_device(batch, device)
-            logits = model(dev["image"].permute(0, 3, 1, 2).float())
+            logits = main_logits(
+                model(dev["image"].permute(0, 3, 1, 2).float()))
             fg = logits_to_foreground(logits, mode=cfg.pred_mode)
             f1, iou, _ = binary_seg_scores(fg, dev["label"] > 0)
             fg_np = fg.cpu().numpy()

@@ -8,6 +8,11 @@ where shapes change) -> ReLU. The JAX package's lanes-resident activation
 layout is a TPU device layout and is not ported. The reference's wopos
 block also builds a ``conv1`` its forward never calls; it is not
 reproduced (its weights are dead keys of reference state dicts).
+
+``use_attention=False`` is the zoo's attention-free ablation
+(``AxialBlockmod``, reference model_codes.py:661-716): a 3x3 ``conv_mid``
+carrying the stride replaces the two attention modules
+(``medt_tpu/models/blocks.py:73-95``).
 """
 from __future__ import annotations
 
@@ -17,19 +22,20 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops import AxialAttention, BatchNorm, conv1x1
+from ..ops import AxialAttention, BatchNorm, conv1x1, conv2d
 
 
 class AxialBlock(nn.Module):
     """Residual bottleneck around a (height, width) axial-attention pair.
 
     ``attn`` holds the AxialAttention options shared by a whole model
-    (mode, gate_init, trainable_gates, use_fused, plain_cores)."""
+    (mode, gate_init, trainable_gates, use_fused, plain_cores);
+    ``use_attention=False`` swaps the pair for a strided 3x3 conv."""
 
     expansion = 2
 
     def __init__(self, inplanes: int, planes: int, span: int, stride: int = 1,
-                 groups: int = 8, *, attn: dict,
+                 groups: int = 8, *, attn: dict, use_attention: bool = True,
                  generator: Optional[torch.Generator] = None, device=None):
         super().__init__()
         width = planes  # base width 64 in every model
@@ -37,11 +43,17 @@ class AxialBlock(nn.Module):
         init = dict(generator=generator, device=device)
         self.conv_down = conv1x1(inplanes, width, **init)
         self.bn1 = BatchNorm(width, device=device)
-        self.hight_block = AxialAttention(width, width, span, groups=groups,
-                                          axis="h", **attn, **init)
-        self.width_block = AxialAttention(width, width, span, groups=groups,
-                                          axis="w", stride=stride, **attn,
-                                          **init)
+        self.use_attention = use_attention
+        if use_attention:
+            self.hight_block = AxialAttention(width, width, span,
+                                              groups=groups, axis="h",
+                                              **attn, **init)
+            self.width_block = AxialAttention(width, width, span,
+                                              groups=groups, axis="w",
+                                              stride=stride, **attn, **init)
+        else:
+            self.conv_mid = conv2d(width, width, 3, stride=stride,
+                                   use_bias=False, **init)
         self.conv_up = conv1x1(width, out_planes, **init)
         self.bn2 = BatchNorm(out_planes, device=device)
         self.downsample = None
@@ -52,7 +64,10 @@ class AxialBlock(nn.Module):
 
     def forward(self, x):
         out = F.relu(self.bn1(self.conv_down(x)))
-        out = self.width_block(self.hight_block(out))
+        if self.use_attention:
+            out = self.width_block(self.hight_block(out))
+        else:
+            out = self.conv_mid(out)
         out = self.bn2(self.conv_up(F.relu(out)))
         identity = x if self.downsample is None else self.downsample(x)
         return F.relu(out + identity)
@@ -65,12 +80,13 @@ class AxialStage(nn.Sequential):
 
     def __init__(self, inplanes: int, planes: int, blocks: int, span: int,
                  stride: int = 1, groups: int = 8, *, attn: dict,
+                 use_attention: bool = True,
                  generator: Optional[torch.Generator] = None, device=None):
         layers = []
         for i in range(blocks):
             layers.append(AxialBlock(
                 inplanes, planes, span, stride=stride if i == 0 else 1,
-                groups=groups, attn=attn,
+                groups=groups, attn=attn, use_attention=use_attention,
                 generator=generator, device=device))
             inplanes = planes * AxialBlock.expansion
             if i == 0 and stride != 1:

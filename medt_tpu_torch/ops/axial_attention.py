@@ -14,7 +14,8 @@ Port of ``medt_tpu/ops/axial_attention.py``, train and eval mode. Semantics
 
 Two paths, as in JAX:
 
-* the **fused path** (``use_fused``, modes full/gated/wopos;
+* the **fused path** (``use_fused``, modes full/gated/wopos, and gated_sig
+  in train mode: ``FUSED_EVAL_MODES``/``FUSED_TRAIN_MODES``;
   ``_fused_train_attention`` in JAX): the gates fold into the position
   tables *before* the similarity BN (they precede it in the reference),
   the BN folds into the ``(g, 8)`` similarity affine — from its running
@@ -42,7 +43,8 @@ Two paths, as in JAX:
   The TPU admission checks (VMEM budgets, flash's ``gp * span <= 256``,
   ``fused_train_supported``) are not ported; :func:`fused_route` is the
   whole rule.
-* the **plain path** (``_jnp_attention`` in JAX), for the other modes,
+* the **plain path** (``_jnp_attention`` in JAX), for the other modes
+  (gated_sig in eval mode, gated_data in both),
   whenever ``use_fused`` is off, and on the fused path at spans over 256
   (route ``"plain"``: no kernel takes them, and JAX runs XLA attention
   there), in both modes.
@@ -95,7 +97,12 @@ MODE_GATED_SIG = "gated_sig"
 MODE_GATED_DATA = "gated_data"
 
 _MODES = (MODE_FULL, MODE_GATED, MODE_WOPOS, MODE_GATED_SIG, MODE_GATED_DATA)
-_FUSED_MODES = (MODE_FULL, MODE_GATED, MODE_WOPOS)
+# the modes the fused path takes in each mode of the module (JAX's
+# fused_eval_mode and fused_train_ok): gated_sig's sigmoid gates fold into
+# the tables in train mode only, as in JAX; gated_data's per-sample gates
+# cannot fold into the tables every sample shares, so it stays plain in both
+FUSED_EVAL_MODES = (MODE_FULL, MODE_GATED, MODE_WOPOS)
+FUSED_TRAIN_MODES = FUSED_EVAL_MODES + (MODE_GATED_SIG,)
 GATE_NAMES = ("f_qr", "f_kr", "f_sve", "f_sv")
 
 SPAN_TODO = ("fused attention at span {span} > 256 has no kernel (flash2 "
@@ -280,7 +287,9 @@ class AxialAttention(nn.Module):
         qkv = F.conv2d(x, self.qkv_transform.weight[..., None])
         qkv = self.bn_qkv(qkv)                            # (n, 2out, L, m)
 
-        if self.use_fused and self.mode in _FUSED_MODES:
+        fused_modes = (FUSED_TRAIN_MODES if self.training
+                       else FUSED_EVAL_MODES)
+        if self.use_fused and self.mode in fused_modes:
             stripes = n * qkv.shape[3]
             route = fused_route(L, stripes, self.training)
             self.last_route = (route, L, self.groups, self.gp, stripes,

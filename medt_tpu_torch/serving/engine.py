@@ -16,8 +16,12 @@ Port of ``medt_tpu/serving/engine.py`` for one device:
 Images are (H, W, C) arrays as in the JAX engine (C = 1 with ``gray``);
 the model sees NCHW. ``predict`` sends an image of any other size than
 ``imgsize`` through the sliding window (larger ones tiled, smaller ones
-reflect-padded up to the window), as the JAX engine does. A mesh needs
-multi-GPU serving, a later slice of the port.
+reflect-padded up to the window) at ``window_stride`` (default: the
+window, non-overlapping tiles), as the JAX engine does. The weights come
+from ``loaddirec`` (a checkpoint of the port's ``save_checkpoint`` or a
+reference ``.pth``) or from ``variables``. A model that returns a
+deep-supervision tuple serves its main logits. A mesh needs multi-GPU
+serving, a later slice of the port.
 """
 from __future__ import annotations
 
@@ -35,7 +39,8 @@ import torch
 from ..device import resolve_device
 from ..evaluation.sliding_window import sliding_window_inference
 from ..metrics import logits_to_foreground
-from ..models import build_model
+from ..models import build_model, main_logits
+from ..training.checkpointing import restore_checkpoint
 
 
 class QueueFullError(RuntimeError):
@@ -48,12 +53,18 @@ class InferenceEngine:
     Args:
       modelname: a factory name of ``medt_tpu_torch.models``.
       imgsize: the model's resolution (the batch shape).
+      loaddirec: a checkpoint to restore (a ``ckpt.pth`` file, its
+        directory, or a reference ``.pth`` file); or
       variables: a reference-format state dict (numpy arrays or tensors),
         loaded with ``load_state_dict(strict=True)``.
       batch_size: the fixed batch; requests are padded up to it.
       gray: single-channel images (the model is built with one input
         channel).
+      use_fused: the fused attention path (the CUDA kernels on the card;
+        ``--use_pallas`` of the serve CLI).
       decision: "threshold" (reference quirk) or "argmax".
+      window_stride: the sliding window's stride for images of another
+        size (default: ``imgsize``, non-overlapping tiles).
       max_wait_ms: coalescing window of the micro-batching worker.
       max_queue: pending ``submit`` requests before QueueFullError.
       plain_cores: run the attention cores' plain versions on the card (the
@@ -62,29 +73,34 @@ class InferenceEngine:
     """
 
     def __init__(self, modelname: str, imgsize: int,
+                 loaddirec: Optional[str] = None,
                  variables: Optional[Mapping] = None, batch_size: int = 16,
-                 gray: bool = False, decision: str = "threshold",
+                 gray: bool = False, use_fused: bool = True,
+                 decision: str = "threshold",
+                 window_stride: Optional[int] = None,
                  max_wait_ms: float = 5.0, max_queue: int = 1024,
                  plain_cores: bool = False, device=None):
         self.device = resolve_device(device)
-        if variables is None:
-            raise ValueError("need variables (a reference-format state "
-                             "dict; a checkpoint file gives one through "
-                             "training.restore_checkpoint)")
+        if variables is None and loaddirec is None:
+            raise ValueError("need loaddirec or variables")
         self.imgsize = int(imgsize)
         self.batch_size = int(batch_size)
         self.channels = 1 if gray else 3
         self.decision = decision
+        self.window_stride = int(window_stride or imgsize)
         self.max_wait_ms = float(max_wait_ms)
         self.max_queue = int(max_queue)
 
         self.model = build_model(modelname, img_size=self.imgsize,
-                                 imgchan=self.channels, use_fused=True,
+                                 imgchan=self.channels, use_fused=use_fused,
                                  plain_cores=plain_cores, device=self.device)
-        self.model.load_state_dict(
-            {k: torch.as_tensor(np.asarray(v) if not torch.is_tensor(v)
-                                else v) for k, v in variables.items()},
-            strict=True)
+        if variables is None:
+            restore_checkpoint(loaddirec, self.model)
+        else:
+            self.model.load_state_dict(
+                {k: torch.as_tensor(np.asarray(v) if not torch.is_tensor(v)
+                                    else v) for k, v in variables.items()},
+                strict=True)
 
         # (priority, seq, image, future): priority first, then FIFO
         self._queue: "queue.PriorityQueue" = queue.PriorityQueue()
@@ -111,7 +127,12 @@ class InferenceEngine:
         x = x.permute(0, 3, 1, 2)
         x = x.float() / 255.0 if x.dtype == torch.uint8 else x.float()
         with self._forward_lock, torch.inference_mode():
-            return self.model(x)
+            return self._forward(x)
+
+    def _forward(self, x: torch.Tensor) -> torch.Tensor:
+        """The model's logits; the main logits of a deep-supervision tuple
+        (JAX: ``medt_tpu/serving/engine.py:124-131``)."""
+        return main_logits(self.model(x))
 
     def warmup(self):
         """One forward ahead of the first request."""
@@ -136,8 +157,8 @@ class InferenceEngine:
 
     def predict(self, image: np.ndarray) -> np.ndarray:
         """Segment one (H, W, C) image of any size: at the model's
-        resolution as a batch, otherwise through the sliding window in
-        non-overlapping tiles (JAX's default stride)."""
+        resolution as a batch, otherwise through the sliding window at
+        ``window_stride``."""
         if image.ndim == 2:
             image = image[..., None]
         h, w = image.shape[:2]
@@ -151,8 +172,9 @@ class InferenceEngine:
             x = x / np.float32(255.0)
         with self._forward_lock, torch.inference_mode():
             logits = sliding_window_inference(
-                x, self.model, window=self.imgsize,
-                batch_size=self.batch_size, device=self.device)
+                x, self._forward, window=self.imgsize,
+                stride=self.window_stride, batch_size=self.batch_size,
+                device=self.device)
             fg = logits_to_foreground(logits[None], mode=self.decision)[0]
         with self._lock:
             self.images_run += 1

@@ -38,8 +38,7 @@ from ..data import (
 )
 from ..device import resolve_device
 from ..metrics import binary_seg_scores, logits_to_foreground
-from ..models import build_model
-from ..ops.axial_attention import GATE_NAMES
+from ..models import build_model, main_logits
 from ..utils import Logger, ThroughputMeter, chk_mkdir, profiler_trace
 from .checkpointing import (
     latest_checkpoint,
@@ -89,11 +88,8 @@ def setup_state(cfg: Config, steps_per_epoch: int, device) -> TrainState:
     trains the attention gates."""
     model = build_model(cfg.modelname, img_size=cfg.imgsize,
                         imgchan=cfg.imgchan, use_fused=cfg.use_fused,
-                        seed=cfg.seed, device=resolve_device(device))
-    if cfg.trainable_gates == "yes":
-        for name, p in model.named_parameters():
-            if name.rsplit(".", 1)[-1] in GATE_NAMES:
-                p.requires_grad_(True)
+                        seed=cfg.seed, device=resolve_device(device),
+                        trainable_gates=cfg.trainable_gates == "yes")
     optimizer, schedule = build_tx(cfg, model, steps_per_epoch)
     return TrainState(model, optimizer, schedule=schedule)
 
@@ -101,13 +97,14 @@ def setup_state(cfg: Config, steps_per_epoch: int, device) -> TrainState:
 def validate(cfg: Config, state: TrainState, val_loader: DataLoader,
              epoch: int) -> dict:
     """Validation pass: the mask PNGs under ``<direc>/<epoch>/`` and the
-    mean foreground F1 and IoU."""
+    mean foreground F1 and IoU (of the main logits of a deep-supervision
+    model, whose tuple JAX's validation cannot take)."""
     fulldir = os.path.join(cfg.direc, str(epoch))
     chk_mkdir(fulldir)
     f1s, ious = [], []
     for batch in val_loader:
         dev = to_device(batch, state.device)
-        logits = eval_step(state, dev)
+        logits = main_logits(eval_step(state, dev))
         fg = logits_to_foreground(logits, mode=cfg.pred_mode)
         f1, iou, _ = binary_seg_scores(fg, dev["label"] > 0)
         f1s.append(f1)

@@ -15,7 +15,10 @@ Layout translation (JAX -> reference):
     the reference's per-channel layout);
   * ``attn_h``/``attn_w`` -> ``hight_block``/``width_block``,
     ``downsample_{conv,bn}`` -> ``downsample.{0,1}``, ``qkv`` ->
-    ``qkv_transform``, ``stem[_p]/convN`` -> ``convN[_p]``;
+    ``qkv_transform``, ``stem[_p]/convN`` -> ``convN[_p]``; the zoo's
+    single-conv stem ``stem_conv``/``stem_bn`` keeps its own top-level
+    names (JAX's translator sends every part that starts with ``stem``
+    down its stem branch and fails on these one-part paths);
   * every ``relative`` table gains its derived ``flatten_index`` buffer;
     gated factories gain their frozen gate constants.
 """
@@ -56,7 +59,7 @@ def _translate(path: Tuple[str, ...]) -> str:
         leaf_key = f"{bn}.{_LEAF_PARAM.get(kind) or _LEAF_STATS[kind]}"
     else:
         leaf_key = _LEAF_PARAM.get(leaf) or _LEAF_STATS.get(leaf) or leaf
-    if parts and parts[0].startswith("stem"):
+    if parts and parts[0] in ("stem", "stem_p"):
         # the stem flattens into the top level: stem_p/bn2 -> bn2_p
         suffix = "_p" if parts[0] == "stem_p" else ""
         return f"{parts[1]}{suffix}.{leaf_key}"
