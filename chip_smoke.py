@@ -19,6 +19,12 @@ the start of the script) as it ends:
    sites of MedT and gatedaxialunet at 128 and 64 px and at span 64, gp 8,
    and the stripe forward at the edges of its warp-over-keys body),
    with CUDA-event times of kernel and plain version and the bound of each.
+   Then the bf16 entry points of rows 1-8 (bf16 qkv in, bf16 dqkv out) at
+   the MedT-128 batch-16 geometries, both has_pos variants, and flash2's
+   at one medt_512 geometry: each held against the float32 kernel on the
+   upcast input (whether the bits are equal; at least JAX's
+   ``test_bf16_kernels.py`` tolerances) and against its plain version,
+   timed beside its float32 twin in this call, its bound with 2-byte qkv.
 4. ``serve``   — the port's ``InferenceEngine`` serving MedT 128 at batch
    16 from a seeded random init: threaded ``submit`` at two priorities plus
    full-batch ``predict_batch`` calls; the launch counters must show every
@@ -96,6 +102,26 @@ the start of the script) as it ends:
    with no kernel launch (JAX runs them without kernels); then
    ``evaluation.sweep.sweep_checkpoint_grid`` over ``train1``'s epochs 0-2
    against its labels.
+15. ``bf16`` — MedT 128 with bf16 activations (float32 parameters):
+   ``InferenceEngine(..., batch_size=16, dtype=torch.bfloat16)`` served
+   batches, counted (16 lanes + 6 flash bf16 launches a forward, no
+   float32 lanes-family launch), their logits against the same bf16 model
+   on plain cores and against the float32 model; the batch-16 train step
+   (Adam-L2), counted (16 + 6 forward, 16 + 6 backward, 22 + 22 moments
+   bf16 launches a step), 3 warm-up and 10 timed steps beside the float32
+   step's time in this call, 20 more whose loss must fall, parameters and
+   statistics float32 after; one step on the kernels against plain cores
+   (``step_parity`` with bf16's 2^-8 in place of float32's terms).
+16. ``remat`` — ``train_step(remat=True)`` of MedT 128 at batch 16 in
+   float32 against a plain step from identical weights: loss, parameters
+   after an SGD step, running statistics equal (one update); every forward
+   launch twice and every backward launch once; ms per step and peak
+   memory of both.
+17. ``bf16_cli`` — ``cli.train --dtype bfloat16 --remat`` at batch 1, one
+   epoch in process over 8 synthetic PNG pairs, one of them written
+   Adam7-interlaced by this script: exact launch counts (the stripe and
+   eval sites in float32, the lanes and moments sites in bf16), a finite
+   loss, a checkpoint, a mask of each image's size.
 
 Then: the per-kernel JSON summary, the card's ``nvidia-smi`` line, and, as
 the last line, ``{"ok": true, "device": ...}``. Any failed phase ends the
@@ -427,9 +453,10 @@ def time_ms(torch, fn, reps: int = 15, inner: int = 5) -> float:
     return statistics.median(times)
 
 
-def work(kernel, gp, L, S, has_pos):
+def work(kernel, gp, L, S, has_pos, qkv_bytes=4):
     """(bytes, operations) the function must move and do: each input read
-    once, each output written once. Operations per (group, query, key,
+    once, each output written once; qkv (and dqkv) at ``qkv_bytes`` bytes
+    an element (2 for the bf16 entry points), everything else float32. Operations per (group, query, key,
     stripe) pair, float32, counting multiply and add apart:
     forward: qk 2c + affine 2 [+ qr 2c + kr 2c + affines 4 + adds 2], max,
     exp, sum 3, sv 2gp [+ sve 2gp]; per output element 1 divide; online
@@ -454,7 +481,7 @@ def work(kernel, gp, L, S, has_pos):
     if kernel == "axial_eval_fwd":
         # + the (g, 4, gp) output affine in; per output element the 1/l
         # scaling and the affine (pos: 2 + 5, without: 1 + 3)
-        nbytes = 4 * (qkv + tables + g * 8 + g * 4 * gp + sv)
+        nbytes = qkv_bytes * qkv + 4 * (tables + g * 8 + g * 4 * gp + sv)
         ops = pairs * (logit_ops + 3 + 2 * gp * (2 if has_pos else 1)) \
             + sv * (7 if has_pos else 4)
     elif kernel in ("lanes_attn_fwd", "flash_lanes_fwd", "flash2_lanes_fwd",
@@ -462,7 +489,7 @@ def work(kernel, gp, L, S, has_pos):
         outputs = sv * (2 if has_pos else 1)
         if kernel not in ("lanes_attn_fwd", "stripe_attn_fwd"):
             outputs += 2 * row
-        nbytes = 4 * (qkv + tables + g * 8 + outputs)
+        nbytes = qkv_bytes * qkv + 4 * (tables + g * 8 + outputs)
         ops = pairs * (logit_ops + 3 + 2 * gp * (2 if has_pos else 1)) \
             + sv * (2 if has_pos else 1)
     elif kernel in ("lanes_attn_bwd", "flash_lanes_bwd", "flash2_lanes_bwd",
@@ -470,8 +497,9 @@ def work(kernel, gp, L, S, has_pos):
         grads_in = sv * (2 if has_pos else 1)
         saved = 2 * row + grads_in if kernel not in (
             "lanes_attn_bwd", "stripe_attn_bwd") else 0
-        nbytes = 4 * (qkv + tables + g * 8 + grads_in + saved       # in
-                      + qkv + tables + g * 8)                        # out
+        nbytes = (2 * qkv_bytes * qkv                                # qkv, dqkv
+                  + 4 * (tables + g * 8 + grads_in + saved           # in
+                         + tables + g * 8))                          # out
         per_pair = logit_ops + 2 + 2 * gp + 2 + 2 * gp + 4 * c + 3
         if has_pos:
             per_pair += 2 * gp + 4 * c + 4 + 4 * c + 2 * gp
@@ -483,10 +511,10 @@ def work(kernel, gp, L, S, has_pos):
         if has_pos:
             per_pos += 4 * c + 2 * c * (c + 1)
         if kernel == "moment_sums_fwd":
-            nbytes = 4 * (qk + mtables + g * 8)
+            nbytes = qkv_bytes * qk + 4 * (mtables + g * 8)
             ops = g * L * S * per_pos
         else:
-            nbytes = 4 * (qk + mtables + g * 8 + qkv + mtables)
+            nbytes = qkv_bytes * (qk + qkv) + 4 * (mtables + g * 8 + mtables)
             per_pos += 4 * c * c + 4 * c
             if has_pos:
                 per_pos += 4 * c * c + 4 * c + 2 * c + 2 * c * c
@@ -537,9 +565,10 @@ def stripe_inputs(torch, gen, gp, L, S, has_pos):
             aff)
 
 
-def kernel_calls(torch, gen, kernel, gp, L, S, has_pos):
-    """(kernel call, plain call, per-output relative tolerance?) with the
-    inputs of one geometry bound."""
+def kernel_calls(torch, gen, kernel, gp, L, S, has_pos, cast=None):
+    """(kernel call, plain call) with the inputs of one geometry bound;
+    ``cast`` (for the lanes-family and moments kernels) maps the qkv
+    operand, as the bf16 rows pass it in bf16."""
     from medt_tpu_torch.ops import (axial_eval, axial_lanes, axial_train,
                                     moments)
 
@@ -560,6 +589,8 @@ def kernel_calls(torch, gen, kernel, gp, L, S, has_pos):
                 lambda: (axial_eval.axial_attention_fused_plain(*ins),))
     if kernel.startswith("moment"):
         ins = moment_inputs(torch, gen, gp, L, S, has_pos)
+        if cast is not None:
+            ins = (cast(ins[0]), *ins[1:])
         if kernel == "moment_sums_fwd":
             return (lambda: (moments.moment_sums_fwd(*ins),),
                     lambda: (moments.moment_sums_plain(*ins),))
@@ -567,6 +598,8 @@ def kernel_calls(torch, gen, kernel, gp, L, S, has_pos):
         return (lambda: moments.moment_sums_bwd(*ins, ct),
                 lambda: moments.moment_sums_bwd_plain(*ins, ct))
     args = core_inputs(torch, gen, gp, L, S, has_pos)
+    if cast is not None:
+        args = (cast(args[0]), *args[1:])
     if kernel == "lanes_attn_fwd":
         return (lambda: axial_lanes.lanes_attn_fwd(*args),
                 lambda: axial_lanes.lanes_attn_plain(*args))
@@ -632,11 +665,133 @@ def phase_kernels(torch):
         print(json.dumps({"geometry": row}), flush=True)
         del fn, plain, got, again, want
         torch.cuda.empty_cache()  # the 512 rows' plain versions are large
+    rows += bf16_rows(torch)
     failed = [r for r in rows if not r["ok"]]
     emit("kernels", geometries=len(rows), tolerance={
-        "forward": KERNEL_ATOL, "backward_and_moments_rtol": SUM_RTOL},
+        "forward": KERNEL_ATOL, "backward_and_moments_rtol": SUM_RTOL,
+        "bf16_vs_float32_twin": BF16_TWIN_TOL,
+        "bf16_dqkv_vs_plain": "the above plus one bf16 unit in the last "
+                              "place (2^-7 relative) of each element"},
          failed=len(failed))
     check(not failed, f"kernel disagrees with its plain version: {failed}")
+    return rows
+
+
+# bf16 I/O (kernel rows 1-8): every bf16 entry point at the MedT-128
+# batch-16 geometries (both has_pos variants) and flash2 at one medt_512
+# batch-4 geometry (off the bf16 path, which is MedT-128's)
+BF16_KERNELS = ("lanes_attn_fwd", "flash_lanes_fwd", "flash2_lanes_fwd",
+                "lanes_attn_bwd", "flash_lanes_bwd", "flash2_lanes_bwd",
+                "moment_sums_fwd", "moment_sums_bwd")
+BF16_FLASH2_SITE = (256, 2, 1024, True)
+# against the float32 kernel on the upcast input, at least JAX's
+# tests/test_bf16_kernels.py tolerances: outputs, table and daff gradients
+# rtol = atol = 1e-6; dqkv (bf16) rtol 1e-2, atol 1e-6
+BF16_TWIN_TOL = {"rtol": 1e-6, "atol": 1e-6, "dqkv_rtol": 1e-2}
+# one bf16 rounding, relative: bf16 keeps 8 significant bits
+BF16_ULP = 2.0 ** -8
+
+
+def _bf16_geometries():
+    """(kernel, span, gp, stripes, has_pos, launches per call, path) of the
+    bf16 rows, as _geometries() gives the float32 ones."""
+    rows = []
+    for fwd, bwd, family in (("flash_lanes_fwd", "flash_lanes_bwd", "flash"),
+                             ("lanes_attn_fwd", "lanes_attn_bwd", "lanes")):
+        mine = [site for site in SITES if _family(site[0]) == family]
+        for kernel in (fwd, bwd):
+            rows += [(kernel, *site, "medt128") for site in mine]
+            rows.append((kernel, *OTHER_VARIANT[family], 0, "medt128"))
+    for kernel in ("moment_sums_fwd", "moment_sums_bwd"):
+        rows += [(kernel, *site, "medt128") for site in SITES]
+        rows += [(kernel, *v, 0, "medt128") for v in OTHER_VARIANT.values()]
+    rows += [(f"flash2_lanes_{d}", *BF16_FLASH2_SITE, 0, "medt512")
+             for d in ("fwd", "bwd")]
+    return rows
+
+
+def bf16_compare(torch, kernel, got, twin):
+    """A bf16 entry point's outputs against the float32 kernel's on the
+    upcast qkv: (every output bit-equal, within BF16_TWIN_TOL, max |diff|).
+    A backward's first output is dqkv, whose bits must be the float32
+    dqkv rounded once to bf16."""
+    bits, ok, err = True, True, 0.0
+    dqkv_first = kernel.endswith("_bwd")
+    for i, (o, w) in enumerate(zip(got, twin)):
+        if not w.numel():
+            continue
+        if dqkv_first and i == 0:
+            ok = ok and o.dtype == torch.bfloat16
+            bits = bits and torch.equal(o, w.to(torch.bfloat16))
+            rtol = BF16_TWIN_TOL["dqkv_rtol"]
+        else:
+            bits = bits and torch.equal(o, w)
+            rtol = BF16_TWIN_TOL["rtol"]
+        d = (o.float() - w).abs()
+        err = max(err, float(d.max()))
+        ok = ok and bool((d <= BF16_TWIN_TOL["atol"] + rtol * w.abs()).all())
+    return bits, ok, err
+
+
+def bf16_plain_compare(torch, kernel, got, want):
+    """compare() for a bf16 entry point against its plain version on the
+    same bf16 input; the bf16 dqkv of a backward may differ from the plain
+    one by one more bf16 unit in the last place of each element, at most
+    2^-7 of it (both are float32 sums, in other orders, rounded once, and
+    may round to the two sides of a bf16 value)."""
+    if not kernel.endswith("_bwd"):
+        return compare(torch, kernel, got, want)
+    g0, w0 = got[0].float(), want[0].float()
+    d = (g0 - w0).abs()
+    ok = bool(torch.isfinite(g0).all()) and bool((
+        d <= 1e-4 + SUM_RTOL * float(w0.abs().max())
+        + BF16_ULP * 2 * w0.abs()).all())
+    err_rest, ok_rest = compare(torch, kernel, got[1:], want[1:])
+    return max(float(d.max()), err_rest), ok and ok_rest
+
+
+def bf16_rows(torch):
+    """Each bf16 entry point whose float32 kernel GEOMETRIES holds, held
+    against the float32 kernel on the upcast input (bits and
+    BF16_TWIN_TOL) and against its plain version; CUDA-event times of the
+    bf16 kernel and its float32 twin in this call, and the bound with
+    2-byte qkv."""
+    kernels = {g[0] for g in GEOMETRIES}
+    rows = []
+    for seed, (kernel, L, gp, S, has_pos, per_call, path) in enumerate(
+            _bf16_geometries()):
+        if kernel not in kernels:
+            continue
+        def calls(cast):
+            gen = torch.Generator(device="cuda").manual_seed(1000 + seed)
+            return kernel_calls(torch, gen, kernel, gp, L, S, has_pos, cast)
+
+        fn, plain = calls(lambda t: t.to(torch.bfloat16))
+        twin, _ = calls(lambda t: t.to(torch.bfloat16).float())
+        got, again, want, ref = fn(), fn(), plain(), twin()
+        torch.cuda.synchronize()
+        bits, twin_ok, twin_err = bf16_compare(torch, kernel, got, ref)
+        err, ok = bf16_plain_compare(torch, kernel, got, want)
+        repeatable = all(torch.equal(a, b) for a, b in zip(got, again))
+        ms = time_ms(torch, fn)
+        twin_ms = time_ms(torch, twin)
+        plain_ms = time_ms(torch, plain, reps=5, inner=1)
+        nbytes, ops = work(kernel, gp, L, S, has_pos, qkv_bytes=2)
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F32_FLOPS_PER_S
+        row = {"kernel": f"{kernel}_bf16", "span": L, "gp": gp, "S": S,
+               "g": GROUPS, "has_pos": has_pos, "path": path,
+               "launches_per_call": per_call, "max_abs_err": err,
+               "bits_equal_float32_twin": bits,
+               "max_abs_diff_float32_twin": twin_err,
+               "ok": ok and twin_ok and repeatable,
+               "repeatable": repeatable, "ms": ms, "float32_ms": twin_ms,
+               "plain_ms": plain_ms, "bytes": nbytes, "ops": ops,
+               "bound_ms": max(t_bytes, t_ops) * 1e3,
+               "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+        rows.append(row)
+        print(json.dumps({"geometry": row}), flush=True)
+        del fn, plain, twin, got, again, want, ref
+    torch.cuda.empty_cache()
     return rows
 
 
@@ -1122,23 +1277,26 @@ def phase_predict512(torch):
     return counts
 
 
-def held(torch, name, got, want, others):
+def held(torch, name, got, want, others, rel_tol=1e-4):
     """A train-step tensor on the kernels against plain cores: within
-    1e-5 + 1e-4 * max|plain| plus STEP_NOISE_FACTOR times the plain step's
-    own spread over ``others`` (runs on a perturbed input)."""
+    1e-5 + rel_tol * max|plain| plus STEP_NOISE_FACTOR times the plain
+    step's own spread over ``others`` (runs on a perturbed input)."""
     runs = [want] + others
     noise = max(float((a - b).abs().max()) for i, a in enumerate(runs)
                 for b in runs[i + 1:])
     err = float((got - want).abs().max())
-    tol = 1e-5 + 1e-4 * float(want.abs().max()) + STEP_NOISE_FACTOR * noise
+    tol = 1e-5 + rel_tol * float(want.abs().max()) + STEP_NOISE_FACTOR * noise
     return {"name": name, "err": err, "tol": tol, "ok": err <= tol and
             bool(torch.isfinite(got).all())}
 
 
-def step_parity(torch, name, img, images, masks, variables):
+def step_parity(torch, name, img, images, masks, variables, dtype=None,
+                input_noise=STEP_INPUT_NOISE, rel_tol=1e-4):
     """One train step on the kernels against the same step on plain cores
     from identical weights (cuDNN deterministic): the loss, every gradient
-    and the running statistics."""
+    and the running statistics. ``dtype`` is the compute dtype; the spread
+    runs perturb the input by ``input_noise`` (relative), and ``rel_tol``
+    is held()'s relative term."""
     import numpy as np
 
     from medt_tpu_torch.models import build_model
@@ -1146,7 +1304,7 @@ def step_parity(torch, name, img, images, masks, variables):
 
     def one_step(plain, image):
         model = build_model(name, img_size=img, use_fused=True,
-                            plain_cores=plain, device="cuda")
+                            plain_cores=plain, device="cuda", dtype=dtype)
         model.load_state_dict(variables, strict=True)
         state = TrainState(model, adam_l2(model.parameters(), TRAIN_LR))
         loss = float(train_step(state, {"image": image, "label": masks})
@@ -1162,16 +1320,16 @@ def step_parity(torch, name, img, images, masks, variables):
     loss_p, grads_p, stats_p = one_step(True, images)
     x = images.astype(np.float32) / 255.0
     rng = np.random.default_rng(1)
-    spread = [one_step(True, (x * (1.0 + STEP_INPUT_NOISE
+    spread = [one_step(True, (x * (1.0 + input_noise
                                    * rng.standard_normal(x.shape)))
                        .astype(np.float32)) for _ in range(2)]
     torch.backends.cudnn.deterministic = False
     checks = [held(torch, "loss", torch.tensor(loss_k), torch.tensor(loss_p),
-                   [torch.tensor(s[0]) for s in spread])]
+                   [torch.tensor(s[0]) for s in spread], rel_tol)]
     checks += [held(torch, k, grads_k[k], grads_p[k],
-                    [s[1][k] for s in spread]) for k in grads_p]
+                    [s[1][k] for s in spread], rel_tol) for k in grads_p]
     checks += [held(torch, k, stats_k[k], stats_p[k],
-                    [s[2][k] for s in spread]) for k in stats_p]
+                    [s[2][k] for s in spread], rel_tol) for k in stats_p]
     return loss_k, loss_p, checks
 
 
@@ -1781,6 +1939,352 @@ def phase_zoo(torch):
     return counts
 
 
+# ---- 15-17. bf16 activations and remat ----------------------------------------
+
+# launches per MedT-128 batch-16 forward and train step in bf16: the
+# lanes-family and moments kernels through their bf16 entry points only
+BF16_FORWARD = {"lanes_attn_fwd_bf16": 16, "flash_lanes_fwd_bf16": 6}
+BF16_STEP = {**BF16_FORWARD, "lanes_attn_bwd_bf16": 16,
+             "flash_lanes_bwd_bf16": 6, "moment_sums_fwd_bf16": 22,
+             "moment_sums_bwd_bf16": 22}
+# a remat step recomputes the forward in the backward: every forward
+# launch twice, every backward launch once
+REMAT_STEP = {k: (2 if k.endswith("_fwd") else 1) * v
+              for k, v in PER_STEP.items()}
+# The bf16 step's parity bound, derived from the float32 one (held()):
+# 1e-5 + BF16_ULP * max|plain| plus STEP_NOISE_FACTOR times the plain bf16
+# step's spread when its input is perturbed by one bf16 rounding (BF16_ULP,
+# relative): bf16 rounds 2^16 times coarser than float32, so the float32
+# bound's 1e-4 relative term and 1e-6 input noise become bf16's 2^-8.
+BF16_SERVE_FORWARDS = 10
+
+
+def _timed_steps(torch, state, batch, warm=3, timed=10, remat=False):
+    """(ms per step, loss of the first step) over ``timed`` steps after
+    ``warm`` warm-up steps."""
+    from medt_tpu_torch.training import train_step
+
+    loss0 = train_step(state, batch, remat=remat)["loss"]
+    for _ in range(warm - 1):
+        train_step(state, batch, remat=remat)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(timed):
+        train_step(state, batch, remat=remat)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / timed * 1e3, float(loss0)
+
+
+def phase_bf16(torch):
+    """MedT 128 in bf16 (float32 parameters): a served batch of
+    ``InferenceEngine(..., dtype=torch.bfloat16)`` against the same bf16
+    model on plain cores and against the float32 model; the batch-16
+    train step (counted, timed beside float32, 20 loss steps, float32
+    parameters after); one step on the kernels against plain cores."""
+    import numpy as np
+
+    from medt_tpu_torch import ops
+    from medt_tpu_torch.data import blob_batch
+    from medt_tpu_torch.models import build_model
+    from medt_tpu_torch.serving import InferenceEngine
+    from medt_tpu_torch.training import TrainState, adam_l2, train_step
+
+    bf16 = torch.bfloat16
+    variables = build_model("MedT", img_size=IMG, seed=0,
+                            device="cpu").state_dict()
+    images, masks = blob_batch(BATCH, IMG, seed=0)
+    batch = {"image": images, "label": masks}
+    served = list(images)
+
+    # -- the main path, counted: served batches in bf16 ----------------------
+    engine = InferenceEngine("MedT", IMG, variables=variables,
+                             batch_size=BATCH, dtype=bf16)
+    engine.logits(served)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    for _ in range(BF16_SERVE_FORWARDS):
+        logits_bf16 = engine.logits(served)
+    torch.cuda.synchronize()
+    serve_ms = (time.perf_counter() - t0) / BF16_SERVE_FORWARDS * 1e3
+    serve_counts = ops.launch_counts()
+    # -- end of the counted run ----------------------------------------------
+    engines = {
+        "plain_bf16": InferenceEngine("MedT", IMG, variables=variables,
+                                      batch_size=BATCH, dtype=bf16,
+                                      plain_cores=True),
+        "float32": InferenceEngine("MedT", IMG, variables=variables,
+                                   batch_size=BATCH)}
+    logits = {k: e.logits(served).float() for k, e in engines.items()}
+    e32 = engines["float32"]
+    e32.logits(served)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(BF16_SERVE_FORWARDS):
+        e32.logits(served)
+    torch.cuda.synchronize()
+    serve32_ms = (time.perf_counter() - t0) / BF16_SERVE_FORWARDS * 1e3
+    del engine, engines, e32
+    vs_plain = float((logits_bf16.float() - logits["plain_bf16"]).abs().max())
+    vs_f32 = float((logits_bf16.float() - logits["float32"]).abs().max())
+    plain_vs_f32 = float((logits["plain_bf16"] - logits["float32"])
+                         .abs().max())
+    serve_tol = LOGITS_ATOL + 2.0 * plain_vs_f32
+
+    # -- the main path, counted: bf16 train steps at batch 16 ----------------
+    model = build_model("MedT", img_size=IMG, use_fused=True, device="cuda",
+                        dtype=bf16)
+    model.load_state_dict(variables, strict=True)
+    state = TrainState(model, adam_l2(model.parameters(), TRAIN_LR))
+    ops.reset_launch_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    step_ms, loss0 = _timed_steps(torch, state, batch)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    losses = torch.stack([train_step(state, batch)["loss"]
+                          for _ in range(20)]).tolist()
+    step_counts = ops.launch_counts()
+    # -- end of the counted run ----------------------------------------------
+    dtypes = sorted({str(p.dtype) for p in model.parameters()} |
+                    {str(b.dtype) for b in model.buffers()
+                     if b.is_floating_point()})
+    del state, model
+    model = build_model("MedT", img_size=IMG, use_fused=True, device="cuda")
+    model.load_state_dict(variables, strict=True)
+    state = TrainState(model, adam_l2(model.parameters(), TRAIN_LR))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    step32_ms, _ = _timed_steps(torch, state, batch)
+    peak32_gb = torch.cuda.max_memory_allocated() / 1e9
+    del state, model
+
+    loss_k, loss_p, checks = step_parity(torch, "MedT", IMG, images, masks,
+                                         variables, dtype=bf16,
+                                         input_noise=BF16_ULP,
+                                         rel_tol=BF16_ULP)
+    bad = [c for c in checks if not c["ok"]]
+    steps = 33
+    emit("bf16", model="MedT", img=IMG, batch=BATCH, dtype="bfloat16",
+         serve={"ms_per_batch": serve_ms, "float32_ms_per_batch": serve32_ms,
+                "images_per_s": BATCH / serve_ms * 1e3,
+                "float32_images_per_s": BATCH / serve32_ms * 1e3,
+                "forwards_counted": BF16_SERVE_FORWARDS,
+                "launches": serve_counts,
+                "logits_max_abs_diff_vs_plain_bf16": vs_plain,
+                "logits_max_abs_diff_vs_float32": vs_f32,
+                "plain_bf16_vs_float32": plain_vs_f32,
+                "tolerance_vs_plain": serve_tol},
+         train={"ms_per_step": step_ms, "float32_ms_per_step": step32_ms,
+                "images_per_s": BATCH / step_ms * 1e3,
+                "float32_images_per_s": BATCH / step32_ms * 1e3,
+                "peak_memory_gb": peak_gb,
+                "float32_peak_memory_gb": peak32_gb,
+                "steps_counted": steps, "launches": step_counts,
+                "loss_step0": loss0, "loss_first": losses[0],
+                "loss_last": losses[-1], "state_dtypes": dtypes},
+         parity={"loss_kernels": loss_k, "loss_plain": loss_p,
+                 "tensors": len(checks), "failed": len(bad),
+                 "worst": max(checks, key=lambda c: c["err"] / c["tol"]),
+                 "input_noise": BF16_ULP, "rel_tol": BF16_ULP})
+    check(serve_counts == launches_of(serve_counts, BF16_FORWARD,
+                                      BF16_SERVE_FORWARDS),
+          f"bf16 served launch counts {serve_counts}")
+    check(logits_bf16.dtype == bf16 and tuple(logits_bf16.shape) ==
+          (BATCH, 2, IMG, IMG) and bool(torch.isfinite(logits_bf16).all()),
+          f"bf16 logits {logits_bf16.dtype} {tuple(logits_bf16.shape)}")
+    check(vs_plain <= serve_tol, f"bf16 logits vs plain cores {vs_plain} > "
+                                 f"{serve_tol}")
+    check(step_counts == launches_of(step_counts, BF16_STEP, steps),
+          f"bf16 step launch counts {step_counts} for {steps} steps")
+    check(dtypes == ["torch.float32"], f"parameters and statistics {dtypes}")
+    check(all(np.isfinite(losses)), "non-finite bf16 loss")
+    check(np.mean(losses[-5:]) < np.mean(losses[:5]),
+          f"bf16 loss did not fall over 20 steps: {losses}")
+    check(not bad, f"bf16 step on kernels vs plain cores: {bad[:5]}")
+    counts = dict(serve_counts)
+    for k, v in step_counts.items():
+        counts[k] = counts.get(k, 0) + v
+    return counts
+
+
+def phase_remat(torch):
+    """``train_step(remat=True)`` of MedT 128 at batch 16 in float32: one
+    step against a plain step from identical weights with cuDNN
+    deterministic (loss rtol 1e-6, every parameter atol 1e-5 after an SGD
+    step, running statistics equal: one update); exact launch counts
+    (forward twice, backward once); ms per step and peak memory of both.
+    The parameters after an Adam-L2 step are reported, not held: its first
+    step is about lr * sign(grad), and the gradients of the convolutions'
+    biases ahead of a train-mode BN are rounding noise, which the card's
+    upsample backward (atomic adds) changes from run to run, so two plain
+    Adam steps differ by up to 2 lr there as well."""
+    from medt_tpu_torch import ops
+    from medt_tpu_torch.data import blob_batch
+    from medt_tpu_torch.models import build_model
+    from medt_tpu_torch.training import (TrainState, adam_l2, sgd,
+                                         train_step)
+
+    variables = build_model("MedT", img_size=IMG, seed=0,
+                            device="cpu").state_dict()
+    images, masks = blob_batch(BATCH, IMG, seed=0)
+    batch = {"image": images, "label": masks}
+
+    def fresh(opt="adam"):
+        model = build_model("MedT", img_size=IMG, use_fused=True,
+                            device="cuda")
+        model.load_state_dict(variables, strict=True)
+        tx = (adam_l2(model.parameters(), TRAIN_LR) if opt == "adam"
+              else sgd(model.parameters(), TRAIN_LR))
+        return TrainState(model, tx)
+
+    def one_step(opt, remat):
+        state = fresh(opt)
+        ops.reset_launch_counts()
+        loss = float(train_step(state, batch, remat=remat)["loss"])
+        return loss, ops.launch_counts(), {
+            k: t.detach().clone() for k, t in state.model.state_dict().items()}
+
+    def max_diff(a, b, keys):
+        return max(float((a[k] - b[k]).abs().max()) for k in keys)
+
+    torch.backends.cudnn.deterministic = True
+    loss_p, _, sd_p = one_step("sgd", False)
+    loss_r, counts, sd_r = one_step("sgd", True)
+    adam = [one_step("adam", remat)[2] for remat in (False, False, True)]
+    torch.backends.cudnn.deterministic = False
+    stats = [k for k in sd_p if k.endswith(("running_mean", "running_var"))]
+    params = [k for k in sd_p
+              if k not in stats and sd_p[k].is_floating_point()]
+    param_err = max_diff(sd_r, sd_p, params)
+    stats_equal = all(torch.equal(sd_r[k], sd_p[k]) for k in stats)
+    fresh_sd = fresh().model.state_dict()
+    moved = sum(not torch.equal(sd_r[k], fresh_sd[k]) for k in stats)
+
+    timing = {}
+    for remat in (False, True):
+        state = fresh()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ms, _ = _timed_steps(torch, state, batch, remat=remat)
+        timing["remat" if remat else "plain"] = {
+            "ms_per_step": ms,
+            "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+        del state
+    emit("remat", model="MedT", img=IMG, batch=BATCH, optimizer="sgd",
+         loss_plain=loss_p, loss_remat=loss_r, param_max_abs_diff=param_err,
+         running_stats_equal=stats_equal, running_stats=len(stats),
+         running_stats_moved=moved, launches=counts,
+         expected_launches=REMAT_STEP,
+         adam_param_max_abs_diff={
+             "remat_vs_plain": max_diff(adam[2], adam[0], params),
+             "plain_vs_plain": max_diff(adam[1], adam[0], params)},
+         **timing)
+    check(abs(loss_r - loss_p) <= 1e-6 * abs(loss_p),
+          f"remat loss {loss_r} vs {loss_p}")
+    check(param_err <= 1e-5, f"remat parameters differ by {param_err}")
+    check(stats_equal and moved == len(stats),
+          f"running statistics: equal {stats_equal}, {moved} of "
+          f"{len(stats)} moved by the step")
+    check(counts == launches_of(counts, REMAT_STEP, 1),
+          f"remat step launch counts {counts} != {REMAT_STEP}")
+    return counts
+
+
+BF16_CLI_IMAGES = 8
+# cli.train --dtype bfloat16 --remat at batch 1: the global branch's
+# stripe sites stay float32 (forward twice under remat), the lanes and
+# moments sites take bf16; each validation forward (eval) runs the eval
+# kernel in float32 and the lanes kernel in bf16
+BF16_B1_STEP = {"stripe_attn_fwd": 12, "stripe_attn_bwd": 6,
+                "lanes_attn_fwd_bf16": 32, "lanes_attn_bwd_bf16": 16,
+                "moment_sums_fwd_bf16": 32, "moment_sums_bwd_bf16": 16}
+BF16_B1_FORWARD = {"axial_eval_fwd": 14, "lanes_attn_fwd_bf16": 8}
+
+
+def write_adam7_png(path, image):
+    """An (H, W, 3) uint8 RGB image as an Adam7-interlaced 8-bit PNG, every
+    pass's rows unfiltered (filter 0)."""
+    import struct
+    import zlib
+
+    import numpy as np
+
+    def chunk(kind, body):
+        return (struct.pack(">I", len(body)) + kind + body +
+                struct.pack(">I", zlib.crc32(kind + body) & 0xFFFFFFFF))
+
+    h, w, _ = image.shape
+    raw = b""
+    for x0, y0, dx, dy in ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8),
+                           (2, 0, 4, 4), (0, 2, 2, 4), (1, 0, 2, 2),
+                           (0, 1, 1, 2)):
+        sub = np.ascontiguousarray(image[y0::dy, x0::dx])
+        for row in sub.reshape(sub.shape[0], -1):
+            raw += b"\0" + row.tobytes()
+    header = struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 1)
+    with open(path, "wb") as f:
+        f.write(b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", header) +
+                chunk(b"IDAT", zlib.compress(raw)) + chunk(b"IEND", b""))
+
+
+def phase_bf16_cli(torch):
+    """``cli.train --dtype bfloat16 --remat`` at its default batch 1, one
+    epoch in process over 8 synthetic PNG pairs, one image written
+    Adam7-interlaced: exact launch counts, a finite loss, a checkpoint and
+    one mask per image of its size."""
+    import math
+    import shutil
+
+    from medt_tpu_torch import ops
+    from medt_tpu_torch.cli import train as cli_train
+    from medt_tpu_torch.data import make_png_dataset, read_png
+
+    root = REPO / "_smoke" / "bf16"
+    shutil.rmtree(root, ignore_errors=True)
+    data = make_png_dataset(str(root / "data"), BF16_CLI_IMAGES, IMG, seed=2)
+    first = root / "data" / "img" / "000.png"
+    image = read_png(str(first))[..., ::-1].copy()       # BGR -> RGB
+    write_adam7_png(str(first), image)
+    check(first.read_bytes()[28] == 1 and (read_png(str(first))[..., ::-1]
+                                           == image).all(),
+          "the Adam7 image does not read back as its pixels")
+    out = root / "out"
+    argv = ["--train_dataset", data, "--val_dataset", data, "--modelname",
+            "MedT", "--imgsize", str(IMG), "--epochs", "1", "--save_freq",
+            "1", "--direc", str(out), "--dtype", "bfloat16", "--remat"]
+
+    # -- the main path, counted: one epoch ------------------------------------
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    state = cli_train.main(argv)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    # -- end of the counted run ----------------------------------------------
+    expect = launches_of(counts, BF16_B1_STEP, BF16_CLI_IMAGES)
+    for k, v in BF16_B1_FORWARD.items():
+        expect[k] += v * BF16_CLI_IMAGES
+    dtypes = sorted({str(p.dtype) for p in state.model.parameters()})
+    log = [json.loads(line) for line in
+           (out / "train_log.jsonl").read_text().splitlines()]
+    masks = sorted((out / "0").glob("*.png"))
+    emit("bf16_cli", model="MedT", img=IMG, batch=1, dtype="bfloat16",
+         remat=True, images=BF16_CLI_IMAGES, adam7_image=first.name,
+         steps=state.step, launches=counts, wall_s=wall_s, log=log,
+         parameter_dtypes=dtypes)
+    check(counts == expect, f"launch counts {counts} != {expect}")
+    check(state.step == BF16_CLI_IMAGES, f"{state.step} steps")
+    check(dtypes == ["torch.float32"], f"parameters {dtypes}")
+    check(len(log) == 1 and math.isfinite(log[0]["loss"]),
+          f"train_log.jsonl {log}")
+    check((out / "0" / "ckpt.pth").is_file(), "no checkpoint")
+    check(len(masks) == BF16_CLI_IMAGES and all(
+        read_png(str(m), gray=True).shape == (IMG, IMG) for m in masks),
+        f"masks {[m.name for m in masks]}")
+    shutil.rmtree(REPO / "_smoke", ignore_errors=True)
+    return counts
+
+
 def summary(rows, counts):
     """One entry per kernel; times per call of its main path: one MedT-128
     batch-16 forward (serving) for the lanes and flash forward cores, one
@@ -1789,19 +2293,28 @@ def summary(rows, counts):
     batch-4 forward (``serve512``) for the flash2 forward, one medt_512
     train step for its backward and one MedT-128 batch-1 train step
     (``train1``) for the stripe kernels. ``counts`` holds each phase's
-    launch counts by phase name."""
+    launch counts by phase name. A bf16 entry point's main path is the
+    ``bf16`` phase (a served MedT-128 batch-16 forward, a train step); the
+    flash2 ones, which no bf16 path of this card's smoke runs (0
+    launches), give their one medt_512 geometry's time per launch."""
     kernels = []
-    for name in KERNELS:
+    for name in KERNELS + [f"{k}_bf16" for k in BF16_KERNELS]:
+        bf16 = name.endswith("_bf16")
+        base = name[:-len("_bf16")] if bf16 else name
         flash2 = name.startswith("flash2")
         stripe = name.startswith("stripe")
         path = "medt512" if flash2 else "medt128b1" if stripe else "medt128"
         mine = [r for r in rows if r["kernel"] == name and r["path"] == path]
         used = [r for r in mine if r["launches_per_call"]]
         n = [r["launches_per_call"] for r in used]
+        if not used:    # off every path this smoke runs: per launch
+            used, n = mine, [1] * len(mine)
         b = sum(r["bytes"] / HBM_BYTES_PER_S * k for r, k in zip(used, n))
         o = sum(r["ops"] / F32_FLOPS_PER_S * k for r, k in zip(used, n))
-        forward = name.endswith("fwd") and not name.startswith("moment")
-        if name == "axial_eval_fwd":
+        forward = base.endswith("fwd") and not name.startswith("moment")
+        if bf16:
+            phase = "bf16"
+        elif name == "axial_eval_fwd":
             phase = "predict"
         elif stripe:
             phase = "train1"
@@ -1810,8 +2323,9 @@ def summary(rows, counts):
         else:
             phase = "serve" if forward else "train"
         kernels.append({
-            "name": name, "route": "cuda", "source": SOURCES[name],
-            "replaces": REPLACES[name], "launches": counts[phase][name],
+            "name": name, "route": "cuda", "source": SOURCES[base],
+            "replaces": REPLACES[base],
+            "launches": counts[phase].get(name, 0),
             "max_abs_err": max(r["max_abs_err"] for r in rows
                                if r["kernel"] == name),
             "ms": sum(r["ms"] * k for r, k in zip(used, n)),
@@ -1820,6 +2334,9 @@ def summary(rows, counts):
             "bound_by": "bytes" if b >= o else "operations",
             "library_ms": None,
         })
+        if bf16:
+            kernels[-1]["float32_ms"] = sum(r["float32_ms"] * k
+                                            for r, k in zip(used, n))
     return {"kernels": kernels}
 
 
@@ -1849,7 +2366,9 @@ def main() -> int:
                           ("train512", phase_train512),
                           ("logo512", phase_logo512),
                           ("train1", phase_train1), ("http", phase_http),
-                          ("zoo", phase_zoo)):
+                          ("zoo", phase_zoo), ("bf16", phase_bf16),
+                          ("remat", phase_remat),
+                          ("bf16_cli", phase_bf16_cli)):
             counts[phase] = fn(torch)
     except Exception as e:  # report the phase, then fail without "ok"
         emit(phase, ok=False, error=f"{type(e).__name__}: {e}")

@@ -16,7 +16,9 @@ forward and backward (which compute the flash contract at any span up to
 256) at every flash forward and backward geometry, as the baseline a flash
 design has to beat (rows with ``path`` ``"<path>:flash2"``); ``moments``
 runs the moments forward and backward, ``stripe`` the stripe train core's
-forward and backward, ``eval`` the batch-1 eval kernel. Then, for each
+forward and backward, ``eval`` the batch-1 eval kernel; the lanes,
+flash, flash2 and moments families also run their bf16 entry points
+(kernels ``<name>_bf16``, the smoke's bf16 rows). Then, for each
 geometry, on inputs seeded by the geometry alone, a ``torch.profiler``
 window over a few calls splits its device time by CUDA kernel (row pass,
 column pass, reductions) and a host clock times the
@@ -101,10 +103,12 @@ def host_ms(torch, fn, calls: int = 20) -> float:
 
 
 def out_sha256(torch, outputs) -> str:
-    """sha256 of a kernel call's outputs, in order."""
+    """sha256 of a kernel call's outputs' bytes, in order (as bytes, which
+    numpy takes in every dtype, bf16 too)."""
     h = hashlib.sha256()
     for t in outputs:
-        h.update(t.detach().contiguous().cpu().numpy().tobytes())
+        h.update(t.detach().contiguous().view(torch.uint8).cpu().numpy()
+                 .tobytes())
     return h.hexdigest()[:16]
 
 
@@ -172,8 +176,12 @@ def main(argv=None) -> int:
     split = []
     for r in rows:
         gen = torch.Generator(device="cuda").manual_seed(row_seed(r))
-        fn, _ = smoke.kernel_calls(torch, gen, r["kernel"], r["gp"],
-                                   r["span"], r["S"], r["has_pos"])
+        kernel, extra = r["kernel"], {}
+        if kernel.endswith("_bf16"):    # a bf16 entry point: bf16 qkv
+            kernel = kernel[:-len("_bf16")]
+            extra["cast"] = lambda t: t.to(torch.bfloat16)
+        fn, _ = smoke.kernel_calls(torch, gen, kernel, r["gp"], r["span"],
+                                   r["S"], r["has_pos"], **extra)
         by_kernel = split_by_kernel(torch, fn)
         if not by_kernel:  # the profiler kept no events: once more
             by_kernel = split_by_kernel(torch, fn)

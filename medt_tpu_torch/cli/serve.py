@@ -6,7 +6,8 @@ Port of ``medt_tpu/cli/serve.py``, standard library only:
         --loaddirec ./results/final_model --port 8900 --batch_size 16
 
 Endpoints:
-  POST /predict   body = a PNG of any size; the model's size rides the
+  POST /predict   body = an image of any size (PNG, or any format PIL
+                  opens); the model's size rides the
                   engine's micro-batches, any other size goes through the
                   sliding window; response = a PNG mask (0/255), 200.
                   Optional ``X-Priority: <int>`` header: lower is served
@@ -16,16 +17,19 @@ Endpoints:
 Other paths answer 404; a full queue (``QueueFullError``) 503 with
 ``Retry-After: 1``; any other failure 400 with its message.
 
-JAX decodes the body with PIL; the port uses its own PNG codec
-(:mod:`..data.png`) and gives the arrays PIL does: a colour PNG as RGB
-(alpha dropped, as JAX drops an RGBA image's fourth channel), a gray PNG
-as an (H, W) array, which a 3-channel engine refuses (400) as JAX's does.
-A gray PNG with alpha reads as gray (PIL gives two channels there). A
-palette PNG answers 400: PIL gives its (H, W) palette indices, which
+JAX decodes the body with PIL. For a PNG body the port uses its own PNG
+codec (:mod:`..data.png`) and gives the arrays PIL does: a colour PNG as
+RGB (alpha dropped, as JAX drops an RGBA image's fourth channel), a gray
+PNG as an (H, W) array, which a 3-channel engine refuses (400) as JAX's
+does. A gray PNG with alpha reads as gray (PIL gives two channels there).
+A palette PNG answers 400: PIL gives its (H, W) palette indices, which
 JAX's 3-channel engine refuses and a gray one would read as gray levels.
+Any other body (BMP, JPEG, TIFF, ...) goes through PIL as in JAX, imported
+at the first such request.
 """
 from __future__ import annotations
 
+import io
 import json
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
@@ -39,10 +43,25 @@ _GRAY_TYPES = (0, 4)  # PNG colour types gray and gray + alpha
 _PALETTE = 3
 
 
+def _decode_with_pil(body: bytes) -> np.ndarray:
+    """A non-PNG body as JAX's ``do_POST`` reads it: PIL's array, alpha
+    dropped."""
+    try:
+        from PIL import Image
+    except ImportError:
+        raise ImportError("a non-PNG request body needs PIL, which does "
+                          "not import; send a PNG") from None
+    img = np.asarray(Image.open(io.BytesIO(body)))
+    return img[..., :3] if img.ndim == 3 and img.shape[-1] == 4 else img
+
+
 def decode_request_png(body: bytes) -> np.ndarray:
-    """A request body -> (H, W) uint8 for a gray PNG, else (H, W, 3) RGB."""
-    if not body.startswith(SIGNATURE) or len(body) < 26:
-        raise ValueError("body is not a PNG file")
+    """A request body -> (H, W) uint8 for a gray image, else (H, W, 3) RGB:
+    PNG bodies by the port's codec, any other format by PIL."""
+    if not body.startswith(SIGNATURE):
+        return _decode_with_pil(body)
+    if len(body) < 26:
+        raise ValueError("truncated PNG body")
     if body[25] == _PALETTE:                  # IHDR's colour type byte
         raise ValueError("palette PNGs are not served; send RGB or gray")
     if body[25] in _GRAY_TYPES:

@@ -11,8 +11,10 @@ What differs in the port: ``--use_pallas yes`` selects its fused attention
 (``use_fused``, CUDA kernels on the card). The flags that only the JAX
 package's TPU mesh reads (``--dp``, ``--sp``, ``--tp``, ``--num_slices``)
 are accepted and any value other than 1 is rejected with a message;
-``--platform`` (JAX's backend override) and ``--dtype bfloat16`` are
-rejected likewise.
+``--platform`` (JAX's backend override) is rejected likewise. ``--dtype
+bfloat16`` computes the activations in bf16 with float32 parameters
+(:attr:`Config.compute_dtype`, JAX's ``setup_state`` mapping), and
+``--remat`` recomputes the forward in the backward.
 """
 from __future__ import annotations
 
@@ -20,6 +22,8 @@ import argparse
 import dataclasses
 from dataclasses import dataclass
 from typing import Optional
+
+import torch
 
 
 @dataclass
@@ -54,8 +58,8 @@ class Config:
     # ("argmax" = corrected decision rule)
     # performance
     use_pallas: str = "yes"          # the port's fused attention (use_fused)
-    remat: bool = False              # not ported: the trainer rejects it
-    dtype: str = "float32"           # float32 only in the port
+    remat: bool = False              # rematerialize fwd in bwd
+    dtype: str = "float32"           # float32 | bfloat16 compute
     # the released reference FREEZES its attention gates (axialnet.py:124-127);
     # "yes" trains them instead — the paper's described setting
     trainable_gates: str = "no"
@@ -75,6 +79,12 @@ class Config:
     @property
     def use_fused(self) -> bool:
         return self.use_pallas == "yes"
+
+    @property
+    def compute_dtype(self) -> Optional[torch.dtype]:
+        """``build_model``'s dtype: bf16 for ``--dtype bfloat16``, else None
+        (float32), as JAX's ``setup_state`` maps the flag."""
+        return torch.bfloat16 if self.dtype == "bfloat16" else None
 
     @property
     def imgchan(self) -> int:
@@ -127,8 +137,4 @@ def parse_config(argv=None, description: str = "medt_tpu_torch") -> Config:
         parser.error("--platform is the JAX package's backend override; the "
                      "port's CLIs run on the card (in-process callers pass "
                      "main(argv, device='cpu'))")
-    if cfg.dtype != "float32":
-        parser.error(f"--dtype {cfg.dtype}: the port computes in float32 "
-                     "(bf16 is not ported yet: ROADMAP.md, 'bf16 "
-                     "activations, and remat')")
     return cfg

@@ -55,4 +55,17 @@ int medt_flash2_lanes_fwd(const float* qkv, const float* qemb,
       stream);
 }
 
+// The same on bf16 qkv (the JAX package's bf16 kernel I/O): each qkv value
+// is converted where it is read, so sv, sve, m and l (float32) are the
+// float32 entry point's on the upcast qkv, bit for bit.
+int medt_flash2_lanes_fwd_bf16(const __nv_bfloat16* qkv, const float* qemb,
+                               const float* kemb_t, const float* vemb,
+                               const float* aff, float* sv, float* sve,
+                               float* m, float* l, int g, int gp, int L,
+                               int S, int has_pos, void* stream) {
+  return flash2::tiled_fwd<flash2::Flash2FwdTiles>(
+      qkv, qemb, kemb_t, vemb, aff, sv, sve, m, l, g, gp, L, S, has_pos,
+      stream);
+}
+
 }  // extern "C"

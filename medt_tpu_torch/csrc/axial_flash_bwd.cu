@@ -67,4 +67,23 @@ int medt_flash_lanes_bwd(const float* qkv, const float* qemb,
       n_aff_part, stream);
 }
 
+// The same on bf16 qkv (the JAX package's bf16 kernel I/O): qkv values
+// are converted where they are read and each dqkv value is rounded once to
+// bf16 where it is stored, so the table and daff gradients are the float32
+// entry point's on the upcast qkv and dqkv is its dqkv rounded once.
+int medt_flash_lanes_bwd_bf16(const __nv_bfloat16* qkv, const float* qemb,
+                              const float* kemb_t, const float* vemb,
+                              const float* aff, const float* m, const float* l,
+                              const float* sv, const float* sve,
+                              const float* dsv, const float* dsve,
+                              __nv_bfloat16* dqkv, float* dtables, float* daff,
+                              float* scratch, float* tab_part, float* aff_part,
+                              int g, int gp, int L, int S, int has_pos,
+                              int n_tab_part, int n_aff_part, void* stream) {
+  return flash2::tiled_bwd<flash2::FlashTiles>(
+      qkv, qemb, kemb_t, vemb, aff, m, l, sv, sve, dsv, dsve, dqkv, dtables,
+      daff, scratch, tab_part, aff_part, g, gp, L, S, has_pos, n_tab_part,
+      n_aff_part, stream);
+}
+
 }  // extern "C"

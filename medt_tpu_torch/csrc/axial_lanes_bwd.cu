@@ -63,6 +63,11 @@
 // per block, 2 blocks of 8 warps per SM at 128 registers) and
 // shared-memory reads in phases A and B (c + gp per pair each); a variant
 // held to 3 blocks per SM spilled and was slower.
+// qkv and dqkv are float32 or bf16 (the element type T of the template):
+// the q, k, v rows are staged raw (rows padded to 16-byte runs) and
+// converted where they are read, and each dqkv value is rounded once where
+// it is stored, so a bf16 qkv gives the float32 kernel's table and daff
+// gradients on its upcast, bit for bit, and its dqkv rounded once.
 // Kernels launch on the caller's stream, allocate nothing (the wrapper
 // passes the partials) and do not synchronise; the entry point returns the
 // first CUDA error of its launches.
@@ -76,7 +81,9 @@
 namespace {
 
 using flash2::ex2;
+using flash2::from_f32;
 using flash2::kLog2e;
+using flash2::to_f32;
 using medt::warp_sum;
 
 constexpr int kMaxSpan = 16;
@@ -101,47 +108,56 @@ inline int blocks_per_group(int g, int L, int S, bool pos) {
   return pos && chunks > cap ? cap : chunks;
 }
 
-template <int GP, int LP, bool POS>
+template <int GP, int LP, bool POS, class T>
 struct Cfg {
   static constexpr int C = GP / 2;
   static constexpr int R = 2 * GP;  // table rows: qemb c, kemb_t c, vemb gp
   static constexpr int NS = kThreads / LP;  // stripes per chunk
-  static constexpr int NSP = NS + 4;        // row stride of the staged tile
+  // row strides of the staged tiles: qkv's rows (of T) padded by one
+  // 16-byte chunk, the float rows by 4
+  static constexpr int NSPX = NS + flash2::kChunk<T>;
+  static constexpr int NSP = NS + 4;
   static constexpr int PS = NS + 1;         // row stride of p and dlog
-  // staged rows: q (c), k (c), v (gp), dsv (gp), [dsve (gp)], each LP x NSP
-  static constexpr int OK = C, OV = GP, OG = 2 * GP, OE = 3 * GP;
-  static constexpr int ROWS = 3 * GP + (POS ? GP : 0);
-  static constexpr int TILE = ROWS * LP * NSP;
+  // staged rows of qkv: q (c), k (c), v (gp), each LP x NSPX of T; then
+  // the float rows dsv (gp), [dsve (gp)], each LP x NSP
+  static constexpr int OK = C, OV = GP, OE = GP;
+  static constexpr int XTILE = 2 * GP * LP * NSPX;
+  static constexpr int GTILE = (POS ? 2 : 1) * GP * LP * NSP;
   static constexpr int PD = LP * LP * PS;   // p or dlog, [i][j][stripe]
   static constexpr int TAB = POS ? R * LP * LP : 0;  // tables, [row][i][j]
-  static constexpr int FLOATS = TILE + 2 * PD + TAB + kWarps * 4;
+  static constexpr size_t BYTES =
+      XTILE * sizeof(T) + (GTILE + 2 * PD + TAB + kWarps * 4) * sizeof(float);
   // table sums per thread in phase C
   static constexpr int TPT = POS ? (R * LP * LP + kThreads - 1) / kThreads : 0;
 };
 
+template <class T>
 struct Args {
-  const float* qkv;
+  const T* qkv;
   const float* qemb;
   const float* kemb_t;
   const float* vemb;
   const float* aff;
   const float* dsv;
   const float* dsve;
-  float* dqkv;
+  T* dqkv;
   float* tab_part;    // (g * blocks, 2gp, L, L) with positions
   float* aff_part;    // (blocks, g, 4)
   int g, L, S;
   bool vec_s, vec_l;
 };
 
-template <int GP, int LP, bool POS>
-__global__ void __launch_bounds__(kThreads) lanes_bwd_kernel(Args a) {
-  using K = Cfg<GP, LP, POS>;
-  constexpr int C = K::C, R = K::R, NS = K::NS, NSP = K::NSP, PS = K::PS;
-  constexpr int RS = LP * NSP;  // one staged row (of c, gp) of the tile
+template <int GP, int LP, bool POS, class T>
+__global__ void __launch_bounds__(kThreads) lanes_bwd_kernel(Args<T> a) {
+  using K = Cfg<GP, LP, POS, T>;
+  constexpr int C = K::C, R = K::R, NS = K::NS, NSP = K::NSP,
+                NSPX = K::NSPX, PS = K::PS;
+  constexpr int RS = LP * NSP;    // one staged float row (dsv, dsve)
+  constexpr int RSX = LP * NSPX;  // one staged row of qkv
   extern __shared__ __align__(16) float smem[];
-  float* tile = smem;
-  float* sp = tile + K::TILE;     // p
+  T* xtile = reinterpret_cast<T*>(smem);  // q, k, v
+  float* tile = reinterpret_cast<float*>(xtile + K::XTILE);  // dsv, dsve
+  float* sp = tile + K::GTILE;    // p
   float* sd = sp + K::PD;         // dlog
   float* tab = sd + K::PD;        // qemb (c), kemb_t (c), vemb (gp)
   float* wsum = tab + K::TAB;     // [warp][4]
@@ -153,10 +169,10 @@ __global__ void __launch_bounds__(kThreads) lanes_bwd_kernel(Args a) {
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int r = tid / NS, s = tid % NS;  // query (A) or key (B), stripe
   const size_t LS = (size_t)L * S, LL = (size_t)L * L;
-  const float* qkv = a.qkv + (size_t)gi * 2 * GP * LS;
+  const T* qkv = a.qkv + (size_t)gi * 2 * GP * LS;
   const float* dsv = a.dsv + (size_t)gi * GP * LS;
   const float* dsve = POS ? a.dsve + (size_t)gi * GP * LS : nullptr;
-  float* dqkv = a.dqkv + (size_t)gi * 2 * GP * LS;
+  T* dqkv = a.dqkv + (size_t)gi * 2 * GP * LS;
 
   if constexpr (POS) {
     flash2::stage<C, LP, LP, kThreads>(tab, a.qemb, LL, L, L, L, a.vec_l,
@@ -179,10 +195,10 @@ __global__ void __launch_bounds__(kThreads) lanes_bwd_kernel(Args a) {
   for (int chunk = blockIdx.x; chunk < chunks; chunk += gridDim.x) {
     const int s0 = chunk * NS;
     __syncthreads();  // the previous chunk's phases are done with the tile
-    flash2::stage<2 * GP, LP, NS, kThreads, NSP>(tile, qkv + s0, LS, S, L,
-                                                 S - s0, a.vec_s, tid);
-    flash2::stage<GP, LP, NS, kThreads, NSP>(tile + K::OG * RS, dsv + s0, LS,
-                                             S, L, S - s0, a.vec_s, tid);
+    flash2::stage<2 * GP, LP, NS, kThreads, NSPX>(xtile, qkv + s0, LS, S,
+                                                  L, S - s0, a.vec_s, tid);
+    flash2::stage<GP, LP, NS, kThreads, NSP>(tile, dsv + s0, LS, S, L,
+                                             S - s0, a.vec_s, tid);
     if constexpr (POS) {
       flash2::stage<GP, LP, NS, kThreads, NSP>(tile + K::OE * RS, dsve + s0,
                                                LS, S, L, S - s0, a.vec_s,
@@ -193,7 +209,8 @@ __global__ void __launch_bounds__(kThreads) lanes_bwd_kernel(Args a) {
     __syncthreads();
     // A stripe past the edge is staged as zeros: its dsim and delta are 0,
     // so its dlog is 0 and its p meets only zero dsv and dsve.
-    const float* col = tile + s;  // this thread's stripe
+    const T* xcol = xtile + s;    // this thread's stripe: q, k, v
+    const float* col = tile + s;  // and dsv, dsve
     const bool in_s = s0 + s < S;
 
     // -- phase A: thread (query i, stripe) ---------------------------------
@@ -201,10 +218,10 @@ __global__ void __launch_bounds__(kThreads) lanes_bwd_kernel(Args a) {
       const int i = r;
       float q[C], gv[GP], ge[GP];
 #pragma unroll
-      for (int c = 0; c < C; ++c) q[c] = col[c * RS + i * NSP];
+      for (int c = 0; c < C; ++c) q[c] = to_f32(xcol[c * RSX + i * NSPX]);
 #pragma unroll
       for (int p = 0; p < GP; ++p) {
-        gv[p] = col[(K::OG + p) * RS + i * NSP];
+        gv[p] = col[p * RS + i * NSP];
         ge[p] = POS ? col[(K::OE + p) * RS + i * NSP] : 0.f;
       }
       float xs[LP], ds[LP], mx = -3.0e38f;
@@ -214,7 +231,7 @@ __global__ void __launch_bounds__(kThreads) lanes_bwd_kernel(Args a) {
           float qk = 0.f, qr = 0.f, kr = 0.f;
 #pragma unroll
           for (int c = 0; c < C; ++c) {
-            const float kc = col[(K::OK + c) * RS + j * NSP];
+            const float kc = to_f32(xcol[(K::OK + c) * RSX + j * NSPX]);
             qk = fmaf(q[c], kc, qk);
             if constexpr (POS) {
               qr = fmaf(q[c], tq[(c * LP + i) * LP + j], qr);
@@ -226,7 +243,7 @@ __global__ void __launch_bounds__(kThreads) lanes_bwd_kernel(Args a) {
           float d = 0.f;
 #pragma unroll
           for (int p = 0; p < GP; ++p) {
-            d = fmaf(gv[p], col[(K::OV + p) * RS + j * NSP], d);
+            d = fmaf(gv[p], to_f32(xcol[(K::OV + p) * RSX + j * NSPX]), d);
             if constexpr (POS) d = fmaf(ge[p], tv[(p * LP + i) * LP + j], d);
           }
           xs[j] = x;
@@ -260,7 +277,7 @@ __global__ void __launch_bounds__(kThreads) lanes_bwd_kernel(Args a) {
           float qk = 0.f, qr = 0.f, kr = 0.f;
 #pragma unroll
           for (int c = 0; c < C; ++c) {
-            const float kc = col[(K::OK + c) * RS + j * NSP];
+            const float kc = to_f32(xcol[(K::OK + c) * RSX + j * NSPX]);
             qk = fmaf(q[c], kc, qk);
             dA[c] = fmaf(dl, kc, dA[c]);
             if constexpr (POS) {
@@ -281,7 +298,7 @@ __global__ void __launch_bounds__(kThreads) lanes_bwd_kernel(Args a) {
 #pragma unroll
         for (int c = 0; c < C; ++c) {
           dqkv[c * LS + (size_t)i * S + s0 + s] =
-              POS ? fmaf(a2, dB[c], a0 * dA[c]) : a0 * dA[c];
+              from_f32<T>(POS ? fmaf(a2, dB[c], a0 * dA[c]) : a0 * dA[c]);
         }
       }
     }
@@ -302,21 +319,23 @@ __global__ void __launch_bounds__(kThreads) lanes_bwd_kernel(Args a) {
           const float pr = sp[(i * LP + j) * PS + s];
 #pragma unroll
           for (int c = 0; c < C; ++c) {
-            float w = a0 * col[c * RS + i * NSP];
+            float w = a0 * to_f32(xcol[c * RSX + i * NSPX]);
             if constexpr (POS) w = fmaf(a4, tk[(c * LP + i) * LP + j], w);
             dk[c] = fmaf(dl, w, dk[c]);
           }
 #pragma unroll
           for (int p = 0; p < GP; ++p)
-            dv[p] = fmaf(pr, col[(K::OG + p) * RS + i * NSP], dv[p]);
+            dv[p] = fmaf(pr, col[p * RS + i * NSP], dv[p]);
         }
       }
       if (in_s) {
         const size_t o = (size_t)j * S + s0 + s;
 #pragma unroll
-        for (int c = 0; c < C; ++c) dqkv[(C + c) * LS + o] = dk[c];
+        for (int c = 0; c < C; ++c)
+          dqkv[(C + c) * LS + o] = from_f32<T>(dk[c]);
 #pragma unroll
-        for (int p = 0; p < GP; ++p) dqkv[(GP + p) * LS + o] = dv[p];
+        for (int p = 0; p < GP; ++p)
+          dqkv[(GP + p) * LS + o] = from_f32<T>(dv[p]);
       }
     }
 
@@ -328,13 +347,17 @@ __global__ void __launch_bounds__(kThreads) lanes_bwd_kernel(Args a) {
         const int rr = e / (LP * LP), i = (e / LP) % LP, j = e % LP;
         if (rr < R && i < L && j < L) {
           const float* w = (rr < 2 * C ? sd : sp) + (i * LP + j) * PS;
-          const float* o =
-              rr < C       ? tile + (rr * LP + i) * NSP
-              : rr < 2 * C ? tile + ((K::OK + rr - C) * LP + j) * NSP
-                           : tile + ((K::OE + rr - 2 * C) * LP + i) * NSP;
           float v = 0.f;
+          if (rr < 2 * C) {  // q or k rows, of T
+            const T* o = rr < C ? xtile + (rr * LP + i) * NSPX
+                                : xtile + ((K::OK + rr - C) * LP + j) * NSPX;
 #pragma unroll 4
-          for (int u = 0; u < NS; ++u) v = fmaf(w[u], o[u], v);
+            for (int u = 0; u < NS; ++u) v = fmaf(w[u], to_f32(o[u]), v);
+          } else {           // dsve rows
+            const float* o = tile + ((K::OE + rr - 2 * C) * LP + i) * NSP;
+#pragma unroll 4
+            for (int u = 0; u < NS; ++u) v = fmaf(w[u], o[u], v);
+          }
           acc[t] += v;
         }
       }
@@ -368,18 +391,18 @@ __global__ void __launch_bounds__(kThreads) lanes_bwd_kernel(Args a) {
   }
 }
 
-template <int GP, int LP, bool POS>
-cudaError_t launch_variant(const Args& a, int blocks, cudaStream_t stream) {
-  auto kernel = lanes_bwd_kernel<GP, LP, POS>;
-  const size_t smem = (size_t)Cfg<GP, LP, POS>::FLOATS * sizeof(float);
+template <int GP, int LP, bool POS, class T>
+cudaError_t launch_variant(const Args<T>& a, int blocks, cudaStream_t stream) {
+  auto kernel = lanes_bwd_kernel<GP, LP, POS, T>;
+  const size_t smem = Cfg<GP, LP, POS, T>::BYTES;
   cudaError_t err = flash2::allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
   kernel<<<dim3(blocks, a.g), kThreads, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
-template <int GP>
-cudaError_t launch_gp(const Args& a, int blocks, bool pos,
+template <int GP, class T>
+cudaError_t launch_gp(const Args<T>& a, int blocks, bool pos,
                       cudaStream_t stream) {
   switch (span_bucket(a.L)) {
     case 4: return pos ? launch_variant<GP, 4, true>(a, blocks, stream)
@@ -389,6 +412,44 @@ cudaError_t launch_gp(const Args& a, int blocks, bool pos,
     default: return pos ? launch_variant<GP, 16, true>(a, blocks, stream)
                         : launch_variant<GP, 16, false>(a, blocks, stream);
   }
+}
+
+template <class T>
+int lanes_bwd(const T* qkv, const float* qemb, const float* kemb_t,
+              const float* vemb, const float* aff, const float* dsv,
+              const float* dsve, T* dqkv, float* dtables, float* daff,
+              float* tab_part, float* aff_part, int g, int gp, int L, int S,
+              int has_pos, int n_tab_part, int n_aff_part,
+              void* stream_ptr) {
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  const bool pos = has_pos != 0;
+  if (g < 1 || g > 65535 || S < 1 || L < 1 || L > kMaxSpan ||
+      (gp != 2 && gp != 4 && gp != 8 && gp != 16)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const int blocks = blocks_per_group(g, L, S, pos);
+  if (n_aff_part != blocks || (pos && n_tab_part != g * blocks)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  using flash2::aligned16;
+  const bool vec_s = S % flash2::kChunk<T> == 0 && aligned16(qkv) &&
+                     aligned16(dsv) && (!pos || aligned16(dsve));
+  const bool vec_l = pos && L % 4 == 0 && aligned16(qemb) &&
+                     aligned16(kemb_t) && aligned16(vemb);
+  const Args<T> a{qkv, qemb, kemb_t, vemb, aff, dsv, dsve, dqkv, tab_part,
+                  aff_part, g, L, S, vec_s, vec_l};
+  cudaError_t err;
+  switch (gp) {
+    case 2: err = launch_gp<2>(a, blocks, pos, stream); break;
+    case 4: err = launch_gp<4>(a, blocks, pos, stream); break;
+    case 8: err = launch_gp<8>(a, blocks, pos, stream); break;
+    default: err = launch_gp<16>(a, blocks, pos, stream); break;
+  }
+  if (err != cudaSuccess) return (int)err;
+  medt::bwd_finalize(tab_part, dtables, pos ? n_tab_part : 0,
+                     (size_t)2 * gp * L * L, aff_part, daff, n_aff_part, g,
+                     has_pos, stream);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -405,36 +466,26 @@ int medt_lanes_attn_bwd(const float* qkv, const float* qemb,
                         float* dqkv, float* dtables, float* daff,
                         float* tab_part, float* aff_part, int g, int gp,
                         int L, int S, int has_pos, int n_tab_part,
-                        int n_aff_part, void* stream_ptr) {
-  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  const bool pos = has_pos != 0;
-  if (g < 1 || g > 65535 || S < 1 || L < 1 || L > kMaxSpan ||
-      (gp != 2 && gp != 4 && gp != 8 && gp != 16)) {
-    return (int)cudaErrorInvalidValue;
-  }
-  const int blocks = blocks_per_group(g, L, S, pos);
-  if (n_aff_part != blocks || (pos && n_tab_part != g * blocks)) {
-    return (int)cudaErrorInvalidValue;
-  }
-  using flash2::aligned16;
-  const bool vec_s = S % 4 == 0 && aligned16(qkv) && aligned16(dsv) &&
-                     (!pos || aligned16(dsve));
-  const bool vec_l = pos && L % 4 == 0 && aligned16(qemb) &&
-                     aligned16(kemb_t) && aligned16(vemb);
-  const Args a{qkv, qemb, kemb_t, vemb, aff, dsv, dsve, dqkv, tab_part,
-               aff_part, g, L, S, vec_s, vec_l};
-  cudaError_t err;
-  switch (gp) {
-    case 2: err = launch_gp<2>(a, blocks, pos, stream); break;
-    case 4: err = launch_gp<4>(a, blocks, pos, stream); break;
-    case 8: err = launch_gp<8>(a, blocks, pos, stream); break;
-    default: err = launch_gp<16>(a, blocks, pos, stream); break;
-  }
-  if (err != cudaSuccess) return (int)err;
-  medt::bwd_finalize(tab_part, dtables, pos ? n_tab_part : 0,
-                     (size_t)2 * gp * L * L, aff_part, daff, n_aff_part, g,
-                     has_pos, stream);
-  return (int)cudaGetLastError();
+                        int n_aff_part, void* stream) {
+  return lanes_bwd(qkv, qemb, kemb_t, vemb, aff, dsv, dsve, dqkv, dtables,
+                   daff, tab_part, aff_part, g, gp, L, S, has_pos, n_tab_part,
+                   n_aff_part, stream);
+}
+
+// The same on bf16 qkv (the JAX package's bf16 kernel I/O): the table and
+// daff gradients are the float32 entry point's on the upcast qkv, dqkv
+// (bf16) its dqkv rounded once.
+int medt_lanes_attn_bwd_bf16(const __nv_bfloat16* qkv, const float* qemb,
+                             const float* kemb_t, const float* vemb,
+                             const float* aff, const float* dsv,
+                             const float* dsve, __nv_bfloat16* dqkv,
+                             float* dtables, float* daff, float* tab_part,
+                             float* aff_part, int g, int gp, int L, int S,
+                             int has_pos, int n_tab_part, int n_aff_part,
+                             void* stream) {
+  return lanes_bwd(qkv, qemb, kemb_t, vemb, aff, dsv, dsve, dqkv, dtables,
+                   daff, tab_part, aff_part, g, gp, L, S, has_pos, n_tab_part,
+                   n_aff_part, stream);
 }
 
 }  // extern "C"

@@ -12,7 +12,10 @@
 //   sv[p,i,s] = sum_j sim[j] v[p,j,s],  sve[p,i,s] = sum_j sim[j] vemb[p,i,j]
 // on the fused qkv tensor (g, 2gp, L, S): rows [0:c] = q, [c:gp] = k,
 // [gp:2gp] = v, c = gp/2; outputs sv, sve (g, gp, L, S).
-// Everything is float32.
+// qkv is float32 or bf16 (the element type T of the template): its rows
+// are staged raw and converted where they are read, so a bf16 qkv gives the
+// float32 kernel's sv and sve on its upcast, bit for bit (16-byte copies
+// where S % 8 == 0 for bf16). Everything else is float32.
 //
 // What bounds it on the H100: device memory at its bound (each qkv element
 // read once, each output written once), but in practice instruction issue
@@ -66,31 +69,30 @@ constexpr int kMaxSpan = 16;    // the whole span is one key block
 // on the H100's 132
 constexpr int kTargetBlocks = 264;
 
-// Shared memory of one block, in floats, for spans up to LB (the span
+// Shared memory of one block, in bytes, for spans up to LB (the span
 // bucket, which is also the one key block): q rows [R][C][kTile], k and v
-// rows [C + GP][LB][kTile], then with positions the table rows
+// rows [C + GP][LB][kTile] of T, then with positions the float table rows
 // [R][C][LB], [R][C][LB], [R][GP][LB]. Strides are compile-time where the
 // unrolled loops index them, so every shared-memory offset there is an
 // immediate.
-template <int GP, bool HAS_POS, int LB>
-size_t smem_floats(int R) {
+template <int GP, bool HAS_POS, int LB, class T>
+size_t smem_bytes(int R) {
   constexpr int C = GP / 2;
-  return (size_t)kTile * (R * C + (C + GP) * LB) +
-         (HAS_POS ? (size_t)R * (2 * C + GP) * LB : 0);
+  return (size_t)kTile * (R * C + (C + GP) * LB) * sizeof(T) +
+         (HAS_POS ? (size_t)R * (2 * C + GP) * LB * sizeof(float) : 0);
 }
 
-// n runs of kTile floats of qkv into shared memory: run b comes from
-// src + off(b) and lands at dst + dst_run(b) * kTile; floats at or past vx
-// (the stripes left in the tile) are zero-filled.
-template <class Off, class Dst>
-__device__ __forceinline__ void stage_tile(float* dst, const float* src,
-                                           int n, Off off, Dst dst_run,
-                                           int vx, bool vec, int tid,
-                                           int nt) {
+// n runs of kTile elements of qkv into shared memory: run b comes from
+// src + off(b) and lands at dst + dst_run(b) * kTile; elements at or past
+// vx (the stripes left in the tile) are zero-filled.
+template <class T, class Off, class Dst>
+__device__ __forceinline__ void stage_tile(T* dst, const T* src, int n,
+                                           Off off, Dst dst_run, int vx,
+                                           bool vec, int tid, int nt) {
   if (vec) {
-    constexpr int X4 = kTile / 4;
-    for (int e = tid; e < n * X4; e += nt) {
-      const int b = e / X4, x = (e - b * X4) * 4;
+    constexpr int V = flash2::kChunk<T>, XV = kTile / V;
+    for (int e = tid; e < n * XV; e += nt) {
+      const int b = e / XV, x = (e - b * XV) * V;
       const bool ok = x < vx;
       flash2::cp_async16(dst + dst_run(b) * kTile + x,
                          ok ? src + off(b) + x : src, ok);
@@ -99,15 +101,15 @@ __device__ __forceinline__ void stage_tile(float* dst, const float* src,
     for (int e = tid; e < n * kTile; e += nt) {
       const int b = e / kTile, x = e - b * kTile;
       const bool ok = x < vx;
-      flash2::cp_async4(dst + dst_run(b) * kTile + x,
+      flash2::copy_elem(dst + dst_run(b) * kTile + x,
                         ok ? src + off(b) + x : src, ok);
     }
   }
 }
 
-template <int GP, bool HAS_POS, int LB, int RI>
+template <int GP, bool HAS_POS, int LB, int RI, class T>
 __global__ void __launch_bounds__(kWarps * 32)
-axial_lanes_fwd_kernel(const float* __restrict__ qkv,
+axial_lanes_fwd_kernel(const T* __restrict__ qkv,
                        const float* __restrict__ qemb,
                        const float* __restrict__ kemb_t,
                        const float* __restrict__ vemb,
@@ -115,11 +117,13 @@ axial_lanes_fwd_kernel(const float* __restrict__ qkv,
                        float* __restrict__ sv, float* __restrict__ sve,
                        int L, int S, int R, bool vec) {
   constexpr int C = GP / 2;
+  using flash2::to_f32;
   extern __shared__ __align__(16) float smem[];
-  float* s_q = smem;                        // [R][C][kTile]
-  float* s_k = s_q + R * C * kTile;         // [C][LB][kTile]
-  float* s_v = s_k + C * LB * kTile;        // [GP][LB][kTile]
-  float* t_q = s_v + GP * LB * kTile;       // [R][C][LB]
+  T* s_q = reinterpret_cast<T*>(smem);      // [R][C][kTile]
+  T* s_k = s_q + R * C * kTile;             // [C][LB][kTile]
+  T* s_v = s_k + C * LB * kTile;            // [GP][LB][kTile]
+  // [R][C][LB]
+  float* t_q = reinterpret_cast<float*>(s_v + GP * LB * kTile);
   float* t_k = t_q + R * C * LB;            // [R][C][LB]
   float* t_v = t_k + R * C * LB;            // [R][GP][LB]
 
@@ -131,9 +135,9 @@ axial_lanes_fwd_kernel(const float* __restrict__ qkv,
   const int lane = tid & 31, warp = tid >> 5;
 
   const size_t LS = (size_t)L * S;
-  const float* base = qkv + (size_t)gi * 2 * GP * LS + s0;
+  const T* base = qkv + (size_t)gi * 2 * GP * LS + s0;
   const int vx = S - s0;
-  // A run of kTile floats (row, position) lies at ((row) * L + position) *
+  // A run of kTile elements (row, position) lies at ((row) * L + position) *
   // S: q run b = (il, c) -> row c, position i0 + il; k and v run b -> row
   // C + b / L (v continues k), position b % L.
   stage_tile(s_q, base, rows * C,
@@ -186,7 +190,8 @@ axial_lanes_fwd_kernel(const float* __restrict__ qkv,
     for (int u = 0; u < RI; ++u) {
       const int il = min(il0 + u, rows - 1);
 #pragma unroll
-      for (int c = 0; c < C; ++c) q[u][c] = s_q[(il * C + c) * kTile + lane];
+      for (int c = 0; c < C; ++c)
+        q[u][c] = to_f32(s_q[(il * C + c) * kTile + lane]);
       tq[u] = t_q + il * C * LB;            // + c * LB + j
       tk[u] = t_k + il * C * LB;
       tv[u] = t_v + il * GP * LB;           // + p * LB + j
@@ -204,7 +209,8 @@ axial_lanes_fwd_kernel(const float* __restrict__ qkv,
       if (j < L) {
         float kv[C];
 #pragma unroll
-        for (int c = 0; c < C; ++c) kv[c] = s_k[(c * LB + j) * kTile + lane];
+        for (int c = 0; c < C; ++c)
+          kv[c] = to_f32(s_k[(c * LB + j) * kTile + lane]);
 #pragma unroll
         for (int u = 0; u < RI; ++u) {
           float qk = 0.f, qr = 0.f, kr = 0.f;
@@ -245,7 +251,7 @@ axial_lanes_fwd_kernel(const float* __restrict__ qkv,
         }
 #pragma unroll
         for (int p = 0; p < GP; ++p) {
-          const float vv = s_v[(p * LB + j) * kTile + lane];
+          const float vv = to_f32(s_v[(p * LB + j) * kTile + lane]);
 #pragma unroll
           for (int u = 0; u < RI; ++u) {
             acc_v[u][p] += e[u] * vv;
@@ -293,8 +299,8 @@ inline int rows_per_block(int g, int tiles, int L, int RI) {
   return (L + chunks - 1) / chunks;
 }
 
-template <int GP, bool HAS_POS, int LB>
-int launch(const float* qkv, const float* qemb, const float* kemb_t,
+template <int GP, bool HAS_POS, int LB, class T>
+int launch(const T* qkv, const float* qemb, const float* kemb_t,
            const float* vemb, const float* aff, float* sv, float* sve, int g,
            int L, int S, cudaStream_t stream) {
   constexpr int RI = rows_at_once<GP, LB>();
@@ -303,31 +309,31 @@ int launch(const float* qkv, const float* qemb, const float* kemb_t,
   const int R = rows_per_block(g, tiles, L, RI);
   const dim3 grid(tiles, (L + R - 1) / R, g);
   const int threads = 32 * min(kWarps, (R + RI - 1) / RI);
-  const size_t bytes = sizeof(float) * smem_floats<GP, HAS_POS, LB>(R);
-  auto kernel = axial_lanes_fwd_kernel<GP, HAS_POS, LB, RI>;
+  const size_t bytes = smem_bytes<GP, HAS_POS, LB, T>(R);
+  auto kernel = axial_lanes_fwd_kernel<GP, HAS_POS, LB, RI, T>;
   const cudaError_t err = flash2::allow_smem(kernel, bytes);
   if (err != cudaSuccess) return (int)err;
-  const bool vec = S % 4 == 0 && flash2::aligned16(qkv);
+  const bool vec = S % flash2::kChunk<T> == 0 && flash2::aligned16(qkv);
   kernel<<<grid, threads, bytes, stream>>>(qkv, qemb, kemb_t, vemb, aff, sv,
                                            sve, L, S, R, vec);
   return (int)cudaGetLastError();
 }
 
-template <int GP, bool HAS_POS>
-int launch_span(const float* qkv, const float* qemb, const float* kemb_t,
+template <int GP, bool HAS_POS, class T>
+int launch_span(const T* qkv, const float* qemb, const float* kemb_t,
                 const float* vemb, const float* aff, float* sv, float* sve,
                 int g, int L, int S, cudaStream_t stream) {
 #define MEDT_LANES_LAUNCH(LB)                                               \
-  return launch<GP, HAS_POS, LB>(qkv, qemb, kemb_t, vemb, aff, sv, sve, g, \
-                                 L, S, stream)
+  return launch<GP, HAS_POS, LB, T>(qkv, qemb, kemb_t, vemb, aff, sv, sve, \
+                                    g, L, S, stream)
   if (L <= 4) MEDT_LANES_LAUNCH(4);
   if (L <= 8) MEDT_LANES_LAUNCH(8);
   MEDT_LANES_LAUNCH(kMaxSpan);
 #undef MEDT_LANES_LAUNCH
 }
 
-template <int GP>
-int launch_gp(const float* qkv, const float* qemb, const float* kemb_t,
+template <int GP, class T>
+int launch_gp(const T* qkv, const float* qemb, const float* kemb_t,
               const float* vemb, const float* aff, float* sv, float* sve,
               int g, int L, int S, bool has_pos, cudaStream_t stream) {
   if (has_pos) {
@@ -338,15 +344,10 @@ int launch_gp(const float* qkv, const float* qemb, const float* kemb_t,
                                 S, stream);
 }
 
-}  // namespace
-
-extern "C" {
-
-// Spans <= 16 (lanes_attn_core). sve is not written when has_pos == 0.
-int medt_lanes_attn_fwd(const float* qkv, const float* qemb,
-                        const float* kemb_t, const float* vemb,
-                        const float* aff, float* sv, float* sve, int g, int gp,
-                        int L, int S, int has_pos, void* stream_ptr) {
+template <class T>
+int lanes_fwd(const T* qkv, const float* qemb, const float* kemb_t,
+              const float* vemb, const float* aff, float* sv, float* sve,
+              int g, int gp, int L, int S, int has_pos, void* stream_ptr) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   if (g < 1 || S < 1 || L < 1 || L > kMaxSpan || g > 65535) {
     return (int)cudaErrorInvalidValue;
@@ -363,6 +364,30 @@ int medt_lanes_attn_fwd(const float* qkv, const float* qemb,
                                   L, S, pos, stream);
     default: return (int)cudaErrorInvalidValue;
   }
+}
+
+}  // namespace
+
+extern "C" {
+
+// Spans <= 16 (lanes_attn_core). sve is not written when has_pos == 0.
+int medt_lanes_attn_fwd(const float* qkv, const float* qemb,
+                        const float* kemb_t, const float* vemb,
+                        const float* aff, float* sv, float* sve, int g, int gp,
+                        int L, int S, int has_pos, void* stream) {
+  return lanes_fwd(qkv, qemb, kemb_t, vemb, aff, sv, sve, g, gp, L, S,
+                   has_pos, stream);
+}
+
+// The same on bf16 qkv (the JAX package's bf16 kernel I/O): sv and sve
+// (float32) are the float32 entry point's on the upcast qkv, bit for bit.
+int medt_lanes_attn_fwd_bf16(const __nv_bfloat16* qkv, const float* qemb,
+                             const float* kemb_t, const float* vemb,
+                             const float* aff, float* sv, float* sve, int g,
+                             int gp, int L, int S, int has_pos,
+                             void* stream) {
+  return lanes_fwd(qkv, qemb, kemb_t, vemb, aff, sv, sve, g, gp, L, S,
+                   has_pos, stream);
 }
 
 }  // extern "C"

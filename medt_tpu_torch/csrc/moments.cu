@@ -63,6 +63,11 @@
 //     (PERF.md, kernel row 8): 0.38 ms of device time per medt_512 step,
 //     1.37 times its 0.278 ms bound (1.09-1.77 times at the sites whose
 //     bound is at least 10 us), and 0.116 ms per MedT-128 step.
+// qkv (and the backward's dqkv) are float32 or bf16 (the element type T of
+// the templates): the q/k slab is staged raw and converted where it is
+// read, and each dqkv value is rounded once where it is stored, so a bf16
+// qkv gives the float32 kernels' sums and table gradients on its upcast,
+// bit for bit, and their dqkv rounded once.
 // Kernels launch on the caller's stream, allocate nothing and do not
 // synchronise; the entry points return cudaGetLastError().
 
@@ -74,6 +79,8 @@
 
 namespace {
 
+using flash2::from_f32;
+using flash2::to_f32;
 using medt::warp_sum;
 
 __host__ __device__ constexpr int pairs(int C) { return C * (C + 1) / 2; }
@@ -105,12 +112,13 @@ constexpr int kFwdStripes = 32;
 constexpr int kFwdThreads = 256;
 constexpr int kFwdWarps = kFwdThreads / 32;
 constexpr int kFwdGroupTiles = 4;
-// the largest q/k slab (2c rows x L x kFwdStripes floats) the forward
+// the largest q/k slab (2c rows x L x kFwdStripes elements) the forward
 // stages in shared memory; past it the items read device memory
 constexpr int kFwdSlabFloats = 32768;
 
+template <class T>
 struct MomFwdArgs {
-  const float* qkv;
+  const T* qkv;
   const float* r_q;
   const float* e_q;
   const float* r_k;
@@ -121,15 +129,16 @@ struct MomFwdArgs {
   bool vec;        // with 16-byte copies along the stripe axis
 };
 
-// The forward's shared memory: the q/k slab when staged, the tables when
-// staged (TAB: r_q, the symmetrised e_q pairs, r_k, the e_k pairs, 2c +
-// 2 pairs(c) rows of L) and each item's per-stripe sum.
-template <int C, bool HAS_POS, bool TAB>
-constexpr size_t fwd_smem_floats(int L, bool slab) {
+// The forward's shared memory, in bytes: the q/k slab (of T) when staged,
+// the tables when staged (TAB: r_q, the symmetrised e_q pairs, r_k, the
+// e_k pairs, 2c + 2 pairs(c) rows of L) and each item's per-stripe sum.
+template <int C, bool HAS_POS, bool TAB, class T>
+constexpr size_t fwd_smem_bytes(int L, bool slab) {
   constexpr int T1 = 2 * C + 2 * pairs(C);
-  return (slab ? (size_t)2 * C * L * kFwdStripes : 0) +
-         (TAB ? (size_t)T1 * L : 0) +
-         (size_t)(T1 + (HAS_POS ? 4 : 0)) * kFwdStripes;
+  return (slab ? (size_t)2 * C * L * kFwdStripes * sizeof(T) : 0) +
+         ((TAB ? (size_t)T1 * L : 0) +
+          (size_t)(T1 + (HAS_POS ? 4 : 0)) * kFwdStripes) *
+             sizeof(float);
 }
 
 // One launch per call, then moments_finalize. The block stages its tile's
@@ -149,9 +158,9 @@ constexpr size_t fwd_smem_floats(int L, bool slab) {
 // step beyond it (up to 2.8 times, PERF.md). With TAB the tables are
 // staged in shared memory, the e tables as their symmetrised pairs e[c,d]
 // + e[d,c] (c < d) and e[c,c].
-template <int C, bool HAS_POS, bool TAB>
+template <int C, bool HAS_POS, bool TAB, class T>
 __global__ void __launch_bounds__(kFwdThreads)
-moments_fwd_kernel(MomFwdArgs a) {
+moments_fwd_kernel(MomFwdArgs<T> a) {
   constexpr int P = pairs(C);
   constexpr int T1 = 2 * C + 2 * P;
   static_assert(HAS_POS || !TAB, "tables only with positions");
@@ -161,11 +170,12 @@ moments_fwd_kernel(MomFwdArgs a) {
   const int s = blockIdx.x * kFwdStripes + lane;
   const bool valid = s < S;
   const size_t LS = (size_t)L * S;
-  float* slab = smem;                         // (2c, L, kFwdStripes)
-  float* tabs = slab + (a.slab ? 2 * C * L * kFwdStripes : 0);
+  T* slab = reinterpret_cast<T*>(smem);       // (2c, L, kFwdStripes)
+  float* tabs =
+      reinterpret_cast<float*>(slab + (a.slab ? 2 * C * L * kFwdStripes : 0));
   float* sums = tabs + (TAB ? T1 * L : 0);    // (T1 + 4, kFwdStripes)
   // A stripe past the edge reads zeros: every sum gets 0 from it.
-  const float* tile = a.qkv + (size_t)gi * 4 * C * LS;
+  const T* tile = a.qkv + (size_t)gi * 4 * C * LS;
   if (a.slab) {
     flash2::stage_runs<kFwdStripes, kFwdThreads>(
         slab, tile + blockIdx.x * kFwdStripes, S, 2 * C * L,
@@ -173,8 +183,8 @@ moments_fwd_kernel(MomFwdArgs a) {
     flash2::cp_async_commit();
   }
   auto at = [&](int row, int l) {
-    return a.slab ? slab[(row * L + l) * kFwdStripes + lane]
-                  : (valid ? __ldg(tile + row * LS + (size_t)l * S + s)
+    return a.slab ? to_f32(slab[(row * L + l) * kFwdStripes + lane])
+                  : (valid ? to_f32(__ldg(tile + row * LS + (size_t)l * S + s))
                            : 0.f);
   };
 
@@ -372,22 +382,27 @@ int bwd_tile(int c, int L, int S, int g) {
 template <int C, bool HAS_POS>
 constexpr bool kStageTables = HAS_POS && C <= 4;
 
-template <int C, int TS, bool HAS_POS>
-constexpr size_t bwd_smem_floats(int L) {
+// The backward's shared memory, in bytes: the q/k slab (of T), the warp
+// and tile sums, the tables when staged.
+template <int C, int TS, bool HAS_POS, class T>
+constexpr size_t bwd_smem_bytes(int L) {
   constexpr int T1 = 2 * C + 2 * pairs(C);
   constexpr int T2 = 2 * C + 2 * C * C;
-  return (size_t)2 * C * L * TS + (size_t)(kBwdWarps + 1) * T1 * TS +
-         (kStageTables<C, HAS_POS> ? (size_t)T2 * L : 0);
+  return (size_t)2 * C * L * TS * sizeof(T) +
+         ((size_t)(kBwdWarps + 1) * T1 * TS +
+          (kStageTables<C, HAS_POS> ? (size_t)T2 * L : 0)) *
+             sizeof(float);
 }
 
+template <class T>
 struct MomBwdArgs {
-  const float* qkv;
+  const T* qkv;
   const float* r_q;
   const float* e_q;
   const float* r_k;
   const float* e_k;
   const float* ct;
-  float* dqkv;
+  T* dqkv;
   float* part;   // (g * tiles, 2c + 2c^2, L) table-gradient partials
   int L, S;
   bool vec;      // 16-byte copies along the stripe axis
@@ -409,9 +424,9 @@ struct MomBwdArgs {
 //      the slab, starting at a stripe rotated by the position so the lanes
 //      of a warp read distinct banks; its slot of the partials is written
 //      once, and tab_finalize sums the slots in index order.
-template <int C, int TS, bool HAS_POS>
+template <int C, int TS, bool HAS_POS, class T>
 __global__ void __launch_bounds__(kBwdThreads)
-moments_bwd_kernel(MomBwdArgs a) {
+moments_bwd_kernel(MomBwdArgs<T> a) {
   constexpr int P = pairs(C);
   constexpr int T1 = 2 * C + 2 * P;       // qs, ks, qq, kk
   constexpr int T2 = 2 * C + 2 * C * C;   // dr_q, de_q, dr_k, de_k rows
@@ -423,8 +438,9 @@ moments_bwd_kernel(MomBwdArgs a) {
   const int tid = threadIdx.x, s = tid % TS, r = tid / TS;
   const int lane = tid & 31, warp = tid >> 5;
   const size_t LS = (size_t)L * S;
-  float* slab = smem;                          // (2c, L, TS)
-  float* wpart = slab + 2 * C * L * TS;        // (kBwdWarps, T1, TS)
+  T* slab = reinterpret_cast<T*>(smem);        // (2c, L, TS)
+  float* wpart = reinterpret_cast<float*>(slab + 2 * C * L * TS);
+                                               // (kBwdWarps, T1, TS)
   float* stats = wpart + kBwdWarps * T1 * TS;  // (T1, TS)
   float* tabs = stats + T1 * TS;               // r_q, e_q, r_k, e_k
 
@@ -450,8 +466,8 @@ moments_bwd_kernel(MomBwdArgs a) {
   auto qk_at = [&](int l, float (&q)[C], float (&k)[C]) {
 #pragma unroll
     for (int c = 0; c < C; ++c) {
-      q[c] = slab[(c * L + l) * TS + s];
-      k[c] = slab[((C + c) * L + l) * TS + s];
+      q[c] = to_f32(slab[(c * L + l) * TS + s]);
+      k[c] = to_f32(slab[((C + c) * L + l) * TS + s]);
     }
   };
 
@@ -505,7 +521,7 @@ moments_bwd_kernel(MomBwdArgs a) {
   const float c0 = cg[0], c1 = cg[1], c2 = cg[2], c3 = cg[3], c4 = cg[4],
               c5 = cg[5];
   const bool valid = s0 + s < S;
-  float* out = a.dqkv + (size_t)gi * 4 * C * LS + s0 + s;
+  T* out = a.dqkv + (size_t)gi * 4 * C * LS + s0 + s;
   const float* r_q = TAB ? tabs : a.r_q;
   const float* e_q = TAB ? tabs + C * L : a.e_q;
   const float* r_k = TAB ? tabs + (C + C * C) * L : a.r_k;
@@ -513,7 +529,7 @@ moments_bwd_kernel(MomBwdArgs a) {
   for (int l = r; valid && l < L; l += NR) {
     float q[C], k[C];
     qk_at(l, q, k);
-    float* o = out + (size_t)l * S;
+    T* o = out + (size_t)l * S;
 #pragma unroll
     for (int c = 0; c < C; ++c) {
       float aq = 0.f, ak = 0.f;
@@ -537,11 +553,12 @@ moments_bwd_kernel(MomBwdArgs a) {
         dq += c2 * r_q[c * L + l] + c3 * eq;
         dk += c4 * r_k[c * L + l] + c5 * ek;
       }
-      o[c * LS] = dq;
-      o[(C + c) * LS] = dk;
+      o[c * LS] = from_f32<T>(dq);
+      o[(C + c) * LS] = from_f32<T>(dk);
     }
 #pragma unroll
-    for (int p = 0; p < 2 * C; ++p) o[(2 * C + p) * LS] = 0.f;  // v rows
+    for (int p = 0; p < 2 * C; ++p)  // v rows
+      o[(2 * C + p) * LS] = from_f32<T>(0.f);
   }
 
   if constexpr (HAS_POS) {
@@ -557,19 +574,19 @@ moments_bwd_kernel(MomBwdArgs a) {
       int c, d, out_row;
       if (tk < C) {
         c = d = tk;
-        const float* x = slab + ((base + c) * L + l) * TS;
+        const T* x = slab + ((base + c) * L + l) * TS;
 #pragma unroll 8
-        for (int j = 0; j < TS; ++j) sum += x[(j + l) % TS];
+        for (int j = 0; j < TS; ++j) sum += to_f32(x[(j + l) % TS]);
         out_row = (on_k ? C + C * C : 0) + c;
         part[out_row * L + l] = (on_k ? c4 : c2) * sum;
       } else {
         pair_of<C>(tk - C, c, d);
-        const float* x = slab + ((base + c) * L + l) * TS;
-        const float* y = slab + ((base + d) * L + l) * TS;
+        const T* x = slab + ((base + c) * L + l) * TS;
+        const T* y = slab + ((base + d) * L + l) * TS;
 #pragma unroll 8
         for (int j = 0; j < TS; ++j) {
           const int jj = (j + l) % TS;
-          sum += x[jj] * y[jj];
+          sum += to_f32(x[jj]) * to_f32(y[jj]);
         }
         const float v = (on_k ? c5 : c3) * sum;
         const int e0 = on_k ? 2 * C + C * C : C;   // first de row
@@ -580,11 +597,10 @@ moments_bwd_kernel(MomBwdArgs a) {
   }
 }
 
-template <int C, bool HAS_POS, bool TAB>
-cudaError_t fwd_variant(const MomFwdArgs& a, int g, cudaStream_t stream) {
-  const size_t smem =
-      fwd_smem_floats<C, HAS_POS, TAB>(a.L, a.slab) * sizeof(float);
-  auto kernel = moments_fwd_kernel<C, HAS_POS, TAB>;
+template <int C, bool HAS_POS, bool TAB, class T>
+cudaError_t fwd_variant(const MomFwdArgs<T>& a, int g, cudaStream_t stream) {
+  const size_t smem = fwd_smem_bytes<C, HAS_POS, TAB, T>(a.L, a.slab);
+  auto kernel = moments_fwd_kernel<C, HAS_POS, TAB, T>;
   const cudaError_t err = flash2::allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((a.S + kFwdStripes - 1) / kFwdStripes, g);
@@ -594,8 +610,9 @@ cudaError_t fwd_variant(const MomFwdArgs& a, int g, cudaStream_t stream) {
 
 // With positions the tables are staged at c <= 4 and spans up to
 // kMaxBwdSpan, else read from L2 (gp 16, or longer spans: off every path).
-template <int C>
-cudaError_t fwd_c(const MomFwdArgs& a, int g, bool pos, cudaStream_t stream) {
+template <int C, class T>
+cudaError_t fwd_c(const MomFwdArgs<T>& a, int g, bool pos,
+                  cudaStream_t stream) {
   if (!pos) return fwd_variant<C, false, false>(a, g, stream);
   if constexpr (C <= 4) {
     if (a.L <= kMaxBwdSpan) return fwd_variant<C, true, true>(a, g, stream);
@@ -633,10 +650,10 @@ tab_finalize_kernel(const float* __restrict__ part, float* __restrict__ out,
   }
 }
 
-template <int C, int TS, bool HAS_POS>
-cudaError_t bwd_variant(const MomBwdArgs& a, int g, cudaStream_t stream) {
-  const size_t smem = bwd_smem_floats<C, TS, HAS_POS>(a.L) * sizeof(float);
-  auto kernel = moments_bwd_kernel<C, TS, HAS_POS>;
+template <int C, int TS, bool HAS_POS, class T>
+cudaError_t bwd_variant(const MomBwdArgs<T>& a, int g, cudaStream_t stream) {
+  const size_t smem = bwd_smem_bytes<C, TS, HAS_POS, T>(a.L);
+  auto kernel = moments_bwd_kernel<C, TS, HAS_POS, T>;
   const cudaError_t err = flash2::allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((a.S + TS - 1) / TS, g);
@@ -644,8 +661,8 @@ cudaError_t bwd_variant(const MomBwdArgs& a, int g, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-template <int C>
-cudaError_t bwd_c(const MomBwdArgs& a, int g, int ts, bool pos,
+template <int C, class T>
+cudaError_t bwd_c(const MomBwdArgs<T>& a, int g, int ts, bool pos,
                   cudaStream_t stream) {
   switch (ts) {
     case 32: return pos ? bwd_variant<C, 32, true>(a, g, stream)
@@ -662,24 +679,20 @@ bool bad_geometry(int g, int gp, int L, int S) {
          !(gp == 2 || gp == 4 || gp == 8 || gp == 16);
 }
 
-}  // namespace
-
-extern "C" {
-
-// Forward: out (g, 8); part scratch (g * ceil(S / kFwdStripes), 6).
-int medt_moment_sums_fwd(const float* qkv, const float* r_q, const float* e_q,
-                         const float* r_k, const float* e_k, float* out,
-                         float* part, int g, int gp, int L, int S,
-                         int has_pos, int n_part, void* stream_ptr) {
+template <class T>
+int moments_fwd(const T* qkv, const float* r_q, const float* e_q,
+                const float* r_k, const float* e_k, float* out, float* part,
+                int g, int gp, int L, int S, int has_pos, int n_part,
+                void* stream_ptr) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   const int tiles = (S + kFwdStripes - 1) / kFwdStripes;
   if (bad_geometry(g, gp, L, S) || n_part != g * tiles) {
     return (int)cudaErrorInvalidValue;
   }
   const bool pos = has_pos != 0;
-  const MomFwdArgs a{qkv, r_q, e_q, r_k, e_k, part, L, S,
-                     (long long)gp * L * kFwdStripes <= kFwdSlabFloats,
-                     S % 4 == 0 && flash2::aligned16(qkv)};
+  const MomFwdArgs<T> a{qkv, r_q, e_q, r_k, e_k, part, L, S,
+                        (long long)gp * L * kFwdStripes <= kFwdSlabFloats,
+                        S % flash2::kChunk<T> == 0 && flash2::aligned16(qkv)};
   cudaError_t err;
   switch (gp / 2) {
     case 1: err = fwd_c<1>(a, g, pos, stream); break;
@@ -693,15 +706,11 @@ int medt_moment_sums_fwd(const float* qkv, const float* r_q, const float* e_q,
   return (int)cudaGetLastError();
 }
 
-// Backward: dqkv (g, 2gp, L, S), v rows written zero; dtables (2c + 2c^2,
-// L) = dr_q (c, L), de_q (c, c, L), dr_k, de_k (unused without positions);
-// part: the table-gradient partials (g * ceil(S / TS), 2c + 2c^2, L), TS
-// as bwd_tile gives it (unused without positions). Spans up to 256.
-int medt_moment_sums_bwd(const float* qkv, const float* r_q, const float* e_q,
-                         const float* r_k, const float* e_k, const float* ct,
-                         float* dqkv, float* dtables, float* part, int g,
-                         int gp, int L, int S, int has_pos, int n_part,
-                         void* stream_ptr) {
+template <class T>
+int moments_bwd(const T* qkv, const float* r_q, const float* e_q,
+                const float* r_k, const float* e_k, const float* ct, T* dqkv,
+                float* dtables, float* part, int g, int gp, int L, int S,
+                int has_pos, int n_part, void* stream_ptr) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   if (bad_geometry(g, gp, L, S) || L > kMaxBwdSpan) {
     return (int)cudaErrorInvalidValue;
@@ -713,8 +722,8 @@ int medt_moment_sums_bwd(const float* qkv, const float* r_q, const float* e_q,
     return (int)cudaErrorInvalidValue;
   }
   const bool pos = has_pos != 0;
-  const MomBwdArgs a{qkv, r_q, e_q, r_k, e_k, ct, dqkv, part, L, S,
-                     S % 4 == 0 && flash2::aligned16(qkv)};
+  const MomBwdArgs<T> a{qkv, r_q, e_q, r_k, e_k, ct, dqkv, part, L, S,
+                        S % flash2::kChunk<T> == 0 && flash2::aligned16(qkv)};
   cudaError_t err;
   switch (c) {
     case 1: err = bwd_c<1>(a, g, ts, pos, stream); break;
@@ -729,6 +738,55 @@ int medt_moment_sums_bwd(const float* qkv, const float* r_q, const float* e_q,
         part, dtables, n_part, E);
   }
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// Forward: out (g, 8); part scratch (g * ceil(S / kFwdStripes), 6).
+int medt_moment_sums_fwd(const float* qkv, const float* r_q, const float* e_q,
+                         const float* r_k, const float* e_k, float* out,
+                         float* part, int g, int gp, int L, int S,
+                         int has_pos, int n_part, void* stream) {
+  return moments_fwd(qkv, r_q, e_q, r_k, e_k, out, part, g, gp, L, S,
+                     has_pos, n_part, stream);
+}
+
+// The same on bf16 qkv: the sums are the float32 entry point's on the
+// upcast qkv, bit for bit.
+int medt_moment_sums_fwd_bf16(const __nv_bfloat16* qkv, const float* r_q,
+                              const float* e_q, const float* r_k,
+                              const float* e_k, float* out, float* part,
+                              int g, int gp, int L, int S, int has_pos,
+                              int n_part, void* stream) {
+  return moments_fwd(qkv, r_q, e_q, r_k, e_k, out, part, g, gp, L, S,
+                     has_pos, n_part, stream);
+}
+
+// Backward: dqkv (g, 2gp, L, S), v rows written zero; dtables (2c + 2c^2,
+// L) = dr_q (c, L), de_q (c, c, L), dr_k, de_k (unused without positions);
+// part: the table-gradient partials (g * ceil(S / TS), 2c + 2c^2, L), TS
+// as bwd_tile gives it (unused without positions). Spans up to 256.
+int medt_moment_sums_bwd(const float* qkv, const float* r_q, const float* e_q,
+                         const float* r_k, const float* e_k, const float* ct,
+                         float* dqkv, float* dtables, float* part, int g,
+                         int gp, int L, int S, int has_pos, int n_part,
+                         void* stream) {
+  return moments_bwd(qkv, r_q, e_q, r_k, e_k, ct, dqkv, dtables, part, g, gp,
+                     L, S, has_pos, n_part, stream);
+}
+
+// The same on bf16 qkv: the table gradients are the float32 entry point's
+// on the upcast qkv, dqkv (bf16) its dqkv rounded once.
+int medt_moment_sums_bwd_bf16(const __nv_bfloat16* qkv, const float* r_q,
+                              const float* e_q, const float* r_k,
+                              const float* e_k, const float* ct,
+                              __nv_bfloat16* dqkv, float* dtables,
+                              float* part, int g, int gp, int L, int S,
+                              int has_pos, int n_part, void* stream) {
+  return moments_bwd(qkv, r_q, e_q, r_k, e_k, ct, dqkv, dtables, part, g, gp,
+                     L, S, has_pos, n_part, stream);
 }
 
 }  // extern "C"

@@ -50,6 +50,12 @@
 //     (over L keys, and the table gradients over g * S stripes) would fail
 //     the float32 tolerances in TF32.
 //
+// qkv and dqkv are float32 or bf16 (the element type T of the template):
+// the k/v and q rows are staged raw and converted where they are read, and
+// each dqkv value is rounded once where it is stored (from_f32), so a bf16
+// qkv gives the float32 kernel's table and daff gradients on the upcast
+// qkv, bit for bit, and its dqkv rounded once. Everything else is float32.
+//
 // A tile policy TL gives: kMaxSpan; kRowWarps (warps per row-pass block);
 // row_keys(gp) (keys per staged row-pass block); kColWarps (warps per
 // column-pass block); col_keys(gp) (keys per column-pass thread);
@@ -96,17 +102,19 @@ struct RowCfg {
   static_assert(KB % JS == 0 && JS * R == 32, "whole reduce-scatters");
 };
 
-template <class TL, int GP, bool POS>
-__host__ __device__ constexpr int row_stage_floats() {
-  return RowCfg<TL, GP>::KV + (POS ? RowCfg<TL, GP>::TAB : 0);
+// One row-pass slot, in bytes: the k/v rows (KV elements of T), then with
+// positions the table tile (TAB floats).
+template <class TL, int GP, bool POS, class T>
+__host__ __device__ constexpr int row_stage_bytes() {
+  return RowCfg<TL, GP>::KV * (int)sizeof(T) +
+         (POS ? RowCfg<TL, GP>::TAB * (int)sizeof(float) : 0);
 }
 
-template <class TL, int GP, bool POS>
+template <class TL, int GP, bool POS, class T>
 constexpr size_t row_smem_bytes() {
   using K = RowCfg<TL, GP>;
-  return ((size_t)kStages * row_stage_floats<TL, GP, POS>() +
-          (POS ? K::TBUF : 0) + K::kWarps * 4) *
-         sizeof(float);
+  return (size_t)kStages * row_stage_bytes<TL, GP, POS, T>() +
+         ((POS ? K::TBUF : 0) + K::kWarps * 4) * sizeof(float);
 }
 
 template <class TL, int GP, bool POS>
@@ -129,8 +137,9 @@ struct ColCfg {
   static_assert(KJ % KG == 0 && KT % 4 == 0, "whole table reads");
 };
 
+template <class T>
 struct BwdArgs {
-  const float* qkv;
+  const T* qkv;
   const float* qemb;
   const float* kemb_t;
   const float* vemb;
@@ -142,7 +151,7 @@ struct BwdArgs {
   const float* dsv;
   const float* dsve;
   float* scratch;     // (2, g, L, S): delta, then mm; written by the row pass
-  float* dqkv;
+  T* dqkv;
   float* tab_part;    // (g * ceil(S/128), 2gp, L, L) with positions
   float* aff_part;    // (ceil(L/QB) * ceil(S/128), g, 4)
   int g, L, S;
@@ -173,9 +182,9 @@ __device__ __forceinline__ float reduce_scatter32(float (&v)[32], int lane) {
 }
 
 // One staged key block of the row pass for the thread's SS stripes of row ql.
-template <class TL, int GP, bool POS, bool CHECK>
+template <class TL, int GP, bool POS, bool CHECK, class E>
 __device__ __forceinline__ void row_block(
-    const float* kv, const float* tab, float* tb, int ql, int so, int lane,
+    const E* kv, const float* tab, float* tb, int ql, int so, int lane,
     int nvalid, float a0s, float a2s, float a4s,
     const float (&q)[RowCfg<TL, GP>::SS][GP / 2],
     const float (&gv)[RowCfg<TL, GP>::SS][GP],
@@ -259,15 +268,17 @@ __device__ __forceinline__ void row_block(
   }
 }
 
-template <class TL, int GP, bool POS>
+template <class TL, int GP, bool POS, class T>
 __global__ void __launch_bounds__(RowCfg<TL, GP>::kThreads)
-tiled_bwd_row_kernel(BwdArgs a) {
+tiled_bwd_row_kernel(BwdArgs<T> a) {
   using K = RowCfg<TL, GP>;
   constexpr int C = K::C, R = K::R, SS = K::SS, WPQ = K::WPQ, QB = K::QB,
                 KB = K::KB, NW = K::kWarps, NT = K::kThreads;
-  constexpr int STAGE = row_stage_floats<TL, GP, POS>();
+  constexpr int STAGE = row_stage_bytes<TL, GP, POS, T>();
   extern __shared__ __align__(16) float smem[];
-  float* tbuf = smem + kStages * STAGE;           // [warp][KB][R]
+  unsigned char* ring = reinterpret_cast<unsigned char*>(smem);
+  // [warp][KB][R]
+  float* tbuf = reinterpret_cast<float*>(ring + kStages * STAGE);
   float* wsum = tbuf + (POS ? K::TBUF : 0);       // [warp][4]
 
   const int L = a.L, S = a.S;
@@ -278,18 +289,18 @@ tiled_bwd_row_kernel(BwdArgs a) {
   const int so = (warp % WPQ) * 32 * SS + lane * SS;  // stripe in the chunk
   const int i = i0 + ql;
   const size_t LS = (size_t)L * S, LL = (size_t)L * L;
-  const float* qkv = a.qkv + (size_t)gi * 2 * GP * LS;
+  const T* qkv = a.qkv + (size_t)gi * 2 * GP * LS;
   const int nkb = (L + KB - 1) / KB;
 
   auto load = [&](int kb) {
-    float* st = smem + (kb % kStages) * STAGE;
+    unsigned char* st = ring + (kb % kStages) * STAGE;
     const int j0 = kb * KB;
     stage<C + GP, KB, kRowStripes, NT>(
-        st, qkv + C * LS + (size_t)j0 * S + s0, LS, S, L - j0, S - s0,
-        a.vec_s, threadIdx.x);
+        reinterpret_cast<T*>(st), qkv + C * LS + (size_t)j0 * S + s0, LS, S,
+        L - j0, S - s0, a.vec_s, threadIdx.x);
     if constexpr (POS) {
       const size_t off = (size_t)i0 * L + j0;
-      float* t = st + K::KV;
+      float* t = reinterpret_cast<float*>(st + K::KV * sizeof(T));
       stage<C, QB, KB, NT>(t, a.qemb + off, LL, L, L - i0, L - j0, a.vec_l,
                            threadIdx.x);
       stage<C, QB, KB, NT>(t + C * QB * KB, a.kemb_t + off, LL, L, L - i0,
@@ -321,7 +332,7 @@ tiled_bwd_row_kernel(BwdArgs a) {
     float delta = 0.f;
 #pragma unroll
     for (int c = 0; c < C; ++c) {
-      q[u][c] = ok ? qkv[c * LS + (size_t)i * S + s] : 0.f;
+      q[u][c] = ok ? to_f32(qkv[c * LS + (size_t)i * S + s]) : 0.f;
       A[u][c] = 0.f;
       B[u][c] = 0.f;
     }
@@ -350,8 +361,10 @@ tiled_bwd_row_kernel(BwdArgs a) {
     __syncthreads();
     if (kb + kStages - 1 < nkb) load(kb + kStages - 1);
     cp_async_commit();
-    const float* kv = smem + (kb % kStages) * STAGE;
-    const float* tab = kv + K::KV;
+    const unsigned char* st = ring + (kb % kStages) * STAGE;
+    const T* kv = reinterpret_cast<const T*>(st);
+    const float* tab =
+        reinterpret_cast<const float*>(st + K::KV * sizeof(T));
     float* tb = tbuf + warp * KB * R;
     const int nvalid = L - kb * KB;
     if (nvalid >= KB) {
@@ -396,7 +409,7 @@ tiled_bwd_row_kernel(BwdArgs a) {
 #pragma unroll
       for (int c = 0; c < C; ++c) {
         const float d = POS ? fmaf(a2, B[u][c], a0 * A[u][c]) : a0 * A[u][c];
-        a.dqkv[dq0 + c * LS] = d;
+        a.dqkv[dq0 + c * LS] = from_f32<T>(d);
       }
     }
   }
@@ -416,8 +429,9 @@ tiled_bwd_row_kernel(BwdArgs a) {
   }
 }
 
-// One staged query block of the column pass for the thread's KJ keys.
-template <class TL, int GP, bool POS>
+// One staged query block of the column pass for the thread's KJ keys; the
+// q rows at the start of ops are staged as T.
+template <class TL, int GP, bool POS, class T>
 __device__ __forceinline__ void col_block(
     const float* ops, const float* tab, int kt0, int lane, float a0,
     float a4, float a0s, float a2s, float a4s,
@@ -431,10 +445,11 @@ __device__ __forceinline__ void col_block(
 #pragma unroll 1
   for (int ii = 0; ii < QB; ++ii) {
     const float* o = ops + ii * kColStripes + lane;
+    const T* oq = reinterpret_cast<const T*>(ops) + ii * kColStripes + lane;
     float q[C], aq[C], gv[GP], ge[GP];
 #pragma unroll
     for (int c = 0; c < C; ++c) {
-      q[c] = o[c * RS];
+      q[c] = to_f32(oq[c * RS]);
       aq[c] = a0 * q[c];
     }
 #pragma unroll
@@ -490,9 +505,9 @@ __device__ __forceinline__ void col_block(
   }
 }
 
-template <class TL, int GP, bool POS>
+template <class TL, int GP, bool POS, class T>
 __global__ void __launch_bounds__(ColCfg<TL, GP, POS>::kThreads)
-tiled_bwd_col_kernel(BwdArgs a) {
+tiled_bwd_col_kernel(BwdArgs<T> a) {
   using K = ColCfg<TL, GP, POS>;
   constexpr int C = K::C, KJ = K::KJ, KT = K::KT, QB = K::QB,
                 NT = K::kThreads;
@@ -505,7 +520,7 @@ tiled_bwd_col_kernel(BwdArgs a) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int s = s0 + lane;
   const size_t LS = (size_t)L * S, LL = (size_t)L * L;
-  const float* qkv = a.qkv + (size_t)gi * 2 * GP * LS;
+  const T* qkv = a.qkv + (size_t)gi * 2 * GP * LS;
   const size_t grow = (size_t)gi * GP * LS;  // group offset of dsv, dsve
   const int nqb = (L + QB - 1) / QB;
 
@@ -516,7 +531,9 @@ tiled_bwd_col_kernel(BwdArgs a) {
     const int vb = L - i0, vx = S - s0;
     const bool vs = a.vec_s;
     const int t = threadIdx.x;
-    stage<C, QB, kColStripes, NT>(st, qkv + at, LS, S, vb, vx, vs, t);
+    // the q rows as T, in the first C * RS floats' room
+    stage<C, QB, kColStripes, NT>(reinterpret_cast<T*>(st), qkv + at, LS, S,
+                                  vb, vx, vs, t);
     stage<GP, QB, kColStripes, NT>(st + K::OG * RS, a.dsv + grow + at, LS, S,
                                    vb, vx, vs, t);
     if constexpr (POS) {
@@ -557,12 +574,12 @@ tiled_bwd_col_kernel(BwdArgs a) {
     const bool ok = j < L && s < S;
 #pragma unroll
     for (int c = 0; c < C; ++c) {
-      k[kk][c] = ok ? qkv[(C + c) * LS + (size_t)j * S + s] : 0.f;
+      k[kk][c] = ok ? to_f32(qkv[(C + c) * LS + (size_t)j * S + s]) : 0.f;
       dk[kk][c] = 0.f;
     }
 #pragma unroll
     for (int p = 0; p < GP; ++p) {
-      v[kk][p] = ok ? qkv[(GP + p) * LS + (size_t)j * S + s] : 0.f;
+      v[kk][p] = ok ? to_f32(qkv[(GP + p) * LS + (size_t)j * S + s]) : 0.f;
       dv[kk][p] = 0.f;
     }
   }
@@ -575,8 +592,8 @@ tiled_bwd_col_kernel(BwdArgs a) {
     if (qb + kStages - 1 < nqb) load(qb + kStages - 1);
     cp_async_commit();
     const float* ops = smem + (qb % kStages) * K::STAGE;
-    col_block<TL, GP, POS>(ops, ops + K::OPS, kt0, lane, a0, a4, a0s, a2s,
-                           a4s, k, v, dk, dv);
+    col_block<TL, GP, POS, T>(ops, ops + K::OPS, kt0, lane, a0, a4, a0s,
+                              a2s, a4s, k, v, dk, dv);
   }
 
   if (s >= S) return;
@@ -586,19 +603,21 @@ tiled_bwd_col_kernel(BwdArgs a) {
     if (j >= L) break;
     const size_t out0 = (size_t)gi * 2 * GP * LS + (size_t)j * S + s;
 #pragma unroll
-    for (int c = 0; c < C; ++c) a.dqkv[out0 + (C + c) * LS] = dk[kk][c];
+    for (int c = 0; c < C; ++c)
+      a.dqkv[out0 + (C + c) * LS] = from_f32<T>(dk[kk][c]);
 #pragma unroll
-    for (int p = 0; p < GP; ++p) a.dqkv[out0 + (GP + p) * LS] = dv[kk][p];
+    for (int p = 0; p < GP; ++p)
+      a.dqkv[out0 + (GP + p) * LS] = from_f32<T>(dv[kk][p]);
   }
 }
 
-template <class TL, int GP, bool POS>
-cudaError_t launch_variant(const BwdArgs& a, cudaStream_t stream) {
+template <class TL, int GP, bool POS, class T>
+cudaError_t launch_variant(const BwdArgs<T>& a, cudaStream_t stream) {
   using KR = RowCfg<TL, GP>;
   using KC = ColCfg<TL, GP, POS>;
-  auto row = tiled_bwd_row_kernel<TL, GP, POS>;
-  auto col = tiled_bwd_col_kernel<TL, GP, POS>;
-  const size_t row_smem = row_smem_bytes<TL, GP, POS>();
+  auto row = tiled_bwd_row_kernel<TL, GP, POS, T>;
+  auto col = tiled_bwd_col_kernel<TL, GP, POS, T>;
+  const size_t row_smem = row_smem_bytes<TL, GP, POS, T>();
   const size_t col_smem = (size_t)kStages * KC::STAGE * sizeof(float);
   cudaError_t err = allow_smem(row, row_smem);
   if (err != cudaSuccess) return err;
@@ -651,19 +670,19 @@ struct FlashTiles : Flash2Tiles {
   static constexpr int kMaxSpan = 64;
 };
 
-// The whole backward of one call under policy TL: validate, row pass,
-// column pass, finalize. m, l, sv, sve are the forward's saved outputs;
-// scratch holds 2 * g * L * S floats (delta, then the row normaliser mm).
+// The whole backward of one call under policy TL, qkv and dqkv of element
+// type T (float or bf16): validate, row pass, column pass, finalize. m, l,
+// sv, sve are the forward's saved outputs; scratch holds 2 * g * L * S floats (delta, then the row normaliser mm).
 // dtables: (2gp, L, L) = dqemb (c rows), dkemb_t (c rows), dvemb (gp rows),
 // not written without positions. Partials: tab_part (g * ceil(S/128), 2gp,
 // L, L) (unused without positions), aff_part (ceil(L/QB) * ceil(S/128), g,
 // 4). sve and dsve are not read without positions. Returns the first CUDA
 // error of its launches.
-template <class TL>
-int tiled_bwd(const float* qkv, const float* qemb, const float* kemb_t,
+template <class TL, class T>
+int tiled_bwd(const T* qkv, const float* qemb, const float* kemb_t,
               const float* vemb, const float* aff, const float* m,
               const float* l, const float* sv, const float* sve,
-              const float* dsv, const float* dsve, float* dqkv,
+              const float* dsv, const float* dsve, T* dqkv,
               float* dtables, float* daff, float* scratch, float* tab_part,
               float* aff_part, int g, int gp, int L, int S, int has_pos,
               int n_tab_part, int n_aff_part, void* stream_ptr) {
@@ -680,22 +699,22 @@ int tiled_bwd(const float* qkv, const float* qemb, const float* kemb_t,
     return (int)cudaErrorInvalidValue;
   }
   const bool pos = has_pos != 0;
-  const bool vec_s = S % 4 == 0 && aligned16(qkv) && aligned16(dsv) &&
+  const bool vec_s = S % kChunk<T> == 0 && aligned16(qkv) && aligned16(dsv) &&
                      aligned16(scratch) && (!pos || aligned16(dsve));
   const bool vec_l = pos && L % 4 == 0 && aligned16(qemb) &&
                      aligned16(kemb_t) && aligned16(vemb);
-  const BwdArgs a{qkv, qemb, kemb_t, vemb, aff, m, l, sv, sve, dsv, dsve,
+  const BwdArgs<T> a{qkv, qemb, kemb_t, vemb, aff, m, l, sv, sve, dsv, dsve,
                   scratch, dqkv, tab_part, aff_part, g, L, S, vec_s, vec_l};
   cudaError_t err;
   switch (gp) {
-    case 2: err = pos ? launch_variant<TL, 2, true>(a, stream)
-                      : launch_variant<TL, 2, false>(a, stream); break;
-    case 4: err = pos ? launch_variant<TL, 4, true>(a, stream)
-                      : launch_variant<TL, 4, false>(a, stream); break;
-    case 8: err = pos ? launch_variant<TL, 8, true>(a, stream)
-                      : launch_variant<TL, 8, false>(a, stream); break;
-    default: err = pos ? launch_variant<TL, 16, true>(a, stream)
-                       : launch_variant<TL, 16, false>(a, stream); break;
+    case 2: err = pos ? launch_variant<TL, 2, true, T>(a, stream)
+                      : launch_variant<TL, 2, false, T>(a, stream); break;
+    case 4: err = pos ? launch_variant<TL, 4, true, T>(a, stream)
+                      : launch_variant<TL, 4, false, T>(a, stream); break;
+    case 8: err = pos ? launch_variant<TL, 8, true, T>(a, stream)
+                      : launch_variant<TL, 8, false, T>(a, stream); break;
+    default: err = pos ? launch_variant<TL, 16, true, T>(a, stream)
+                       : launch_variant<TL, 16, false, T>(a, stream); break;
   }
   if (err != cudaSuccess) return (int)err;
   medt::bwd_finalize(tab_part, dtables, pos ? n_tab_part : 0,

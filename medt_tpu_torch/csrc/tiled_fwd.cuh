@@ -11,7 +11,10 @@
 // on the fused qkv tensor (g, 2gp, L, S): rows [0:c] = q, [c:gp] = k,
 // [gp:2gp] = v; outputs sv, sve (g, gp, L, S) and the row max m and softmax
 // denominator l (g, L, S) from which the backward (csrc/tiled_bwd.cuh)
-// rebuilds p. Everything is float32.
+// rebuilds p. qkv is float32 or bf16 (the element type T of the
+// template): its values are staged raw and converted where they are read,
+// so a bf16 qkv gives exactly the float32 kernel's outputs on its upcast;
+// everything else is float32.
 //
 // The design (flash2's, made a template over its tile policy):
 //   * a block owns one group, a tile of QT query rows and a tile of 32
@@ -73,13 +76,17 @@ struct FwdCfg {
   static_assert(kStages == 1 || kStages == 2, "one slot or a 2-slot ring");
 };
 
-template <class TL, int GP, bool POS>
-__host__ __device__ constexpr int fwd_stage_floats() {
-  return FwdCfg<TL, GP>::KV + (POS ? FwdCfg<TL, GP>::TAB : 0);
+// One slot of the ring, in bytes: the k/v rows (KV elements of T), then
+// with positions the table tile (TAB floats).
+template <class TL, int GP, bool POS, class T>
+__host__ __device__ constexpr int fwd_stage_bytes() {
+  return FwdCfg<TL, GP>::KV * (int)sizeof(T) +
+         (POS ? FwdCfg<TL, GP>::TAB * (int)sizeof(float) : 0);
 }
 
+template <class T>
 struct FwdArgs {
-  const float* qkv;
+  const T* qkv;
   const float* qemb;
   const float* kemb_t;
   const float* vemb;
@@ -89,15 +96,15 @@ struct FwdArgs {
   float* m;
   float* l;
   int L, S;
-  bool vec_s;  // 16-byte copies along the stripe axis
+  bool vec_s;  // 16-byte copies along the stripe axis (of qkv)
   bool vec_l;  // 16-byte copies along the key axis of the tables
 };
 
 // One staged key block (keys j0 .. j0 + KB, of which nvalid exist) for the
 // thread's QI query rows. CHECK masks keys past the span.
-template <class TL, int GP, bool POS, bool CHECK>
+template <class TL, int GP, bool POS, bool CHECK, class T>
 __device__ __forceinline__ void fwd_block(
-    const float* kv, const float* tab, int ql0, int lane, int nvalid,
+    const T* kv, const float* tab, int ql0, int lane, int nvalid,
     float a4s, const float (&q0)[FwdCfg<TL, GP>::QI][FwdCfg<TL, GP>::C],
     const float (&q2)[FwdCfg<TL, GP>::QI][FwdCfg<TL, GP>::C],
     float (&mref)[FwdCfg<TL, GP>::QI], float (&mtop)[FwdCfg<TL, GP>::QI],
@@ -114,12 +121,13 @@ __device__ __forceinline__ void fwd_block(
     for (int jj = 0; jj < JS; ++jj) {
 #pragma unroll
       for (int c = 0; c < C; ++c) {
-        kk[jj][c] = kv[(c * KB + jb + jj) * kFwdStripes + lane];
+        kk[jj][c] = to_f32(kv[(c * KB + jb + jj) * kFwdStripes + lane]);
         k4[jj][c] = a4s * kk[jj][c];
       }
 #pragma unroll
       for (int p = 0; p < GP; ++p)
-        vv[jj][p] = kv[((C + p) * KB + jb + jj) * kFwdStripes + lane];
+        vv[jj][p] =
+            to_f32(kv[((C + p) * KB + jb + jj) * kFwdStripes + lane]);
     }
 #pragma unroll
     for (int qi = 0; qi < QI; ++qi) {
@@ -185,14 +193,15 @@ __device__ __forceinline__ void fwd_block(
   }
 }
 
-template <class TL, int GP, bool POS>
+template <class TL, int GP, bool POS, class T>
 __global__ void __launch_bounds__(FwdCfg<TL, GP>::kThreads)
-tiled_fwd_kernel(FwdArgs a) {
+tiled_fwd_kernel(FwdArgs<T> a) {
   using K = FwdCfg<TL, GP>;
   constexpr int C = K::C, QI = K::QI, QT = K::QT, KB = K::KB;
   constexpr int NT = K::kThreads, NSTAGE = K::kStages;
-  constexpr int STAGE = fwd_stage_floats<TL, GP, POS>();
+  constexpr int STAGE = fwd_stage_bytes<TL, GP, POS, T>();
   extern __shared__ __align__(16) float smem[];
+  unsigned char* ring = reinterpret_cast<unsigned char*>(smem);
 
   const int L = a.L, S = a.S;
   const int i0 = blockIdx.x * QT, s0 = blockIdx.y * kFwdStripes;
@@ -201,18 +210,18 @@ tiled_fwd_kernel(FwdArgs a) {
   const int s = s0 + lane;
   const int ql0 = warp * QI;  // the thread's first query row in the tile
   const size_t LS = (size_t)L * S, LL = (size_t)L * L;
-  const float* qkv = a.qkv + (size_t)gi * 2 * GP * LS;
+  const T* qkv = a.qkv + (size_t)gi * 2 * GP * LS;
   const int nkb = (L + KB - 1) / KB;
 
   auto load = [&](int kb) {
-    float* st = smem + (kb % NSTAGE) * STAGE;
+    unsigned char* st = ring + (kb % NSTAGE) * STAGE;
     const int j0 = kb * KB;
     stage<C + GP, KB, kFwdStripes, NT>(
-        st, qkv + C * LS + (size_t)j0 * S + s0, LS, S, L - j0, S - s0,
-        a.vec_s, threadIdx.x);
+        reinterpret_cast<T*>(st), qkv + C * LS + (size_t)j0 * S + s0, LS, S,
+        L - j0, S - s0, a.vec_s, threadIdx.x);
     if constexpr (POS) {
       const size_t off = (size_t)i0 * L + j0;
-      float* t = st + K::KV;
+      float* t = reinterpret_cast<float*>(st + K::KV * sizeof(T));
       stage<C, QT, KB, NT>(t, a.qemb + off, LL, L, L - i0, L - j0, a.vec_l,
                            threadIdx.x);
       stage<C, QT, KB, NT>(t + C * QT * KB, a.kemb_t + off, LL, L, L - i0,
@@ -240,7 +249,7 @@ tiled_fwd_kernel(FwdArgs a) {
     const bool ok = i < L && s < S;
 #pragma unroll
     for (int c = 0; c < C; ++c) {
-      const float q = ok ? qkv[c * LS + (size_t)i * S + s] : 0.f;
+      const float q = ok ? to_f32(qkv[c * LS + (size_t)i * S + s]) : 0.f;
       q0[qi][c] = a0s * q;
       q2[qi][c] = a2s * q;
     }
@@ -264,8 +273,10 @@ tiled_fwd_kernel(FwdArgs a) {
       cp_async_wait<0>();
       __syncthreads();
     }
-    const float* kv = smem + (kb % NSTAGE) * STAGE;
-    const float* tab = kv + K::KV;
+    const unsigned char* st = ring + (kb % NSTAGE) * STAGE;
+    const T* kv = reinterpret_cast<const T*>(st);
+    const float* tab =
+        reinterpret_cast<const float*>(st + K::KV * sizeof(T));
     const int nvalid = L - kb * KB;
     if (nvalid >= KB) {
       fwd_block<TL, GP, POS, false>(kv, tab, ql0, lane, nvalid, a4s, q0, q2,
@@ -301,12 +312,12 @@ tiled_fwd_kernel(FwdArgs a) {
   }
 }
 
-template <class TL, int GP, bool POS>
-cudaError_t fwd_variant(const FwdArgs& a, int g, cudaStream_t stream) {
+template <class TL, int GP, bool POS, class T>
+cudaError_t fwd_variant(const FwdArgs<T>& a, int g, cudaStream_t stream) {
   using K = FwdCfg<TL, GP>;
-  const size_t smem = (size_t)K::kStages * fwd_stage_floats<TL, GP, POS>() *
-                      sizeof(float);
-  auto kernel = tiled_fwd_kernel<TL, GP, POS>;
+  const size_t smem =
+      (size_t)K::kStages * fwd_stage_bytes<TL, GP, POS, T>();
+  auto kernel = tiled_fwd_kernel<TL, GP, POS, T>;
   const cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((a.L + K::QT - 1) / K::QT,
@@ -343,11 +354,11 @@ struct FlashFwdTiles {
   static constexpr int steps(int gp) { return Flash2FwdTiles::steps(gp); }
 };
 
-// The whole forward of one call under policy TL. sve is not written when
-// has_pos == 0; m and l are (g, L, S) each. Returns the first CUDA error of
-// its launch.
-template <class TL>
-int tiled_fwd(const float* qkv, const float* qemb, const float* kemb_t,
+// The whole forward of one call under policy TL, qkv of element type T
+// (float or bf16). sve is not written when has_pos == 0; m and l are (g, L,
+// S) each. Returns the first CUDA error of its launch.
+template <class TL, class T>
+int tiled_fwd(const T* qkv, const float* qemb, const float* kemb_t,
               const float* vemb, const float* aff, float* sv, float* sve,
               float* m, float* l, int g, int gp, int L, int S, int has_pos,
               void* stream_ptr) {
@@ -357,20 +368,20 @@ int tiled_fwd(const float* qkv, const float* qemb, const float* kemb_t,
     return (int)cudaErrorInvalidValue;
   }
   const bool pos = has_pos != 0;
-  const FwdArgs a{qkv, qemb, kemb_t, vemb, aff, sv, sve, m, l, L, S,
-                  S % 4 == 0 && aligned16(qkv),
+  const FwdArgs<T> a{qkv, qemb, kemb_t, vemb, aff, sv, sve, m, l, L, S,
+                  S % kChunk<T> == 0 && aligned16(qkv),
                   pos && L % 4 == 0 && aligned16(qemb) && aligned16(kemb_t) &&
                       aligned16(vemb)};
   cudaError_t err;
   switch (gp) {
-    case 2: err = pos ? fwd_variant<TL, 2, true>(a, g, stream)
-                      : fwd_variant<TL, 2, false>(a, g, stream); break;
-    case 4: err = pos ? fwd_variant<TL, 4, true>(a, g, stream)
-                      : fwd_variant<TL, 4, false>(a, g, stream); break;
-    case 8: err = pos ? fwd_variant<TL, 8, true>(a, g, stream)
-                      : fwd_variant<TL, 8, false>(a, g, stream); break;
-    case 16: err = pos ? fwd_variant<TL, 16, true>(a, g, stream)
-                       : fwd_variant<TL, 16, false>(a, g, stream); break;
+    case 2: err = pos ? fwd_variant<TL, 2, true, T>(a, g, stream)
+                      : fwd_variant<TL, 2, false, T>(a, g, stream); break;
+    case 4: err = pos ? fwd_variant<TL, 4, true, T>(a, g, stream)
+                      : fwd_variant<TL, 4, false, T>(a, g, stream); break;
+    case 8: err = pos ? fwd_variant<TL, 8, true, T>(a, g, stream)
+                      : fwd_variant<TL, 8, false, T>(a, g, stream); break;
+    case 16: err = pos ? fwd_variant<TL, 16, true, T>(a, g, stream)
+                       : fwd_variant<TL, 16, false, T>(a, g, stream); break;
     default: return (int)cudaErrorInvalidValue;
   }
   return (int)err;

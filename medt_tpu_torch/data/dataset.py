@@ -3,8 +3,11 @@
 Port of ``medt_tpu/data/dataset.py``. Directory layout (reference
 utils.py:112-121, the live scripts reading ``img/`` and ``labelcol/``,
 utils.py:130-131): paired PNGs, the mask named by the image's stem +
-".png" (utils.py:154). Images decode through :mod:`.png` (numpy + zlib,
-bit-exact with the JAX package's libpng decoder), BGR as cv2 reads them.
+".png" (utils.py:154). PNG images decode through :mod:`.png` (numpy +
+zlib, bit-exact with the JAX package's libpng decoder), BGR as cv2 reads
+them; any other format goes, as in JAX (``_imread_fallback``), to
+``cv2.imread`` or, where cv2 does not import, to PIL, each imported at the
+first such read.
 
 Binarisation policies (a documented quirk pair, SURVEY.md §2 #3/#4):
 
@@ -25,10 +28,33 @@ from .png import read_png
 from .transforms import to_float01
 
 
+def _imread_other(path: str, gray: bool) -> np.ndarray:
+    """A non-PNG image through cv2, else PIL (converted to BGR as cv2
+    reads): JAX's ``_imread_fallback``."""
+    try:
+        import cv2
+    except ImportError:
+        cv2 = None
+    if cv2 is not None:
+        img = cv2.imread(path, 0 if gray else 1)
+        if img is None:
+            raise FileNotFoundError(path)
+        return img
+    try:
+        from PIL import Image
+    except ImportError:
+        ext = os.path.splitext(path)[1] or "(no extension)"
+        raise ImportError(f"reading {ext} images needs cv2 or PIL, and "
+                          f"neither imports ({path}); the port decodes PNG "
+                          "files itself") from None
+    arr = np.asarray(Image.open(path).convert("L" if gray else "RGB"))
+    return arr if gray else np.ascontiguousarray(arr[..., ::-1])
+
+
 def _imread(path: str, gray: bool) -> np.ndarray:
-    if not path.lower().endswith(".png"):
-        raise ValueError(f"the port reads PNG files only, got {path}")
-    return read_png(path, gray=gray)
+    if path.lower().endswith(".png"):
+        return read_png(path, gray=gray)
+    return _imread_other(path, gray)
 
 
 def _ensure_hwc(img: np.ndarray) -> np.ndarray:

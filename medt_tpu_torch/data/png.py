@@ -17,8 +17,11 @@ PIL and may have no libpng. The result is what ``medt_io.cpp`` gives:
   without a ``gAMA`` chunk takes exactly this path in libpng; gamma
   correction is not applied.
 
-Interlaced (Adam7) files raise ``ValueError``. The encoder writes 8-bit
-gray or RGB images with filter 0 (the CLIs' 0/255 masks, synthetic sets).
+Interlaced (Adam7) files are de-interlaced as libpng's ``png_read_image``
+does: seven passes, each a sub-image with its own width, row stride and
+filter state, scattered into the full image before the conversions above.
+The encoder writes 8-bit gray or RGB images with filter 0 (the CLIs' 0/255
+masks, synthetic sets).
 """
 from __future__ import annotations
 
@@ -35,6 +38,9 @@ _CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
 _RC = 29900 * 32768 // 100000
 _GC = 58700 * 32768 // 100000
 _BC = 32768 - _RC - _GC
+# Adam7 passes: (x0, y0, dx, dy), the first pixel and the steps of each
+_ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4),
+          (0, 2, 2, 4), (1, 0, 2, 2), (0, 1, 1, 2))
 
 
 def _chunks(data: bytes):
@@ -112,6 +118,28 @@ def _samples(rows: np.ndarray, w: int, ch: int, depth: int) -> np.ndarray:
     return (bits * weights).sum(-1, dtype=np.uint8).reshape(h, w, ch)
 
 
+def _deinterlace(raw: bytes, w: int, h: int, ch: int, depth: int,
+                 bpp: int) -> np.ndarray:
+    """The seven Adam7 passes of ``raw`` -> (h, w, ch) samples. Each pass is
+    a sub-image unfiltered on its own (the previous row starts at zero in
+    each); an empty pass carries no bytes."""
+    out = None
+    pos = 0
+    for x0, y0, dx, dy in _ADAM7:
+        pw, ph = -(-(w - x0) // dx), -(-(h - y0) // dy)
+        if pw <= 0 or ph <= 0:
+            continue
+        stride = (pw * ch * depth + 7) // 8
+        size = ph * (stride + 1)
+        sub = _samples(_unfilter(raw[pos:pos + size], ph, stride, bpp),
+                       pw, ch, depth)
+        pos += size
+        if out is None:
+            out = np.zeros((h, w, ch), sub.dtype)
+        out[y0::dy, x0::dx] = sub
+    return out
+
+
 def _rgb_to_gray(rgb: np.ndarray, depth: int) -> np.ndarray:
     """libpng's fixed-point rgb_to_gray, then the high byte for 16-bit."""
     x = rgb.astype(np.uint32)
@@ -134,16 +162,19 @@ def decode_png(data: bytes, gray: bool = False) -> np.ndarray:
     if header is None:
         raise ValueError("PNG without IHDR")
     w, h, depth, ctype, _, _, interlace = header
-    if interlace:
-        raise ValueError("interlaced (Adam7) PNG files are not supported")
+    if interlace not in (0, 1):
+        raise ValueError(f"unknown PNG interlace method {interlace}")
     if ctype not in _CHANNELS or depth not in (1, 2, 4, 8, 16):
         raise ValueError(f"unsupported PNG colour type {ctype} / depth "
                          f"{depth}")
     ch = _CHANNELS[ctype]
     stride = (w * ch * depth + 7) // 8
     bpp = max(1, ch * depth // 8)
-    rows = _unfilter(zlib.decompress(b"".join(idat)), h, stride, bpp)
-    px = _samples(rows, w, ch, depth)
+    raw = zlib.decompress(b"".join(idat))
+    if interlace:
+        px = _deinterlace(raw, w, h, ch, depth, bpp)
+    else:
+        px = _samples(_unfilter(raw, h, stride, bpp), w, ch, depth)
 
     if ctype == 3:                                    # palette -> RGB
         if palette is None:

@@ -54,6 +54,13 @@ SIGNATURES = {
     "medt_stripe_attn_fwd": [_P] * 9 + [_L] * 6 + [_I] * 5 + [_P],
     "medt_stripe_attn_bwd": [_P] * 16 + [_L] * 6 + [_I] * 7 + [_P],
 }
+# the bf16 entry points of rows 1-8 (qkv, and dqkv, in bf16) take the
+# float32 ones' arguments
+SIGNATURES.update({
+    f"{name}_bf16": SIGNATURES[name] for name in (
+        "medt_lanes_attn_fwd", "medt_flash_lanes_fwd", "medt_flash2_lanes_fwd",
+        "medt_lanes_attn_bwd", "medt_flash_lanes_bwd", "medt_flash2_lanes_bwd",
+        "medt_moment_sums_fwd", "medt_moment_sums_bwd")})
 
 
 class BuildError(RuntimeError):

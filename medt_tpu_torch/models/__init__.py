@@ -8,7 +8,7 @@ autoencoder), all at layers [1, 2, 4, 1], 8 groups and width scale
 s = 0.125, with the reference's frozen gates (0.1, 0.1, 0.1, 1.0) in the
 gated modes and (0.1, 0.1, 0.1, 5.0) under gated_sig's sigmoid. The
 zoo's classifiers (``AxialAttentionNet``, the ResNets) are not ported yet
-(ROADMAP.md, section 1, item 5).
+(ROADMAP.md, section 1, "The classification harness").
 """
 from __future__ import annotations
 
@@ -18,6 +18,7 @@ import torch
 from torch import nn
 
 from ..device import resolve_device
+from ..ops import set_compute_dtype
 from .axial_unet import ResAxialAttentionUNet
 from .blocks import AxialBlock, AxialStage
 from .classifiers import ConvAutoencoder
@@ -92,7 +93,8 @@ def main_logits(out):
 def build_model(name: str, *, img_size: Optional[int] = None,
                 imgchan: int = 3, num_classes: int = 2, use_fused: bool = False,
                 plain_cores: bool = False, seed: int = 0, device=None,
-                trainable_gates: bool = False, **kwargs) -> nn.Module:
+                trainable_gates: bool = False,
+                dtype: Optional[torch.dtype] = None, **kwargs) -> nn.Module:
     """Build a model by its reference-CLI name, in eval mode, on ``device``
     (``None`` means the card, and raises without one). ``img_size=None``
     takes the factory's own size (128; 512 for the ``*_512`` models); an
@@ -100,7 +102,10 @@ def build_model(name: str, *, img_size: Optional[int] = None,
     reference's laws with a ``torch.Generator`` seeded by ``seed``. ``use_fused`` runs the attention cores (CUDA kernels on the
     card); ``plain_cores`` makes those cores run their plain versions.
     ``trainable_gates`` trains the attention gates (the reference freezes
-    them)."""
+    them). ``dtype`` is the compute dtype (JAX's ``dtype``): None or
+    float32 computes in float32, ``torch.bfloat16`` runs the activations
+    in bf16 around float32 parameters, BN statistics and attention
+    statistics."""
     if name not in MODEL_REGISTRY:
         raise KeyError(f"unknown model {name!r}; available: "
                        f"{sorted(MODEL_REGISTRY)}")
@@ -113,6 +118,8 @@ def build_model(name: str, *, img_size: Optional[int] = None,
     model = MODEL_REGISTRY[name](
         img_size=img_size, imgchan=imgchan, num_classes=num_classes,
         attn=attn, generator=generator, device=device, **kwargs)
+    if dtype is not None:
+        set_compute_dtype(model, dtype)
     return model.eval()
 
 

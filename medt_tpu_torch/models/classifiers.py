@@ -5,7 +5,7 @@ Port of ``ConvAutoencoder`` in ``medt_tpu/models/classifiers.py:89-110``
 convs + BN + ReLU, a decoder of 3x3 convs + BN + bilinear x2 + ReLU, and a
 3x3 output conv followed by one more bilinear x2, back at the input size.
 The axial-attention classifiers of that module are not ported yet
-(ROADMAP.md, section 1, item 5).
+(ROADMAP.md, section 1, "The classification harness").
 """
 from __future__ import annotations
 

@@ -9,7 +9,7 @@ from .axial_attention import (
     MODE_WOPOS,
     AxialAttention,
 )
-from .convs import conv1x1, conv2d
+from .convs import Conv2d, conv1x1, conv2d, set_compute_dtype
 from .norms import BatchNorm, batch_norm_eval, batch_norm_train
 from .pooling import avg_pool, upsample_bilinear_2x
 
@@ -31,6 +31,7 @@ def launch_counts() -> dict:
 __all__ = [
     "AxialAttention",
     "BatchNorm",
+    "Conv2d",
     "MODE_FULL",
     "MODE_GATED",
     "MODE_GATED_DATA",
@@ -44,5 +45,6 @@ __all__ = [
     "launch_counts",
     "relative_logit_index",
     "reset_launch_counts",
+    "set_compute_dtype",
     "upsample_bilinear_2x",
 ]

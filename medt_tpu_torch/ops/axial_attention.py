@@ -49,6 +49,16 @@ Two paths, as in JAX:
   (route ``"plain"``: no kernel takes them, and JAX runs XLA attention
   there), in both modes.
 
+The compute dtype (``compute_dtype``, set by ``build_model(dtype=...)``;
+JAX's ``dtype``) follows JAX's casts route by route: the qkv projection
+runs in it; the lanes, flash and flash2 routes keep bf16 qkv through the
+transpose into the kernels and the moments kernel, which return float32
+statistics and outputs; the stripe and eval routes upcast to float32 (as
+JAX feeds its kernels there); the plain path takes its products of
+compute-dtype operands in float32 and its softmax in float32, cast back to
+the compute dtype before the products with v and the v table. Every route
+casts its output to the compute dtype.
+
 Parameters carry the reference's names and shapes (``qkv_transform.weight``
 (2*out, in, 1), ``bn_qkv``, ``bn_similarity``, ``bn_output``, ``relative``,
 ``flatten_index``, ``f_qr``/``f_kr``/``f_sve``/``f_sv``), so reference
@@ -164,7 +174,11 @@ class AxialAttention(nn.Module):
     along the width. ``plain_cores`` makes the fused path run the kernels'
     plain versions even on the card (the reference the kernels are held
     against). After a fused-path forward, ``last_route`` holds
-    ``(route, span, g, gp, stripes, has_pos)`` of that call."""
+    ``(route, span, g, gp, stripes, has_pos)`` of that call.
+    ``compute_dtype`` (None: the input's) is the dtype of the projection
+    and of the output."""
+
+    compute_dtype: Optional[torch.dtype] = None
 
     def __init__(self, in_planes: int, out_planes: int, span: int,
                  groups: int = 8, stride: int = 1, axis: str = "h",
@@ -227,7 +241,9 @@ class AxialAttention(nn.Module):
         if self.mode in (MODE_FULL, MODE_WOPOS):
             return None
         if self.mode == MODE_GATED_DATA:
-            h = F.relu(self.gate_fc1(x.mean(dim=(2, 3))))
+            # the pooled input meets float32 weights: float32, as JAX's
+            # Dense promotes it
+            h = F.relu(self.gate_fc1(x.mean(dim=(2, 3)).float()))
             gates = torch.sigmoid(self.gate_fc2(h))          # (n, 4)
             return tuple(gates[:, i].reshape(-1, 1, 1, 1, 1)
                          for i in range(4))
@@ -284,7 +300,8 @@ class AxialAttention(nn.Module):
         n, _, L, _ = x.shape
         if L != self.span:
             raise ValueError(f"span {self.span} != attended extent {L}")
-        qkv = F.conv2d(x, self.qkv_transform.weight[..., None])
+        cd = self.compute_dtype or x.dtype
+        qkv = F.conv2d(x.to(cd), self.qkv_transform.weight[..., None].to(cd))
         qkv = self.bn_qkv(qkv)                            # (n, 2out, L, m)
 
         fused_modes = (FUSED_TRAIN_MODES if self.training
@@ -333,17 +350,20 @@ class AxialAttention(nn.Module):
         return pack_sim_affine(g, a.reshape(3, g), b.reshape(3, g), self.mode)
 
     def _fused_attention(self, qkv: torch.Tensor) -> torch.Tensor:
-        """Fused path: the affine fold around the lanes-family core."""
+        """Fused path: the affine fold around the lanes-family core. bf16
+        qkv stays bf16 into the kernels (JAX's ``kdt``); sv and sve come
+        back float32."""
         n, _, L, m = qkv.shape
         g, gp = self.groups, self.gp
         S = n * m
+        kdt = torch.bfloat16 if qkv.dtype == torch.bfloat16 else torch.float32
         qkv_l4 = qkv.permute(1, 2, 0, 3).reshape(g, 2 * gp, L, S) \
-            .float().contiguous()
+            .to(kdt).contiguous()
         plain = self.plain_cores
         if self.mode == MODE_WOPOS:
             aff = self._sim_affine(lambda: qk_moments_lanes_fused(qkv_l4,
                                                                   plain))
-            empty = qkv_l4.new_zeros((0, L, L))
+            empty = qkv_l4.new_zeros((0, L, L), dtype=torch.float32)
             sv, _ = lanes_family_core(qkv_l4, empty, empty, empty, aff,
                                       plain=plain)
             y = self.bn_output(sv, feature_axes=(0, 1))
@@ -413,10 +433,18 @@ class AxialAttention(nn.Module):
         return out.to(qkv.dtype)
 
     def _plain_attention(self, qkv: torch.Tensor, x_in: torch.Tensor):
-        """Plain path (``_jnp_attention`` in JAX), every mode."""
+        """Plain path (``_jnp_attention`` in JAX), every mode: the products
+        of compute-dtype operands summed in float32
+        (``preferred_element_type``), the softmax in float32 and cast to
+        the compute dtype."""
         n, _, L, m = qkv.shape
         g, gp, c = self.groups, self.gp, self.gp // 2
-        qkv5 = qkv.reshape(n, g, 2 * gp, L, m)
+        cd = qkv.dtype
+
+        def rounded(t):  # a compute-dtype operand, as float32
+            return t.to(cd).float()
+
+        qkv5 = qkv.reshape(n, g, 2 * gp, L, m).float()
         q, k, v = qkv5[:, :, :c], qkv5[:, :, c:gp], qkv5[:, :, gp:]
         qk = torch.einsum("ngcim,ngcjm->ngmij", q, k)
         if self.mode == MODE_WOPOS:
@@ -424,22 +452,22 @@ class AxialAttention(nn.Module):
             logits = self.bn_similarity(qk, feature_axes=1)
         else:
             q_emb, k_emb, v_emb = self._tables()
-            qr = torch.einsum("ngcim,cij->ngmij", q, q_emb)
-            kr = torch.einsum("ngcjm,cji->ngmij", k, k_emb)
+            qr = torch.einsum("ngcim,cij->ngmij", q, rounded(q_emb))
+            kr = torch.einsum("ngcjm,cji->ngmij", k, rounded(k_emb))
             gates = self._gates(x_in)
             if gates is not None:
                 f_qr, f_kr, f_sve, f_sv = gates
                 qr, kr = qr * f_qr, kr * f_kr
             stacked = torch.stack([qk, qr, kr], dim=1)   # (n, 3, g, m, i, j)
             logits = self.bn_similarity(stacked, feature_axes=(1, 2)).sum(1)
-        sim = torch.softmax(logits.float(), dim=-1)
+        sim = rounded(torch.softmax(logits.float(), dim=-1))
         sv = torch.einsum("ngmij,ngpjm->ngpim", sim, v)
         if self.mode == MODE_WOPOS:
             out = self.bn_output(sv, feature_axes=(1, 2))
         else:
-            sve = torch.einsum("ngmij,pij->ngpim", sim, v_emb)
+            sve = torch.einsum("ngmij,pij->ngpim", sim, rounded(v_emb))
             if gates is not None:
                 sv, sve = sv * f_sv, sve * f_sve
             stacked = torch.stack([sv, sve], dim=-1)     # (n, g, p, i, m, 2)
             out = self.bn_output(stacked, feature_axes=(1, 2, 5)).sum(-1)
-        return out.reshape(n, self.out_planes, L, m).to(qkv.dtype)
+        return out.reshape(n, self.out_planes, L, m).to(cd)

@@ -36,7 +36,15 @@ fallback from a CUDA tensor to a plain version: only an explicit ``plain``
 argument runs the plain versions on the card. Each wrapper counts its
 launches in ``.launches``.
 
-Only float32 is taken. The TPU kernels' blocking (``_JB_*``, ``Sb``, VMEM
+qkv may be float32 or bf16 (JAX's bf16 kernel I/O): every kernel has a
+bf16 entry point beside its float32 one (``medt_<name>_bf16``), which
+converts each value where it is read and keeps every float32 operation
+and its order, so its outputs equal the float32 kernel's on the upcast
+qkv; the backward writes dqkv in bf16, the float32 gradient rounded once
+at the store. Its launches count in ``.launches_bf16``. Every other
+operand (tables, affine, sv, sve, m, l, dsv, dsve) and every other output
+is float32. The plain versions take bf16 qkv as its exact float32 upcast
+and round dqkv once. The TPU kernels' blocking (``_JB_*``, ``Sb``, VMEM
 budgets) is not ported: the kernels size themselves for the H100.
 """
 from __future__ import annotations
@@ -44,7 +52,18 @@ from __future__ import annotations
 import torch
 
 from ..kernels.build import library
-from ..kernels.launch import check_tensor, ptr, raise_on, stream
+from ..kernels.launch import (
+    QKV_DTYPES,
+    check_tensor,
+    count_launch,
+    counts_of,
+    entry,
+    ptr,
+    raise_on,
+    reset_counts,
+    stream,
+    widened,
+)
 from .attn_core import attend, attn_logits
 
 LANES_MAX_SPAN = 16
@@ -67,7 +86,7 @@ def _to_stripes(qkv: torch.Tensor):
 
 def _plain(qkv, qemb, kemb_t, vemb, sim_affine):
     has_pos = _has_pos(qemb)
-    q, k, v = _to_stripes(qkv)
+    q, k, v = _to_stripes(widened(qkv))
     kemb = kemb_t.transpose(1, 2) if has_pos else kemb_t
     logits = attn_logits(q, k, qemb, kemb, sim_affine, has_pos)
     sv, sve = attend(logits, v, vemb, has_pos)
@@ -148,17 +167,23 @@ def _bwd_from_probs(q, k, v, qk, qr, kr, sim, dlog_of, qemb, kemb_t, vemb,
     return dqkv, dqemb, dkemb_t, dvemb, daff
 
 
+def _in_dtype(qkv, grads):
+    """The backward's gradients with dqkv rounded once to qkv's dtype."""
+    dqkv, *rest = grads
+    return (dqkv.to(qkv.dtype), *rest)
+
+
 def lanes_attn_bwd_plain(qkv, qemb, kemb_t, vemb, sim_affine, dsv, dsve):
     """Plain version of the lanes backward (``_bwd_kernel``): the softmax
     recomputed from the logits; ``(dqkv, dqemb, dkemb_t, dvemb, daff)``."""
     has_pos = _has_pos(qemb)
-    q, k, v, qk, qr, kr, logits = _bwd_logits(qkv, qemb, kemb_t, sim_affine,
-                                              has_pos)
+    q, k, v, qk, qr, kr, logits = _bwd_logits(widened(qkv), qemb, kemb_t,
+                                              sim_affine, has_pos)
     sim = torch.softmax(logits, dim=2)
-    return _bwd_from_probs(
+    return _in_dtype(qkv, _bwd_from_probs(
         q, k, v, qk, qr, kr, sim,
         lambda dsim: sim * (dsim - (sim * dsim).sum(dim=2, keepdim=True)),
-        qemb, kemb_t, vemb, sim_affine, dsv, dsve, has_pos)
+        qemb, kemb_t, vemb, sim_affine, dsv, dsve, has_pos))
 
 
 def flash_lanes_bwd_plain(qkv, qemb, kemb_t, vemb, sim_affine, m, l, sv, sve,
@@ -167,16 +192,16 @@ def flash_lanes_bwd_plain(qkv, qemb, kemb_t, vemb, sim_affine, m, l, sv, sve,
     probabilities from the saved ``(m, l)``, delta from the saved outputs
     ``delta = sum_p dsv*sv + dsve*sve``."""
     has_pos = _has_pos(qemb)
-    q, k, v, qk, qr, kr, logits = _bwd_logits(qkv, qemb, kemb_t, sim_affine,
-                                              has_pos)
+    q, k, v, qk, qr, kr, logits = _bwd_logits(widened(qkv), qemb, kemb_t,
+                                              sim_affine, has_pos)
     sim = torch.exp(logits - m[:, :, None, :]) * (1.0 / l)[:, :, None, :]
     delta = (dsv * sv).sum(dim=1)
     if has_pos:
         delta = delta + (dsve * sve).sum(dim=1)
-    return _bwd_from_probs(
+    return _in_dtype(qkv, _bwd_from_probs(
         q, k, v, qk, qr, kr, sim,
         lambda dsim: sim * (dsim - delta[:, :, None, :]),
-        qemb, kemb_t, vemb, sim_affine, dsv, dsve, has_pos)
+        qemb, kemb_t, vemb, sim_affine, dsv, dsve, has_pos))
 
 
 # flash2 computes the flash function (the lanes contract with m and l); its
@@ -217,7 +242,8 @@ def _check(qkv, qemb, kemb_t, vemb, sim_affine, max_span: int, name: str,
     for tname, (t, kind) in extra.items():
         shapes[tname] = (t, kinds[kind])
     for tname, (t, shape) in shapes.items():
-        check_tensor(name, tname, t, shape, qkv.device)
+        check_tensor(name, tname, t, shape, qkv.device,
+                     QKV_DTYPES if tname == "qkv" else (torch.float32,))
     return g, gp, L, S, has_pos
 
 
@@ -232,15 +258,12 @@ def lanes_attn_fwd(qkv, qemb, kemb_t, vemb, sim_affine):
                                   LANES_MAX_SPAN, "lanes_attn_fwd")
     sv = torch.empty((g, gp, L, S), dtype=torch.float32, device=qkv.device)
     sve = torch.empty_like(sv) if has_pos else sv  # not written without pos
-    err = library().medt_lanes_attn_fwd(
+    err = getattr(library(), entry("lanes_attn_fwd", qkv))(
         ptr(qkv), ptr(qemb), ptr(kemb_t), ptr(vemb), ptr(sim_affine),
         ptr(sv), ptr(sve), g, gp, L, S, int(has_pos), stream(qkv.device))
     raise_on(err, "lanes_attn_fwd")
-    lanes_attn_fwd.launches += 1
+    count_launch(lanes_attn_fwd, qkv)
     return sv, (sve if has_pos else _zeros_like_view(sv))
-
-
-lanes_attn_fwd.launches = 0
 
 
 def _streamed_fwd(name: str, max_span: int, qkv, qemb, kemb_t, vemb,
@@ -254,7 +277,7 @@ def _streamed_fwd(name: str, max_span: int, qkv, qemb, kemb_t, vemb,
     sve = torch.empty_like(sv) if has_pos else sv
     m = torch.empty((g, L, S), dtype=torch.float32, device=dev)
     l = torch.empty_like(m)
-    err = getattr(library(), f"medt_{name}")(
+    err = getattr(library(), entry(name, qkv))(
         ptr(qkv), ptr(qemb), ptr(kemb_t), ptr(vemb), ptr(sim_affine),
         ptr(sv), ptr(sve), ptr(m), ptr(l), g, gp, L, S, int(has_pos),
         stream(dev))
@@ -267,11 +290,8 @@ def flash_lanes_fwd(qkv, qemb, kemb_t, vemb, sim_affine):
     ``(sv, sve, m, l)``."""
     out = _streamed_fwd("flash_lanes_fwd", FLASH_MAX_SPAN, qkv, qemb, kemb_t,
                         vemb, sim_affine)
-    flash_lanes_fwd.launches += 1
+    count_launch(flash_lanes_fwd, qkv)
     return out
-
-
-flash_lanes_fwd.launches = 0
 
 
 def flash2_lanes_fwd(qkv, qemb, kemb_t, vemb, sim_affine):
@@ -279,11 +299,8 @@ def flash2_lanes_fwd(qkv, qemb, kemb_t, vemb, sim_affine):
     ``(sv, sve, m, l)``."""
     out = _streamed_fwd("flash2_lanes_fwd", FLASH2_MAX_SPAN, qkv, qemb,
                         kemb_t, vemb, sim_affine)
-    flash2_lanes_fwd.launches += 1
+    count_launch(flash2_lanes_fwd, qkv)
     return out
-
-
-flash2_lanes_fwd.launches = 0
 
 
 # The lanes backward's tile (csrc/axial_lanes_bwd.cu: kThreads, kGridBlocks,
@@ -324,7 +341,7 @@ def bwd_partials(kind: str, g: int, gp: int, L: int, S: int,
 
 def _bwd_buffers(qkv, kind: str, g, gp, L, S, has_pos):
     """Outputs and scratch of a backward launch of ``kind`` in three
-    allocations: dqkv; dtables (2gp, L, L) then daff (g, 8); the scratch
+    allocations: dqkv (in qkv's dtype); dtables (2gp, L, L) then daff (g, 8); the scratch
     rows (delta and the row normaliser, (2, g, L, S), tiled only), then the table partials (n_tab, 2gp, L, L) and the daff partials
     (n_aff, g, 4). ``(buffers, n_tab, n_aff)``."""
     n_tab, n_aff, rows = bwd_partials(kind, g, gp, L, S, has_pos)
@@ -333,7 +350,8 @@ def _bwd_buffers(qkv, kind: str, g, gp, L, S, has_pos):
     out = torch.empty(e + g * 8, **f32)
     n_rows, n_tabs = rows * g * L * S, n_tab * e
     scratch = torch.empty(n_rows + n_tabs + n_aff * g * 4, **f32)
-    b = dict(dqkv=torch.empty((g, 2 * gp, L, S), **f32),
+    b = dict(dqkv=torch.empty((g, 2 * gp, L, S), dtype=qkv.dtype,
+                              device=qkv.device),
              dtables=out[:e].view(2 * gp if has_pos else 0, L, L),
              daff=out[e:].view(g, 8),
              scratch=scratch[:n_rows].view(rows, g, L, S),
@@ -360,18 +378,15 @@ def lanes_attn_bwd(qkv, qemb, kemb_t, vemb, sim_affine, dsv, dsve):
     g, gp, L, S, has_pos = _check(qkv, qemb, kemb_t, vemb, sim_affine,
                                   LANES_MAX_SPAN, "lanes_attn_bwd", **extra)
     b, n_tab, n_aff = _bwd_buffers(qkv, "lanes", g, gp, L, S, has_pos)
-    err = library().medt_lanes_attn_bwd(
+    err = getattr(library(), entry("lanes_attn_bwd", qkv))(
         ptr(qkv), ptr(qemb), ptr(kemb_t), ptr(vemb), ptr(sim_affine),
         ptr(dsv), ptr(dsve if has_pos else dsv), ptr(b["dqkv"]),
         ptr(b["dtables"]), ptr(b["daff"]), ptr(b["tab_part"]),
         ptr(b["aff_part"]), g, gp, L, S, int(has_pos), n_tab, n_aff,
         stream(qkv.device))
     raise_on(err, "lanes_attn_bwd")
-    lanes_attn_bwd.launches += 1
+    count_launch(lanes_attn_bwd, qkv)
     return (b["dqkv"], *_split_tables(b["dtables"], gp, has_pos), b["daff"])
-
-
-lanes_attn_bwd.launches = 0
 
 
 def _streamed_bwd(name: str, max_span: int, qkv, qemb, kemb_t, vemb,
@@ -385,7 +400,7 @@ def _streamed_bwd(name: str, max_span: int, qkv, qemb, kemb_t, vemb,
     g, gp, L, S, has_pos = _check(qkv, qemb, kemb_t, vemb, sim_affine,
                                   max_span, name, **extra)
     b, n_tab, n_aff = _bwd_buffers(qkv, "tiled", g, gp, L, S, has_pos)
-    err = getattr(library(), f"medt_{name}")(
+    err = getattr(library(), entry(name, qkv))(
         ptr(qkv), ptr(qemb), ptr(kemb_t), ptr(vemb), ptr(sim_affine),
         ptr(m), ptr(l), ptr(sv), ptr(sve if has_pos else sv), ptr(dsv),
         ptr(dsve if has_pos else dsv), ptr(b["dqkv"]), ptr(b["dtables"]),
@@ -403,11 +418,8 @@ def flash_lanes_bwd(qkv, qemb, kemb_t, vemb, sim_affine, m, l, sv, sve, dsv,
     daff)``. ``sve``/``dsve`` are ignored without positions."""
     out = _streamed_bwd("flash_lanes_bwd", FLASH_MAX_SPAN, qkv, qemb, kemb_t,
                         vemb, sim_affine, m, l, sv, sve, dsv, dsve)
-    flash_lanes_bwd.launches += 1
+    count_launch(flash_lanes_bwd, qkv)
     return out
-
-
-flash_lanes_bwd.launches = 0
 
 
 def flash2_lanes_bwd(qkv, qemb, kemb_t, vemb, sim_affine, m, l, sv, sve,
@@ -418,11 +430,8 @@ def flash2_lanes_bwd(qkv, qemb, kemb_t, vemb, sim_affine, m, l, sv, sve,
     partials it allocates are (g * ceil(S/128), 2gp, L, L) floats."""
     out = _streamed_bwd("flash2_lanes_bwd", FLASH2_MAX_SPAN, qkv, qemb, kemb_t,
                         vemb, sim_affine, m, l, sv, sve, dsv, dsve)
-    flash2_lanes_bwd.launches += 1
+    count_launch(flash2_lanes_bwd, qkv)
     return out
-
-
-flash2_lanes_bwd.launches = 0
 
 
 # ---- autograd ----------------------------------------------------------------
@@ -438,16 +447,19 @@ def _grads_in(qkv, dsv, dsve, has_pos):
 
     def dense(t):
         if t is None:
-            return qkv.new_zeros((g, r2 // 2, L, S))
+            return qkv.new_zeros((g, r2 // 2, L, S), dtype=torch.float32)
         return t.contiguous()
 
     dsv = dense(dsv)
     return dsv, (dense(dsve) if has_pos else dsv)
 
 
-def _table_grads(grads, has_pos):
-    """Zero-size tables (wopos) take no gradient."""
+def _table_grads(qkv, grads, has_pos):
+    """Zero-size tables (wopos) take no gradient. dqkv comes in qkv's
+    dtype, as the kernel or the plain version wrote it (not left for
+    autograd to cast)."""
     dqkv, dqemb, dkemb_t, dvemb, daff = grads
+    assert dqkv.dtype == qkv.dtype, (dqkv.dtype, qkv.dtype)
     if not has_pos:
         return dqkv, None, None, None, daff
     return grads
@@ -476,7 +488,7 @@ class LanesAttnCore(torch.autograd.Function):
         dsv, dsve = _grads_in(qkv, dsv, dsve, ctx.has_pos)
         fn = lanes_attn_bwd_plain if ctx.plain else lanes_attn_bwd
         grads = fn(qkv, qemb, kemb_t, vemb, aff, dsv, dsve)
-        return (*_table_grads(grads, ctx.has_pos), None)
+        return (*_table_grads(qkv, grads, ctx.has_pos), None)
 
 
 def _streamed_forward(ctx, fwd_kernel, fwd_plain, qkv, qemb, kemb_t, vemb,
@@ -498,7 +510,7 @@ def _streamed_backward(ctx, bwd_kernel, bwd_plain, dsv, dsve):
     dsv, dsve = _grads_in(qkv, dsv, dsve, ctx.has_pos)
     fn = bwd_plain if ctx.plain else bwd_kernel
     grads = fn(qkv, qemb, kemb_t, vemb, aff, m, l, sv, sve, dsv, dsve)
-    return (*_table_grads(grads, ctx.has_pos), None)
+    return (*_table_grads(qkv, grads, ctx.has_pos), None)
 
 
 class FlashLanesCore(torch.autograd.Function):
@@ -555,9 +567,12 @@ _WRAPPERS = (lanes_attn_fwd, flash_lanes_fwd, flash2_lanes_fwd,
 
 
 def reset_launch_counts():
-    for fn in _WRAPPERS:
-        fn.launches = 0
+    reset_counts(_WRAPPERS)
 
 
 def launch_counts() -> dict:
-    return {fn.__name__: fn.launches for fn in _WRAPPERS}
+    return counts_of(_WRAPPERS)
+
+
+for _fn in _WRAPPERS:
+    _fn.launches = _fn.launches_bf16 = 0

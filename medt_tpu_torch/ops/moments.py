@@ -22,13 +22,31 @@ position-free mode.
 like the attention cores: plain PyTorch on CPU tensors (or with ``plain``),
 the kernels of ``csrc/moments.cu`` through :func:`moment_sums_fwd` and
 :func:`moment_sums_bwd` on CUDA tensors, never a fallback.
+
+qkv may be bf16 (JAX's bf16 kernel I/O): each kernel has a bf16 entry
+point that converts each value where it is read and keeps the float32
+kernel's arithmetic, so the sums equal the float32 kernel's on the upcast
+qkv and the backward's dqkv, written in bf16, is its gradient rounded once
+(launches in ``.launches_bf16``). The tables and sums stay float32. The
+plain versions take bf16 qkv as its exact upcast and round dqkv once.
 """
 from __future__ import annotations
 
 import torch
 
 from ..kernels.build import library
-from ..kernels.launch import check_tensor, ptr, raise_on, stream
+from ..kernels.launch import (
+    QKV_DTYPES,
+    check_tensor,
+    count_launch,
+    counts_of,
+    entry,
+    ptr,
+    raise_on,
+    reset_counts,
+    stream,
+    widened,
+)
 from .axial_lanes import KERNEL_GP
 
 
@@ -44,7 +62,7 @@ def _has_pos(r_q) -> bool:
 
 def moment_sums_plain(qkv, r_q, e_q, r_k, e_k):
     """Plain version of the moments kernel: the (g, 8) sums."""
-    q, k = _split_qk(qkv)                                 # (g, c, L, S)
+    q, k = _split_qk(widened(qkv))                         # (g, c, L, S)
     qs, ks = q.sum(dim=2), k.sum(dim=2)                   # (g, c, S)
     qq = torch.einsum("gcls,gdls->gcds", q, q)
     kk = torch.einsum("gcls,gdls->gcds", k, k)
@@ -65,7 +83,9 @@ def moment_sums_plain(qkv, r_q, e_q, r_k, e_k):
 def moment_sums_bwd_plain(qkv, r_q, e_q, r_k, e_k, ct):
     """Plain version of the moments backward (``_moments_bwd_kernel``):
     ``(dqkv, dr_q, de_q, dr_k, de_k)`` for the cotangent ``ct`` (g, 8);
-    the v rows of dqkv are zero."""
+    the v rows of dqkv are zero (dqkv in qkv's dtype)."""
+    dtype = qkv.dtype
+    qkv = widened(qkv)
     q, k = _split_qk(qkv)
     g, c, L, S = q.shape
     qs, ks = q.sum(dim=2), k.sum(dim=2)
@@ -90,7 +110,7 @@ def moment_sums_bwd_plain(qkv, r_q, e_q, r_k, e_k, ct):
     else:
         dr_q, de_q, dr_k, de_k = r_q, e_q, r_k, e_k       # zero-size
     dqkv = torch.cat([dq, dk, torch.zeros_like(qkv[:, 2 * c:])], dim=1)
-    return dqkv, dr_q, de_q, dr_k, de_k
+    return dqkv.to(dtype), dr_q, de_q, dr_k, de_k
 
 
 def _check(qkv, r_q, e_q, r_k, e_k, name, **extra):
@@ -117,7 +137,8 @@ def _check(qkv, r_q, e_q, r_k, e_k, name, **extra):
                 raise ValueError(f"{name}: {tname} must be empty when r_q is")
     shapes.update(extra)
     for tname, (t, shape) in shapes.items():
-        check_tensor(name, tname, t, shape, qkv.device)
+        check_tensor(name, tname, t, shape, qkv.device,
+                     QKV_DTYPES if tname == "qkv" else (torch.float32,))
     return g, gp, L, S, has_pos
 
 
@@ -140,15 +161,12 @@ def moment_sums_fwd(qkv, r_q, e_q, r_k, e_k):
     (g, 8) sums."""
     g, gp, L, S, has_pos = _check(qkv, r_q, e_q, r_k, e_k, "moment_sums_fwd")
     out, part, n_part = fwd_buffers(qkv, g, gp, L, S)
-    err = library().medt_moment_sums_fwd(
+    err = getattr(library(), entry("moment_sums_fwd", qkv))(
         ptr(qkv), ptr(r_q), ptr(e_q), ptr(r_k), ptr(e_k), ptr(out),
         ptr(part), g, gp, L, S, int(has_pos), n_part, stream(qkv.device))
     raise_on(err, "moment_sums_fwd")
-    moment_sums_fwd.launches += 1
+    count_launch(moment_sums_fwd, qkv)
     return out
-
-
-moment_sums_fwd.launches = 0
 
 
 # The moments backward's tile (csrc/moments.cu: kSlabFloats, kMinTile,
@@ -173,14 +191,14 @@ def bwd_tile(c: int, L: int, S: int, g: int) -> int:
 
 
 def bwd_buffers(qkv, g, gp, L, S, has_pos):
-    """dqkv and, in one more allocation, dtables (2c + 2c^2, L) then the
+    """dqkv (in qkv's dtype) and, in one more allocation, dtables (2c + 2c^2, L) then the
     table partials (n_part, 2c + 2c^2, L), both empty without positions:
     ``(dqkv, dtables, part, n_part)``."""
     c = gp // 2
     rows = 2 * c + 2 * c * c if has_pos else 0
     n_part = g * -(-S // bwd_tile(c, L, S, g)) if has_pos else 0
     f32 = dict(dtype=torch.float32, device=qkv.device)
-    dqkv = torch.empty(tuple(qkv.shape), **f32)
+    dqkv = torch.empty(tuple(qkv.shape), dtype=qkv.dtype, device=qkv.device)
     tables = torch.empty(((1 + n_part) * rows * L,), **f32)
     dtables = tables[:rows * L].view(rows, L)
     part = tables[rows * L:].view(n_part, rows, L)
@@ -197,12 +215,12 @@ def moment_sums_bwd(qkv, r_q, e_q, r_k, e_k, ct):
         raise ValueError(f"moment_sums_bwd: span {L} > {BWD_MAX_SPAN}")
     c = gp // 2
     dqkv, dtables, part, n_part = bwd_buffers(qkv, g, gp, L, S, has_pos)
-    err = library().medt_moment_sums_bwd(
+    err = getattr(library(), entry("moment_sums_bwd", qkv))(
         ptr(qkv), ptr(r_q), ptr(e_q), ptr(r_k), ptr(e_k), ptr(ct),
         ptr(dqkv), ptr(dtables), ptr(part), g, gp, L, S, int(has_pos),
         n_part, stream(qkv.device))
     raise_on(err, "moment_sums_bwd")
-    moment_sums_bwd.launches += 1
+    count_launch(moment_sums_bwd, qkv)
     if not has_pos:
         return dqkv, r_q, e_q, r_k, e_k                   # zero-size
     cc = c * c
@@ -211,9 +229,6 @@ def moment_sums_bwd(qkv, r_q, e_q, r_k, e_k, ct):
     dr_k = dtables[c + cc:2 * c + cc]
     de_k = dtables[2 * c + cc:].reshape(c, c, L)
     return dqkv, dr_q, de_q, dr_k, de_k
-
-
-moment_sums_bwd.launches = 0
 
 
 class MomentSums(torch.autograd.Function):
@@ -233,6 +248,7 @@ class MomentSums(torch.autograd.Function):
         qkv, r_q, e_q, r_k, e_k = ctx.saved_tensors
         fn = moment_sums_bwd_plain if ctx.plain else moment_sums_bwd
         grads = fn(qkv, r_q, e_q, r_k, e_k, ct.contiguous())
+        assert grads[0].dtype == qkv.dtype, (grads[0].dtype, qkv.dtype)
         if not _has_pos(r_q):
             return grads[0], None, None, None, None, None
         return (*grads, None)
@@ -268,8 +284,8 @@ def qk_moments_lanes_fused(qkv, plain=False):
     qk logits, and their count."""
     _, _, L, S = qkv.shape
     n = S * L * L
-    zr = qkv.new_zeros((0, L))
-    ze = qkv.new_zeros((0, 0, L))
+    zr = qkv.new_zeros((0, L), dtype=torch.float32)
+    ze = qkv.new_zeros((0, 0, L), dtype=torch.float32)
     sums = moment_sums(qkv, zr, ze, zr, ze, plain)
     m1 = sums[:, 0] / n
     var = torch.clamp(sums[:, 1] / n - m1 * m1, min=0.0)
@@ -316,9 +332,12 @@ _WRAPPERS = (moment_sums_fwd, moment_sums_bwd)
 
 
 def reset_launch_counts():
-    for fn in _WRAPPERS:
-        fn.launches = 0
+    reset_counts(_WRAPPERS)
 
 
 def launch_counts() -> dict:
-    return {fn.__name__: fn.launches for fn in _WRAPPERS}
+    return counts_of(_WRAPPERS)
+
+
+for _fn in _WRAPPERS:
+    _fn.launches = _fn.launches_bf16 = 0

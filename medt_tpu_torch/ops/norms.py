@@ -16,6 +16,7 @@ in float32 whatever the activation dtype.
 """
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Sequence, Tuple, Union
 
@@ -27,6 +28,9 @@ from .attn_core import fold_train_affine
 Axes = Union[int, Sequence[int]]
 
 MOMENTUM = 0.1
+# > 0 while a checkpointed forward is recomputed (frozen_running_stats):
+# process-wide, as the recompute runs on autograd's device thread
+_FROZEN = [0]
 
 
 def _canonical_axes(rank: int, axes: Axes) -> Tuple[int, ...]:
@@ -74,8 +78,23 @@ def batch_norm_train(x, weight, bias, feature_axes: Axes, eps: float = 1e-5):
 @torch.no_grad()
 def update_running(running: torch.Tensor, batch: torch.Tensor,
                    momentum: float = MOMENTUM):
-    """``running = (1 - momentum)*running + momentum*batch``, in place."""
+    """``running = (1 - momentum)*running + momentum*batch``, in place; a
+    no-op under :func:`frozen_running_stats`."""
+    if _FROZEN[0]:
+        return
     running.mul_(1.0 - momentum).add_(momentum * batch.detach())
+
+
+@contextlib.contextmanager
+def frozen_running_stats():
+    """Hold every running statistic: the recompute of a rematerialised
+    forward runs the train-mode BNs again, and JAX takes the statistics of
+    the first pass only (``batch_stats`` leave the primal)."""
+    _FROZEN[0] += 1
+    try:
+        yield
+    finally:
+        _FROZEN[0] -= 1
 
 
 class BatchNorm(nn.Module):

@@ -1,12 +1,13 @@
 """Where a served batch's time goes on the card.
 
     python -m medt_tpu_torch.profile_serve [--batch 1] [--model medt_512 --img 512]
+        [--dtype bfloat16]
 
 Serves full MedT-128 batches of 16 (or of ``--batch``: at 1, the batch-1
 evaluation path of the test and predict CLIs, whose attention runs the
 eval and lanes kernels; or another ``--model`` at ``--img``, by default
-the model's own size) through ``InferenceEngine`` (seeded random weights)
-and prints one JSON object: the wall time per batch
+the model's own size) through ``InferenceEngine`` (seeded random weights;
+bf16 activations with ``--dtype bfloat16``) and prints one JSON object: the wall time per batch
 (host clock, profiler off), then, from a ``torch.profiler`` window over as
 many batches, the device's summed kernel time per batch, its busy share of
 that wall time, the share of the port's attention kernels and the top
@@ -42,6 +43,8 @@ def main(argv=None) -> int:
     parser.add_argument("--model", default="MedT")
     parser.add_argument("--img", type=int, default=None,
                         help="image size (default: the model's own)")
+    parser.add_argument("--dtype", choices=("float32", "bfloat16"),
+                        default="float32")
     args = parser.parse_args(argv)
     batch, model = args.batch, args.model
     iters = 5 if batch >= 16 else 20
@@ -62,7 +65,8 @@ def main(argv=None) -> int:
     variables = build_model(model, img_size=img, seed=0,
                             device="cpu").state_dict()
     engine = InferenceEngine(model, img, variables=variables,
-                             batch_size=batch)
+                             batch_size=batch,
+                             dtype=getattr(torch, args.dtype))
     rng = np.random.default_rng(0)
     images = [rng.integers(0, 256, size=(img, img, 3),
                            dtype=np.uint8) for _ in range(batch)]
@@ -90,7 +94,7 @@ def main(argv=None) -> int:
     top = sorted(kernels, key=_device_us, reverse=True)[:15]
     out = {
         "device": torch.cuda.get_device_name(0), "model": model,
-        "img": img, "batch": batch, "iters": iters,
+        "img": img, "batch": batch, "iters": iters, "dtype": args.dtype,
         "wall_ms_per_batch": wall * 1e3,
         "wall_ms_per_batch_profiled": wall_profiled * 1e3,
         "device_kernel_ms_per_batch": (total_us / 1e3) if kernels

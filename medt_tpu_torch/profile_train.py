@@ -1,11 +1,15 @@
 """Where a training step's time goes on the card.
 
     python -m medt_tpu_torch.profile_train [--model medt_512 --img 512 --batch 4]
+        [--dtype bfloat16] [--remat]
 
 Trains MedT 128 at batch 16 (or ``--model`` at ``--img``, by default the
 model's own size, and ``--batch``; full width, seeded random weights,
-Adam-L2, float32 with TF32 off) on a synthetic blob batch and prints one JSON
-object: the wall time per step (host clock, profiler off), then, from a
+Adam-L2, float32 with TF32 off, or bf16 activations with ``--dtype
+bfloat16``, the forward recomputed in the backward with ``--remat``) on a
+synthetic blob batch and prints one JSON object: the wall time per step
+(host clock, profiler off) and the peak of allocated device memory over
+those steps, then, from a
 ``torch.profiler`` window over as many steps, the device's summed kernel
 time per step, its busy share of that wall time, the kernel launches per
 step, the port's own kernels (attention cores forward and backward,
@@ -47,6 +51,9 @@ def main(argv=None) -> int:
     parser.add_argument("--img", type=int, default=None,
                         help="image size (default: the model's own)")
     parser.add_argument("--batch", type=int, default=16)
+    parser.add_argument("--dtype", choices=("float32", "bfloat16"),
+                        default="float32")
+    parser.add_argument("--remat", action="store_true")
     args = parser.parse_args(argv)
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -63,26 +70,33 @@ def main(argv=None) -> int:
     img = args.img or DEFAULT_IMG_SIZE.get(name, 128)
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
+    dtype = torch.bfloat16 if args.dtype == "bfloat16" else None
     model = build_model(name, img_size=img, use_fused=True, seed=0,
-                        device="cuda")
+                        device="cuda", dtype=dtype)
     state = TrainState(model, adam_l2(model.parameters(), LR))
     images, masks = blob_batch(batch_size, img, seed=0)
     batch = {"image": images, "label": masks}
+
+    def step():
+        train_step(state, batch, remat=args.remat)
+
     for _ in range(3):
-        train_step(state, batch)
+        step()
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
     t0 = time.perf_counter()
     for _ in range(ITERS):
-        train_step(state, batch)
+        step()
     torch.cuda.synchronize()
     wall = (time.perf_counter() - t0) / ITERS
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
     own_launches = {k: v / ITERS for k, v in ops.launch_counts().items()}
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(ITERS):
-            train_step(state, batch)
+            step()
         torch.cuda.synchronize()
         wall_profiled = (time.perf_counter() - t0) / ITERS
     # device-side ranges of record_function annotations (the optimizer's
@@ -101,7 +115,8 @@ def main(argv=None) -> int:
     out = {
         "device": torch.cuda.get_device_name(0), "model": name,
         "img": img, "batch": batch_size, "iters": ITERS,
-        "optimizer": "adam_l2", "wall_ms_per_step": wall * 1e3,
+        "optimizer": "adam_l2", "dtype": args.dtype, "remat": args.remat,
+        "wall_ms_per_step": wall * 1e3, "peak_memory_gb": peak_gb,
         "images_per_s": batch_size / wall,
         "wall_ms_per_step_profiled": wall_profiled * 1e3,
         "device_kernel_ms_per_step": (total_us / 1e3) if kernels

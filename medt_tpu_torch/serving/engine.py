@@ -69,6 +69,9 @@ class InferenceEngine:
       max_queue: pending ``submit`` requests before QueueFullError.
       plain_cores: run the attention cores' plain versions on the card (the
         reference the kernels are held against).
+      dtype: the compute dtype (``torch.bfloat16``: bf16 activations around
+        float32 weights, as JAX's engine ``dtype``); the logits come back
+        in it.
       device: ``None`` means the card, and raises without one.
     """
 
@@ -79,7 +82,8 @@ class InferenceEngine:
                  decision: str = "threshold",
                  window_stride: Optional[int] = None,
                  max_wait_ms: float = 5.0, max_queue: int = 1024,
-                 plain_cores: bool = False, device=None):
+                 plain_cores: bool = False,
+                 dtype: torch.dtype = torch.float32, device=None):
         self.device = resolve_device(device)
         if variables is None and loaddirec is None:
             raise ValueError("need loaddirec or variables")
@@ -93,7 +97,8 @@ class InferenceEngine:
 
         self.model = build_model(modelname, img_size=self.imgsize,
                                  imgchan=self.channels, use_fused=use_fused,
-                                 plain_cores=plain_cores, device=self.device)
+                                 plain_cores=plain_cores, dtype=dtype,
+                                 device=self.device)
         if variables is None:
             restore_checkpoint(loaddirec, self.model)
         else:

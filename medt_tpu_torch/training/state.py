@@ -7,17 +7,27 @@ update. Metrics stay on the device: nothing in the step waits for the card
 (no ``.item()``, no host copy), as in JAX, where the reference's
 per-step ``.cpu().numpy()`` (train.py:142-149) is exactly the sync a
 device loop must not make.
+
+``train_step(..., remat=True)`` is JAX's ``jax.checkpoint(forward)``: the
+whole model forward runs under ``torch.utils.checkpoint`` (non-reentrant),
+so the backward recomputes it from the input instead of keeping its
+activations. The recompute runs the train-mode BNs a second time on the
+same batch; it holds the running statistics (``frozen_running_stats``),
+so they take one update a step, as in JAX.
 """
 from __future__ import annotations
 
+import contextlib
 from dataclasses import dataclass
 from typing import Callable, Mapping, Optional
 
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..losses import deep_supervision_loss, log_nll_loss
+from ..ops.norms import frozen_running_stats
 
 
 @dataclass
@@ -53,13 +63,26 @@ def _labels(label, device) -> torch.Tensor:
     return label.to(device, non_blocking=True)
 
 
-def train_step(state: TrainState, batch: Mapping) -> dict:
+def _recompute_contexts():
+    """checkpoint's (forward, recompute) contexts: the recompute holds the
+    running statistics."""
+    return contextlib.nullcontext(), frozen_running_stats()
+
+
+def train_step(state: TrainState, batch: Mapping, *,
+               remat: bool = False) -> dict:
     """One optimization step on ``batch = {"image": (N, H, W, C) uint8 or
     float, "label": (N, H, W) int}``. Updates ``state`` in place and
-    returns ``{"loss": <0-d device tensor>}``."""
+    returns ``{"loss": <0-d device tensor>}``. ``remat`` recomputes the
+    forward in the backward (JAX's ``remat``)."""
     model, device = state.model, state.device
     model.train()
-    out = model(normalize(batch["image"], device))
+    image = normalize(batch["image"], device)
+    if remat:
+        out = checkpoint(model, image, use_reentrant=False,
+                         context_fn=_recompute_contexts)
+    else:
+        out = model(image)
     labels = _labels(batch["label"], device)
     if isinstance(out, tuple):  # deep supervision: (logits, aux heads)
         loss = deep_supervision_loss(out, labels)

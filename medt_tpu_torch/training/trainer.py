@@ -12,10 +12,14 @@ train.py:216-217). ``--resume`` restores the model, the optimizer state and
 the step from the newest epoch checkpoint and starts at the epoch after it.
 ``train_log.jsonl`` and ``train_log.csv`` hold one row per epoch.
 
+``--dtype bfloat16`` builds the model with bf16 activations around float32
+parameters (``Config.compute_dtype``, as JAX's ``setup_state`` maps it),
+and ``--remat`` passes ``remat=True`` to every step, as JAX's trainer
+does.
+
 What is not ported, and raises instead: the TPU mesh and multi-host code
 (more than one visible card; ROADMAP.md, 'Data-parallel training and
-multi-GPU serving'), ``--remat`` and ``--dtype bfloat16`` (ROADMAP.md,
-'bf16 activations, and remat'). JAX's Mosaic preflight, which disables a
+multi-GPU serving'). JAX's Mosaic preflight, which disables a
 Pallas kernel family that fails to lower and retraces onto XLA, has no
 counterpart: on the card a kernel fault raises. The staircase schedule
 ("linear") gets its own three arguments (JAX passes it four).
@@ -85,11 +89,12 @@ def _check_one_card(device: torch.device):
 def setup_state(cfg: Config, steps_per_epoch: int, device) -> TrainState:
     """The configured model (weights from ``--seed``) on ``device`` (None:
     the card), with its optimizer and schedule. ``--trainable_gates yes``
-    trains the attention gates."""
+    trains the attention gates; ``--dtype bfloat16`` computes in bf16."""
     model = build_model(cfg.modelname, img_size=cfg.imgsize,
                         imgchan=cfg.imgchan, use_fused=cfg.use_fused,
                         seed=cfg.seed, device=resolve_device(device),
-                        trainable_gates=cfg.trainable_gates == "yes")
+                        trainable_gates=cfg.trainable_gates == "yes",
+                        dtype=cfg.compute_dtype)
     optimizer, schedule = build_tx(cfg, model, steps_per_epoch)
     return TrainState(model, optimizer, schedule=schedule)
 
@@ -135,10 +140,6 @@ def run_training(cfg: Config, state: Optional[TrainState] = None,
     the newest checkpoint with ``--resume``). A caller may pass its own
     state (its model's device is used) and loaders; otherwise they are
     built from ``cfg`` on ``device`` (None: the card)."""
-    if cfg.remat:
-        raise NotImplementedError(
-            "--remat is not ported yet (ROADMAP.md, 'bf16 activations, and "
-            "remat')")
     np.random.seed(cfg.seed)  # the reference seeds numpy and torch to 3000
     if train_loader is None:
         train_loader = _loader(cfg, cfg.train_dataset, train=True)
@@ -170,7 +171,8 @@ def run_training(cfg: Config, state: Optional[TrainState] = None,
             epoch_loss = torch.zeros((), device=device)
             n_batches = 0
             for batch in train_loader:
-                metrics = train_step(state, to_device(batch, device))
+                metrics = train_step(state, to_device(batch, device),
+                                     remat=cfg.remat)
                 epoch_loss = epoch_loss + metrics["loss"]
                 n_batches += 1
                 meter.update(len(batch["name"]))

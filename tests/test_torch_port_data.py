@@ -102,14 +102,13 @@ def test_png_decode_is_bit_exact_with_libpng(tmp_path, libpng, pil, kind,
     np.testing.assert_array_equal(got, want)
 
 
-def _filtered_png(image, depth, ctype, filters):
-    """PNG bytes whose row y is written with filter ``filters[y % len]``
-    (the encoder side of none, sub, up, average and paeth)."""
-    h = image.shape[0]
-    rows = image.reshape(h, -1).astype(np.int64)
-    bpp = max(1, image.shape[-1] * depth // 8)
+def _filter_rows(rows, bpp, filters):
+    """Filtered scanlines of ``rows`` (h, stride) bytes: row y is written
+    with filter ``filters[y % len]`` (the encoder side of none, sub, up,
+    average and paeth), the previous row starting at zero."""
+    rows = rows.astype(np.int64)
     out, prior = [], np.zeros(rows.shape[1], np.int64)
-    for y in range(h):
+    for y in range(rows.shape[0]):
         kind, x = filters[y % len(filters)], rows[y]
         left = np.concatenate([np.zeros(bpp, np.int64), x[:-bpp]])
         upleft = np.concatenate([np.zeros(bpp, np.int64), prior[:-bpp]])
@@ -128,11 +127,51 @@ def _filtered_png(image, depth, ctype, filters):
                              np.where(pb <= pc, prior, upleft))
         out.append(bytes([kind]) + (f % 256).astype(np.uint8).tobytes())
         prior = x
-    header = struct.pack(">IIBBBBB", image.shape[1], h, depth, ctype, 0, 0,
-                         0)
-    return (png.SIGNATURE + png._chunk(b"IHDR", header)
-            + png._chunk(b"IDAT", zlib.compress(b"".join(out)))
+    return b"".join(out)
+
+
+def _png_file(w, h, depth, ctype, idat, interlace=0, extra=b""):
+    header = struct.pack(">IIBBBBB", w, h, depth, ctype, 0, 0, interlace)
+    return (png.SIGNATURE + png._chunk(b"IHDR", header) + extra
+            + png._chunk(b"IDAT", zlib.compress(idat))
             + png._chunk(b"IEND", b""))
+
+
+def _filtered_png(image, depth, ctype, filters):
+    """PNG bytes of ``image`` (h, w, bytes per pixel) whose row y is
+    written with filter ``filters[y % len]``."""
+    h = image.shape[0]
+    bpp = max(1, image.shape[-1] * depth // 8)
+    return _png_file(image.shape[1], h, depth, ctype,
+                     _filter_rows(image.reshape(h, -1), bpp, filters))
+
+
+def _packed_rows(samples, depth):
+    """(h, w, ch) samples -> (h, stride) bytes at ``depth`` bits."""
+    h, w, ch = samples.shape
+    if depth == 16:
+        return samples.astype(">u2").view(np.uint8).reshape(h, -1)
+    if depth == 8:
+        return samples.astype(np.uint8).reshape(h, -1)
+    flat = samples.reshape(h, w * ch).astype(np.uint8)
+    bits = (flat[..., None] >> np.arange(depth - 1, -1, -1)) & 1
+    return np.packbits(bits.reshape(h, -1).astype(np.uint8), axis=1)
+
+
+def _adam7_png(samples, depth, ctype, extra=b"", filters=(0, 1, 2, 3, 4)):
+    """An Adam7-interlaced PNG of (h, w, ch) ``samples``, written here:
+    each non-empty pass filtered on its own, its first row against zero."""
+    h, w, ch = samples.shape
+    bpp = max(1, ch * depth // 8)
+    idat = b""
+    for k, (x0, y0, dx, dy) in enumerate(png._ADAM7):
+        sub = samples[y0::dy, x0::dx]
+        if sub.size == 0:
+            continue
+        rotated = tuple(filters[k % len(filters):]) + tuple(
+            filters[:k % len(filters)])
+        idat += _filter_rows(_packed_rows(sub, depth), bpp, rotated)
+    return _png_file(w, h, depth, ctype, idat, interlace=1, extra=extra)
 
 
 @pytest.mark.parametrize("depth,ctype,channels", [
@@ -156,13 +195,78 @@ def test_png_all_five_filters_and_16bit_colour(tmp_path, libpng, depth,
                                       libpng.decode_image(path, gray=gray))
 
 
+# (colour type, depth): every colour type and depth the codec tests cover,
+# with the sub-byte gray depths and a 4-bit palette
+ADAM7_CASES = [(0, 1), (0, 2), (0, 4), (0, 8), (0, 16), (2, 8), (2, 16),
+               (3, 4), (3, 8), (4, 8), (6, 8), (6, 16)]
+
+
+def _adam7_case(ctype, depth, rng, h=19, w=23):
+    """Samples and the extra chunks of an Adam7 fixture; ``palette`` is
+    the RGB value of each index, for the palette files."""
+    ch = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}[ctype]
+    hi = 1 << depth
+    if ctype == 3:
+        n = min(hi, 16)
+        palette = rng.integers(0, 256, size=(n, 3), dtype=np.uint8)
+        samples = rng.integers(0, n, size=(h, w, 1))
+        extra = (png._chunk(b"PLTE", palette.tobytes())
+                 + png._chunk(b"tRNS", bytes(rng.integers(
+                     0, 256, size=n, dtype=np.uint8))))
+        return samples, extra
+    return rng.integers(0, hi, size=(h, w, ch)), b""
+
+
+@pytest.mark.parametrize("ctype,depth", ADAM7_CASES)
+def test_png_adam7_matches_libpng_cv2_pil(tmp_path, libpng, ctype, depth):
+    """Adam7 files written here, of every colour type and depth the codec
+    tests cover, at a size whose last passes are ragged: the port's
+    decoder against the JAX package's libpng decoder, cv2 (colour and gray
+    reads) and PIL (8-bit and palette files, as cv2's BGR)."""
+    cv2 = pytest.importorskip("cv2", reason="cv2 reads the Adam7 fixtures")
+    from PIL import Image
+    rng = np.random.default_rng(100 + 17 * ctype + depth)
+    samples, extra = _adam7_case(ctype, depth, rng)
+    path = str(tmp_path / "adam7.png")
+    with open(path, "wb") as f:
+        f.write(_adam7_png(samples, depth, ctype, extra))
+    for gray in (False, True):
+        got = png.read_png(path, gray=gray)
+        np.testing.assert_array_equal(got,
+                                      libpng.decode_image(path, gray=gray))
+        np.testing.assert_array_equal(got, cv2.imread(path, 0 if gray else 1))
+    if depth == 8 or ctype == 3:
+        rgb = np.asarray(Image.open(path).convert("RGB"))
+        np.testing.assert_array_equal(png.read_png(path), rgb[..., ::-1])
+    if ctype == 0 and depth == 8:                     # the source bytes
+        np.testing.assert_array_equal(png.read_png(path, gray=True),
+                                      samples[..., 0])
+
+
+@pytest.mark.parametrize("h,w", [(1, 1), (1, 9), (5, 1), (3, 3), (8, 8)])
+def test_png_adam7_small_sizes_skip_empty_passes(h, w):
+    """Images too small to fill every pass: the empty passes carry no
+    bytes, and the image is the source."""
+    samples = np.random.default_rng(h * 10 + w).integers(
+        0, 256, size=(h, w, 3))
+    data = _adam7_png(samples, 8, 2)
+    np.testing.assert_array_equal(png.decode_png(data),
+                                  samples[..., ::-1].astype(np.uint8))
+
+
 def test_png_interlaced_raises():
-    header = struct.pack(">IIBBBBB", 4, 4, 8, 0, 0, 0, 1)
-    data = (png.SIGNATURE + png._chunk(b"IHDR", header)
-            + png._chunk(b"IDAT", zlib.compress(b"\0" * 20))
-            + png._chunk(b"IEND", b""))
-    with pytest.raises(ValueError, match="interlaced"):
-        png.decode_png(data)
+    """Adam7 files decode (the cases above); an unknown interlace method
+    and a bad signature raise."""
+    samples = np.arange(16, dtype=np.uint8).reshape(4, 4, 1)
+    data = _adam7_png(samples, 8, 0)
+    np.testing.assert_array_equal(png.decode_png(data, gray=True),
+                                  samples[..., 0])
+    header = struct.pack(">IIBBBBB", 4, 4, 8, 0, 0, 0, 2)
+    bad = (png.SIGNATURE + png._chunk(b"IHDR", header)
+           + png._chunk(b"IDAT", zlib.compress(b"\0" * 20))
+           + png._chunk(b"IEND", b""))
+    with pytest.raises(ValueError, match="interlace method"):
+        png.decode_png(bad)
     with pytest.raises(ValueError, match="signature"):
         png.decode_png(b"GIF89a" + data)
 
@@ -253,6 +357,61 @@ def test_datasets_match_jax(png_sets, gray):
             (JaxImage2D(jax_dir, gray=gray)[i] for i in range(3))):
         assert gn == wn
         np.testing.assert_array_equal(gi, wi)
+
+
+# 3-letter extensions: the mask is named by the image name with its last
+# three letters replaced by "png" (reference utils.py:154)
+OTHER_FORMATS = ["bmp", "jpg", "tif"]
+
+
+def _other_format_set(root, ext, n=3, size=24):
+    """An ``img/`` set of ``ext`` images written by cv2, with PNG masks."""
+    import cv2
+    rng = np.random.default_rng(len(ext))
+    os.makedirs(root / "img")
+    os.makedirs(root / "labelcol")
+    for i in range(n):
+        image = rng.integers(0, 256, size=(size, size + 4, 3), dtype=np.uint8)
+        assert cv2.imwrite(str(root / "img" / f"im{i}.{ext}"), image)
+        png.write_png(str(root / "labelcol" / f"im{i}.png"),
+                      (image[..., 0] > 127).astype(np.uint8) * 255)
+    return str(root)
+
+
+@pytest.mark.parametrize("ext", OTHER_FORMATS)
+@pytest.mark.parametrize("gray", [False, True])
+def test_datasets_read_other_formats_as_jax(tmp_path, ext, gray):
+    """BMP, JPEG and TIFF images written by cv2 (PNG masks) through
+    ``ImageToImage2D``: the items of JAX's, which reads them with cv2."""
+    pytest.importorskip("cv2", reason="cv2 writes the fixtures")
+    root = _other_format_set(tmp_path, ext)
+    want = JaxDataset(root, gray=gray)
+    got = ImageToImage2D(root, gray=gray)
+    assert len(got) == len(want) == 3
+    for i in range(3):
+        for g, w in zip(got[i], want[i]):
+            np.testing.assert_array_equal(g, w)
+
+
+def test_imread_other_formats_without_cv2(tmp_path, monkeypatch):
+    """With cv2 unimportable a non-PNG file reads through PIL, as cv2
+    reads it (BGR; a lossless BMP gives cv2's pixels); with PIL
+    unimportable too, an ImportError names the format."""
+    import sys
+    import cv2
+    from medt_tpu_torch.data import dataset as port_dataset
+    root = _other_format_set(tmp_path, "bmp", n=1)
+    path = os.path.join(root, "img", "im0.bmp")
+    want = cv2.imread(path, 1)
+    monkeypatch.setitem(sys.modules, "cv2", None)
+    np.testing.assert_array_equal(port_dataset._imread(path, False), want)
+    monkeypatch.setitem(sys.modules, "PIL", None)
+    with pytest.raises(ImportError, match=r"\.bmp"):
+        port_dataset._imread(path, False)
+    # PNG files need neither
+    np.testing.assert_array_equal(
+        port_dataset._imread(os.path.join(root, "labelcol", "im0.png"), True),
+        (want[..., 0] > 127).astype(np.uint8) * 255)
 
 
 @pytest.mark.parametrize("gray,workers", [(False, 2), (True, 0)])
@@ -412,8 +571,10 @@ def test_config_matches_jax():
     assert dataclasses.asdict(got) == dataclasses.asdict(want)
     assert got.imgchan == 1 and got.crop_tuple == (96, 96)
     assert not got.use_fused and parse_config([]).use_fused
-    for bad in (["--dp", "8"], ["--tp", "2"], ["--platform", "cpu"],
-                ["--dtype", "bfloat16"]):
+    bf16 = ["--dtype", "bfloat16", "--remat"]
+    assert dataclasses.asdict(parse_config(bf16)) == \
+        dataclasses.asdict(jax_parse_config(bf16))
+    for bad in (["--dp", "8"], ["--tp", "2"], ["--platform", "cpu"]):
         with pytest.raises(SystemExit):
             parse_config(bad)
 

@@ -11,10 +11,12 @@ the JAX package, on the CPU.
   responses at every pixel whose JAX decision value (the channel-1 logit,
   thresholded at 0.5) lies more than 1e-4 from the threshold; at least 99%
   of the pixels are such. ``/healthz`` answers the keys JAX's does; both
-  answer 404 on other paths, 400 on a body that is not a PNG and on a gray
+  answer 404 on other paths, 400 on a body that is no image and on a gray
   or a palette PNG to a 3-channel engine, and 503 with ``Retry-After: 1`` when the
   queue is full; an RGBA PNG serves as its RGB image. The port's server
   listens with a backlog of 128 (JAX's keeps the standard library's 5).
+  BMP, JPEG and TIFF bodies written by cv2 decode as JAX's PIL read does
+  and serve JAX's masks.
 * Engine options: ``loaddirec`` takes a checkpoint of the port's
   ``save_checkpoint`` and a reference-format ``.pth`` (``module.``
   prefix, dead keys) and serves what ``variables`` serves;
@@ -171,6 +173,34 @@ def test_http_masks_match_jax(engines):
             assert _request(port, "/predict", gray)[0] == 400
             palette = _encode_palette(_image(15, SIZE, SIZE))
             assert _request(port, "/predict", palette)[0] == 400
+    finally:
+        for s, t in servers:
+            _stop(s, t)
+
+
+@pytest.mark.parametrize("ext", ["bmp", "jpg", "tiff"])
+def test_http_reads_other_formats_as_jax(engines, ext):
+    """A BMP, JPEG or TIFF body written by cv2: both fronts decode it with
+    PIL (``decode_request_png`` gives JAX's array) and answer the masks of
+    JAX's, under the margin rule."""
+    cv2 = pytest.importorskip("cv2", reason="cv2 writes the bodies")
+    from PIL import Image
+    jeng, eng = engines
+    ok, buf = cv2.imencode(f".{ext}", _image(16, SIZE, SIZE))
+    assert ok
+    body = buf.tobytes()
+    image = np.asarray(Image.open(io.BytesIO(body)))
+    np.testing.assert_array_equal(serve.decode_request_png(body), image)
+    servers = [_server(jax_serve.make_server, jeng),
+               _server(serve.make_server, eng)]
+    try:
+        masks = []
+        for s, _ in servers:
+            status, _, out = _request(s.server_address[1], "/predict", body)
+            assert status == 200, out
+            masks.append(decode_png(out, gray=True))
+        want, got = masks
+        _assert_masks_agree(got, want, _jax_decision(jeng, image))
     finally:
         for s, t in servers:
             _stop(s, t)

@@ -23,7 +23,8 @@ of its interpret-mode kernels), the port its fused path. What is held:
 * the newest checkpoint restores the model, the optimizer state and the
   step; ``--resume`` through the port's ``cli.train`` starts at the epoch
   after it, and ``--profile_dir`` makes ``profiler_trace`` write a trace;
-* ``latest_checkpoint`` and the CLI's refusals.
+* ``latest_checkpoint`` and the CLI's refusals; ``--dtype bfloat16
+  --remat`` runs an epoch (one of its images an Adam7-interlaced PNG).
 """
 import json
 import os
@@ -50,6 +51,7 @@ from medt_tpu_torch.training import (
 )
 from medt_tpu_torch.training.trainer import build_tx, run_training
 from medt_tpu_torch.utils import weights
+from test_torch_port_data import _adam7_png
 
 MODEL, IMG, N_TRAIN, N_VAL = "gatedaxialunet", 32, 4, 2
 WEIGHT_NOISE = 1e-6   # relative: 8 units in the last place of float32
@@ -259,12 +261,28 @@ def test_latest_checkpoint_and_refusals(tmp_path):
                                                      "final_model")
     with pytest.raises(SystemExit, match="train_dataset"):
         cli_train.main([], device="cpu")
-    with pytest.raises(NotImplementedError, match="remat"):
-        cli_train.main(["--train_dataset", str(tmp_path), "--remat"],
-                       device="cpu")
-    with pytest.raises(SystemExit):
-        cli_train.main(["--train_dataset", str(tmp_path), "--dtype",
-                        "bfloat16"], device="cpu")
+    # --remat and --dtype bfloat16, refused before the port had them, run:
+    # one epoch over two images, one of them an Adam7-interlaced PNG
+    data = make_png_dataset(str(tmp_path / "bf16"), 2, IMG, seed=7)
+    first = os.path.join(data, "img", "000.png")
+    image = read_png(first)[..., ::-1]                     # BGR -> RGB
+    with open(first, "wb") as f:
+        f.write(_adam7_png(image, 8, 2))
+    np.testing.assert_array_equal(read_png(first)[..., ::-1], image)
+    out = tmp_path / "bf16_out"
+    state = cli_train.main(
+        ["--train_dataset", data, "--val_dataset", data, "--modelname",
+         MODEL, "--imgsize", str(IMG), "--epochs", "1", "--direc",
+         str(out), "--dtype", "bfloat16", "--remat"], device="cpu")
+    assert state.step == 2
+    assert all(m.compute_dtype == torch.bfloat16 for m in
+               state.model.modules() if hasattr(m, "compute_dtype"))
+    assert {p.dtype for p in state.model.parameters()} == {torch.float32}
+    (entry,) = _log(out)
+    assert np.isfinite(entry["loss"]) and set(entry) == LOG_KEYS
+    assert os.path.isfile(out / "0" / "ckpt.pth")
+    for name in ("000.png", "001.png"):
+        assert read_png(str(out / "0" / name), gray=True).shape == (IMG, IMG)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             cli_train.main(["--train_dataset", str(tmp_path)])

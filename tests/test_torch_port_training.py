@@ -12,6 +12,8 @@
   port's own float32 sensitivity (see :func:`check_train_step`).
   tests/test_torch_port_train_medt.py runs the same check on MedT.
 """
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -188,7 +190,8 @@ INPUT_NOISE = 1e-6
 NOISE_FACTOR = 4.0
 
 
-def check_train_step(name, img, batch=2, loss_spread=False, **kw):
+def check_train_step(name, img, batch=2, loss_spread=False, remat=False,
+                     **kw):
     """One train_step of the port vs JAX ``train_step`` (sgd, lr 0.05) on a
     batch of ``batch`` synthetic blob images, from the same random weights.
 
@@ -201,7 +204,8 @@ def check_train_step(name, img, batch=2, loss_spread=False, **kw):
     them perturbed) — the spread that float32 rounding alone gives the
     step. Well-conditioned tensors are held to the tolerance.
     ``loss_spread`` holds the loss by the same rule; otherwise it is held
-    to the tolerance alone."""
+    to the tolerance alone. ``remat`` runs both steps with ``remat=True``
+    (the forward recomputed in the backward)."""
     variables = jax_variables(name, img, seed=0, **kw)
     jax_model = jax_build_model(name, img_size=img, use_fused=True, **kw)
     jstate = JaxTrainState.create(
@@ -214,7 +218,8 @@ def check_train_step(name, img, batch=2, loss_spread=False, **kw):
     # which moves MedT's step by up to 0.19 in a local-branch weight
     with kernel_mesh_scope():
         set_kernel_mesh(None)
-        new, metrics = jax.jit(jax_train_step)(
+        new, metrics = jax.jit(functools.partial(
+            jax_train_step, remat=remat))(
             jstate, {"image": jnp.asarray(images),
                      "label": jnp.asarray(masks)})
     want = carried(name, jax.tree_util.tree_map(
@@ -226,7 +231,8 @@ def check_train_step(name, img, batch=2, loss_spread=False, **kw):
                             device="cpu", **kw)
         model.load_state_dict(before, strict=True)
         state = TrainState(model, sgd(model.parameters(), LR))
-        loss = train_step(state, {"image": image, "label": masks})["loss"]
+        loss = train_step(state, {"image": image, "label": masks},
+                          remat=remat)["loss"]
         return float(loss), model.state_dict()
 
     loss, got = port_step(images)
