@@ -122,6 +122,23 @@ the start of the script) as it ends:
    Adam7-interlaced by this script: exact launch counts (the stripe and
    eval sites in float32, the lanes and moments sites in bf16), a finite
    loss, a checkpoint, a mask of each image's size.
+18. ``cls`` — the classification harness: each kernel at axial26s's
+   geometries (224 px, s = 0.5: gp 8 to 64; spans 56, 28, 14; the batch-8
+   train and eval and batch-1 eval and train sites) against its plain
+   version, with CUDA-event times and bounds per call; axial26s (1000
+   classes, float32, ``use_fused``) at batch 8 under JAX's train_cls
+   defaults (SGD, momentum 0.9, L2 1e-4, lr 0.1, label smoothing 0.1):
+   one step against plain cores (loss, every parameter after the update,
+   every running statistic), a counted warm-up and 5 timed steps on one
+   batch at lr 0.01 (8 + 8 flash, 8 + 8 lanes, 16 + 16 moments launches a
+   step; the last loss below 0.75 of the first), wall and device ms per
+   step; eval forwards at batch 8
+   (8 flash + 8 eval) and batch 1 (16 eval) and a batch-1 step (4 + 4
+   stripe, 4 + 4 flash, 8 + 8 lanes, 12 + 12 moments) against plain
+   cores, each site's route as ``last_route`` shows it; then ``python -m
+   medt_tpu_torch.cli.train_cls`` with resnet18 at 224 px, one epoch over
+   an ImageFolder of 2 x 8 PNGs per split: a finite loss, a ``val_acc``
+   and a checkpoint.
 
 Then: the per-kernel JSON summary, the card's ``nvidia-smi`` line, and, as
 the last line, ``{"ok": true, "device": ...}``. Any failed phase ends the
@@ -131,6 +148,7 @@ or outside a checkout of the repository, it exits non-zero at once.
 from __future__ import annotations
 
 import json
+import math
 import re
 import statistics
 import subprocess
@@ -2285,6 +2303,417 @@ def phase_bf16_cli(torch):
     return counts
 
 
+# ---- 18. cls: the classification harness --------------------------------------
+
+# axial26s at 224 px (s = 0.5, g = 8, mode "full": every site has
+# positions): (span, gp, stripes per image, sites) and the route of each
+# site in a batch-8 train step, a batch-8 eval forward, a batch-1 eval
+# forward and a batch-1 train step; layers 3 and 4 run at gp 32 and 64
+CLS_ROUTES = {
+    (56, 8, 56, 2): ("flash", "flash", "eval", "stripe"),
+    (56, 16, 56, 2): ("flash", "flash", "eval", "stripe"),
+    (28, 16, 28, 2): ("flash", "flash", "eval", "flash"),
+    (28, 32, 28, 2): ("flash", "flash", "eval", "flash"),
+    (14, 32, 14, 6): ("lanes", "eval", "eval", "lanes"),
+    (14, 64, 14, 2): ("lanes", "eval", "eval", "lanes"),
+}
+# (call, batch, training), in CLS_ROUTES's column order
+CLS_CALLS = (("b8_step", 8, True), ("b8_forward", 8, False),
+             ("b1_forward", 1, False), ("b1_step", 1, True))
+ROUTE_KERNELS = {"eval": ("axial_eval_fwd",),
+                 "lanes": ("lanes_attn_fwd", "lanes_attn_bwd"),
+                 "flash": ("flash_lanes_fwd", "flash_lanes_bwd"),
+                 "stripe": ("stripe_attn_fwd", "stripe_attn_bwd")}
+# JAX's train_cls defaults: SGD, momentum 0.9, L2 1e-4, lr 0.1; label
+# smoothing 0.1
+CLS_IMG, CLS_CLASSES, CLS_LR, CLS_MOMENTUM, CLS_WD, CLS_SMOOTHING = (
+    224, 1000, 0.1, 0.9, 1e-4, 0.1)
+CLS_STEPS = 5
+# The counted steps' learning check: SGD as above at CLS_LEARN_LR, the
+# last of the CLS_STEPS losses after the first below CLS_LOSS_FALL of the
+# step-0 loss. At JAX's lr 0.1 (set for its default batch of 256) SGD on
+# one batch of 8 drops the loss once and then climbs (axial26s at 224 px
+# on the H100: 6.78, then 4.90, 5.99, 6.20, 6.68, 7.15; on plain cores
+# alike, as the held first step shows), so the fall is taken at lr 0.01,
+# where it is steady (axial26s at 64 px on the CPU: 7.19 to 2.92 in 5).
+CLS_LEARN_LR = 0.01
+CLS_LOSS_FALL = 0.75
+# the port's kernels in a profiled axial26s step, by the name of the CUDA
+# kernel (the first that a kernel's name contains): the gp <= 16 designs,
+# then the wide ones (rows 1 and 3 share wide_fwd_kernel, rows 2 and 4
+# the wide backward's three kernels)
+CLS_OWN_KERNELS = (
+    "moments_wide_fwd_kernel", "moments_wide_bwd_kernel",
+    "wide_fwd_kernel", "wide_rows_kernel", "wide_cols_kernel",
+    "wide_tables_kernel", "axial_lanes_fwd_kernel", "lanes_bwd_kernel",
+    "tiled_fwd_kernel", "tiled_bwd_row_kernel", "tiled_bwd_col_kernel",
+    "bwd_finalize_kernel", "moments_fwd_kernel", "moments_finalize_kernel",
+    "moments_bwd_kernel", "tab_finalize_kernel")
+CLS_CLI_PER_CLASS = 8
+
+
+def cls_geometries():
+    """{call: [(kernel, span, gp, stripes, launches per call)]} of
+    axial26s's four paths: a route's forward (and, training, its backward
+    and, on the lanes and flash routes, the moments forward and backward)
+    once per site."""
+    out = {}
+    for col, (call, batch, training) in enumerate(CLS_CALLS):
+        rows = []
+        for (L, gp, per_image, sites), routes in CLS_ROUTES.items():
+            route = routes[col]
+            kernels = ROUTE_KERNELS[route][:2 if training else 1]
+            if training and route in ("lanes", "flash"):
+                kernels += ("moment_sums_fwd", "moment_sums_bwd")
+            rows += [(k, L, gp, per_image * batch, sites) for k in kernels]
+        out[call] = rows
+    return out
+
+
+def cls_launches(call: str) -> dict:
+    """Launches per call of ``call``, by kernel."""
+    out = {}
+    for kernel, *_, n in cls_geometries()[call]:
+        out[kernel] = out.get(kernel, 0) + n
+    return out
+
+
+def cls_routes_seen(model) -> dict:
+    """{(route, span, gp): sites} of the last forward, from each
+    AxialAttention's ``last_route``."""
+    from medt_tpu_torch.ops import AxialAttention
+
+    seen = {}
+    for m in model.modules():
+        if isinstance(m, AxialAttention) and m.last_route is not None:
+            route, L, _, gp, _, _ = m.last_route
+            seen[(route, L, gp)] = seen.get((route, L, gp), 0) + 1
+    return seen
+
+
+def cls_routes_expected(col: int) -> dict:
+    return {(routes[col], L, gp): n
+            for (L, gp, _, n), routes in CLS_ROUTES.items()}
+
+
+def _cls_kernel_rows(torch):
+    """Each kernel at each axial26s geometry against its plain version:
+    CUDA-event times of kernel and plain version and the bound; then per
+    call and kernel the launches, ms, plain ms and bound summed over its
+    sites."""
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    rows = {}
+    for call, geo in cls_geometries().items():
+        for kernel, L, gp, S, _ in geo:
+            key = (kernel, L, gp, S)
+            if key in rows:
+                continue
+            fn, plain = kernel_calls(torch, gen, kernel, gp, L, S, True)
+            got, again, want = fn(), fn(), plain()
+            torch.cuda.synchronize()
+            err, ok = compare(torch, kernel, got, want)
+            repeatable = all(torch.equal(a, b) for a, b in zip(got, again))
+            nbytes, ops = work(kernel, gp, L, S, True)
+            t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F32_FLOPS_PER_S
+            rows[key] = {
+                "kernel": kernel, "span": L, "gp": gp, "S": S, "g": GROUPS,
+                "has_pos": True, "max_abs_err": err,
+                "ok": ok and repeatable, "repeatable": repeatable,
+                "ms": time_ms(torch, fn, reps=7, inner=3),
+                "plain_ms": time_ms(torch, plain, reps=3, inner=1),
+                "bytes": nbytes, "ops": ops,
+                "bound_ms": max(t_bytes, t_ops) * 1e3,
+                "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+            print(json.dumps({"geometry": {**rows[key], "path": "axial26s"}}),
+                  flush=True)
+            del fn, plain, got, again, want
+    torch.cuda.empty_cache()
+    per_call = {}
+    for call, geo in cls_geometries().items():
+        mine = per_call[call] = {}
+        for kernel, L, gp, S, n in geo:
+            r = rows[(kernel, L, gp, S)]
+            k = mine.setdefault(kernel, {"launches": 0, "ms": 0.0,
+                                         "plain_ms": 0.0, "bound_ms": 0.0,
+                                         "bytes_ms": 0.0, "ops_ms": 0.0})
+            k["launches"] += n
+            for f in ("ms", "plain_ms", "bound_ms"):
+                k[f] += r[f] * n
+            k["bytes_ms"] += r["bytes"] / HBM_BYTES_PER_S * 1e3 * n
+            k["ops_ms"] += r["ops"] / F32_FLOPS_PER_S * 1e3 * n
+        for k in mine.values():
+            k["bound_by"] = "bytes" if k.pop("bytes_ms") >= k.pop("ops_ms") \
+                else "operations"
+    return list(rows.values()), per_call
+
+
+def _cls_args(**kw):
+    import argparse
+
+    return argparse.Namespace(model="axial26s", num_classes=CLS_CLASSES, **kw)
+
+
+def _cls_model(variables, plain: bool):
+    """axial26s on the card under ``use_fused`` (``plain``: plain cores)
+    with ``variables`` loaded."""
+    from medt_tpu_torch import builders
+
+    model = builders.build_model(_cls_args(), device="cuda", use_fused=True,
+                                 plain_cores=plain)
+    model.load_state_dict(variables, strict=True)
+    return model
+
+
+def _cls_state(torch, variables, plain: bool, lr: float = CLS_LR):
+    from medt_tpu_torch.training import TrainState, sgd
+
+    model = _cls_model(variables, plain)
+    return TrainState(model, sgd(model.parameters(), lr,
+                                 momentum=CLS_MOMENTUM, weight_decay=CLS_WD))
+
+
+def cls_step_parity(torch, variables, images, labels,
+                    input_noise=STEP_INPUT_NOISE, rel_tol=1e-4):
+    """One axial26s SGD step (label smoothing 0.1) on the kernels against
+    the same step on plain cores from identical weights (cuDNN
+    deterministic), held as held() holds the segmentation steps: the loss,
+    every parameter after the update and every running statistic; the
+    gradients are reported beside them. Returns (loss on the kernels, on
+    plain cores, checks, gradient checks, launches of the kernel step)."""
+    import numpy as np
+
+    from medt_tpu_torch import ops
+    from medt_tpu_torch.cli.train_cls import make_steps
+
+    train_step, _ = make_steps(CLS_SMOOTHING)
+
+    def one_step(plain, image):
+        state = _cls_state(torch, variables, plain)
+        loss = float(train_step(state, {"image": image, "label": labels})
+                     ["loss"])
+        model = state.model
+        grads = {k: p.grad.detach().clone()
+                 for k, p in model.named_parameters() if p.requires_grad}
+        params = {k: p.detach().clone() for k, p in model.named_parameters()}
+        stats = {k: b.detach().clone() for k, b in model.named_buffers()
+                 if k.endswith(("running_mean", "running_var"))}
+        return loss, grads, params, stats
+
+    torch.backends.cudnn.deterministic = True
+    ops.reset_launch_counts()
+    loss_k, grads_k, params_k, stats_k = one_step(False, images)
+    counts = ops.launch_counts()
+    loss_p, grads_p, params_p, stats_p = one_step(True, images)
+    rng = np.random.default_rng(1)
+    spread = [one_step(True, (images * (1.0 + input_noise * rng
+                                        .standard_normal(images.shape)))
+                       .astype(np.float32)) for _ in range(2)]
+    torch.backends.cudnn.deterministic = False
+    checks = [held(torch, "loss", torch.tensor(loss_k), torch.tensor(loss_p),
+                   [torch.tensor(s[0]) for s in spread], rel_tol)]
+    checks += [held(torch, k, params_k[k], params_p[k],
+                    [s[2][k] for s in spread], rel_tol) for k in params_p]
+    checks += [held(torch, k, stats_k[k], stats_p[k],
+                    [s[3][k] for s in spread], rel_tol) for k in stats_p]
+    grad_checks = [held(torch, k, grads_k[k], grads_p[k],
+                        [s[1][k] for s in spread], rel_tol) for k in grads_p]
+    return loss_k, loss_p, checks, grad_checks, counts
+
+
+def _cls_forward_parity(torch, variables, images, col):
+    """An eval forward on the kernels (counted) against plain cores at
+    LOGITS_ATOL, its routes against CLS_ROUTES's column ``col``."""
+    from medt_tpu_torch import ops
+    from medt_tpu_torch.training.state import normalize
+
+    x = normalize(images, "cuda")
+    out = {}
+    for plain in (False, True):
+        model = _cls_model(variables, plain).eval()
+        ops.reset_launch_counts()
+        with torch.no_grad():
+            out[plain] = model(x)
+        torch.cuda.synchronize()
+        if not plain:
+            counts = ops.launch_counts()
+            routes = cls_routes_seen(model)
+    err = float((out[False] - out[True]).abs().max())
+    return {"max_abs_err": err, "ok": err <= LOGITS_ATOL and bool(
+        torch.isfinite(out[False]).all()), "launches": counts,
+        "routes_ok": routes == cls_routes_expected(col)}
+
+
+def _cls_cli(torch):
+    """``python -m medt_tpu_torch.cli.train_cls`` on the card over an
+    ImageFolder of 2 classes x CLS_CLI_PER_CLASS 256x256 PNGs per split:
+    resnet18 at 224 px, one epoch at batch 4."""
+    import shutil
+
+    import numpy as np
+
+    from medt_tpu_torch.data.png import write_png
+
+    root = REPO / "_smoke" / "cls"
+    shutil.rmtree(root, ignore_errors=True)
+    rng = np.random.default_rng(3)
+    for split in ("train", "val"):
+        for c in ("class_a", "class_b"):
+            (root / split / c).mkdir(parents=True)
+            for i in range(CLS_CLI_PER_CLASS):
+                write_png(str(root / split / c / f"{i:02d}.png"),
+                          rng.integers(0, 256, (256, 256, 3), dtype=np.uint8))
+    out = root / "out"
+    cmd = [sys.executable, "-m", "medt_tpu_torch.cli.train_cls", "--model",
+           "resnet18", "--num_classes", "2", "--imgsize", "224", "--epochs",
+           "1", "-b", "4", "--train_dataset", str(root / "train"),
+           "--val_dataset", str(root / "val"), "--work_dirs", str(out),
+           "--workers", "4"]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=str(REPO), capture_output=True, text=True,
+                          timeout=600)
+    wall_s = time.perf_counter() - t0
+    check(proc.returncode == 0, f"cli.train_cls exited {proc.returncode}: "
+                                f"{proc.stderr[-2000:]}")
+    log = [json.loads(line) for line in
+           (out / "train_log.jsonl").read_text().splitlines()]
+    ckpt = out / "0" / "ckpt.pth"
+    check(len(log) == 1 and math.isfinite(log[0]["loss"])
+          and 0.0 <= log[0].get("val_acc", -1.0) <= 1.0,
+          f"train_log.jsonl {log}")
+    check(ckpt.is_file() and (out / "final_model" / "ckpt.pth").is_file(),
+          "no checkpoint")
+    ckpt_bytes = ckpt.stat().st_size
+    shutil.rmtree(root, ignore_errors=True)
+    return {"model": "resnet18", "img": 224, "batch": 4, "epochs": 1,
+            "images_per_split": 2 * CLS_CLI_PER_CLASS, "log": log,
+            "wall_s": wall_s, "checkpoint_bytes": ckpt_bytes}
+
+
+def phase_cls(torch):
+    """The classification harness on the card: each kernel at axial26s's
+    geometries against its plain version; axial26s at 224 px, 1000
+    classes, float32, use_fused, batch 8 with JAX's SGD defaults: one step
+    against plain cores, then counted steps with a falling loss and their
+    wall and device times; eval forwards at batch 8 and 1 and a batch-1
+    step against plain cores, each with exact launch counts and routes;
+    then cli.train_cls on resnet18 over an ImageFolder."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from medt_tpu_torch import builders, ops
+    from medt_tpu_torch.cli.train_cls import make_steps
+    from medt_tpu_torch.profile_serve import _device_us
+
+    rows, per_call = _cls_kernel_rows(torch)
+    failed = [r for r in rows if not r["ok"]]
+    check(not failed, f"kernel disagrees with its plain version: {failed}")
+
+    variables = builders.build_model(_cls_args(), device="cpu",
+                                     seed=0).state_dict()
+    rng = np.random.default_rng(0)
+    images = rng.standard_normal((8, CLS_IMG, CLS_IMG, 3)).astype(np.float32)
+    labels = rng.integers(0, CLS_CLASSES, 8).astype(np.int32)
+
+    # -- batch 8: one step against plain cores -------------------------------
+    loss_k, loss_p, checks, grads, step_counts = cls_step_parity(
+        torch, variables, images, labels)
+    bad = [c for c in checks if not c["ok"]]
+    parity = {"loss_kernels": loss_k, "loss_plain": loss_p,
+              "tensors": len(checks), "failed": len(bad),
+              "worst": max(checks, key=lambda c: c["err"] / c["tol"]),
+              "gradients_worst": max(grads,
+                                     key=lambda c: c["err"] / c["tol"]),
+              "gradients_beyond_bound": sum(not c["ok"] for c in grads)}
+    check(not bad, f"axial26s step on kernels vs plain cores: {bad[:5]}")
+    check(step_counts == launches_of(step_counts, cls_launches("b8_step"), 1),
+          f"axial26s b8 step launches {step_counts}")
+
+    # -- the main path, counted: a warm-up step, then CLS_STEPS timed -------
+    train_step, _ = make_steps(CLS_SMOOTHING)
+    state = _cls_state(torch, variables, plain=False, lr=CLS_LEARN_LR)
+    batch = {"image": images, "label": labels}
+    ops.reset_launch_counts()
+    loss0 = float(train_step(state, batch)["loss"])
+    routes = cls_routes_seen(state.model)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses = [train_step(state, batch)["loss"] for _ in range(CLS_STEPS)]
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) / CLS_STEPS * 1e3
+    counts = ops.launch_counts()
+    # -- end of the counted run ----------------------------------------------
+    losses = torch.stack(losses).tolist()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(2):
+            train_step(state, batch)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and _device_us(e) > 0
+               and not getattr(e, "is_user_annotation", False)
+               and not e.key.startswith("Optimizer.")]
+    device_ms = sum(_device_us(e) for e in kernels) / 2 / 1e3 if kernels \
+        else "not measured"
+    own_ms = {}     # the port's kernels by name, each event counted once
+    for e in kernels:
+        name = next((n for n in CLS_OWN_KERNELS if n in e.key), None)
+        if name is not None:
+            own_ms[name] = own_ms.get(name, 0.0) + _device_us(e) / 2 / 1e3
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    del state
+    torch.cuda.empty_cache()
+    check(counts == launches_of(counts, cls_launches("b8_step"),
+                                CLS_STEPS + 1),
+          f"axial26s launches {counts} for {CLS_STEPS + 1} steps")
+    check(routes == cls_routes_expected(0), f"axial26s routes {routes}")
+    check(all(math.isfinite(v) for v in losses), f"non-finite loss {losses}")
+    check(losses[-1] < CLS_LOSS_FALL * loss0,
+          f"loss did not fall: {loss0} {losses}")
+
+    # -- eval forwards at batch 8 and 1, a batch-1 step ----------------------
+    forwards = {"b8_forward": _cls_forward_parity(torch, variables, images,
+                                                  1),
+                "b1_forward": _cls_forward_parity(torch, variables,
+                                                  images[:1], 2)}
+    for call, r in forwards.items():
+        check(r["ok"] and r["routes_ok"], f"axial26s {call}: {r}")
+        check(r["launches"] == launches_of(r["launches"], cls_launches(call),
+                                           1), f"axial26s {call}: {r}")
+    loss1_k, loss1_p, checks1, grads1, counts1 = cls_step_parity(
+        torch, variables, images[:1], labels[:1])
+    bad1 = [c for c in checks1 if not c["ok"]]
+    parity_b1 = {"loss_kernels": loss1_k, "loss_plain": loss1_p,
+                 "tensors": len(checks1), "failed": len(bad1),
+                 "worst": max(checks1, key=lambda c: c["err"] / c["tol"]),
+                 "gradients_worst": max(grads1,
+                                        key=lambda c: c["err"] / c["tol"]),
+                 "gradients_beyond_bound": sum(not c["ok"] for c in grads1),
+                 "launches": counts1}
+    check(not bad1, f"axial26s batch-1 step vs plain cores: {bad1[:5]}")
+    check(counts1 == launches_of(counts1, cls_launches("b1_step"), 1),
+          f"axial26s b1 step launches {counts1}")
+
+    cli = _cls_cli(torch)
+    emit("cls", model="axial26s", img=CLS_IMG, classes=CLS_CLASSES,
+         batch=8, optimizer="sgd", lr=CLS_LR, momentum=CLS_MOMENTUM,
+         weight_decay=CLS_WD, label_smoothing=CLS_SMOOTHING,
+         geometries=len(rows), kernels_per_call=per_call,
+         launches_per_call={c: cls_launches(c) for c, *_ in CLS_CALLS},
+         step_parity=parity, launches=counts, steps_counted=CLS_STEPS + 1,
+         learn_lr=CLS_LEARN_LR, loss_step0=loss0, losses=losses,
+         wall_ms_per_step=wall_ms,
+         device_kernel_ms_per_step=device_ms,
+         port_kernels_device_ms_per_step=own_ms,
+         port_kernels_device_ms_total=sum(own_ms.values()),
+         images_per_s=8 / wall_ms * 1e3, peak_memory_gb=peak_gb,
+         forwards=forwards, b1_step_parity=parity_b1, train_cls=cli,
+         tolerance={"forward": KERNEL_ATOL,
+                    "backward_and_moments_rtol": SUM_RTOL,
+                    "logits": LOGITS_ATOL})
+    return counts
+
+
 def summary(rows, counts):
     """One entry per kernel; times per call of its main path: one MedT-128
     batch-16 forward (serving) for the lanes and flash forward cores, one
@@ -2368,7 +2797,7 @@ def main() -> int:
                           ("train1", phase_train1), ("http", phase_http),
                           ("zoo", phase_zoo), ("bf16", phase_bf16),
                           ("remat", phase_remat),
-                          ("bf16_cli", phase_bf16_cli)):
+                          ("bf16_cli", phase_bf16_cli), ("cls", phase_cls)):
             counts[phase] = fn(torch)
     except Exception as e:  # report the phase, then fail without "ok"
         emit(phase, ok=False, error=f"{type(e).__name__}: {e}")

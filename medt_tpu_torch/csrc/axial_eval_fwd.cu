@@ -22,6 +22,11 @@
 // output affine beside the similarity affine of each (stripe, group) pair
 // and writes each plane that a lane holds after the body's reduce-scatter;
 // the summation order is the body's own (eval has no step parity to keep).
+// At gp 32 and 64 (the axial-attention classifiers' layer-3 and layer-4
+// sites) the entry point takes csrc/wide_attn.cuh's body instead, one
+// query row a thread with the value channels in chunks of 16, under the
+// same epilogue arithmetic (EvalWide below): the shared body's per-pair
+// accumulators and staged tables are sized for gp <= 16.
 // The kernel launches on the caller's stream, allocates nothing and does
 // not synchronise; the entry point returns cudaGetLastError().
 
@@ -29,6 +34,7 @@
 #include <stddef.h>
 
 #include "stripe_attn_fwd.cuh"
+#include "wide_attn.cuh"
 
 namespace {
 
@@ -62,6 +68,31 @@ struct EvalEpilogue {
   }
 };
 
+// The same epilogue over csrc/wide_attn.cuh's body (gp 32 and 64).
+struct EvalWide {
+  struct Params {
+    const float* out_aff;  // (g, 4, gp)
+    float* out;            // (S, g, gp, L)
+    int g, L;
+  };
+  template <int GP, bool POS>
+  __device__ __forceinline__ static void store(
+      const Params& e, int gi, int i, int s, int p0,
+      const float (&sv)[wide::kChunkP], const float (&sve)[wide::kChunkP]) {
+    const float* oa = e.out_aff + gi * 4 * GP;
+    float* o = e.out + ((size_t)s * e.g + gi) * GP * e.L + i;
+#pragma unroll
+    for (int u = 0; u < wide::kChunkP; ++u) {
+      const int p = p0 + u;
+      const float x = POS ? sve[u] : 0.f;
+      o[(size_t)p * e.L] = (sv[u] * oa[p] + oa[GP + p]) +
+                           (x * oa[2 * GP + p] + oa[3 * GP + p]);
+    }
+  }
+  __device__ __forceinline__ static void stats(const Params&, int, int, int,
+                                               float, float) {}
+};
+
 }  // namespace
 
 extern "C" {
@@ -76,6 +107,13 @@ int medt_axial_eval_fwd(const float* q, const float* k, const float* v,
                         long long q_sg, long long k_ss, long long k_sg,
                         long long v_ss, long long v_sg, int S, int g, int gp,
                         int L, int has_pos, void* stream_ptr) {
+  if (gp == 32 || gp == 64) {
+    const wide::Stripes x{q, k, v, qemb, kemb, vemb, q_ss, q_sg, k_ss,
+                          k_sg, v_ss, v_sg, gp, L, S};
+    return wide::launch_fwd<wide::Stripes, EvalWide>(
+        x, {out_aff, out, g, L}, sim_aff, g, has_pos != 0,
+        static_cast<cudaStream_t>(stream_ptr));
+  }
   const medt::StripeArgs x{q, k, v, qemb, kemb, vemb, sim_aff,
                            q_ss, q_sg, k_ss, k_sg, v_ss, v_sg,
                            S, g, L, 0, false, false};

@@ -53,6 +53,9 @@ SIGNATURES = {
     "medt_axial_eval_fwd": [_P] * 9 + [_L] * 6 + [_I] * 5 + [_P],
     "medt_stripe_attn_fwd": [_P] * 9 + [_L] * 6 + [_I] * 5 + [_P],
     "medt_stripe_attn_bwd": [_P] * 16 + [_L] * 6 + [_I] * 7 + [_P],
+    # the lanes and flash contracts at gp 32 and 64 (csrc/axial_wide.cu)
+    "medt_wide_attn_fwd": [_P] * 9 + [_I] * 6 + [_P],
+    "medt_wide_attn_bwd": [_P] * 18 + [_I] * 7 + [_P],
 }
 # the bf16 entry points of rows 1-8 (qkv, and dqkv, in bf16) take the
 # float32 ones' arguments

@@ -1,9 +1,12 @@
-"""Segmentation losses.
+"""Segmentation and classification losses.
 
-Port of ``medt_tpu/losses.py:16-66``. ``log_nll_loss`` is the reference's
+Port of ``medt_tpu/losses.py:16-82``. ``log_nll_loss`` is the reference's
 ``LogNLLLoss``, which despite its name is plain mean cross-entropy on raw
 logits (its log line is commented out, reference metrics.py:9-20). Logits
-are NCHW here (the port's layout), labels (N, H, W) integers.
+are NCHW here (the port's layout), labels (N, H, W) integers. The
+classification losses (the label-smoothed cross-entropy of reference
+lib/utils.py:33-55) take (N, classes) logits and (N,) labels, computed in
+float32 as JAX computes them.
 """
 from __future__ import annotations
 
@@ -56,3 +59,27 @@ def deep_supervision_loss(outputs, labels: torch.Tensor,
         lab = labels[:, ::f, ::f] if f > 1 else labels
         aux_total = aux_total + log_nll_loss(a, lab, weight, ignore_index)
     return loss + aux_weight * aux_total / len(aux)
+
+
+def label_smoothing(logits: torch.Tensor, labels: torch.Tensor,
+                    eta: float = 0.1) -> torch.Tensor:
+    """One-hot targets smoothed to ``(1 - eta) + eta / C`` on the label and
+    ``eta / C`` elsewhere, float32 (reference lib/utils.py:33-46)."""
+    n_classes = logits.shape[-1]
+    onehot = F.one_hot(labels.long(), n_classes).float()
+    return onehot * (1.0 - eta) + eta / n_classes
+
+
+def cross_entropy_for_onehot(logits: torch.Tensor,
+                             target: torch.Tensor) -> torch.Tensor:
+    """Mean over the batch of ``-sum(target * log_softmax(logits))``
+    (reference lib/utils.py:49-50)."""
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    return torch.mean(torch.sum(-target * logp, dim=-1))
+
+
+def cross_entropy_with_label_smoothing(logits: torch.Tensor,
+                                       labels: torch.Tensor,
+                                       eta: float = 0.1) -> torch.Tensor:
+    return cross_entropy_for_onehot(logits,
+                                    label_smoothing(logits, labels, eta))

@@ -1,4 +1,5 @@
-"""Segmentation metrics and the decoding of logits into masks.
+"""Segmentation metrics, the decoding of logits into masks, and the
+running averages of the classification harness.
 
 Port of ``medt_tpu/metrics.py:18-148``: PyTorch versions of the reference's
 Python metrics (reference metrics.py:23-91) and of its offline MATLAB
@@ -104,3 +105,41 @@ def logits_to_foreground(logits: torch.Tensor, threshold: float = 0.5,
     if mode == "argmax":
         return torch.argmax(logits, dim=1).to(torch.int32)
     raise ValueError(mode)
+
+
+class Metric:
+    """Running average (reference lib/metrics.py:4-16). ``update`` takes a
+    number or a 0-d tensor (read on the host)."""
+
+    def __init__(self):
+        self.sum = 0.0
+        self.count = 0
+
+    def update(self, value, n: int = 1):
+        self.sum += float(value) * n
+        self.count += n
+
+    @property
+    def average(self) -> float:
+        return self.sum / max(self.count, 1)
+
+
+class MetricList:
+    """Dict of accumulating metric callables (reference utils.py:264-282):
+    ``results[k] += fn(y_out, y_batch)`` per call."""
+
+    def __init__(self, metrics: dict):
+        self.metrics = metrics
+        self.results = {k: 0.0 for k in metrics}
+
+    def __call__(self, y_out, y_batch):
+        for k, fn in self.metrics.items():
+            self.results[k] += fn(y_out, y_batch)
+
+    def reset(self):
+        self.results = {k: 0.0 for k in self.metrics}
+
+    def get_results(self, normalize=False):
+        if not normalize:
+            return dict(self.results)
+        return {k: v / normalize for k, v in self.results.items()}

@@ -7,8 +7,10 @@ convnet_ablation, mix_net_gated_d, axialunet_wopos, unetplusplus, shallow,
 autoencoder), all at layers [1, 2, 4, 1], 8 groups and width scale
 s = 0.125, with the reference's frozen gates (0.1, 0.1, 0.1, 1.0) in the
 gated modes and (0.1, 0.1, 0.1, 5.0) under gated_sig's sigmoid. The
-zoo's classifiers (``AxialAttentionNet``, the ResNets) are not ported yet
-(ROADMAP.md, section 1, "The classification harness").
+classification models (``classifiers.AxialAttentionNet`` and its
+factories, the ResNets of :mod:`.resnet`) and the feature extractors of
+:mod:`.extractors` are built by name through
+``medt_tpu_torch.builders.build_model``.
 """
 from __future__ import annotations
 

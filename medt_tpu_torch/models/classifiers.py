@@ -1,11 +1,22 @@
-"""The zoo's conv autoencoder (NCHW).
+"""The zoo's axial-attention classifiers and its conv autoencoder (NCHW).
 
-Port of ``ConvAutoencoder`` in ``medt_tpu/models/classifiers.py:89-110``
-(reference model_codes.py:2224-2256): a 3-level encoder of stride-2 3x3
-convs + BN + ReLU, a decoder of 3x3 convs + BN + bilinear x2 + ReLU, and a
-3x3 output conv followed by one more bilinear x2, back at the input size.
-The axial-attention classifiers of that module are not ported yet
-(ROADMAP.md, section 1, "The classification harness").
+Port of ``medt_tpu/models/classifiers.py``:
+
+* ``AxialAttentionNet`` (``:24-84``; reference lib/models/model_codes.py:
+  834-937): a 7x7/s2 conv stem and a 3x3/s2 max pool, four axial stages
+  (the port's :class:`.blocks.AxialStage`, mode "full") at widths
+  int({128, 256, 512, 1024} * s) with spans base, base, base / 2, base / 4
+  for base = img_size // 4 (56, 56, 28, 14 at 224 px), global average
+  pooling and a linear ``fc``. The factories axial26s, axial50s (s = 0.5),
+  axial50m (0.75) and axial50l (1.0) follow model_codes.py:2259-2277. At
+  s = 0.5 the group planes are 8, 16, 32 and 64 in layers 1-4, so
+  ``use_fused`` runs the kernels at gp 32 and 64 there; axial50m's 12, 24,
+  48, 96 and axial50l's 128 raise on the fused path (no kernel takes them
+  yet). As in JAX, ``use_fused`` is off by default.
+* ``ConvAutoencoder`` (``:89-110``; model_codes.py:2224-2256): a 3-level
+  encoder of stride-2 3x3 convs + BN + ReLU, a decoder of 3x3 convs + BN +
+  bilinear x2 + ReLU, and a 3x3 output conv followed by one more bilinear
+  x2, back at the input size.
 """
 from __future__ import annotations
 
@@ -15,7 +26,68 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops import BatchNorm, conv2d, upsample_bilinear_2x
+from ..ops import (BatchNorm, conv2d, max_pool_3x3_s2, set_compute_dtype,
+                   upsample_bilinear_2x)
+from .blocks import AxialStage
+from .resnet import linear
+
+
+class AxialAttentionNet(nn.Module):
+    """(N, 3, img_size, img_size) -> (N, num_classes) logits."""
+
+    def __init__(self, layers: Sequence[int] = (1, 2, 4, 1),
+                 num_classes: int = 1000, groups: int = 8, s: float = 0.5,
+                 img_size: int = 224, use_fused: bool = False,
+                 plain_cores: bool = False,
+                 dtype: Optional[torch.dtype] = None, *,
+                 generator: Optional[torch.Generator] = None, device=None):
+        super().__init__()
+        init = dict(generator=generator, device=device)
+        inplanes = int(64 * s)
+        self.conv1 = conv2d(3, inplanes, 7, stride=2, use_bias=False, **init)
+        self.bn1 = BatchNorm(inplanes, device=device)
+        # span schedule scaled off the post-stem extent (56 at 224 px)
+        base = img_size // 4
+        stage_cfg = [(int(128 * s), 1, base), (int(256 * s), 2, base),
+                     (int(512 * s), 2, base // 2),
+                     (int(1024 * s), 2, base // 4)]
+        attn = dict(mode="full", use_fused=use_fused, plain_cores=plain_cores)
+        for i, ((planes, stride, span), blocks) in enumerate(
+                zip(stage_cfg, layers)):
+            stage = AxialStage(inplanes, planes, blocks, span, stride=stride,
+                               groups=groups, attn=attn, **init)
+            setattr(self, f"layer{i + 1}", stage)
+            inplanes = stage.out_planes
+        self.fc = linear(inplanes, num_classes, **init)
+        if dtype is not None:
+            set_compute_dtype(self, dtype)
+
+    def forward(self, x):
+        x = max_pool_3x3_s2(F.relu(self.bn1(self.conv1(x))))
+        for i in range(4):
+            x = getattr(self, f"layer{i + 1}")(x)
+        # global average pool, then the head on float32 parameters
+        return self.fc(x.float().mean(dim=(2, 3)))
+
+
+def axial26s(**kw):
+    kw.setdefault("s", 0.5)
+    return AxialAttentionNet(layers=(1, 2, 4, 1), **kw)
+
+
+def axial50s(**kw):
+    kw.setdefault("s", 0.5)
+    return AxialAttentionNet(layers=(3, 4, 6, 3), **kw)
+
+
+def axial50m(**kw):
+    kw.setdefault("s", 0.75)
+    return AxialAttentionNet(layers=(3, 4, 6, 3), **kw)
+
+
+def axial50l(**kw):
+    kw.setdefault("s", 1.0)
+    return AxialAttentionNet(layers=(3, 4, 6, 3), **kw)
 
 
 class ConvAutoencoder(nn.Module):

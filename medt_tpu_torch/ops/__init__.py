@@ -11,7 +11,7 @@ from .axial_attention import (
 )
 from .convs import Conv2d, conv1x1, conv2d, set_compute_dtype
 from .norms import BatchNorm, batch_norm_eval, batch_norm_train
-from .pooling import avg_pool, upsample_bilinear_2x
+from .pooling import avg_pool, max_pool_3x3_s2, upsample_bilinear_2x
 
 
 def reset_launch_counts():
@@ -43,6 +43,7 @@ __all__ = [
     "conv1x1",
     "conv2d",
     "launch_counts",
+    "max_pool_3x3_s2",
     "relative_logit_index",
     "reset_launch_counts",
     "set_compute_dtype",

@@ -42,7 +42,10 @@ Two paths, as in JAX:
   routes such sites to its eval kernel where the lanes family refuses them.
   The TPU admission checks (VMEM budgets, flash's ``gp * span <= 256``,
   ``fused_train_supported``) are not ported; :func:`fused_route` is the
-  whole rule.
+  whole rule, and a group width that the route's kernels do not take
+  (``ROUTE_GP``: gp 2..64 in powers of two, the stripe and flash2 kernels
+  up to 16) raises ``ValueError`` on the fused path, on any device, plain
+  cores included, rather than turn to the plain attention.
 * the **plain path** (``_jnp_attention`` in JAX), for the other modes
   (gated_sig in eval mode, gated_data in both),
   whenever ``use_fused`` is off, and on the fused path at spans over 256
@@ -77,14 +80,17 @@ from torch import nn
 from .attn_core import fold_train_affine, pack_sim_affine, relative_logit_index
 from .axial_eval import EVAL_MAX_SPAN, fused_eval_attention
 from .axial_lanes import (
+    FLASH2_GP,
     FLASH2_MAX_SPAN,
     FLASH_MAX_SPAN,
+    KERNEL_GP,
     LANES_MAX_SPAN,
+    check_gp,
     flash2_lanes_core,
     flash_lanes_core,
     lanes_attn_core,
 )
-from .axial_train import STRIPE_MAX_SPAN, fused_attn_core
+from .axial_train import STRIPE_GP, STRIPE_MAX_SPAN, fused_attn_core
 from .initializers import normal_by_fan, uniform_by_fan
 from .moments import (
     logit_moments,
@@ -147,6 +153,13 @@ def fused_route(span: int, stripes: int, training: bool) -> str:
     if span <= FLASH_MAX_SPAN:
         return "flash"
     return "flash2"
+
+
+# the group planes each route's kernels take: gp 32 and 64 (the
+# axial-attention classifiers at s = 0.5) on the lanes, flash, eval and
+# moments kernels; no path sends a wider gp to the stripe or flash2 ones
+ROUTE_GP = {"eval": KERNEL_GP, "lanes": KERNEL_GP, "flash": KERNEL_GP,
+            "stripe": STRIPE_GP, "flash2": FLASH2_GP}
 
 
 def lanes_family_core(qkv, qemb, kemb_t, vemb, sim_affine,
@@ -309,6 +322,9 @@ class AxialAttention(nn.Module):
         if self.use_fused and self.mode in fused_modes:
             stripes = n * qkv.shape[3]
             route = fused_route(L, stripes, self.training)
+            if route != "plain":  # a gp no kernel takes raises, on any device
+                check_gp(f"AxialAttention ({route} route)", self.gp,
+                         ROUTE_GP[route])
             self.last_route = (route, L, self.groups, self.gp, stripes,
                                self.mode != MODE_WOPOS)
             if route == "eval":

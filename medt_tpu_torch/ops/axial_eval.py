@@ -27,7 +27,9 @@ is no fallback from a CUDA tensor to the plain version. The kernel takes
 the stripe-major layout with free stripe and group strides, so
 :func:`fused_eval_attention` hands it three views of one fused
 ``(S, g, 2gp, L)`` qkv tensor without splitting it. There is no backward:
-asking for a gradient raises.
+asking for a gradient raises. At gp 32 and 64 the same entry point runs
+``csrc/wide_attn.cuh``'s body (one query row a thread, value channels in
+chunks of 16); gp outside ``KERNEL_GP`` raises ``ValueError``.
 """
 from __future__ import annotations
 
@@ -40,9 +42,9 @@ from ..kernels.launch import (check_rows, check_tensor, ptr, raise_on,
                               stream, strides)
 from .attn_core import (attend, attn_logits, fold_train_affine,
                         pack_sim_affine, relative_logit_index)
+from .axial_lanes import check_gp
 
 EVAL_MAX_SPAN = 64
-KERNEL_GP = (2, 4, 8, 16)
 
 
 def _has_pos(q_emb: torch.Tensor) -> bool:
@@ -68,9 +70,9 @@ def axial_eval_fwd(q, k, v, q_emb, k_emb, v_emb, sim_affine, out_affine):
         raise ValueError(f"{name}: q, k, v must be (S, g, rows, L)")
     S, g, c, L = q.shape
     gp = v.shape[2]
-    if gp not in KERNEL_GP or c != gp // 2:
-        raise ValueError(f"{name}: group planes gp={gp} (c={c}) not in "
-                         f"{KERNEL_GP}")
+    check_gp(name, gp)
+    if c != gp // 2:
+        raise ValueError(f"{name}: q has {c} rows for gp={gp}")
     if not 1 <= L <= EVAL_MAX_SPAN:
         raise ValueError(f"{name}: span {L} outside 1..{EVAL_MAX_SPAN}")
     dev = q.device

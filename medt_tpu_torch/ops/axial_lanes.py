@@ -46,6 +46,13 @@ operand (tables, affine, sv, sve, m, l, dsv, dsve) and every other output
 is float32. The plain versions take bf16 qkv as its exact float32 upcast
 and round dqkv once. The TPU kernels' blocking (``_JB_*``, ``Sb``, VMEM
 budgets) is not ported: the kernels size themselves for the H100.
+
+The lanes and flash kernels take gp in ``KERNEL_GP``; at gp 32 and 64
+(``WIDE_GP``: the axial-attention classifiers' layers 3 and 4) their
+wrappers launch ``csrc/axial_wide.cu`` (one query row a thread, the value
+channels in chunks of 16; float32 only, so bf16 qkv raises there), and
+count the launch as their own. flash2 takes gp up to 16 (``FLASH2_GP``):
+no path sends it a wider one. Any other gp raises ``ValueError``.
 """
 from __future__ import annotations
 
@@ -69,7 +76,24 @@ from .attn_core import attend, attn_logits
 LANES_MAX_SPAN = 16
 FLASH_MAX_SPAN = 64
 FLASH2_MAX_SPAN = 256
-KERNEL_GP = (2, 4, 8, 16)
+KERNEL_GP = (2, 4, 8, 16, 32, 64)
+WIDE_GP = (32, 64)
+FLASH2_GP = (2, 4, 8, 16)
+GP_TODO = ("gp 12, 24, 48, 96 and 128 (axial50m, axial50l) have no kernel "
+           "yet: ROADMAP.md section 1, 'Group planes past the kernels' "
+           "widths'")
+
+
+def check_gp(name: str, gp, gps=KERNEL_GP, qkv_dtype=torch.float32):
+    """Raise ``ValueError`` unless a kernel takes ``gp`` group planes (the
+    wide ones in float32 only)."""
+    if gp not in gps:
+        raise ValueError(f"{name}: group planes gp={gp} not in {gps}; "
+                         f"{GP_TODO}")
+    if gp in WIDE_GP and qkv_dtype != torch.float32:
+        raise ValueError(f"{name}: gp={gp} kernels take float32 qkv only, "
+                         f"got {qkv_dtype} (bf16 at gp 32 and 64: ROADMAP.md "
+                         "section 1)")
 
 
 def _has_pos(qemb: torch.Tensor) -> bool:
@@ -213,7 +237,7 @@ flash2_lanes_bwd_plain = flash_lanes_bwd_plain
 # ---- kernel wrappers --------------------------------------------------------
 
 def _check(qkv, qemb, kemb_t, vemb, sim_affine, max_span: int, name: str,
-           **extra):
+           gps=KERNEL_GP, **extra):
     """Validate what a kernel takes; returns (g, gp, L, S, has_pos).
     ``extra`` names further operands: ``"gp"``-shaped (g, gp, L, S) or
     ``"row"``-shaped (g, L, S) tensors, given as (tensor, kind)."""
@@ -224,9 +248,7 @@ def _check(qkv, qemb, kemb_t, vemb, sim_affine, max_span: int, name: str,
     gp = r2 // 2
     c = gp // 2
     has_pos = _has_pos(qemb)
-    if r2 % 2 or gp not in KERNEL_GP:
-        raise ValueError(f"{name}: group planes gp={r2 / 2} not in "
-                         f"{KERNEL_GP}")
+    check_gp(name, r2 / 2 if r2 % 2 else gp, gps, qkv.dtype)
     if not 1 <= L <= max_span:
         raise ValueError(f"{name}: span {L} outside 1..{max_span}")
     tables = {"qemb": (qemb, (c, L, L)), "kemb_t": (kemb_t, (c, L, L)),
@@ -252,10 +274,34 @@ def _zeros_like_view(t: torch.Tensor) -> torch.Tensor:
     return torch.zeros((), dtype=t.dtype, device=t.device).expand(t.shape)
 
 
+def _wide_fwd(qkv, qemb, kemb_t, vemb, sim_affine, g, gp, L, S, has_pos,
+              save_ml: bool):
+    """The forward at gp 32 or 64 (``medt_wide_attn_fwd``): ``(sv, sve)``,
+    and ``m, l`` with ``save_ml``."""
+    dev = qkv.device
+    sv = torch.empty((g, gp, L, S), dtype=torch.float32, device=dev)
+    sve = torch.empty_like(sv) if has_pos else sv
+    m = torch.empty((g, L, S), dtype=torch.float32, device=dev) \
+        if save_ml else sv
+    l = torch.empty_like(m) if save_ml else sv
+    err = library().medt_wide_attn_fwd(
+        ptr(qkv), ptr(qemb), ptr(kemb_t), ptr(vemb), ptr(sim_affine),
+        ptr(sv), ptr(sve), ptr(m), ptr(l), g, gp, L, S, int(has_pos),
+        int(save_ml), stream(dev))
+    raise_on(err, "wide_attn_fwd")
+    sve = sve if has_pos else _zeros_like_view(sv)
+    return (sv, sve, m, l) if save_ml else (sv, sve)
+
+
 def lanes_attn_fwd(qkv, qemb, kemb_t, vemb, sim_affine):
     """Launch the lanes kernel (spans <= 16) on CUDA tensors."""
     g, gp, L, S, has_pos = _check(qkv, qemb, kemb_t, vemb, sim_affine,
                                   LANES_MAX_SPAN, "lanes_attn_fwd")
+    if gp in WIDE_GP:
+        out = _wide_fwd(qkv, qemb, kemb_t, vemb, sim_affine, g, gp, L, S,
+                        has_pos, save_ml=False)
+        count_launch(lanes_attn_fwd, qkv)
+        return out
     sv = torch.empty((g, gp, L, S), dtype=torch.float32, device=qkv.device)
     sve = torch.empty_like(sv) if has_pos else sv  # not written without pos
     err = getattr(library(), entry("lanes_attn_fwd", qkv))(
@@ -270,8 +316,12 @@ def _streamed_fwd(name: str, max_span: int, qkv, qemb, kemb_t, vemb,
                   sim_affine):
     """Launch the forward kernel ``medt_<name>``, which also saves m and l:
     ``(sv, sve, m, l)``."""
+    gps = FLASH2_GP if name.startswith("flash2") else KERNEL_GP
     g, gp, L, S, has_pos = _check(qkv, qemb, kemb_t, vemb, sim_affine,
-                                  max_span, name)
+                                  max_span, name, gps)
+    if gp in WIDE_GP:
+        return _wide_fwd(qkv, qemb, kemb_t, vemb, sim_affine, g, gp, L, S,
+                         has_pos, save_ml=True)
     dev = qkv.device
     sv = torch.empty((g, gp, L, S), dtype=torch.float32, device=dev)
     sve = torch.empty_like(sv) if has_pos else sv
@@ -368,6 +418,38 @@ def _split_tables(dtables, gp, has_pos):
     return dtables[:c], dtables[c:gp], dtables[gp:]
 
 
+def _wide_bwd_slots(L: int, S: int) -> int:
+    """daff partial slots of a backward at gp 32 or 64: one per block of 4
+    query rows x 32 stripes (csrc/axial_wide.cu: wide_rows_kernel)."""
+    return -(-L // 4) * -(-S // 32)
+
+
+def _wide_bwd(qkv, qemb, kemb_t, vemb, sim_affine, saved, dsv, dsve, g, gp,
+              L, S, has_pos):
+    """The backward at gp 32 or 64 (``medt_wide_attn_bwd``): the lanes
+    contract when ``saved`` is None, else the flash contract from the
+    forward's ``(m, l, sv, sve)``. ``(dqkv, dqemb, dkemb_t, dvemb, daff)``."""
+    dev = qkv.device
+    f32 = dict(dtype=torch.float32, device=dev)
+    e = 2 * gp * L * L if has_pos else 0
+    n_aff = _wide_bwd_slots(L, S)
+    out = torch.empty(e + g * 8, **f32)
+    pairs = g * L * L * S
+    scratch = torch.empty(2 * pairs + g * e + n_aff * g * 4, **f32)
+    dqkv = torch.empty((g, 2 * gp, L, S), **f32)
+    m, l, sv, sve = saved if saved is not None else (dsv,) * 4
+    err = library().medt_wide_attn_bwd(
+        ptr(qkv), ptr(qemb), ptr(kemb_t), ptr(vemb), ptr(sim_affine), ptr(m),
+        ptr(l), ptr(sv), ptr(sve if has_pos else sv), ptr(dsv),
+        ptr(dsve if has_pos else dsv), ptr(dqkv), ptr(out), ptr(out[e:]),
+        ptr(scratch), ptr(scratch[pairs:]), ptr(scratch[2 * pairs:]),
+        ptr(scratch[2 * pairs + g * e:]), g, gp, L, S, int(has_pos),
+        int(saved is not None), n_aff, stream(dev))
+    raise_on(err, "wide_attn_bwd")
+    dtables = out[:e].view(2 * gp if has_pos else 0, L, L)
+    return (dqkv, *_split_tables(dtables, gp, has_pos), out[e:].view(g, 8))
+
+
 def lanes_attn_bwd(qkv, qemb, kemb_t, vemb, sim_affine, dsv, dsve):
     """Launch the lanes backward (spans <= 16) on CUDA tensors:
     ``(dqkv, dqemb, dkemb_t, dvemb, daff)``. ``dsve`` is ignored (and may
@@ -377,6 +459,11 @@ def lanes_attn_bwd(qkv, qemb, kemb_t, vemb, sim_affine, dsv, dsve):
         extra["dsve"] = (dsve, "gp")
     g, gp, L, S, has_pos = _check(qkv, qemb, kemb_t, vemb, sim_affine,
                                   LANES_MAX_SPAN, "lanes_attn_bwd", **extra)
+    if gp in WIDE_GP:
+        out = _wide_bwd(qkv, qemb, kemb_t, vemb, sim_affine, None, dsv,
+                        dsve, g, gp, L, S, has_pos)
+        count_launch(lanes_attn_bwd, qkv)
+        return out
     b, n_tab, n_aff = _bwd_buffers(qkv, "lanes", g, gp, L, S, has_pos)
     err = getattr(library(), entry("lanes_attn_bwd", qkv))(
         ptr(qkv), ptr(qemb), ptr(kemb_t), ptr(vemb), ptr(sim_affine),
@@ -397,8 +484,12 @@ def _streamed_bwd(name: str, max_span: int, qkv, qemb, kemb_t, vemb,
              "dsv": (dsv, "gp")}
     if _has_pos(qemb):
         extra.update(sve=(sve, "gp"), dsve=(dsve, "gp"))
+    gps = FLASH2_GP if name.startswith("flash2") else KERNEL_GP
     g, gp, L, S, has_pos = _check(qkv, qemb, kemb_t, vemb, sim_affine,
-                                  max_span, name, **extra)
+                                  max_span, name, gps, **extra)
+    if gp in WIDE_GP:
+        return _wide_bwd(qkv, qemb, kemb_t, vemb, sim_affine, (m, l, sv, sve),
+                         dsv, dsve, g, gp, L, S, has_pos)
     b, n_tab, n_aff = _bwd_buffers(qkv, "tiled", g, gp, L, S, has_pos)
     err = getattr(library(), entry(name, qkv))(
         ptr(qkv), ptr(qemb), ptr(kemb_t), ptr(vemb), ptr(sim_affine),

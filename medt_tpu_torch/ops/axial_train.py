@@ -45,9 +45,11 @@ from ..kernels.build import library
 from ..kernels.launch import (check_rows, check_tensor, ptr, raise_on,
                               stream, strides)
 from .attn_core import attn_core_plain
-from .axial_lanes import KERNEL_GP
+from .axial_lanes import check_gp
 
 STRIPE_MAX_SPAN = 64
+# the stripe kernels' group planes: no path sends them a wider one
+STRIPE_GP = (2, 4, 8, 16)
 # The backward's block (csrc/axial_stripe_bwd.cu: kWideGp, span_bucket,
 # chunk_stripes): a block owns one group and a chunk of 4 stripes with
 # positions at spans over 32 below BWD_WIDE_GP group planes, else 2; its
@@ -115,9 +117,9 @@ def _check(q, k, v, qemb, kemb, vemb, sim_affine, name: str, **extra):
         raise ValueError(f"{name}: q, k, v must be (S, g, rows, L)")
     S, g, c, L = q.shape
     gp = v.shape[2]
-    if gp not in KERNEL_GP or c != gp // 2:
-        raise ValueError(f"{name}: group planes gp={gp} (c={c}) not in "
-                         f"{KERNEL_GP}")
+    check_gp(name, gp, STRIPE_GP)
+    if c != gp // 2:
+        raise ValueError(f"{name}: q has {c} rows for gp={gp}")
     if not 1 <= L <= STRIPE_MAX_SPAN:
         raise ValueError(f"{name}: span {L} outside 1..{STRIPE_MAX_SPAN}")
     has_pos = _has_pos(qemb)

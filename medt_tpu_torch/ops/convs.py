@@ -48,15 +48,16 @@ def set_compute_dtype(module: nn.Module,
 
 def conv2d(in_features: int, features: int, kernel_size: int,
            stride: int = 1, padding: Optional[int] = None,
-           use_bias: bool = True, *,
+           use_bias: bool = True, *, dilation: int = 1,
            generator: Optional[torch.Generator] = None,
            device=None) -> Conv2d:
-    """A :class:`Conv2d` drawn from the reference's default law."""
+    """A :class:`Conv2d` drawn from the reference's default law; padding
+    ``(kernel_size // 2) * dilation`` by default."""
     if padding is None:
-        padding = kernel_size // 2
+        padding = (kernel_size // 2) * dilation
     conv = Conv2d(in_features, features, kernel_size, stride=stride,
-                     padding=padding, bias=use_bias, device=device,
-                     dtype=torch.float32)
+                  padding=padding, dilation=dilation, bias=use_bias,
+                  device=device, dtype=torch.float32)
     fan_in = in_features * kernel_size * kernel_size
     uniform_by_fan(conv.weight, fan_in, generator)
     if use_bias:

@@ -29,6 +29,10 @@ kernel's arithmetic, so the sums equal the float32 kernel's on the upcast
 qkv and the backward's dqkv, written in bf16, is its gradient rounded once
 (launches in ``.launches_bf16``). The tables and sums stay float32. The
 plain versions take bf16 qkv as its exact upcast and round dqkv once.
+
+At gp 32 and 64 (float32 only) the entry points run kernels of their own
+(``moments_wide_{fwd,bwd}_kernel``), under the same partial layouts,
+finalizes and wrapper buffers.
 """
 from __future__ import annotations
 
@@ -47,7 +51,7 @@ from ..kernels.launch import (
     stream,
     widened,
 )
-from .axial_lanes import KERNEL_GP
+from .axial_lanes import check_gp
 
 
 def _split_qk(qkv):
@@ -122,9 +126,7 @@ def _check(qkv, r_q, e_q, r_k, e_k, name, **extra):
     g, r2, L, S = qkv.shape
     gp = r2 // 2
     c = gp // 2
-    if r2 % 2 or gp not in KERNEL_GP:
-        raise ValueError(f"{name}: group planes gp={r2 / 2} not in "
-                         f"{KERNEL_GP}")
+    check_gp(name, r2 / 2 if r2 % 2 else gp, qkv_dtype=qkv.dtype)
     has_pos = _has_pos(r_q)
     shapes = {"qkv": (qkv, (g, r2, L, S))}
     tables = {"r_q": (r_q, (c, L)), "e_q": (e_q, (c, c, L)),

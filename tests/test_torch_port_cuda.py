@@ -1210,3 +1210,116 @@ def test_bf16_wrappers_take_bf16_qkv_only(cuda_device):
         fn(qkv.bfloat16(), qemb.bfloat16(), kemb_t, vemb, aff)
     with pytest.raises(TypeError, match="qkv"):
         fn(qkv.half(), qemb, kemb_t, vemb, aff)
+
+
+# ---- gp 32 and 64 (the axial-attention classifiers' layers 3 and 4) ---------
+
+# (kernel, span, gp, stripes, has_pos): each new variant at an axial26s site
+# and at ragged stripe counts (S % 8 = 0, 4 and odd), spans that fill no
+# block, both variants
+WIDE_CARD_GEOMETRIES = [
+    ("lanes", 14, 32, 112, True), ("lanes", 14, 64, 116, True),
+    ("lanes", 16, 32, 37, False), ("lanes", 4, 64, 300, True),
+    ("flash", 28, 32, 224, True), ("flash", 56, 32, 36, True),
+    ("flash", 64, 64, 33, False), ("flash", 17, 64, 8, True),
+    ("moments", 14, 32, 112, True), ("moments", 28, 32, 228, True),
+    ("moments", 14, 64, 41, False), ("moments", 56, 64, 16, True),
+    ("eval", 14, 32, 112, True), ("eval", 14, 64, 28, True),
+    ("eval", 56, 32, 5, False), ("eval", 64, 64, 1, True),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel,L,gp,S,has_pos", WIDE_CARD_GEOMETRIES)
+def test_wide_gp_kernels_match_plain_on_card(cuda_device, kernel, L, gp, S,
+                                             has_pos):
+    """Forward and backward (the eval kernel: forward only) at gp 32 and
+    64 against the plain versions at the file's tolerances; the same bits
+    on a second run; one launch counted per call."""
+    if kernel == "eval":
+        args = eval_inputs(41, g=8, gp=gp, L=L, S=S, has_pos=has_pos,
+                           device=cuda_device)
+        calls = [(axial_eval.axial_eval_fwd, args,
+                  lambda: (axial_eval.axial_attention_fused_plain(*args),))]
+    elif kernel == "moments":
+        ins = moment_inputs(42, 8, gp, L, S, has_pos, device=cuda_device)
+        ct = torch.from_numpy(np.random.default_rng(43).normal(size=(8, 8))
+                              .astype(np.float32)).to(cuda_device)
+        calls = [(moments.moment_sums_fwd, ins,
+                  lambda: (moments.moment_sums_plain(*ins),)),
+                 (moments.moment_sums_bwd, (*ins, ct),
+                  lambda: moments.moment_sums_bwd_plain(*ins, ct))]
+    else:
+        args = core_inputs(44, g=8, gp=gp, L=L, S=S, has_pos=has_pos,
+                           device=cuda_device)
+        dsv, dsve = _grads_in(45, 8, gp, L, S, cuda_device)
+        if kernel == "lanes":
+            calls = [(axial_lanes.lanes_attn_fwd, args,
+                      lambda: axial_lanes.lanes_attn_plain(*args)),
+                     (axial_lanes.lanes_attn_bwd, (*args, dsv, dsve),
+                      lambda: axial_lanes.lanes_attn_bwd_plain(*args, dsv,
+                                                               dsve))]
+        else:
+            sv, sve, m, l = axial_lanes.flash_lanes_plain(*args)
+            saved = (m, l, sv, sve)
+            calls = [(axial_lanes.flash_lanes_fwd, args,
+                      lambda: axial_lanes.flash_lanes_plain(*args)),
+                     (axial_lanes.flash_lanes_bwd, (*args, *saved, dsv, dsve),
+                      lambda: axial_lanes.flash_lanes_bwd_plain(
+                          *args, *saved, dsv, dsve))]
+    for fn, fargs, plain in calls:
+        before = fn.launches
+        got, again = fn(*fargs), fn(*fargs)
+        if isinstance(got, torch.Tensor):
+            got, again = (got,), (again,)
+        want = plain()
+        torch.cuda.synchronize()
+        assert fn.launches == before + 2, fn.__name__
+        for i, (o, a, w) in enumerate(zip(got, again, want)):
+            name = f"{fn.__name__}[{i}]"
+            if fn.__name__.endswith("_fwd") and kernel != "moments":
+                rtol = 1e-5 if i >= 2 else 0.0   # flash: m and l
+                torch.testing.assert_close(o, w, atol=1e-4, rtol=rtol,
+                                           msg=name)
+            else:
+                _close(o, w, name)
+            assert torch.equal(o, a), f"{name} differs between two runs"
+
+
+def test_gp_outside_the_kernels_raises_value_error():
+    """Every gp outside (2, 4, 8, 16, 32, 64) raises ValueError naming the
+    roadmap item, at the wrappers (before any device check) and on the
+    fused path of AxialAttention on any device, plain cores included; the
+    stripe and flash2 kernels stop at gp 16; bf16 stops at gp 16. Nothing
+    turns to the plain attention."""
+    from medt_tpu_torch.ops import AxialAttention
+
+    for gp in (6, 12, 24, 48, 96, 128):
+        args = core_inputs(46, g=2, gp=gp, L=8, S=16, has_pos=True)
+        with pytest.raises(ValueError, match="ROADMAP"):
+            axial_lanes.lanes_attn_fwd(*args)
+        with pytest.raises(ValueError, match="ROADMAP"):
+            moments.moment_sums_fwd(*moment_inputs(46, 2, gp, 8, 16, True))
+    with pytest.raises(ValueError, match="ROADMAP"):
+        axial_lanes.check_gp("flash2_lanes_fwd", 32, axial_lanes.FLASH2_GP)
+    with pytest.raises(ValueError, match="float32"):
+        axial_lanes.check_gp("lanes_attn_fwd", 64,
+                             qkv_dtype=torch.bfloat16)
+    x = torch.zeros(1, 24, 8, 4)
+    for train in (False, True):
+        for plain in (False, True):
+            op = AxialAttention(24, 96, 8, groups=8, mode="full",
+                                use_fused=True, plain_cores=plain,
+                                device="cpu").train(train)
+            with pytest.raises(ValueError, match="gp=12"):
+                op(x)
+        ok = AxialAttention(24, 96, 8, groups=8, mode="full",
+                            device="cpu").train(train)
+        assert ok(x).shape == (1, 96, 8, 4)
+    # the stripe route (train mode, span 32..64, under 128 stripes) stops at
+    # gp 16: gp 32 there raises rather than run the plain attention
+    stripe = AxialAttention(8, 256, 32, groups=8, mode="full",
+                            use_fused=True, plain_cores=True,
+                            device="cpu").train()
+    with pytest.raises(ValueError, match="stripe route"):
+        stripe(torch.zeros(1, 8, 32, 2))
