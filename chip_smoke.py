@@ -139,6 +139,23 @@ the start of the script) as it ends:
    medt_tpu_torch.cli.train_cls`` with resnet18 at 224 px, one epoch over
    an ImageFolder of 2 x 8 PNGs per split: a finite loss, a ``val_acc``
    and a checkpoint.
+19. ``dp`` — data parallel on the one card: two gloo ranks on ``cuda:0``
+   (``parallel.run_data_parallel``; MedT 128, Adam-L2, the kernels, the
+   same seeded weights on both) take a DDP train step at global batch 16
+   (8 rows a rank) and at global batch 1 (one rank holds the row, the
+   other none); each rank's loss, gradients after DDP's average and
+   running statistics are held against the one-process step on the joint
+   batch under ``step_parity``'s rule, and each rank's launch counts must
+   be exact, worked out from ``fused_route`` at its own stripe count (a
+   rank with no rows launches nothing); ms per step per rank (two ranks
+   share the card's SMs and copy every collective through the host: no
+   speed). This process as an NCCL world of one: a DDP step against the
+   undistributed step (whether the bits are equal). ``torchrun
+   --nproc_per_node 1 -m medt_tpu_torch.cli.train`` for one epoch over 4
+   PNG pairs, run beside the rest: its checkpoint loads strictly into a
+   one-card model. ``InferenceEngine(devices=["cuda:0", "cuda:0"])`` at
+   batch 16: masks equal to one replica's, launches 2 x (16 lanes + 6
+   flash) a batch (8 rows a replica).
 
 Then: the per-kernel JSON summary, the card's ``nvidia-smi`` line, and, as
 the last line, ``{"ok": true, "device": ...}``. Any failed phase ends the
@@ -147,6 +164,7 @@ or outside a checkout of the repository, it exits non-zero at once.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import re
@@ -2352,6 +2370,16 @@ CLS_OWN_KERNELS = (
 CLS_CLI_PER_CLASS = 8
 
 
+def route_kernels(route: str, training: bool) -> tuple:
+    """The kernels one site on ``route`` launches: the route's forward
+    and, training, its backward and, on the lanes and flash routes, the
+    moments forward and backward."""
+    kernels = ROUTE_KERNELS[route][:2 if training else 1]
+    if training and route in ("lanes", "flash"):
+        kernels += ("moment_sums_fwd", "moment_sums_bwd")
+    return kernels
+
+
 def cls_geometries():
     """{call: [(kernel, span, gp, stripes, launches per call)]} of
     axial26s's four paths: a route's forward (and, training, its backward
@@ -2361,11 +2389,8 @@ def cls_geometries():
     for col, (call, batch, training) in enumerate(CLS_CALLS):
         rows = []
         for (L, gp, per_image, sites), routes in CLS_ROUTES.items():
-            route = routes[col]
-            kernels = ROUTE_KERNELS[route][:2 if training else 1]
-            if training and route in ("lanes", "flash"):
-                kernels += ("moment_sums_fwd", "moment_sums_bwd")
-            rows += [(k, L, gp, per_image * batch, sites) for k in kernels]
+            rows += [(k, L, gp, per_image * batch, sites)
+                     for k in route_kernels(routes[col], training)]
         out[call] = rows
     return out
 
@@ -2714,6 +2739,336 @@ def phase_cls(torch):
     return counts
 
 
+# ---- 19. data parallel -------------------------------------------------------
+
+DP_BATCH = 16        # global; 8 a rank on two ranks
+DP_TIMED = 3         # timed steps per rank after the counted one
+DP_TIMEOUT_S = 300   # a collective that waits longer fails the run
+TORCHRUN_IMAGES = 4
+
+
+def dp_step(torch, device, variables, images, masks, ddp=None, timed=0,
+            synced=None):
+    """One MedT-128 train step on the kernels (Adam-L2, cuDNN
+    deterministic) from ``variables``: in a process group of more than one
+    rank on this rank's rows of the global batch, DDP-wrapped; ``ddp``
+    wraps the model in DDP whatever the group's size. ``synced`` runs the
+    steps inside ``parallel.data_parallel_step`` whatever the group's size:
+    ``"host"`` with this rank's rows (each statistic's joint count worked
+    out on the host), ``"read"`` as a rank with no rows (each count packed
+    beside the sums and read back from the collective). Its loss,
+    gradients, running statistics, launch counts and the sites' routes;
+    then ``timed`` more steps, timed."""
+    from medt_tpu_torch import ops
+    from medt_tpu_torch.models import build_model
+    from medt_tpu_torch.ops import AxialAttention
+    from medt_tpu_torch.parallel import (data_parallel_step, host_shard,
+                                         shard_batch)
+    from medt_tpu_torch.training import (TrainState, adam_l2,
+                                         data_parallel, train_step)
+
+    def copy(t):    # later steps update the model's tensors in place
+        return t.detach().to("cpu", copy=True)
+
+    torch.backends.cudnn.allow_tf32 = False   # off, as phase_device sets it
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    model = build_model("MedT", img_size=IMG, use_fused=True, device=device)
+    model.load_state_dict(variables, strict=True)
+    model = ddp(model) if ddp else data_parallel(model)
+    state = TrainState(model, adam_l2(model.parameters(), TRAIN_LR))
+    rank, world = host_shard()
+    batch = shard_batch({"image": images, "label": masks}, rank, world)
+    def ctx():
+        if synced is None:
+            return contextlib.nullcontext()
+        return data_parallel_step(
+            len(batch["image"]) if synced == "host" else 0, len(images))
+
+    ops.reset_launch_counts()
+    with ctx():
+        loss = train_step(state, batch, joint_rows=len(images))["loss"]
+    torch.cuda.synchronize()
+    module = state.module
+    out = {"loss": float(loss), "launches": ops.launch_counts(),
+           "rows": len(batch["image"]),
+           "grads": {k: copy(p.grad) for k, p in module.named_parameters()
+                     if p.requires_grad},
+           "stats": {k: copy(b) for k, b in module.named_buffers()
+                     if k.endswith(("running_mean", "running_var"))},
+           "sites": [m.last_route for m in module.modules()
+                     if isinstance(m, AxialAttention)]}
+    if timed:
+        t0 = time.perf_counter()
+        with ctx():
+            for _ in range(timed):
+                train_step(state, batch, joint_rows=len(images))
+        torch.cuda.synchronize()
+        out["ms_per_step"] = (time.perf_counter() - t0) / timed * 1e3
+    torch.backends.cudnn.deterministic = False
+    return out
+
+
+def _dp_gloo_rank(device, variables, batches):
+    """A rank of the two-rank gloo world on one card: the step at each
+    global batch of ``batches``."""
+    import torch
+
+    return [dp_step(torch, device, variables, images, masks, timed=DP_TIMED)
+            for images, masks in batches]
+
+
+def nccl_world_of_one(torch, variables, images, masks):
+    """This process as an NCCL world of one: one step of a DDP-wrapped
+    model, and the same step undistributed twice (whether two such steps
+    share their bits says whether a bit comparison can speak of DDP).
+    Then, timed beside the DDP step, the step with every train-mode
+    statistic summed through NCCL (``parallel.sync``, 213 collectives a
+    MedT-128 step): with the joint counts worked out on the host (each
+    collective the sums alone), and with the counts packed beside the
+    sums and read back (what a rank without rows does), each held against
+    the undistributed step."""
+    import torch.distributed as dist
+    from torch.nn.parallel import DistributedDataParallel
+
+    from medt_tpu_torch.parallel.launch import free_port
+
+    plain = [dp_step(torch, "cuda:0", variables, images, masks)
+             for _ in range(2)]
+    t0 = time.perf_counter()
+    dist.init_process_group("nccl", rank=0, world_size=1,
+                            init_method=f"tcp://127.0.0.1:{free_port()}")
+    try:
+        def wrap(m):
+            return DistributedDataParallel(m, device_ids=[0])
+
+        ddp = dp_step(torch, "cuda:0", variables, images, masks, ddp=wrap,
+                      timed=DP_TIMED)
+        synced = {how: dp_step(torch, "cuda:0", variables, images, masks,
+                               ddp=wrap, timed=DP_TIMED, synced=how)
+                  for how in ("host", "read")}
+    finally:
+        dist.destroy_process_group()
+    return {"seconds": time.perf_counter() - t0, "loss": ddp["loss"],
+            "bits_equal_plain": same_bits(torch, ddp, plain[0]),
+            "plain_bits_equal_each_other": same_bits(torch, *plain),
+            "parity": _dp_held(torch, ddp, plain[0], plain),
+            "ms_per_step": {"ddp": ddp["ms_per_step"],
+                            "synced_counts_on_host":
+                                synced["host"]["ms_per_step"],
+                            "synced_counts_read":
+                                synced["read"]["ms_per_step"]},
+            "synced_parity": {how: _dp_held(torch, r, plain[0], plain)
+                              for how, r in synced.items()}}
+
+
+def same_bits(torch, a, b) -> bool:
+    """Whether two steps' losses, gradients and statistics are bit-equal."""
+    return a["loss"] == b["loss"] and all(
+        torch.equal(a[w][k], b[w][k]) for w in ("grads", "stats")
+        for k in b[w])
+
+
+def nonzero(counts: dict) -> dict:
+    return {k: v for k, v in counts.items() if v}
+
+
+def dp_launches(sites, batch, rows, training=True) -> dict:
+    """The launches a rank's call makes at ``rows`` rows: each site's
+    route at the rank's stripe count (the one-process call's stripes at
+    ``batch`` rows scaled to ``rows``; none at 0 stripes), a route's
+    forward, and in training its backward and, on the lanes family, the
+    moments kernels."""
+    from medt_tpu_torch.ops.axial_attention import fused_route
+
+    out = {}
+    for _, span, _, _, stripes, _ in sites:
+        local = stripes // batch * rows
+        if not local:
+            continue
+        for k in route_kernels(fused_route(span, local, training), training):
+            out[k] = out.get(k, 0) + 1
+    return out
+
+
+def _dp_held(torch, got, want, others):
+    """``got`` against ``want`` under step_parity's rule, ``others`` the
+    one-process step on perturbed inputs (the float32 spread)."""
+    checks = [held(torch, "loss", torch.tensor(got["loss"]),
+                   torch.tensor(want["loss"]),
+                   [torch.tensor(o["loss"]) for o in others])]
+    for what in ("grads", "stats"):
+        checks += [held(torch, k, got[what][k], want[what][k],
+                        [o[what][k] for o in others]) for k in want[what]]
+    bad = [c for c in checks if not c["ok"]]
+    return {"tensors": len(checks), "failed": bad[:5],
+            "worst": max(checks, key=lambda c: c["err"] / c["tol"])}
+
+
+def _torchrun_start(root):
+    """Start ``cli.train`` under torchrun with one process, one epoch over
+    TORCHRUN_IMAGES PNG pairs: ``(process, output dir, start time)``."""
+    from medt_tpu_torch.data import make_png_dataset
+
+    data = make_png_dataset(str(root / "torchrun"), TORCHRUN_IMAGES, IMG,
+                            seed=4)
+    out = root / "torchrun_out"
+    run = subprocess.Popen(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc_per_node", "1", "-m", "medt_tpu_torch.cli.train",
+         "--train_dataset", data, "--val_dataset", data, "--modelname",
+         "MedT", "--imgsize", str(IMG), "--epochs", "1", "--save_freq", "1",
+         "--direc", str(out), "--workers", "2"],
+        cwd=str(REPO), stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True)
+    return run, out, time.perf_counter()
+
+
+def _torchrun_result(torch, run, out, t0):
+    """Wait for the torchrun epoch: it exits 0 and its checkpoint loads
+    strictly into a one-card model."""
+    import numpy as np
+
+    from medt_tpu_torch.models import build_model
+    from medt_tpu_torch.training import restore_checkpoint
+
+    try:
+        _, err = run.communicate(timeout=600)
+    finally:
+        if run.poll() is None:
+            run.kill()
+            run.communicate()
+    wall = time.perf_counter() - t0
+    check(run.returncode == 0, f"torchrun exited {run.returncode}: "
+                               f"{err[-2000:]}")
+    ckpts = sorted(p.relative_to(out).as_posix()
+                   for p in out.rglob("ckpt.pth"))
+    check(ckpts == ["0/ckpt.pth", "final_model/ckpt.pth"],
+          f"torchrun checkpoints {ckpts}")
+    model = build_model("MedT", img_size=IMG, use_fused=True, device="cuda")
+    step = restore_checkpoint(str(out / "0"), model)
+    check(step == TORCHRUN_IMAGES, f"checkpoint at step {step}")
+    log = json.loads((out / "train_log.jsonl").read_text())
+    check(np.isfinite(log["loss"]), f"torchrun loss {log}")
+    return {"wall_s": wall, "checkpoints": ckpts, "step": step, "log": log}
+
+
+def phase_dp(torch):
+    """Data parallel on one card: two gloo ranks on cuda:0 (MedT-128,
+    Adam-L2, the kernels) at global batch 16 and 1 against the one-process
+    step, with each rank's exact launch counts; this process as an NCCL
+    world of one; one torchrun epoch; the engine's two replicas against
+    one."""
+    import shutil
+
+    import numpy as np
+
+    from medt_tpu_torch import ops
+    from medt_tpu_torch.data import blob_batch
+    from medt_tpu_torch.models import build_model
+    from medt_tpu_torch.parallel import run_data_parallel
+    from medt_tpu_torch.serving import InferenceEngine
+
+    variables = build_model("MedT", img_size=IMG, seed=0,
+                            device="cpu").state_dict()
+    batches = [blob_batch(n, IMG, seed=0) for n in (DP_BATCH, 1)]
+    root = REPO / "_smoke" / "dp"
+    shutil.rmtree(root, ignore_errors=True)
+
+    # -- started first, the torchrun epoch runs beside what follows ----------
+    started = _torchrun_start(root)
+    try:
+        # -- the one-process steps and their float32 spread ----------------
+        rng = np.random.default_rng(1)
+        wants = []
+        for images, masks in batches:
+            x = images.astype(np.float32) / 255.0
+            noisy = [(x * (1.0 + STEP_INPUT_NOISE * rng.standard_normal(
+                x.shape))).astype(np.float32) for _ in range(2)]
+            wants.append([dp_step(torch, "cuda", variables, im, masks)
+                          for im in [images] + noisy])
+        nccl = nccl_world_of_one(torch, variables, *batches[0])
+        for name, parity in [("ddp", nccl["parity"]),
+                             *nccl["synced_parity"].items()]:
+            check(not parity["failed"],
+                  f"NCCL world of one ({name}) vs one process: {parity}")
+
+        # -- the two ranks, counted in their own processes -----------------
+        t0 = time.perf_counter()
+        ranks = run_data_parallel(
+            _dp_gloo_rank, ["cuda:0", "cuda:0"], "gloo",
+            args=(variables, batches), timeout_s=DP_TIMEOUT_S)
+        world_s = time.perf_counter() - t0
+        results = {}
+        for col, (want, *others) in enumerate(wants):
+            n = len(batches[col][0])
+            per_rank = []
+            for rank, res in enumerate(r[col] for r in ranks):
+                expect = launches_of(want["launches"], dp_launches(
+                    want["sites"], n, res["rows"]), 1)
+                parity = _dp_held(torch, res, want, others)
+                per_rank.append({"rank": rank, "rows": res["rows"],
+                                 "launches": nonzero(res["launches"]),
+                                 "launches_ok": res["launches"] == expect,
+                                 "ms_per_step": res["ms_per_step"],
+                                 "parity": parity})
+                check(not parity["failed"], f"batch {n} rank {rank} vs "
+                      f"one process: {parity['failed']}")
+                check(res["launches"] == expect, f"batch {n} rank {rank} "
+                      f"launches {res['launches']} != {expect}")
+            check(ranks[0][col]["loss"] == ranks[1][col]["loss"],
+                  f"batch {n}: the ranks' losses differ")
+            results[f"batch{n}"] = {"loss_ranks": ranks[0][col]["loss"],
+                                    "loss_one_process": want["loss"],
+                                    "one_process_launches":
+                                        nonzero(want["launches"]),
+                                    "ranks": per_rank}
+
+        # -- the engine: two replicas on cuda:0 against one ----------------
+        served = list(batches[0][0])
+        engines = [InferenceEngine("MedT", IMG, variables=variables,
+                                   batch_size=DP_BATCH, **kw)
+                   for kw in ({"device": "cuda"},
+                              {"devices": ["cuda:0", "cuda:0"]})]
+        one_masks = engines[0].predict_batch(served)
+        ops.reset_launch_counts()
+        two_masks = engines[1].predict_batch(served)
+        torch.cuda.synchronize()
+        engine_counts = ops.launch_counts()
+        per_replica = dp_launches(wants[0][0]["sites"], DP_BATCH,
+                                  DP_BATCH // 2, training=False)
+        engine_expect = launches_of(engine_counts, {
+            k: 2 * v for k, v in per_replica.items()}, 1)
+        logits_err = float((engines[1].logits(served)
+                            - engines[0].logits(served)).abs().max())
+        same = all(np.array_equal(a, b)
+                   for a, b in zip(one_masks, two_masks))
+        del engines
+        torchrun = _torchrun_result(torch, *started)
+    finally:    # a failed phase stops what it started
+        if started[0].poll() is None:
+            started[0].kill()
+            started[0].communicate()
+    shutil.rmtree(root, ignore_errors=True)
+
+    emit("dp", model="MedT", img=IMG, optimizer="adam_l2", lr=TRAIN_LR,
+         gloo_world={"devices": ["cuda:0", "cuda:0"], "seconds": world_s,
+                     **results},
+         ms_per_step_note="two ranks share one card's SMs and copy every "
+                          "collective through the host (gloo): the figure "
+                          "is no speed",
+         nccl_world_of_one=nccl,
+         torchrun=torchrun,
+         engine={"devices": ["cuda:0", "cuda:0"], "batch": DP_BATCH,
+                 "launches": nonzero(engine_counts),
+                 "per_replica": per_replica,
+                 "masks_equal": same, "logits_max_abs_err": logits_err})
+    check(same, "two-replica masks differ from one replica's")
+    check(engine_counts == engine_expect,
+          f"engine launches {engine_counts} != {engine_expect}")
+    return results[f"batch{DP_BATCH}"]["ranks"][0]["launches"]
+
+
 def summary(rows, counts):
     """One entry per kernel; times per call of its main path: one MedT-128
     batch-16 forward (serving) for the lanes and flash forward cores, one
@@ -2797,7 +3152,8 @@ def main() -> int:
                           ("train1", phase_train1), ("http", phase_http),
                           ("zoo", phase_zoo), ("bf16", phase_bf16),
                           ("remat", phase_remat),
-                          ("bf16_cli", phase_bf16_cli), ("cls", phase_cls)):
+                          ("bf16_cli", phase_bf16_cli), ("cls", phase_cls),
+                          ("dp", phase_dp)):
             counts[phase] = fn(torch)
     except Exception as e:  # report the phase, then fail without "ok"
         emit(phase, ok=False, error=f"{type(e).__name__}: {e}")

@@ -26,6 +26,7 @@ from .models import MODEL_REGISTRY
 from .models import build_model as build_segmentation_model
 from .models import classifiers as _classifiers
 from .models import resnet as _resnet
+from .parallel.distributed import host_shard, initialize_distributed
 from .training.optimizers import adam_l2, sgd
 
 # classification model names resolve like the reference's
@@ -79,13 +80,12 @@ def _shard(args: Any):
     ``args.distributed``, else None."""
     if not getattr(args, "distributed", False):
         return None
-    dist = torch.distributed
-    if not (dist.is_available() and dist.is_initialized()):
+    if not initialize_distributed():
         raise RuntimeError("--distributed needs an initialised "
                            "torch.distributed process group "
-                           "(init_process_group) before the loaders are "
-                           "built")
-    return dist.get_rank(), dist.get_world_size()
+                           "(init_process_group, or torchrun's) before the "
+                           "loaders are built")
+    return host_shard()
 
 
 def build_dataloader(args: Any):

@@ -5,6 +5,10 @@ Port of ``medt_tpu/cli/serve.py``, standard library only:
     python -m medt_tpu_torch.cli.serve --modelname MedT --imgsize 128 \\
         --loaddirec ./results/final_model --port 8900 --batch_size 16
 
+``--dp N`` serves from N replicas on ``cuda:0..N-1``, each batch split
+over them (JAX's ``--dp``: each compiled batch sharded over N devices);
+``--batch_size`` must divide by N.
+
 Endpoints:
   POST /predict   body = an image of any size (PNG, or any format PIL
                   opens); the model's size rides the
@@ -37,6 +41,7 @@ import numpy as np
 
 from ..config import parse_config
 from ..data.png import SIGNATURE, decode_png, encode_png
+from ..parallel import data_devices
 from ..serving import InferenceEngine, QueueFullError
 
 _GRAY_TYPES = (0, 4)  # PNG colour types gray and gray + alpha
@@ -134,17 +139,21 @@ def make_server(engine: InferenceEngine, port: int, host: str = "127.0.0.1"):
 
 
 def main(argv=None, device=None):
-    cfg = parse_config(argv, description="medt_tpu_torch serve")
+    cfg = parse_config(argv, description="medt_tpu_torch serve",
+                       device=device)
     if not cfg.loaddirec:
         raise SystemExit("--loaddirec is required")
+    dp = cfg.dp or 1
     engine = InferenceEngine(
         cfg.modelname, cfg.imgsize, loaddirec=cfg.loaddirec,
         batch_size=cfg.batch_size, gray=cfg.gray == "yes",
-        use_fused=cfg.use_fused, decision=cfg.pred_mode, device=device)
+        use_fused=cfg.use_fused, decision=cfg.pred_mode, device=device,
+        devices=data_devices(dp, device) if dp > 1 else None)
     engine.warmup()
     server = make_server(engine, cfg.port)
     print(f"serving {cfg.modelname}@{cfg.imgsize} on :{cfg.port} "
-          f"(batch {cfg.batch_size})", flush=True)
+          f"(batch {cfg.batch_size}" + (f", dp={dp}" if dp > 1 else "")
+          + ")", flush=True)
     try:
         server.serve_forever()
     except KeyboardInterrupt:

@@ -16,6 +16,12 @@ It runs on the card; an in-process caller may pass ``device="cpu"``. The
 schedule is stepped once per batch, as optax steps it. ``--lr_schedule
 linear`` is the reference's 30/60/90-epoch staircase (JAX's driver passes
 that schedule one argument too many and raises).
+
+``--distributed`` shards the ImageFolder sets by process (JAX's per-host
+sharding) but the step is not data-parallel: no gradient is averaged and
+no BN is synced across ranks. So in a world of more than one rank it
+raises (ROADMAP.md section 1, item 5); ``cli.train`` trains
+data-parallel.
 """
 from __future__ import annotations
 
@@ -29,6 +35,7 @@ from .. import builders
 from ..device import resolve_device
 from ..losses import cross_entropy_with_label_smoothing
 from ..metrics import Metric, accuracy
+from ..parallel import launched_world
 from ..training.checkpointing import save_checkpoint
 from ..training.schedules import SCHEDULE_REGISTRY
 from ..training.state import TrainState, normalize
@@ -119,6 +126,12 @@ def main(argv=None, device=None) -> TrainState:
     epoch's entry (loss, acc and, at a checkpoint epoch, val_acc) is
     printed and appended to ``<work_dirs>/train_log.jsonl``."""
     args = parse_args(argv)
+    if args.distributed and (launched_world() or 1) > 1:
+        raise NotImplementedError(
+            f"--distributed in a world of {launched_world()} ranks: the "
+            "classification step is not data-parallel yet (ROADMAP.md "
+            "section 1, item 5, 'Data-parallel training and multi-GPU "
+            "serving'); run one process")
     device = resolve_device(device)
     train_loader, val_loader = builders.build_dataloader(args)
     model = builders.build_model(args, device=device)

@@ -8,10 +8,12 @@ Flags the reference parses but ignores are honoured: ``--workers``,
 ``--weight-decay``.
 
 What differs in the port: ``--use_pallas yes`` selects its fused attention
-(``use_fused``, CUDA kernels on the card). The flags that only the JAX
-package's TPU mesh reads (``--dp``, ``--sp``, ``--tp``, ``--num_slices``)
-are accepted and any value other than 1 is rejected with a message;
-``--platform`` (JAX's backend override) is rejected likewise. ``--dtype
+(``use_fused``, CUDA kernels on the card). ``--dp N`` is the data axis:
+``cli.train`` trains on N ranks, ``cli.serve`` serves from N replicas
+(more than the visible cards raises, as JAX's serve CLI does; under
+torchrun it must equal the world size). The mesh's other axes (``--sp``,
+``--tp``, ``--num_slices``) take only 1, and ``--platform`` (JAX's backend
+override) is rejected. ``--dtype
 bfloat16`` computes the activations in bf16 with float32 parameters
 (:attr:`Config.compute_dtype`, JAX's ``setup_state`` mapping), and
 ``--remat`` recomputes the forward in the backward.
@@ -24,6 +26,8 @@ from dataclasses import dataclass
 from typing import Optional
 
 import torch
+
+from .parallel.mesh import MESH_TODO, check_dp
 
 
 @dataclass
@@ -65,7 +69,8 @@ class Config:
     trainable_gates: str = "no"
     aug: str = "off"
     profile_dir: Optional[str] = None
-    # the JAX package's TPU mesh: accepted, and only 1 is taken
+    # the mesh: the data axis (--dp; None: every visible card for
+    # training); the others take only 1
     dp: Optional[int] = None
     sp: Optional[int] = None
     tp: Optional[int] = None
@@ -120,10 +125,14 @@ def add_args(parser: argparse.ArgumentParser) -> None:
         parser.add_argument(name, *aliases, **kwargs)
 
 
-_MESH_FLAGS = ("dp", "sp", "tp", "num_slices")
+_MESH_FLAGS = ("sp", "tp", "num_slices")
 
 
-def parse_config(argv=None, description: str = "medt_tpu_torch") -> Config:
+def parse_config(argv=None, description: str = "medt_tpu_torch",
+                 device=None) -> Config:
+    """Parse ``argv`` into a :class:`Config`. ``device`` is where the run
+    goes (None: the card), which ``--dp`` is checked against
+    (:func:`.parallel.check_dp`)."""
     parser = argparse.ArgumentParser(description=description)
     add_args(parser)
     ns = parser.parse_args(argv)
@@ -131,8 +140,10 @@ def parse_config(argv=None, description: str = "medt_tpu_torch") -> Config:
                     for f in dataclasses.fields(Config)})
     for name in _MESH_FLAGS:
         if getattr(cfg, name) not in (None, 1):
-            parser.error(f"--{name} {getattr(cfg, name)}: the port runs on "
-                         "one card (the TPU mesh flags take only 1)")
+            parser.error(f"--{name} {getattr(cfg, name)}: {MESH_TODO}")
+    if cfg.dp is not None and cfg.dp < 1:
+        parser.error(f"--dp {cfg.dp}: at least one rank")
+    check_dp(cfg.dp, device)
     if cfg.platform:
         parser.error("--platform is the JAX package's backend override; the "
                      "port's CLIs run on the card (in-process callers pass "

@@ -6,6 +6,10 @@ consumer; each sample's ``np.random.Generator`` is seeded by (seed, epoch,
 index), so a seed gives the JAX loader's batches in the same order
 regardless of worker scheduling.
 
+A data-parallel rank's loader takes ``shard=(rank, world)``: it shuffles
+and cuts the global batches as every rank does and loads only this rank's
+rows of each (``parallel.rank_rows``), so no rank decodes another's.
+
 In place of JAX's ``prefetch_to_device``, :func:`to_device` moves a batch
 with ``non_blocking`` copies from pinned host memory, so the copy overlaps
 the device work already queued.
@@ -16,10 +20,12 @@ import inspect
 import queue
 import threading
 from concurrent.futures import ThreadPoolExecutor
-from typing import Iterator
+from typing import Iterator, Optional, Tuple
 
 import numpy as np
 import torch
+
+from ..parallel.mesh import rank_rows
 
 
 def collate(samples):
@@ -57,11 +63,16 @@ class DataLoader:
       num_workers: decode threads (0 = synchronous).
       seed: base seed; per-sample rng = seed + epoch * len + idx.
       prefetch: max batches queued ahead.
+      shard: ``(rank, world)``: yield only rank ``rank``'s rows of each
+        batch of ``batch_size`` (of ``world`` ranks); a rank with no rows
+        gets an empty batch of the right shapes.
     """
 
     def __init__(self, dataset, batch_size: int = 1, shuffle: bool = True,
-                 num_workers: int = 4, seed: int = 3000, prefetch: int = 4):
+                 num_workers: int = 4, seed: int = 3000, prefetch: int = 4,
+                 shard: Optional[Tuple[int, int]] = None):
         self.dataset = dataset
+        self.shard = shard
         self.batch_size = batch_size
         self.shuffle = shuffle
         self.num_workers = num_workers
@@ -78,6 +89,21 @@ class DataLoader:
 
     def __len__(self):
         return (len(self.dataset) + self.batch_size - 1) // self.batch_size
+
+    def joint_rows(self, k: int) -> int:
+        """The rows of the ``k``-th batch over every rank together."""
+        return min(self.batch_size, len(self.dataset) - k * self.batch_size)
+
+    def _load(self, b: np.ndarray, fetch) -> dict:
+        """The collated batch of indices ``b`` (this rank's rows of it under
+        ``shard``), ``fetch`` mapping a list of indices to samples. A rank
+        with no rows loads the batch's first sample for its shapes and
+        keeps none of it."""
+        part = b if self.shard is None else b[rank_rows(len(b), *self.shard)]
+        if len(part):
+            return collate(fetch([int(i) for i in part]))
+        first = collate(fetch([int(b[0])]))
+        return {key: value[:0] for key, value in first.items()}
 
     def _fetch(self, idx: int) -> tuple:
         if not self._rng_kwarg:
@@ -96,7 +122,8 @@ class DataLoader:
 
         if self.num_workers <= 0:
             for b in batches:
-                yield collate([self._fetch(int(i)) for i in b])
+                yield self._load(
+                    b, lambda idx: [self._fetch(i) for i in idx])
             self.epoch += 1
             return
 
@@ -108,10 +135,11 @@ class DataLoader:
                 for b in batches:
                     if stop.is_set():
                         return
-                    samples = list(pool.map(self._fetch, [int(i) for i in b]))
+                    batch = self._load(
+                        b, lambda idx: list(pool.map(self._fetch, idx)))
                     while not stop.is_set():  # the consumer may have quit
                         try:
-                            out.put(collate(samples), timeout=0.5)
+                            out.put(batch, timeout=0.5)
                             break
                         except queue.Full:
                             continue

@@ -1,9 +1,11 @@
 """What every kernel wrapper does around a ``ctypes`` call: check its
-tensors, pass pointers and the current stream, raise on the returned CUDA
-error."""
+tensors, pass pointers and the current stream, make the tensors' card the
+current one for the call, raise on the returned CUDA error, count the
+launch."""
 from __future__ import annotations
 
 import ctypes
+import threading
 
 import torch
 
@@ -62,13 +64,19 @@ def entry(name: str, qkv: torch.Tensor) -> str:
         else f"medt_{name}"
 
 
+# the counts are read-modify-written by every thread that launches (the
+# serving engine's worker, a caller's threads)
+_COUNT_LOCK = threading.Lock()
+
+
 def count_launch(fn, qkv: torch.Tensor):
     """Add a launch to wrapper ``fn``'s count for ``qkv``'s dtype:
     ``fn.launches`` (float32) or ``fn.launches_bf16``."""
-    if qkv.dtype == torch.bfloat16:
-        fn.launches_bf16 += 1
-    else:
-        fn.launches += 1
+    with _COUNT_LOCK:
+        if qkv.dtype == torch.bfloat16:
+            fn.launches_bf16 += 1
+        else:
+            fn.launches += 1
 
 
 def counts_of(wrappers) -> dict:
@@ -103,7 +111,17 @@ def stream(device) -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
 
 
-def raise_on(err: int, name: str):
+def launch(wrapper, kernel, qkv: torch.Tensor, *args):
+    """Call the C entry point ``kernel`` with ``args`` and the current
+    stream of ``qkv``'s card, with that card the current one meanwhile (the
+    launch and a shared-memory opt-in act on the current card, whatever
+    the stream says); raise on the CUDA error it returns, else add one to
+    ``wrapper``'s count for ``qkv``'s dtype. The one place a kernel is
+    launched and counted."""
+    device = qkv.device
+    with torch.cuda.device(device):
+        err = kernel(*args, stream(device))
     if err != 0:
-        raise RuntimeError(f"{name}: kernel launch failed with CUDA error "
-                           f"{err}")
+        raise RuntimeError(f"{wrapper.__name__}: kernel launch failed with "
+                           f"CUDA error {err}")
+    count_launch(wrapper, qkv)

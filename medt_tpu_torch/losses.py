@@ -15,6 +15,8 @@ from typing import Optional, Sequence
 import torch
 import torch.nn.functional as F
 
+from .parallel import sync
+
 
 def log_nll_loss(logits: torch.Tensor, labels: torch.Tensor,
                  weight: Optional[Sequence[float]] = None,
@@ -25,7 +27,12 @@ def log_nll_loss(logits: torch.Tensor, labels: torch.Tensor,
     with a one-hot pick, which also fixes what happens to a label outside
     ``0..classes-1`` (``F.cross_entropy`` raises on one): its one-hot row is
     zero, so without ``weight`` it adds its logsumexp to the mean at weight
-    1, and with ``weight`` its weight is 0 and it drops out."""
+    1, and with ``weight`` its weight is 0 and it drops out.
+
+    In a process group of more than one rank the normaliser (the pixel
+    count, or the sum of class weights) is the joint batch's, so each rank
+    returns its rows' part of the joint batch's loss (a rank with no rows:
+    an exact 0 that stays in the graph), and the parts sum to it."""
     logits = logits.float()
     labels = labels.long()  # uint8 labels must not wrap in the compare
     n_classes = logits.shape[1]
@@ -39,7 +46,10 @@ def log_nll_loss(logits: torch.Tensor, labels: torch.Tensor,
         w = (onehot * w[None, :, None, None]).sum(dim=1) * valid
     else:
         w = valid
-    return (ce * w).sum() / torch.clamp(w.sum(), min=1e-12)
+    norm = w.sum()
+    if sync.active():   # the joint batch's normaliser: this rank's share
+        norm = sync.all_reduce_sum(norm)
+    return (ce * w).sum() / torch.clamp(norm, min=1e-12)
 
 
 def deep_supervision_loss(outputs, labels: torch.Tensor,

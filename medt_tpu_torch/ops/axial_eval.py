@@ -38,8 +38,8 @@ from typing import Optional, Sequence
 import torch
 
 from ..kernels.build import library
-from ..kernels.launch import (check_rows, check_tensor, ptr, raise_on,
-                              stream, strides)
+from ..kernels.launch import (check_rows, check_tensor, launch, ptr,
+                              strides)
 from .attn_core import (attend, attn_logits, fold_train_affine,
                         pack_sim_affine, relative_logit_index)
 from .axial_lanes import check_gp
@@ -90,12 +90,12 @@ def axial_eval_fwd(q, k, v, q_emb, k_emb, v_emb, sim_affine, out_affine):
     check_tensor(name, "sim_affine", sim_affine, (g, 8), dev)
     check_tensor(name, "out_affine", out_affine, (g, 4, gp), dev)
     out = torch.empty((S, g, gp, L), dtype=torch.float32, device=dev)
-    err = library().medt_axial_eval_fwd(
-        ptr(q), ptr(k), ptr(v), ptr(q_emb), ptr(k_emb), ptr(v_emb),
-        ptr(sim_affine), ptr(out_affine), ptr(out), *strides(q, k, v),
-        S, g, gp, L, int(has_pos), stream(dev))
-    raise_on(err, name)
-    axial_eval_fwd.launches += 1
+    if S == 0:      # no stripes: an empty output, no launch
+        return out
+    launch(axial_eval_fwd, library().medt_axial_eval_fwd, q,
+           ptr(q), ptr(k), ptr(v), ptr(q_emb), ptr(k_emb), ptr(v_emb),
+           ptr(sim_affine), ptr(out_affine), ptr(out), *strides(q, k, v),
+           S, g, gp, L, int(has_pos))
     return out
 
 

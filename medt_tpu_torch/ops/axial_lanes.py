@@ -34,7 +34,9 @@ their wrappers (:func:`lanes_attn_fwd`, :func:`flash_lanes_fwd`,
 contiguity and raise on anything else. There is no
 fallback from a CUDA tensor to a plain version: only an explicit ``plain``
 argument runs the plain versions on the card. Each wrapper counts its
-launches in ``.launches``.
+launches in ``.launches``; a call over no stripes (S = 0: a rank of a
+data-parallel step that holds no rows) has nothing to compute and returns
+empty outputs and zero table gradients without a launch or a count.
 
 qkv may be float32 or bf16 (JAX's bf16 kernel I/O): every kernel has a
 bf16 entry point beside its float32 one (``medt_<name>_bf16``), which
@@ -62,13 +64,11 @@ from ..kernels.build import library
 from ..kernels.launch import (
     QKV_DTYPES,
     check_tensor,
-    count_launch,
     counts_of,
     entry,
+    launch,
     ptr,
-    raise_on,
     reset_counts,
-    stream,
     widened,
 )
 from .attn_core import attend, attn_logits
@@ -274,21 +274,30 @@ def _zeros_like_view(t: torch.Tensor) -> torch.Tensor:
     return torch.zeros((), dtype=t.dtype, device=t.device).expand(t.shape)
 
 
-def _wide_fwd(qkv, qemb, kemb_t, vemb, sim_affine, g, gp, L, S, has_pos,
-              save_ml: bool):
-    """The forward at gp 32 or 64 (``medt_wide_attn_fwd``): ``(sv, sve)``,
-    and ``m, l`` with ``save_ml``."""
+def _no_stripes_fwd(qkv, g, gp, L, save_ml: bool):
+    """A forward over no stripes (a rank of a data-parallel step that holds
+    no rows): empty outputs, no launch and no count."""
+    sv = torch.empty((g, gp, L, 0), dtype=torch.float32, device=qkv.device)
+    if not save_ml:
+        return sv, torch.empty_like(sv)
+    m = torch.empty((g, L, 0), dtype=torch.float32, device=qkv.device)
+    return sv, torch.empty_like(sv), m, torch.empty_like(m)
+
+
+def _wide_fwd(wrapper, qkv, qemb, kemb_t, vemb, sim_affine, g, gp, L, S,
+              has_pos, save_ml: bool):
+    """The forward at gp 32 or 64 (``medt_wide_attn_fwd``), counted as a
+    launch of ``wrapper``: ``(sv, sve)``, and ``m, l`` with ``save_ml``."""
     dev = qkv.device
     sv = torch.empty((g, gp, L, S), dtype=torch.float32, device=dev)
     sve = torch.empty_like(sv) if has_pos else sv
     m = torch.empty((g, L, S), dtype=torch.float32, device=dev) \
         if save_ml else sv
     l = torch.empty_like(m) if save_ml else sv
-    err = library().medt_wide_attn_fwd(
-        ptr(qkv), ptr(qemb), ptr(kemb_t), ptr(vemb), ptr(sim_affine),
-        ptr(sv), ptr(sve), ptr(m), ptr(l), g, gp, L, S, int(has_pos),
-        int(save_ml), stream(dev))
-    raise_on(err, "wide_attn_fwd")
+    launch(wrapper, library().medt_wide_attn_fwd, qkv,
+           ptr(qkv), ptr(qemb), ptr(kemb_t), ptr(vemb), ptr(sim_affine),
+           ptr(sv), ptr(sve), ptr(m), ptr(l), g, gp, L, S, int(has_pos),
+           int(save_ml))
     sve = sve if has_pos else _zeros_like_view(sv)
     return (sv, sve, m, l) if save_ml else (sv, sve)
 
@@ -297,60 +306,55 @@ def lanes_attn_fwd(qkv, qemb, kemb_t, vemb, sim_affine):
     """Launch the lanes kernel (spans <= 16) on CUDA tensors."""
     g, gp, L, S, has_pos = _check(qkv, qemb, kemb_t, vemb, sim_affine,
                                   LANES_MAX_SPAN, "lanes_attn_fwd")
+    if S == 0:
+        return _no_stripes_fwd(qkv, g, gp, L, save_ml=False)
     if gp in WIDE_GP:
-        out = _wide_fwd(qkv, qemb, kemb_t, vemb, sim_affine, g, gp, L, S,
-                        has_pos, save_ml=False)
-        count_launch(lanes_attn_fwd, qkv)
-        return out
+        return _wide_fwd(lanes_attn_fwd, qkv, qemb, kemb_t, vemb, sim_affine,
+                         g, gp, L, S, has_pos, save_ml=False)
     sv = torch.empty((g, gp, L, S), dtype=torch.float32, device=qkv.device)
     sve = torch.empty_like(sv) if has_pos else sv  # not written without pos
-    err = getattr(library(), entry("lanes_attn_fwd", qkv))(
-        ptr(qkv), ptr(qemb), ptr(kemb_t), ptr(vemb), ptr(sim_affine),
-        ptr(sv), ptr(sve), g, gp, L, S, int(has_pos), stream(qkv.device))
-    raise_on(err, "lanes_attn_fwd")
-    count_launch(lanes_attn_fwd, qkv)
+    launch(lanes_attn_fwd, getattr(library(), entry("lanes_attn_fwd", qkv)),
+           qkv, ptr(qkv), ptr(qemb), ptr(kemb_t), ptr(vemb),
+           ptr(sim_affine), ptr(sv), ptr(sve), g, gp, L, S, int(has_pos))
     return sv, (sve if has_pos else _zeros_like_view(sv))
 
 
-def _streamed_fwd(name: str, max_span: int, qkv, qemb, kemb_t, vemb,
+def _streamed_fwd(wrapper, max_span: int, qkv, qemb, kemb_t, vemb,
                   sim_affine):
-    """Launch the forward kernel ``medt_<name>``, which also saves m and l:
-    ``(sv, sve, m, l)``."""
+    """Launch the forward kernel of ``wrapper`` (``medt_<its name>``),
+    which also saves m and l: ``(sv, sve, m, l)``."""
+    name = wrapper.__name__
     gps = FLASH2_GP if name.startswith("flash2") else KERNEL_GP
     g, gp, L, S, has_pos = _check(qkv, qemb, kemb_t, vemb, sim_affine,
                                   max_span, name, gps)
+    if S == 0:
+        return _no_stripes_fwd(qkv, g, gp, L, save_ml=True)
     if gp in WIDE_GP:
-        return _wide_fwd(qkv, qemb, kemb_t, vemb, sim_affine, g, gp, L, S,
-                         has_pos, save_ml=True)
+        return _wide_fwd(wrapper, qkv, qemb, kemb_t, vemb, sim_affine, g,
+                         gp, L, S, has_pos, save_ml=True)
     dev = qkv.device
     sv = torch.empty((g, gp, L, S), dtype=torch.float32, device=dev)
     sve = torch.empty_like(sv) if has_pos else sv
     m = torch.empty((g, L, S), dtype=torch.float32, device=dev)
     l = torch.empty_like(m)
-    err = getattr(library(), entry(name, qkv))(
-        ptr(qkv), ptr(qemb), ptr(kemb_t), ptr(vemb), ptr(sim_affine),
-        ptr(sv), ptr(sve), ptr(m), ptr(l), g, gp, L, S, int(has_pos),
-        stream(dev))
-    raise_on(err, name)
+    launch(wrapper, getattr(library(), entry(name, qkv)), qkv,
+           ptr(qkv), ptr(qemb), ptr(kemb_t), ptr(vemb), ptr(sim_affine),
+           ptr(sv), ptr(sve), ptr(m), ptr(l), g, gp, L, S, int(has_pos))
     return sv, (sve if has_pos else _zeros_like_view(sv)), m, l
 
 
 def flash_lanes_fwd(qkv, qemb, kemb_t, vemb, sim_affine):
     """Launch the flash kernel (spans <= 64) on CUDA tensors:
     ``(sv, sve, m, l)``."""
-    out = _streamed_fwd("flash_lanes_fwd", FLASH_MAX_SPAN, qkv, qemb, kemb_t,
-                        vemb, sim_affine)
-    count_launch(flash_lanes_fwd, qkv)
-    return out
+    return _streamed_fwd(flash_lanes_fwd, FLASH_MAX_SPAN, qkv, qemb, kemb_t,
+                         vemb, sim_affine)
 
 
 def flash2_lanes_fwd(qkv, qemb, kemb_t, vemb, sim_affine):
     """Launch the flash2 kernel (spans <= 256) on CUDA tensors:
     ``(sv, sve, m, l)``."""
-    out = _streamed_fwd("flash2_lanes_fwd", FLASH2_MAX_SPAN, qkv, qemb,
-                        kemb_t, vemb, sim_affine)
-    count_launch(flash2_lanes_fwd, qkv)
-    return out
+    return _streamed_fwd(flash2_lanes_fwd, FLASH2_MAX_SPAN, qkv, qemb,
+                         kemb_t, vemb, sim_affine)
 
 
 # The lanes backward's tile (csrc/axial_lanes_bwd.cu: kThreads, kGridBlocks,
@@ -418,17 +422,28 @@ def _split_tables(dtables, gp, has_pos):
     return dtables[:c], dtables[c:gp], dtables[gp:]
 
 
+def _no_stripes_bwd(qkv, g, gp, L, has_pos):
+    """A backward over no stripes: an empty dqkv, zero table and affine
+    gradients, no launch and no count."""
+    e = 2 * gp * L * L if has_pos else 0
+    out = torch.zeros(e + g * 8, dtype=torch.float32, device=qkv.device)
+    dqkv = torch.empty((g, 2 * gp, L, 0), dtype=qkv.dtype, device=qkv.device)
+    dtables = out[:e].view(2 * gp if has_pos else 0, L, L)
+    return (dqkv, *_split_tables(dtables, gp, has_pos), out[e:].view(g, 8))
+
+
 def _wide_bwd_slots(L: int, S: int) -> int:
     """daff partial slots of a backward at gp 32 or 64: one per block of 4
     query rows x 32 stripes (csrc/axial_wide.cu: wide_rows_kernel)."""
     return -(-L // 4) * -(-S // 32)
 
 
-def _wide_bwd(qkv, qemb, kemb_t, vemb, sim_affine, saved, dsv, dsve, g, gp,
-              L, S, has_pos):
-    """The backward at gp 32 or 64 (``medt_wide_attn_bwd``): the lanes
-    contract when ``saved`` is None, else the flash contract from the
-    forward's ``(m, l, sv, sve)``. ``(dqkv, dqemb, dkemb_t, dvemb, daff)``."""
+def _wide_bwd(wrapper, qkv, qemb, kemb_t, vemb, sim_affine, saved, dsv,
+              dsve, g, gp, L, S, has_pos):
+    """The backward at gp 32 or 64 (``medt_wide_attn_bwd``), counted as a
+    launch of ``wrapper``: the lanes contract when ``saved`` is None, else
+    the flash contract from the forward's ``(m, l, sv, sve)``. ``(dqkv,
+    dqemb, dkemb_t, dvemb, daff)``."""
     dev = qkv.device
     f32 = dict(dtype=torch.float32, device=dev)
     e = 2 * gp * L * L if has_pos else 0
@@ -438,14 +453,13 @@ def _wide_bwd(qkv, qemb, kemb_t, vemb, sim_affine, saved, dsv, dsve, g, gp,
     scratch = torch.empty(2 * pairs + g * e + n_aff * g * 4, **f32)
     dqkv = torch.empty((g, 2 * gp, L, S), **f32)
     m, l, sv, sve = saved if saved is not None else (dsv,) * 4
-    err = library().medt_wide_attn_bwd(
-        ptr(qkv), ptr(qemb), ptr(kemb_t), ptr(vemb), ptr(sim_affine), ptr(m),
-        ptr(l), ptr(sv), ptr(sve if has_pos else sv), ptr(dsv),
-        ptr(dsve if has_pos else dsv), ptr(dqkv), ptr(out), ptr(out[e:]),
-        ptr(scratch), ptr(scratch[pairs:]), ptr(scratch[2 * pairs:]),
-        ptr(scratch[2 * pairs + g * e:]), g, gp, L, S, int(has_pos),
-        int(saved is not None), n_aff, stream(dev))
-    raise_on(err, "wide_attn_bwd")
+    launch(wrapper, library().medt_wide_attn_bwd, qkv,
+           ptr(qkv), ptr(qemb), ptr(kemb_t), ptr(vemb), ptr(sim_affine),
+           ptr(m), ptr(l), ptr(sv), ptr(sve if has_pos else sv), ptr(dsv),
+           ptr(dsve if has_pos else dsv), ptr(dqkv), ptr(out), ptr(out[e:]),
+           ptr(scratch), ptr(scratch[pairs:]), ptr(scratch[2 * pairs:]),
+           ptr(scratch[2 * pairs + g * e:]), g, gp, L, S, int(has_pos),
+           int(saved is not None), n_aff)
     dtables = out[:e].view(2 * gp if has_pos else 0, L, L)
     return (dqkv, *_split_tables(dtables, gp, has_pos), out[e:].view(g, 8))
 
@@ -459,27 +473,27 @@ def lanes_attn_bwd(qkv, qemb, kemb_t, vemb, sim_affine, dsv, dsve):
         extra["dsve"] = (dsve, "gp")
     g, gp, L, S, has_pos = _check(qkv, qemb, kemb_t, vemb, sim_affine,
                                   LANES_MAX_SPAN, "lanes_attn_bwd", **extra)
+    if S == 0:
+        return _no_stripes_bwd(qkv, g, gp, L, has_pos)
     if gp in WIDE_GP:
-        out = _wide_bwd(qkv, qemb, kemb_t, vemb, sim_affine, None, dsv,
-                        dsve, g, gp, L, S, has_pos)
-        count_launch(lanes_attn_bwd, qkv)
-        return out
+        return _wide_bwd(lanes_attn_bwd, qkv, qemb, kemb_t, vemb, sim_affine,
+                         None, dsv, dsve, g, gp, L, S, has_pos)
     b, n_tab, n_aff = _bwd_buffers(qkv, "lanes", g, gp, L, S, has_pos)
-    err = getattr(library(), entry("lanes_attn_bwd", qkv))(
-        ptr(qkv), ptr(qemb), ptr(kemb_t), ptr(vemb), ptr(sim_affine),
-        ptr(dsv), ptr(dsve if has_pos else dsv), ptr(b["dqkv"]),
-        ptr(b["dtables"]), ptr(b["daff"]), ptr(b["tab_part"]),
-        ptr(b["aff_part"]), g, gp, L, S, int(has_pos), n_tab, n_aff,
-        stream(qkv.device))
-    raise_on(err, "lanes_attn_bwd")
-    count_launch(lanes_attn_bwd, qkv)
+    launch(lanes_attn_bwd, getattr(library(), entry("lanes_attn_bwd", qkv)),
+           qkv, ptr(qkv), ptr(qemb), ptr(kemb_t), ptr(vemb),
+           ptr(sim_affine), ptr(dsv), ptr(dsve if has_pos else dsv),
+           ptr(b["dqkv"]), ptr(b["dtables"]), ptr(b["daff"]),
+           ptr(b["tab_part"]), ptr(b["aff_part"]), g, gp, L, S, int(has_pos),
+           n_tab, n_aff)
     return (b["dqkv"], *_split_tables(b["dtables"], gp, has_pos), b["daff"])
 
 
-def _streamed_bwd(name: str, max_span: int, qkv, qemb, kemb_t, vemb,
+def _streamed_bwd(wrapper, max_span: int, qkv, qemb, kemb_t, vemb,
                   sim_affine, m, l, sv, sve, dsv, dsve):
-    """Launch the tiled backward ``medt_<name>`` from the forward's saved
-    ``(m, l, sv, sve)``: ``(dqkv, dqemb, dkemb_t, dvemb, daff)``."""
+    """Launch the tiled backward of ``wrapper`` (``medt_<its name>``) from
+    the forward's saved ``(m, l, sv, sve)``: ``(dqkv, dqemb, dkemb_t,
+    dvemb, daff)``."""
+    name = wrapper.__name__
     extra = {"m": (m, "row"), "l": (l, "row"), "sv": (sv, "gp"),
              "dsv": (dsv, "gp")}
     if _has_pos(qemb):
@@ -487,18 +501,18 @@ def _streamed_bwd(name: str, max_span: int, qkv, qemb, kemb_t, vemb,
     gps = FLASH2_GP if name.startswith("flash2") else KERNEL_GP
     g, gp, L, S, has_pos = _check(qkv, qemb, kemb_t, vemb, sim_affine,
                                   max_span, name, gps, **extra)
+    if S == 0:
+        return _no_stripes_bwd(qkv, g, gp, L, has_pos)
     if gp in WIDE_GP:
-        return _wide_bwd(qkv, qemb, kemb_t, vemb, sim_affine, (m, l, sv, sve),
-                         dsv, dsve, g, gp, L, S, has_pos)
+        return _wide_bwd(wrapper, qkv, qemb, kemb_t, vemb, sim_affine,
+                         (m, l, sv, sve), dsv, dsve, g, gp, L, S, has_pos)
     b, n_tab, n_aff = _bwd_buffers(qkv, "tiled", g, gp, L, S, has_pos)
-    err = getattr(library(), entry(name, qkv))(
-        ptr(qkv), ptr(qemb), ptr(kemb_t), ptr(vemb), ptr(sim_affine),
-        ptr(m), ptr(l), ptr(sv), ptr(sve if has_pos else sv), ptr(dsv),
-        ptr(dsve if has_pos else dsv), ptr(b["dqkv"]), ptr(b["dtables"]),
-        ptr(b["daff"]), ptr(b["scratch"]), ptr(b["tab_part"]),
-        ptr(b["aff_part"]), g, gp, L, S, int(has_pos), n_tab, n_aff,
-        stream(qkv.device))
-    raise_on(err, name)
+    launch(wrapper, getattr(library(), entry(name, qkv)), qkv,
+           ptr(qkv), ptr(qemb), ptr(kemb_t), ptr(vemb), ptr(sim_affine),
+           ptr(m), ptr(l), ptr(sv), ptr(sve if has_pos else sv), ptr(dsv),
+           ptr(dsve if has_pos else dsv), ptr(b["dqkv"]), ptr(b["dtables"]),
+           ptr(b["daff"]), ptr(b["scratch"]), ptr(b["tab_part"]),
+           ptr(b["aff_part"]), g, gp, L, S, int(has_pos), n_tab, n_aff)
     return (b["dqkv"], *_split_tables(b["dtables"], gp, has_pos), b["daff"])
 
 
@@ -507,10 +521,8 @@ def flash_lanes_bwd(qkv, qemb, kemb_t, vemb, sim_affine, m, l, sv, sve, dsv,
     """Launch the flash backward (spans <= 64) on CUDA tensors, from the
     forward's saved ``(m, l, sv, sve)``: ``(dqkv, dqemb, dkemb_t, dvemb,
     daff)``. ``sve``/``dsve`` are ignored without positions."""
-    out = _streamed_bwd("flash_lanes_bwd", FLASH_MAX_SPAN, qkv, qemb, kemb_t,
-                        vemb, sim_affine, m, l, sv, sve, dsv, dsve)
-    count_launch(flash_lanes_bwd, qkv)
-    return out
+    return _streamed_bwd(flash_lanes_bwd, FLASH_MAX_SPAN, qkv, qemb, kemb_t,
+                         vemb, sim_affine, m, l, sv, sve, dsv, dsve)
 
 
 def flash2_lanes_bwd(qkv, qemb, kemb_t, vemb, sim_affine, m, l, sv, sve,
@@ -519,10 +531,8 @@ def flash2_lanes_bwd(qkv, qemb, kemb_t, vemb, sim_affine, m, l, sv, sve,
     forward's saved ``(m, l, sv, sve)``: ``(dqkv, dqemb, dkemb_t, dvemb,
     daff)``. ``sve``/``dsve`` are ignored without positions. The table
     partials it allocates are (g * ceil(S/128), 2gp, L, L) floats."""
-    out = _streamed_bwd("flash2_lanes_bwd", FLASH2_MAX_SPAN, qkv, qemb, kemb_t,
-                        vemb, sim_affine, m, l, sv, sve, dsv, dsve)
-    count_launch(flash2_lanes_bwd, qkv)
-    return out
+    return _streamed_bwd(flash2_lanes_bwd, FLASH2_MAX_SPAN, qkv, qemb,
+                         kemb_t, vemb, sim_affine, m, l, sv, sve, dsv, dsve)
 
 
 # ---- autograd ----------------------------------------------------------------

@@ -42,8 +42,8 @@ import math
 import torch
 
 from ..kernels.build import library
-from ..kernels.launch import (check_rows, check_tensor, ptr, raise_on,
-                              stream, strides)
+from ..kernels.launch import (check_rows, check_tensor, launch, ptr,
+                              strides)
 from .attn_core import attn_core_plain
 from .axial_lanes import check_gp
 
@@ -149,12 +149,11 @@ def stripe_attn_fwd(q, k, v, qemb, kemb, vemb, sim_affine):
                                   name)
     sv = torch.empty((S, g, gp, L), dtype=torch.float32, device=q.device)
     sve = torch.empty_like(sv) if has_pos else sv   # not written w/o pos
-    err = library().medt_stripe_attn_fwd(
-        ptr(q), ptr(k), ptr(v), ptr(qemb), ptr(kemb), ptr(vemb),
-        ptr(sim_affine), ptr(sv), ptr(sve), *strides(q, k, v), S, g, gp, L,
-        int(has_pos), stream(q.device))
-    raise_on(err, name)
-    stripe_attn_fwd.launches += 1
+    if S:           # no stripes (a rank with no rows): empty outputs
+        launch(stripe_attn_fwd, library().medt_stripe_attn_fwd, q,
+               ptr(q), ptr(k), ptr(v), ptr(qemb), ptr(kemb), ptr(vemb),
+               ptr(sim_affine), ptr(sv), ptr(sve), *strides(q, k, v), S, g,
+               gp, L, int(has_pos))
     if not has_pos:
         sve = torch.zeros((), dtype=sv.dtype, device=sv.device).expand(
             sv.shape)
@@ -202,15 +201,17 @@ def stripe_attn_bwd(q, k, v, qemb, kemb, vemb, sim_affine, dsv, dsve):
                                   name, **extra)
     c = gp // 2
     b = bwd_buffers(q.device, S, g, gp, L, has_pos)
-    err = library().medt_stripe_attn_bwd(
-        ptr(q), ptr(k), ptr(v), ptr(qemb), ptr(kemb), ptr(vemb),
-        ptr(sim_affine), ptr(dsv), ptr(dsve if has_pos else dsv),
-        ptr(b["dq"]), ptr(b["dk"]), ptr(b["dv"]), ptr(b["dtables"]),
-        ptr(b["daff"]), ptr(b["tab_part"]), ptr(b["aff_part"]),
-        *strides(q, k, v), S, g, gp, L, int(has_pos),
-        b["tab_part"].shape[0], b["aff_part"].shape[0], stream(q.device))
-    raise_on(err, name)
-    stripe_attn_bwd.launches += 1
+    if S == 0:      # no stripes: empty dq, dk, dv, zero table gradients
+        b["dtables"].zero_()
+        b["daff"].zero_()
+    else:
+        launch(stripe_attn_bwd, library().medt_stripe_attn_bwd, q,
+               ptr(q), ptr(k), ptr(v), ptr(qemb), ptr(kemb), ptr(vemb),
+               ptr(sim_affine), ptr(dsv), ptr(dsve if has_pos else dsv),
+               ptr(b["dq"]), ptr(b["dk"]), ptr(b["dv"]), ptr(b["dtables"]),
+               ptr(b["daff"]), ptr(b["tab_part"]), ptr(b["aff_part"]),
+               *strides(q, k, v), S, g, gp, L, int(has_pos),
+               b["tab_part"].shape[0], b["aff_part"].shape[0])
     dq, dk, dv, dtables, daff = (b[key] for key in
                                  ("dq", "dk", "dv", "dtables", "daff"))
     if not has_pos:

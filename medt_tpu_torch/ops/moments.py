@@ -21,7 +21,10 @@ position-free mode.
 :func:`moment_sums` is differentiable (:class:`MomentSums`) and dispatches
 like the attention cores: plain PyTorch on CPU tensors (or with ``plain``),
 the kernels of ``csrc/moments.cu`` through :func:`moment_sums_fwd` and
-:func:`moment_sums_bwd` on CUDA tensors, never a fallback.
+:func:`moment_sums_bwd` on CUDA tensors, never a fallback (over no
+stripes: zero sums, no launch). In a process group of more than one rank
+the sums and their count are summed over the ranks before they become
+moments (:mod:`..parallel.sync`), on every route.
 
 qkv may be bf16 (JAX's bf16 kernel I/O): each kernel has a bf16 entry
 point that converts each value where it is read and keeps the float32
@@ -42,15 +45,14 @@ from ..kernels.build import library
 from ..kernels.launch import (
     QKV_DTYPES,
     check_tensor,
-    count_launch,
     counts_of,
     entry,
+    launch,
     ptr,
-    raise_on,
     reset_counts,
-    stream,
     widened,
 )
+from ..parallel import sync
 from .axial_lanes import check_gp
 
 
@@ -163,11 +165,12 @@ def moment_sums_fwd(qkv, r_q, e_q, r_k, e_k):
     (g, 8) sums."""
     g, gp, L, S, has_pos = _check(qkv, r_q, e_q, r_k, e_k, "moment_sums_fwd")
     out, part, n_part = fwd_buffers(qkv, g, gp, L, S)
-    err = getattr(library(), entry("moment_sums_fwd", qkv))(
-        ptr(qkv), ptr(r_q), ptr(e_q), ptr(r_k), ptr(e_k), ptr(out),
-        ptr(part), g, gp, L, S, int(has_pos), n_part, stream(qkv.device))
-    raise_on(err, "moment_sums_fwd")
-    count_launch(moment_sums_fwd, qkv)
+    if S == 0:      # no stripes (a rank with no rows): zero sums, no launch
+        return out.zero_()
+    launch(moment_sums_fwd,
+           getattr(library(), entry("moment_sums_fwd", qkv)), qkv,
+           ptr(qkv), ptr(r_q), ptr(e_q), ptr(r_k), ptr(e_k), ptr(out),
+           ptr(part), g, gp, L, S, int(has_pos), n_part)
     return out
 
 
@@ -217,12 +220,14 @@ def moment_sums_bwd(qkv, r_q, e_q, r_k, e_k, ct):
         raise ValueError(f"moment_sums_bwd: span {L} > {BWD_MAX_SPAN}")
     c = gp // 2
     dqkv, dtables, part, n_part = bwd_buffers(qkv, g, gp, L, S, has_pos)
-    err = getattr(library(), entry("moment_sums_bwd", qkv))(
-        ptr(qkv), ptr(r_q), ptr(e_q), ptr(r_k), ptr(e_k), ptr(ct),
-        ptr(dqkv), ptr(dtables), ptr(part), g, gp, L, S, int(has_pos),
-        n_part, stream(qkv.device))
-    raise_on(err, "moment_sums_bwd")
-    count_launch(moment_sums_bwd, qkv)
+    if S == 0:      # no stripes: empty dqkv, zero table gradients
+        dtables.zero_()
+    else:
+        launch(moment_sums_bwd,
+               getattr(library(), entry("moment_sums_bwd", qkv)), qkv,
+               ptr(qkv), ptr(r_q), ptr(e_q), ptr(r_k), ptr(e_k), ptr(ct),
+               ptr(dqkv), ptr(dtables), ptr(part), g, gp, L, S, int(has_pos),
+               n_part)
     if not has_pos:
         return dqkv, r_q, e_q, r_k, e_k                   # zero-size
     cc = c * c
@@ -262,72 +267,82 @@ def moment_sums(qkv, r_q, e_q, r_k, e_k, plain=False):
     return MomentSums.apply(qkv, r_q, e_q, r_k, e_k, plain)
 
 
+def _logit_stats(sums, n: int, has_pos: bool):
+    """Mean and biased variance of the logits from their (g, 8) sums and
+    count ``n``, summed over the ranks first in a process group of more
+    than one rank (:mod:`..parallel.sync`): rows qk/qr/kr, each (3, g),
+    with positions, else qk alone, each (g,); and the count."""
+    sums, n = sync.sum_over_ranks(sums, n)
+    if has_pos:
+        mean = torch.stack([sums[:, 0], sums[:, 2], sums[:, 4]]) / n
+        msq = torch.stack([sums[:, 1], sums[:, 3], sums[:, 5]]) / n
+    else:
+        mean, msq = sums[:, 0] / n, sums[:, 1] / n
+    return mean, torch.clamp(msq - mean * mean, min=0.0), n
+
+
 def logit_moments_lanes_fused(qkv, qemb, kemb, plain=False):
     """Batch mean and biased variance (each (3, g), rows qk/qr/kr) of the
     similarity logits, and their count S*L*L. ``qemb``/``kemb``: (c, L, L)
     gate-folded tables in the ``all_emb`` coordinates (kr reads kemb as
     [c, j, i])."""
     _, _, L, S = qkv.shape
-    n = S * L * L
     r_q = qemb.sum(dim=2)                                 # (c, i)
     e_q = torch.einsum("cij,dij->cdi", qemb, qemb)        # (c, c, i)
     r_k = kemb.sum(dim=2)                                 # (c, j)
     e_k = torch.einsum("cji,dji->cdj", kemb, kemb)        # (c, c, j)
     sums = moment_sums(qkv, r_q.contiguous(), e_q.contiguous(),
                        r_k.contiguous(), e_k.contiguous(), plain)
-    mean = torch.stack([sums[:, 0], sums[:, 2], sums[:, 4]]) / n
-    msq = torch.stack([sums[:, 1], sums[:, 3], sums[:, 5]]) / n
-    var = torch.clamp(msq - mean * mean, min=0.0)
-    return mean, var, n
+    return _logit_stats(sums, S * L * L, has_pos=True)
 
 
 def qk_moments_lanes_fused(qkv, plain=False):
     """Position-free variant: mean and biased variance (each (g,)) of the
     qk logits, and their count."""
     _, _, L, S = qkv.shape
-    n = S * L * L
     zr = qkv.new_zeros((0, L), dtype=torch.float32)
     ze = qkv.new_zeros((0, 0, L), dtype=torch.float32)
     sums = moment_sums(qkv, zr, ze, zr, ze, plain)
-    m1 = sums[:, 0] / n
-    var = torch.clamp(sums[:, 1] / n - m1 * m1, min=0.0)
-    return m1, var, n
+    return _logit_stats(sums, S * L * L, has_pos=False)
+
+
+def _qk_sums(q, k):
+    """The qk logits' sum and sum of squares (each (g,)) on stripe-major
+    q, k (S, g, c, L)."""
+    qs, ks = q.sum(dim=3), k.sum(dim=3)
+    s1 = torch.einsum("sgc,sgc->g", qs, ks)
+    qq = torch.einsum("sgcl,sgdl->sgcd", q, q)
+    kk = torch.einsum("sgcl,sgdl->sgcd", k, k)
+    return s1, torch.einsum("sgcd,sgcd->g", qq, kk)
 
 
 def logit_moments(q, k, qemb, kemb):
     """Stripe-major version (``pallas_axial_train.logit_moments``): q, k
     (S, g, c, L); returns mean, biased var (3, g) and the count."""
     S, g, c, L = q.shape
-    n = S * L * L
-    qs, ks = q.sum(dim=3), k.sum(dim=3)
-    m1_qk = torch.einsum("sgc,sgc->g", qs, ks) / n
-    qq = torch.einsum("sgcl,sgdl->sgcd", q, q)
-    kk = torch.einsum("sgcl,sgdl->sgcd", k, k)
-    m2_qk = torch.einsum("sgcd,sgcd->g", qq, kk) / n
+    s1_qk, s2_qk = _qk_sums(q, k)
     r_q = qemb.sum(dim=2)
-    m1_qr = torch.einsum("sgci,ci->g", q, r_q) / n
+    s1_qr = torch.einsum("sgci,ci->g", q, r_q)
     e_q = torch.einsum("cij,dij->icd", qemb, qemb)
-    m2_qr = torch.einsum("sgci,icd,sgdi->g", q, e_q, q) / n
+    s2_qr = torch.einsum("sgci,icd,sgdi->g", q, e_q, q)
     r_k = kemb.sum(dim=2)
-    m1_kr = torch.einsum("sgcj,cj->g", k, r_k) / n
+    s1_kr = torch.einsum("sgcj,cj->g", k, r_k)
     e_k = torch.einsum("cji,dji->jcd", kemb, kemb)
-    m2_kr = torch.einsum("sgcj,jcd,sgdj->g", k, e_k, k) / n
-    mean = torch.stack([m1_qk, m1_qr, m1_kr])
-    msq = torch.stack([m2_qk, m2_qr, m2_kr])
-    return mean, torch.clamp(msq - mean * mean, min=0.0), n
+    s2_kr = torch.einsum("sgcj,jcd,sgdj->g", k, e_k, k)
+    zero = torch.zeros_like(s1_qk)
+    sums = torch.stack([s1_qk, s2_qk, s1_qr, s2_qr, s1_kr, s2_kr, zero, zero],
+                       dim=1)
+    return _logit_stats(sums, S * L * L, has_pos=True)
 
 
 def qk_moments(q, k):
     """Stripe-major position-free version (``pallas_axial_train.
     qk_moments``): mean, biased var (g,) and the count."""
     S, g, c, L = q.shape
-    n = S * L * L
-    qs, ks = q.sum(dim=3), k.sum(dim=3)
-    m1 = torch.einsum("sgc,sgc->g", qs, ks) / n
-    qq = torch.einsum("sgcl,sgdl->sgcd", q, q)
-    kk = torch.einsum("sgcl,sgdl->sgcd", k, k)
-    m2 = torch.einsum("sgcd,sgcd->g", qq, kk) / n
-    return m1, torch.clamp(m2 - m1 * m1, min=0.0), n
+    s1, s2 = _qk_sums(q, k)
+    zero = torch.zeros_like(s1)
+    sums = torch.stack([s1, s2] + [zero] * 6, dim=1)
+    return _logit_stats(sums, S * L * L, has_pos=False)
 
 
 _WRAPPERS = (moment_sums_fwd, moment_sums_bwd)

@@ -12,7 +12,10 @@ Train mode normalizes with the biased batch variance, computed as JAX
 does (E[x^2] - mean^2 in float32, clamped at 0), and pushes the unbiased
 variance n/(n-1) into the running estimate with torch's momentum 0.1
 (``running = 0.9*running + 0.1*batch``). Statistics are taken and applied
-in float32 whatever the activation dtype.
+in float32 whatever the activation dtype. In a process group of more than
+one rank they are the joint batch's: each rank's per-feature sums and
+count are summed over the ranks (:mod:`..parallel.sync`), as JAX's BNs are
+synced across the ``data`` axis by construction.
 """
 from __future__ import annotations
 
@@ -23,6 +26,7 @@ from typing import Sequence, Tuple, Union
 import torch
 from torch import nn
 
+from ..parallel import sync
 from .attn_core import fold_train_affine
 
 Axes = Union[int, Sequence[int]]
@@ -60,19 +64,35 @@ def batch_norm_eval(x, weight, bias, mean, var, feature_axes: Axes,
     return y.to(x.dtype)
 
 
-def batch_norm_train(x, weight, bias, feature_axes: Axes, eps: float = 1e-5):
-    """Train-mode BN: ``(y, batch_mean, batch_var_unbiased)``, the moments
-    per feature; the caller owns the running-stat update."""
+def _train_norm(x, weight, bias, feature_axes: Axes, eps: float):
+    """Train-mode BN: ``(y, batch_mean, biased batch_var, count)`` per
+    feature. In a process group of more than one rank the per-feature sums
+    and the count are summed over the ranks first, so the moments are the
+    joint batch's (:mod:`..parallel.sync`)."""
     feature_axes = _canonical_axes(x.dim(), feature_axes)
     reduce = tuple(a for a in range(x.dim()) if a not in feature_axes)
     xf = x.float()
-    mean = xf.mean(dim=reduce)
-    var = torch.clamp((xf * xf).mean(dim=reduce) - mean * mean, min=0.0)
+    n = math.prod(x.shape[a] for a in reduce)
+    if sync.active():
+        sums, n = sync.sum_over_ranks(
+            torch.stack([xf.sum(dim=reduce), (xf * xf).sum(dim=reduce)]), n)
+        mean = sums[0] / n
+        var = torch.clamp(sums[1] / n - mean * mean, min=0.0)
+    else:
+        mean = xf.mean(dim=reduce)
+        var = torch.clamp((xf * xf).mean(dim=reduce) - mean * mean, min=0.0)
     shape = _bshape(x, feature_axes)
     y = (xf - mean.reshape(shape)) * torch.rsqrt(var.reshape(shape) + eps)
     y = y * weight.float().reshape(shape) + bias.float().reshape(shape)
-    n = math.prod(x.shape[a] for a in reduce)
-    return y.to(x.dtype), mean, var * (n / max(n - 1.0, 1.0))
+    return y.to(x.dtype), mean, var, n
+
+
+def batch_norm_train(x, weight, bias, feature_axes: Axes, eps: float = 1e-5):
+    """Train-mode BN: ``(y, batch_mean, batch_var_unbiased)``, the moments
+    per feature (the joint batch's in a process group); the caller owns the
+    running-stat update."""
+    y, mean, var, n = _train_norm(x, weight, bias, feature_axes, eps)
+    return y, mean, var * (n / max(n - 1.0, 1.0))
 
 
 @torch.no_grad()
@@ -124,15 +144,16 @@ class BatchNorm(nn.Module):
 
     def forward(self, x, feature_axes: Axes = 1):
         if self.training:
-            axes = _canonical_axes(x.dim(), feature_axes)
-            if x.numel() == math.prod(x.shape[a] for a in axes):
+            y, mean, var, n = _train_norm(x, self.weight, self.bias,
+                                          feature_axes, self.eps)
+            if n == 1:
                 # as torch's BatchNorm: no unbiased variance from one value
+                # (the joint batch's count in a process group)
                 raise ValueError("Expected more than 1 value per channel "
                                  f"when training, got input {tuple(x.shape)}")
-            y, mean, var = batch_norm_train(x, self.weight, self.bias,
-                                            feature_axes, self.eps)
             update_running(self.running_mean, mean.reshape(-1))
-            update_running(self.running_var, var.reshape(-1))
+            update_running(self.running_var,
+                           (var * (n / max(n - 1.0, 1.0))).reshape(-1))
             return y
         return batch_norm_eval(x, self.weight, self.bias, self.running_mean,
                                self.running_var, feature_axes, self.eps)

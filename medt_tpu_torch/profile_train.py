@@ -1,13 +1,19 @@
 """Where a training step's time goes on the card.
 
     python -m medt_tpu_torch.profile_train [--model medt_512 --img 512 --batch 4]
-        [--dtype bfloat16] [--remat]
+        [--dtype bfloat16] [--remat] [--sync ddp|host|read]
 
 Trains MedT 128 at batch 16 (or ``--model`` at ``--img``, by default the
 model's own size, and ``--batch``; full width, seeded random weights,
 Adam-L2, float32 with TF32 off, or bf16 activations with ``--dtype
 bfloat16``, the forward recomputed in the backward with ``--remat``) on a
-synthetic blob batch and prints one JSON object: the wall time per step
+synthetic blob batch and prints one JSON object. ``--sync`` makes the
+process an NCCL world of one and wraps the model in
+``DistributedDataParallel``: ``ddp`` alone, ``host`` with every train-mode
+statistic summed through NCCL as a data-parallel step sums it
+(``parallel.sync``, each joint count worked out on the host), ``read``
+with each count packed beside the sums and read back, as a rank without
+rows does. The JSON object holds the wall time per step
 (host clock, profiler off) and the peak of allocated device memory over
 those steps, then, from a
 ``torch.profiler`` window over as many steps, the device's summed kernel
@@ -54,6 +60,8 @@ def main(argv=None) -> int:
     parser.add_argument("--dtype", choices=("float32", "bfloat16"),
                         default="float32")
     parser.add_argument("--remat", action="store_true")
+    parser.add_argument("--sync", choices=("off", "ddp", "host", "read"),
+                        default="off")
     args = parser.parse_args(argv)
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -64,6 +72,8 @@ def main(argv=None) -> int:
     from . import ops
     from .data import blob_batch
     from .models import DEFAULT_IMG_SIZE, build_model
+    from .parallel import data_parallel_step
+    from .parallel.launch import free_port
     from .training import TrainState, adam_l2, train_step
 
     name, batch_size = args.model, args.batch
@@ -73,12 +83,23 @@ def main(argv=None) -> int:
     dtype = torch.bfloat16 if args.dtype == "bfloat16" else None
     model = build_model(name, img_size=img, use_fused=True, seed=0,
                         device="cuda", dtype=dtype)
+    if args.sync != "off":
+        dist = torch.distributed
+        dist.init_process_group("nccl", rank=0, world_size=1,
+                                init_method=f"tcp://127.0.0.1:{free_port()}")
+        model = torch.nn.parallel.DistributedDataParallel(model,
+                                                          device_ids=[0])
     state = TrainState(model, adam_l2(model.parameters(), LR))
     images, masks = blob_batch(batch_size, img, seed=0)
     batch = {"image": images, "label": masks}
 
     def step():
-        train_step(state, batch, remat=args.remat)
+        if args.sync in ("host", "read"):
+            with data_parallel_step(batch_size if args.sync == "host" else 0,
+                                    batch_size):
+                train_step(state, batch, remat=args.remat)
+        else:
+            train_step(state, batch, remat=args.remat)
 
     for _ in range(3):
         step()
@@ -116,6 +137,7 @@ def main(argv=None) -> int:
         "device": torch.cuda.get_device_name(0), "model": name,
         "img": img, "batch": batch_size, "iters": ITERS,
         "optimizer": "adam_l2", "dtype": args.dtype, "remat": args.remat,
+        "sync": args.sync,
         "wall_ms_per_step": wall * 1e3, "peak_memory_gb": peak_gb,
         "images_per_s": batch_size / wall,
         "wall_ms_per_step_profiled": wall_profiled * 1e3,
@@ -132,6 +154,8 @@ def main(argv=None) -> int:
                  "calls_per_step": e.count / ITERS} for e in top],
     }
     print(json.dumps(out), flush=True)
+    if args.sync != "off":
+        torch.distributed.destroy_process_group()
     return 0
 
 

@@ -1,6 +1,6 @@
 """Batched inference engine of the port.
 
-Port of ``medt_tpu/serving/engine.py`` for one device:
+Port of ``medt_tpu/serving/engine.py``:
 
 * fixed-shape batching: requests are padded up to ``batch_size`` so every
   forward runs the same shapes (on the card: the same kernel launches);
@@ -20,8 +20,16 @@ reflect-padded up to the window) at ``window_stride`` (default: the
 window, non-overlapping tiles), as the JAX engine does. The weights come
 from ``loaddirec`` (a checkpoint of the port's ``save_checkpoint`` or a
 reference ``.pth``) or from ``variables``. A model that returns a
-deep-supervision tuple serves its main logits. A mesh needs multi-GPU
-serving, a later slice of the port.
+deep-supervision tuple serves its main logits.
+
+Several cards (JAX's ``mesh``, whose first axis shards each compiled
+batch): ``devices=[...]`` holds one replica of the model per device, the
+same weights on each. Every fixed-shape batch, and every tile batch of the
+sliding window, is split into equal parts, one a replica, and the logits
+are gathered on the first device; ``batch_size`` must divide by the
+replica count. The replicas run one after another from the calling
+thread: on separate cards their device work overlaps, their host dispatch
+does not.
 """
 from __future__ import annotations
 
@@ -73,6 +81,9 @@ class InferenceEngine:
         float32 weights, as JAX's engine ``dtype``); the logits come back
         in it.
       device: ``None`` means the card, and raises without one.
+      devices: one replica per entry (``"cuda:0"``, ``"cuda:1"``, ... or
+        ``"cpu"``; one card may appear twice); overrides ``device``, and
+        the first one is ``self.device``, where the logits land.
     """
 
     def __init__(self, modelname: str, imgsize: int,
@@ -83,22 +94,30 @@ class InferenceEngine:
                  window_stride: Optional[int] = None,
                  max_wait_ms: float = 5.0, max_queue: int = 1024,
                  plain_cores: bool = False,
-                 dtype: torch.dtype = torch.float32, device=None):
-        self.device = resolve_device(device)
+                 dtype: torch.dtype = torch.float32, device=None,
+                 devices: Optional[Sequence] = None):
+        devices = [torch.device(d) for d in devices] if devices \
+            else [resolve_device(device)]
+        self.device = devices[0]
         if variables is None and loaddirec is None:
             raise ValueError("need loaddirec or variables")
         self.imgsize = int(imgsize)
         self.batch_size = int(batch_size)
+        if self.batch_size % len(devices):
+            raise ValueError(
+                f"batch_size {self.batch_size} must divide by the mesh "
+                f"'data' axis ({len(devices)})")
         self.channels = 1 if gray else 3
         self.decision = decision
         self.window_stride = int(window_stride or imgsize)
         self.max_wait_ms = float(max_wait_ms)
         self.max_queue = int(max_queue)
 
-        self.model = build_model(modelname, img_size=self.imgsize,
-                                 imgchan=self.channels, use_fused=use_fused,
-                                 plain_cores=plain_cores, dtype=dtype,
-                                 device=self.device)
+        self.replicas = [build_model(
+            modelname, img_size=self.imgsize, imgchan=self.channels,
+            use_fused=use_fused, plain_cores=plain_cores, dtype=dtype,
+            device=d) for d in devices]
+        self.model = self.replicas[0]
         if variables is None:
             restore_checkpoint(loaddirec, self.model)
         else:
@@ -106,6 +125,8 @@ class InferenceEngine:
                 {k: torch.as_tensor(np.asarray(v) if not torch.is_tensor(v)
                                     else v) for k, v in variables.items()},
                 strict=True)
+        for replica in self.replicas[1:]:
+            replica.load_state_dict(self.model.state_dict(), strict=True)
 
         # (priority, seq, image, future): priority first, then FIFO
         self._queue: "queue.PriorityQueue" = queue.PriorityQueue()
@@ -136,16 +157,25 @@ class InferenceEngine:
 
     def _forward(self, x: torch.Tensor) -> torch.Tensor:
         """The model's logits; the main logits of a deep-supervision tuple
-        (JAX: ``medt_tpu/serving/engine.py:124-131``)."""
-        return main_logits(self.model(x))
+        (JAX: ``medt_tpu/serving/engine.py:124-131``). With several
+        replicas each takes an equal part of the batch and the logits are
+        gathered on ``self.device``."""
+        if len(self.replicas) == 1:
+            return main_logits(self.model(x))
+        parts = x.chunk(len(self.replicas))
+        return torch.cat([
+            main_logits(m(p.to(next(m.parameters()).device))).to(self.device)
+            for m, p in zip(self.replicas, parts)])
 
     def warmup(self):
         """One forward ahead of the first request."""
         zeros = np.zeros((self.imgsize, self.imgsize, self.channels),
                          np.uint8)
         self.logits([zeros])
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        for replica in self.replicas:
+            device = next(replica.parameters()).device
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
 
     def predict_batch(self, images: Sequence[np.ndarray]) -> List[np.ndarray]:
         """Segment (S, S, C) images at the model's resolution, in padded

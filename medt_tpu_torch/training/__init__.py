@@ -12,7 +12,14 @@ from .schedules import (
     warmup_cosine,
     warmup_staircase,
 )
-from .state import TrainState, eval_step, normalize, train_step
+from .state import (
+    TrainState,
+    data_parallel,
+    eval_step,
+    normalize,
+    train_step,
+    unwrap,
+)
 
 __all__ = [
     "OPTIMIZER_REGISTRY",
@@ -21,6 +28,7 @@ __all__ = [
     "adam_l2",
     "build_optimizer",
     "constant",
+    "data_parallel",
     "eval_step",
     "latest_checkpoint",
     "normalize",
@@ -28,6 +36,7 @@ __all__ = [
     "save_checkpoint",
     "sgd",
     "train_step",
+    "unwrap",
     "warmup_cosine",
     "warmup_staircase",
 ]

@@ -14,6 +14,13 @@ Port of ``medt_tpu/training/checkpointing.py`` (Orbax in JAX):
   ``utils/torch_import.py:40``) and the keys nothing computes with are
   dropped (:func:`..utils.weights.is_dead_reference_key`), then the model
   loads it with ``strict=True``.
+
+Data parallel: the coordinator (rank 0) alone writes, the module out of its
+``DistributedDataParallel`` wrapper, so the keys carry no ``module.``
+prefix, and every rank waits at a barrier until the file is there; every
+rank restores onto its own card. A checkpoint of a data-parallel run loads
+into a one-card run and the reverse, as JAX's Orbax checkpoints are
+parallelism-agnostic.
 """
 from __future__ import annotations
 
@@ -23,7 +30,9 @@ from typing import Mapping, Optional
 import torch
 from torch import nn
 
+from ..parallel.distributed import barrier, is_coordinator
 from ..utils.weights import is_dead_reference_key
+from .state import unwrap
 
 FINAL_NAME = "final_model"
 CKPT_FILE = "ckpt.pth"
@@ -41,17 +50,21 @@ def save_checkpoint(direc: str, name, model: nn.Module,
                     optimizer: Optional[torch.optim.Optimizer] = None, *,
                     step: int = 0, also_final: bool = True) -> str:
     """Save under ``<direc>/<name>/ckpt.pth`` (and ``final_model``);
-    returns the path."""
-    payload = {"format": _FORMAT, "step": int(step),
-               "state_dict": {k: v.detach().cpu()
-                              for k, v in model.state_dict().items()}}
-    if optimizer is not None:
-        payload["optimizer"] = optimizer.state_dict()
+    returns the path. In a process group every rank calls it: the
+    coordinator writes, the others wait for it."""
     path = os.path.join(os.path.abspath(direc), str(name), CKPT_FILE)
-    _write(path, payload)
-    if also_final:
-        _write(os.path.join(os.path.abspath(direc), FINAL_NAME, CKPT_FILE),
-               payload)
+    if is_coordinator():
+        model = unwrap(model)
+        payload = {"format": _FORMAT, "step": int(step),
+                   "state_dict": {k: v.detach().cpu()
+                                  for k, v in model.state_dict().items()}}
+        if optimizer is not None:
+            payload["optimizer"] = optimizer.state_dict()
+        _write(path, payload)
+        if also_final:
+            _write(os.path.join(os.path.abspath(direc), FINAL_NAME,
+                                CKPT_FILE), payload)
+    barrier()
     return path
 
 
@@ -77,8 +90,11 @@ def restore_checkpoint(path: str, model: nn.Module,
                        ) -> int:
     """Load a checkpoint (a ``ckpt.pth`` file, its directory, or a reference
     ``.pth`` file) into ``model`` (strict) and, when given and saved, into
-    ``optimizer``. Returns the saved step (0 for a reference file)."""
-    payload = torch.load(_resolve(path), map_location="cpu",
+    ``optimizer``. Returns the saved step (0 for a reference file). The
+    tensors are read onto the model's device."""
+    model = unwrap(model)
+    device = next(model.parameters()).device
+    payload = torch.load(_resolve(path), map_location=device,
                          weights_only=True)
     if isinstance(payload, Mapping) and payload.get("format") == _FORMAT:
         state_dict, step = payload["state_dict"], payload["step"]

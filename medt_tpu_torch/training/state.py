@@ -14,20 +14,36 @@ so the backward recomputes it from the input instead of keeping its
 activations. The recompute runs the train-mode BNs a second time on the
 same batch; it holds the running statistics (``frozen_running_stats``),
 so they take one update a step, as in JAX.
+
+Data parallel (a model wrapped in ``DistributedDataParallel``, one rank per
+device, each with its rows of the global batch): the step computes the
+one-process step on the joint batch, as JAX's step under its mesh does.
+It runs its forward and backward inside ``sync.data_parallel_step``, so
+the BNs and the similarity-BN moments take the joint batch's statistics
+(:mod:`..parallel.sync`); each rank's loss is its rows' part of the joint
+batch's loss, and the backward runs on that part times the world size, so
+DDP's average of the ranks' gradients is the joint loss's gradient. The
+returned loss is summed over the ranks: the joint batch's, on every rank.
+Under ``remat`` the recompute (which syncs its BN statistics again, in the
+same order on every rank) runs under DDP's ``no_sync``, so DDP's bucket
+bookkeeping sees one forward a step.
 """
 from __future__ import annotations
 
 import contextlib
+import functools
 from dataclasses import dataclass
 from typing import Callable, Mapping, Optional
 
 import numpy as np
 import torch
 from torch import nn
+from torch.nn.parallel import DistributedDataParallel
 from torch.utils.checkpoint import checkpoint
 
 from ..losses import deep_supervision_loss, log_nll_loss
 from ..ops.norms import frozen_running_stats
+from ..parallel import sync
 
 
 @dataclass
@@ -44,6 +60,51 @@ class TrainState:
     @property
     def device(self) -> torch.device:
         return next(self.model.parameters()).device
+
+    @property
+    def module(self) -> nn.Module:
+        """The model itself, out of its ``DistributedDataParallel``
+        wrapper if it has one (what validation and checkpoints use)."""
+        return unwrap(self.model)
+
+
+def data_parallel(model: nn.Module) -> nn.Module:
+    """``model`` wrapped in ``DistributedDataParallel`` over the default
+    process group when it has more than one rank, else ``model`` itself.
+    Buffers are not broadcast before each forward: the synced running
+    statistics are equal on every rank already. (``broadcast_buffers`` is
+    the keyword both torch 2.11, on the card, and 2.13 take; 2.13 warns
+    that it prefers ``forward_sync_buffers``.)"""
+    if _group_size() <= 1:
+        return model
+    device = next(model.parameters()).device
+    ids = [device.index] if device.type == "cuda" else None
+    return DistributedDataParallel(model, device_ids=ids,
+                                   broadcast_buffers=False)
+
+
+def unwrap(model: nn.Module) -> nn.Module:
+    """``model`` out of its ``DistributedDataParallel`` wrapper."""
+    return model.module if isinstance(model, DistributedDataParallel) \
+        else model
+
+
+def _group_size() -> int:
+    dist = torch.distributed
+    return dist.get_world_size() if dist.is_available() \
+        and dist.is_initialized() else 1
+
+
+def _world(model: nn.Module) -> int:
+    """The ranks a step of ``model`` spans: the process group's size for a
+    DDP model, else 1. A bare model in a group of more than one rank would
+    step on its own rows' gradient alone, so it raises."""
+    if isinstance(model, DistributedDataParallel):
+        return torch.distributed.get_world_size(model.process_group)
+    if _group_size() > 1:
+        raise ValueError("in a process group of more than one rank the "
+                         "model must be wrapped in DistributedDataParallel")
+    return 1
 
 
 def normalize(image, device) -> torch.Tensor:
@@ -63,46 +124,74 @@ def _labels(label, device) -> torch.Tensor:
     return label.to(device, non_blocking=True)
 
 
-def _recompute_contexts():
-    """checkpoint's (forward, recompute) contexts: the recompute holds the
-    running statistics."""
-    return contextlib.nullcontext(), frozen_running_stats()
+@contextlib.contextmanager
+def _recompute(model: nn.Module):
+    """The recompute holds the running statistics and, for a DDP model,
+    runs under ``no_sync`` (its forward would otherwise reset DDP's
+    bookkeeping inside the backward)."""
+    with frozen_running_stats():
+        if isinstance(model, DistributedDataParallel):
+            with model.no_sync():
+                yield
+        else:
+            yield
 
 
-def train_step(state: TrainState, batch: Mapping, *,
-               remat: bool = False) -> dict:
+def _recompute_contexts(model: nn.Module):
+    """checkpoint's (forward, recompute) contexts."""
+    return contextlib.nullcontext(), _recompute(model)
+
+
+def train_step(state: TrainState, batch: Mapping, *, remat: bool = False,
+               joint_rows: Optional[int] = None) -> dict:
     """One optimization step on ``batch = {"image": (N, H, W, C) uint8 or
     float, "label": (N, H, W) int}``. Updates ``state`` in place and
     returns ``{"loss": <0-d device tensor>}``. ``remat`` recomputes the
-    forward in the backward (JAX's ``remat``)."""
+    forward in the backward (JAX's ``remat``). For a DDP model in a group
+    of more than one rank, ``batch`` is this rank's rows and
+    ``joint_rows`` the joint batch's row count (every rank's together)."""
     model, device = state.model, state.device
+    world = _world(model)
+    if world == 1:
+        step = contextlib.nullcontext()
+    elif joint_rows is None:
+        raise ValueError("a data-parallel step needs joint_rows, the rows "
+                         "of the joint batch")
+    else:
+        step = sync.data_parallel_step(len(batch["image"]), joint_rows)
     model.train()
-    image = normalize(batch["image"], device)
-    if remat:
-        out = checkpoint(model, image, use_reentrant=False,
-                         context_fn=_recompute_contexts)
-    else:
-        out = model(image)
-    labels = _labels(batch["label"], device)
-    if isinstance(out, tuple):  # deep supervision: (logits, aux heads)
-        loss = deep_supervision_loss(out, labels)
-    else:
-        loss = log_nll_loss(out, labels)
-    state.optimizer.zero_grad(set_to_none=True)
-    loss.backward()
+    with step:
+        image = normalize(batch["image"], device)
+        if remat:
+            out = checkpoint(model, image, use_reentrant=False,
+                             context_fn=functools.partial(
+                                 _recompute_contexts, model))
+        else:
+            out = model(image)
+        labels = _labels(batch["label"], device)
+        if isinstance(out, tuple):  # deep supervision: (logits, aux heads)
+            loss = deep_supervision_loss(out, labels)
+        else:
+            loss = log_nll_loss(out, labels)
+        state.optimizer.zero_grad(set_to_none=True)
+        # DDP averages the ranks' gradients; each loss is a part of the
+        # joint one
+        (loss * world if world > 1 else loss).backward()
     if state.schedule is not None:
         lr = float(state.schedule(state.step))
         for group in state.optimizer.param_groups:
             group["lr"] = lr
     state.optimizer.step()
     state.step += 1
-    return {"loss": loss.detach()}
+    loss = loss.detach()
+    return {"loss": sync.all_reduce_sum(loss) if world > 1 else loss}
 
 
 def eval_step(state: TrainState, batch: Mapping) -> torch.Tensor:
-    """Forward on the running BN statistics: raw NCHW logits. The model's
-    train/eval mode is restored afterwards."""
-    model = state.model
+    """Forward on the running BN statistics: raw NCHW logits (of the model
+    out of its DDP wrapper, on this process alone). The model's train/eval
+    mode is restored afterwards."""
+    model = state.module
     was_training = model.training
     model.eval()
     try:

@@ -17,9 +17,18 @@ parameters (``Config.compute_dtype``, as JAX's ``setup_state`` maps it),
 and ``--remat`` passes ``remat=True`` to every step, as JAX's trainer
 does.
 
-What is not ported, and raises instead: the TPU mesh and multi-host code
-(more than one visible card; ROADMAP.md, 'Data-parallel training and
-multi-GPU serving'). JAX's Mosaic preflight, which disables a
+Data parallel (``medt_tpu/training/trainer.py``'s mesh): in a process
+group of more than one rank (torchrun's, or one ``cli.train --dp N``
+spawns), each rank builds the model on its card from the same seed, wraps
+it in ``DistributedDataParallel``, loads its rows of each global batch
+(the same loader and seed on every rank, each loading only its own rows:
+``DataLoader(shard=...)``) and steps on them; the step is the one-process
+step on the joint batch (``state.train_step``), so ``--batch_size`` is the
+global batch, as in JAX. Validation runs on the coordinator over the
+whole validation set with the unwrapped model, so its F1 and IoU are a
+one-card run's; the coordinator writes the masks, logs and checkpoints
+while the other ranks wait. The mesh's ``seq`` and ``model`` axes are not ported
+(``parallel.mesh.MESH_TODO``). JAX's Mosaic preflight, which disables a
 Pallas kernel family that fails to lower and retraces onto XLA, has no
 counterpart: on the card a kernel fault raises. The staircase schedule
 ("linear") gets its own three arguments (JAX passes it four).
@@ -43,6 +52,7 @@ from ..data import (
 from ..device import resolve_device
 from ..metrics import binary_seg_scores, logits_to_foreground
 from ..models import build_model, main_logits
+from ..parallel import host_shard, is_coordinator
 from ..utils import Logger, ThroughputMeter, chk_mkdir, profiler_trace
 from .checkpointing import (
     latest_checkpoint,
@@ -51,7 +61,7 @@ from .checkpointing import (
 )
 from .optimizers import adam_l2, sgd
 from .schedules import SCHEDULE_REGISTRY
-from .state import TrainState, eval_step, train_step
+from .state import TrainState, data_parallel, eval_step, train_step
 
 
 def build_tx(cfg: Config, model: torch.nn.Module, steps_per_epoch: int):
@@ -77,24 +87,23 @@ def build_tx(cfg: Config, model: torch.nn.Module, steps_per_epoch: int):
     return optimizer, schedule
 
 
-def _check_one_card(device: torch.device):
-    if device.type == "cuda" and torch.cuda.device_count() > 1:
-        raise NotImplementedError(
-            f"{torch.cuda.device_count()} cards are visible; the port trains "
-            "on one (data-parallel training is not ported yet: ROADMAP.md, "
-            "'Data-parallel training and multi-GPU serving'). Make one "
-            "visible with CUDA_VISIBLE_DEVICES.")
-
-
 def setup_state(cfg: Config, steps_per_epoch: int, device) -> TrainState:
     """The configured model (weights from ``--seed``) on ``device`` (None:
-    the card), with its optimizer and schedule. ``--trainable_gates yes``
-    trains the attention gates; ``--dtype bfloat16`` computes in bf16."""
+    the current card), with its optimizer and schedule; in a process group
+    of more than one rank, wrapped in ``DistributedDataParallel``.
+    ``--trainable_gates yes`` trains the attention gates; ``--dtype
+    bfloat16`` computes in bf16."""
+    device = resolve_device(device)
+    if device.type == "cuda":
+        if device.index is None:    # "cuda" is the current card
+            device = torch.device("cuda", torch.cuda.current_device())
+        torch.cuda.set_device(device)
     model = build_model(cfg.modelname, img_size=cfg.imgsize,
                         imgchan=cfg.imgchan, use_fused=cfg.use_fused,
-                        seed=cfg.seed, device=resolve_device(device),
+                        seed=cfg.seed, device=device,
                         trainable_gates=cfg.trainable_gates == "yes",
                         dtype=cfg.compute_dtype)
+    model = data_parallel(model)
     optimizer, schedule = build_tx(cfg, model, steps_per_epoch)
     return TrainState(model, optimizer, schedule=schedule)
 
@@ -123,13 +132,16 @@ def validate(cfg: Config, state: TrainState, val_loader: DataLoader,
 
 def _loader(cfg: Config, path: str, train: bool) -> DataLoader:
     """Byte batches of the PNG set at ``path``: shuffled at ``--batch_size``
-    with random flips for training, in order at batch 1 for validation."""
+    with random flips for training (in a process group, this rank's rows of
+    each), in order at batch 1 for validation."""
     tf = JointTransform2D(crop=cfg.crop_tuple, p_flip=0.5 if train else 0,
                           color_jitter_params=None, long_mask=True,
                           output_dtype="uint8")
     ds = ImageToImage2D(path, tf, gray=cfg.gray == "yes")
+    rank, world = host_shard()
     return DataLoader(ds, cfg.batch_size if train else 1, shuffle=train,
-                      num_workers=cfg.workers, seed=cfg.seed)
+                      num_workers=cfg.workers, seed=cfg.seed,
+                      shard=(rank, world) if train and world > 1 else None)
 
 
 def run_training(cfg: Config, state: Optional[TrainState] = None,
@@ -139,7 +151,9 @@ def run_training(cfg: Config, state: Optional[TrainState] = None,
     """Train for ``cfg.epochs`` epochs (from ``cfg.start_epoch``, or after
     the newest checkpoint with ``--resume``). A caller may pass its own
     state (its model's device is used) and loaders; otherwise they are
-    built from ``cfg`` on ``device`` (None: the card)."""
+    built from ``cfg`` on ``device`` (None: the card). In a process group
+    every rank calls it, with the same loaders, the train loader sharded
+    for this rank (``DataLoader(shard=(rank, world))``)."""
     np.random.seed(cfg.seed)  # the reference seeds numpy and torch to 3000
     if train_loader is None:
         train_loader = _loader(cfg, cfg.train_dataset, train=True)
@@ -149,7 +163,10 @@ def run_training(cfg: Config, state: Optional[TrainState] = None,
     if state is None:
         state = setup_state(cfg, steps_per_epoch, device)
     device = state.device
-    _check_one_card(device)
+    rank, world = host_shard()
+    if world > 1 and getattr(train_loader, "shard", None) != (rank, world):
+        raise ValueError(f"rank {rank} of {world} needs a train loader with "
+                         f"shard=({rank}, {world})")
 
     start_epoch = cfg.start_epoch
     if cfg.resume:
@@ -170,19 +187,21 @@ def run_training(cfg: Config, state: Optional[TrainState] = None,
             # for it every step
             epoch_loss = torch.zeros((), device=device)
             n_batches = 0
-            for batch in train_loader:
+            for k, batch in enumerate(train_loader):
+                joint = train_loader.joint_rows(k) if world > 1 \
+                    else len(batch["name"])
                 metrics = train_step(state, to_device(batch, device),
-                                     remat=cfg.remat)
+                                     remat=cfg.remat, joint_rows=joint)
                 epoch_loss = epoch_loss + metrics["loss"]
                 n_batches += 1
-                meter.update(len(batch["name"]))
+                meter.update(joint)
             entry = {
                 "epoch": epoch,
                 "loss": float(epoch_loss) / max(n_batches, 1),
                 "imgs_per_sec": round(meter.imgs_per_sec, 2),
             }
             if epoch % cfg.save_freq == 0:
-                if val_loader is not None:
+                if val_loader is not None and is_coordinator():
                     entry.update(validate(cfg, state, val_loader, epoch))
                 save_checkpoint(cfg.direc, epoch, state.model,
                                 state.optimizer, step=state.step)

@@ -4,7 +4,10 @@ Port of ``medt_tpu/utils/logging.py``: ``chk_mkdir``, ``Logger``
 (dict-of-lists with CSV export, reference utils.py:245-261, plus JSONL
 streaming), ``ThroughputMeter`` (the reference's per-batch timer is
 commented out, reference train.py:183-186) and ``profiler_trace`` (a
-``torch.profiler`` trace where JAX takes a ``jax.profiler`` one).
+``torch.profiler`` trace where JAX takes a ``jax.profiler`` one). In a
+process group the ``Logger`` keeps every rank's entries but only the
+coordinator writes (JSONL, CSV, stdout), as JAX's trainer logs on its
+coordinator.
 """
 from __future__ import annotations
 
@@ -16,6 +19,8 @@ from collections import defaultdict
 from contextlib import contextmanager
 from typing import Optional
 
+from ..parallel.distributed import is_coordinator
+
 
 def chk_mkdir(*paths: str) -> None:
     """Create directories if missing (reference utils.py:233-242)."""
@@ -24,13 +29,15 @@ def chk_mkdir(*paths: str) -> None:
 
 
 class Logger:
-    """Accumulates scalar logs; exports CSV; optionally streams JSONL."""
+    """Accumulates scalar logs; exports CSV; optionally streams JSONL. Only
+    the coordinator writes."""
 
     def __init__(self, verbose: bool = False, jsonl_path: Optional[str] = None):
         self.logs = defaultdict(list)
-        self.verbose = verbose
-        self.jsonl_path = jsonl_path
-        if jsonl_path:
+        self.writes = is_coordinator()
+        self.verbose = verbose and self.writes
+        self.jsonl_path = jsonl_path if self.writes else None
+        if self.jsonl_path:
             chk_mkdir(os.path.dirname(os.path.abspath(jsonl_path)))
 
     def log(self, entries: dict) -> None:
@@ -46,6 +53,8 @@ class Logger:
         return self.logs
 
     def to_csv(self, path: str) -> None:
+        if not self.writes:
+            return
         keys = list(self.logs.keys())
         rows = zip(*(self.logs[k] for k in keys)) if keys else []
         with open(path, "w", newline="") as f:
