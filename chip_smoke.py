@@ -139,7 +139,23 @@ the start of the script) as it ends:
    medt_tpu_torch.cli.train_cls`` with resnet18 at 224 px, one epoch over
    an ImageFolder of 2 x 8 PNGs per split: a finite loss, a ``val_acc``
    and a checkpoint.
-19. ``dp`` — data parallel on the one card: two gloo ranks on ``cuda:0``
+19. ``cls_wide`` — the classifiers at the wide group planes: each kernel
+   at each geometry of axial50m's batch-8 calls (gp 12, 24, 48, 96) and
+   axial50l's batch-1 calls (gp 16 to 128) against its plain version, the
+   bf16 entry points at axial50m's batch-8 step geometries against their
+   float32 twins (bit-equal); axial50m (224 px, 1000 classes, float32,
+   ``use_fused``) at batch 8: one SGD step against plain cores, a counted
+   warm-up and 5 timed steps at lr 0.01 (16 + 16 flash, 16 + 16 lanes,
+   32 + 32 moments launches a step; the median of the 5 losses below 0.75
+   of the first), wall and device ms, an eval forward (16 flash + 16
+   eval) against plain cores;
+   axial50l at batch 1: an eval forward (32 eval) and a train step (6 + 6
+   stripe at gp 16, 10 + 10 flash: its gp-32 span-56 sites too, 16 + 16
+   lanes, 26 + 26 moments) against plain cores; axial50m in bf16: one
+   step, counted under the ``_bf16`` names, finite loss.
+   Each wide kernel and bf16 entry point adds an entry ``<name>_wide`` to
+   the summary line.
+20. ``dp`` — data parallel on the one card: two gloo ranks on ``cuda:0``
    (``parallel.run_data_parallel``; MedT 128, Adam-L2, the kernels, the
    same seeded weights on both) take a DDP train step at global batch 16
    (8 rows a rank) and at global batch 1 (one rank holds the row, the
@@ -408,6 +424,8 @@ def phase_build():
     result = build()
     library()  # load and bind
     emit("build", nvcc_seconds=round(result.seconds, 3),
+         nvcc_source_seconds={k: round(v, 3) for k, v in
+                              result.source_seconds.items()},
          library=str(result.path.relative_to(REPO)),
          ptxas=ptxas_summary(result.log))
 
@@ -786,47 +804,52 @@ def bf16_plain_compare(torch, kernel, got, want):
     return max(float(d.max()), err_rest), ok and ok_rest
 
 
+def bf16_row(torch, kernel, L, gp, S, has_pos, seed, reps=15, inner=5):
+    """A bf16 entry point at one geometry against the float32 kernel on
+    the upcast input (bits and BF16_TWIN_TOL) and against its plain
+    version; CUDA-event times of the bf16 kernel and its float32 twin in
+    this call, and the bound with 2-byte qkv. ``ok`` does not ask for the
+    bits: ``bits_equal_float32_twin`` reports them."""
+    def calls(cast):
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        return kernel_calls(torch, gen, kernel, gp, L, S, has_pos, cast)
+
+    fn, plain = calls(lambda t: t.to(torch.bfloat16))
+    twin, _ = calls(lambda t: t.to(torch.bfloat16).float())
+    got, again, want, ref = fn(), fn(), plain(), twin()
+    torch.cuda.synchronize()
+    bits, twin_ok, twin_err = bf16_compare(torch, kernel, got, ref)
+    err, ok = bf16_plain_compare(torch, kernel, got, want)
+    repeatable = all(torch.equal(a, b) for a, b in zip(got, again))
+    nbytes, ops = work(kernel, gp, L, S, has_pos, qkv_bytes=2)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F32_FLOPS_PER_S
+    return {"kernel": f"{kernel}_bf16", "span": L, "gp": gp, "S": S,
+            "g": GROUPS, "has_pos": has_pos, "max_abs_err": err,
+            "bits_equal_float32_twin": bits,
+            "max_abs_diff_float32_twin": twin_err,
+            "ok": ok and twin_ok and repeatable, "repeatable": repeatable,
+            "ms": time_ms(torch, fn, reps, inner),
+            "float32_ms": time_ms(torch, twin, reps, inner),
+            "plain_ms": time_ms(torch, plain, reps=min(reps, 5), inner=1),
+            "bytes": nbytes, "ops": ops,
+            "bound_ms": max(t_bytes, t_ops) * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
 def bf16_rows(torch):
     """Each bf16 entry point whose float32 kernel GEOMETRIES holds, held
-    against the float32 kernel on the upcast input (bits and
-    BF16_TWIN_TOL) and against its plain version; CUDA-event times of the
-    bf16 kernel and its float32 twin in this call, and the bound with
-    2-byte qkv."""
+    against the float32 kernel on the upcast input and against its plain
+    version (bf16_row)."""
     kernels = {g[0] for g in GEOMETRIES}
     rows = []
     for seed, (kernel, L, gp, S, has_pos, per_call, path) in enumerate(
             _bf16_geometries()):
         if kernel not in kernels:
             continue
-        def calls(cast):
-            gen = torch.Generator(device="cuda").manual_seed(1000 + seed)
-            return kernel_calls(torch, gen, kernel, gp, L, S, has_pos, cast)
-
-        fn, plain = calls(lambda t: t.to(torch.bfloat16))
-        twin, _ = calls(lambda t: t.to(torch.bfloat16).float())
-        got, again, want, ref = fn(), fn(), plain(), twin()
-        torch.cuda.synchronize()
-        bits, twin_ok, twin_err = bf16_compare(torch, kernel, got, ref)
-        err, ok = bf16_plain_compare(torch, kernel, got, want)
-        repeatable = all(torch.equal(a, b) for a, b in zip(got, again))
-        ms = time_ms(torch, fn)
-        twin_ms = time_ms(torch, twin)
-        plain_ms = time_ms(torch, plain, reps=5, inner=1)
-        nbytes, ops = work(kernel, gp, L, S, has_pos, qkv_bytes=2)
-        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F32_FLOPS_PER_S
-        row = {"kernel": f"{kernel}_bf16", "span": L, "gp": gp, "S": S,
-               "g": GROUPS, "has_pos": has_pos, "path": path,
-               "launches_per_call": per_call, "max_abs_err": err,
-               "bits_equal_float32_twin": bits,
-               "max_abs_diff_float32_twin": twin_err,
-               "ok": ok and twin_ok and repeatable,
-               "repeatable": repeatable, "ms": ms, "float32_ms": twin_ms,
-               "plain_ms": plain_ms, "bytes": nbytes, "ops": ops,
-               "bound_ms": max(t_bytes, t_ops) * 1e3,
-               "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+        row = bf16_row(torch, kernel, L, gp, S, has_pos, 1000 + seed)
+        row.update(path=path, launches_per_call=per_call)
         rows.append(row)
         print(json.dumps({"geometry": row}), flush=True)
-        del fn, plain, twin, got, again, want, ref
     torch.cuda.empty_cache()
     return rows
 
@@ -2356,6 +2379,11 @@ CLS_STEPS = 5
 # where it is steady (axial26s at 64 px on the CPU: 7.19 to 2.92 in 5).
 CLS_LEARN_LR = 0.01
 CLS_LOSS_FALL = 0.75
+# axial50m (cls_wide) at the same lr falls for three steps and then climbs
+# (H100: 7.09, then 5.09, 3.79, 3.76, 4.35, 4.48 and, on another run, 5.12,
+# 3.83, 3.16, 4.52, 5.03; SGD with momentum 0.9 on one repeated batch), so
+# its check takes the median of the CLS_STEPS losses, as train512's
+# loss_fell does, against the same CLS_LOSS_FALL
 # the port's kernels in a profiled axial26s step, by the name of the CUDA
 # kernel (the first that a kernel's name contains): the gp <= 16 designs,
 # then the wide ones (rows 1 and 3 share wide_fwd_kernel, rows 2 and 4
@@ -2380,25 +2408,28 @@ def route_kernels(route: str, training: bool) -> tuple:
     return kernels
 
 
-def cls_geometries():
-    """{call: [(kernel, span, gp, stripes, launches per call)]} of
-    axial26s's four paths: a route's forward (and, training, its backward
-    and, on the lanes and flash routes, the moments forward and backward)
-    once per site."""
+def cls_geometries(routes=None, calls=None):
+    """{call: [(kernel, span, gp, stripes, launches per call)]} of a
+    classifier's paths (``routes``: CLS_ROUTES, axial26s's, by default;
+    ``calls``: the names of CLS_CALLS to take, all by default): a route's
+    forward (and, training, its backward and, on the lanes and flash
+    routes, the moments forward and backward) once per site."""
     out = {}
     for col, (call, batch, training) in enumerate(CLS_CALLS):
+        if calls is not None and call not in calls:
+            continue
         rows = []
-        for (L, gp, per_image, sites), routes in CLS_ROUTES.items():
+        for (L, gp, per_image, sites), route in (routes or CLS_ROUTES).items():
             rows += [(k, L, gp, per_image * batch, sites)
-                     for k in route_kernels(routes[col], training)]
+                     for k in route_kernels(route[col], training)]
         out[call] = rows
     return out
 
 
-def cls_launches(call: str) -> dict:
+def cls_launches(call: str, routes=None) -> dict:
     """Launches per call of ``call``, by kernel."""
     out = {}
-    for kernel, *_, n in cls_geometries()[call]:
+    for kernel, *_, n in cls_geometries(routes, (call,))[call]:
         out[kernel] = out.get(kernel, 0) + n
     return out
 
@@ -2416,19 +2447,20 @@ def cls_routes_seen(model) -> dict:
     return seen
 
 
-def cls_routes_expected(col: int) -> dict:
-    return {(routes[col], L, gp): n
-            for (L, gp, _, n), routes in CLS_ROUTES.items()}
+def cls_routes_expected(col: int, routes=None) -> dict:
+    return {(route[col], L, gp): n
+            for (L, gp, _, n), route in (routes or CLS_ROUTES).items()}
 
 
-def _cls_kernel_rows(torch):
-    """Each kernel at each axial26s geometry against its plain version:
-    CUDA-event times of kernel and plain version and the bound; then per
-    call and kernel the launches, ms, plain ms and bound summed over its
-    sites."""
-    gen = torch.Generator(device="cuda").manual_seed(2)
+def _cls_kernel_rows(torch, routes=None, calls=None, path="axial26s",
+                     seed=2):
+    """Each kernel at each geometry of a classifier's paths (axial26s's by
+    default) against its plain version: CUDA-event times of kernel and
+    plain version and the bound; then per call and kernel the launches,
+    ms, plain ms and bound summed over its sites."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
     rows = {}
-    for call, geo in cls_geometries().items():
+    for call, geo in cls_geometries(routes, calls).items():
         for kernel, L, gp, S, _ in geo:
             key = (kernel, L, gp, S)
             if key in rows:
@@ -2449,12 +2481,19 @@ def _cls_kernel_rows(torch):
                 "bytes": nbytes, "ops": ops,
                 "bound_ms": max(t_bytes, t_ops) * 1e3,
                 "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
-            print(json.dumps({"geometry": {**rows[key], "path": "axial26s"}}),
+            print(json.dumps({"geometry": {**rows[key], "path": path}}),
                   flush=True)
             del fn, plain, got, again, want
     torch.cuda.empty_cache()
+    return list(rows.values()), _per_call(rows, cls_geometries(routes, calls))
+
+
+def _per_call(rows, geometries):
+    """Per call and kernel of ``geometries``: the launches, and the ms,
+    plain ms and bound of ``rows`` (by (kernel, span, gp, stripes)) summed
+    over its sites."""
     per_call = {}
-    for call, geo in cls_geometries().items():
+    for call, geo in geometries.items():
         mine = per_call[call] = {}
         for kernel, L, gp, S, n in geo:
             r = rows[(kernel, L, gp, S)]
@@ -2469,37 +2508,48 @@ def _cls_kernel_rows(torch):
         for k in mine.values():
             k["bound_by"] = "bytes" if k.pop("bytes_ms") >= k.pop("ops_ms") \
                 else "operations"
-    return list(rows.values()), per_call
+    return per_call
 
 
-def _cls_args(**kw):
+def _cls_args(model="axial26s", **kw):
     import argparse
 
-    return argparse.Namespace(model="axial26s", num_classes=CLS_CLASSES, **kw)
+    return argparse.Namespace(model=model, num_classes=CLS_CLASSES, **kw)
 
 
-def _cls_model(variables, plain: bool):
-    """axial26s on the card under ``use_fused`` (``plain``: plain cores)
-    with ``variables`` loaded."""
+def _cls_model(variables, plain: bool, model="axial26s", dtype=None):
+    """A classifier (axial26s by default) on the card under ``use_fused``
+    (``plain``: plain cores) with ``variables`` loaded, built by
+    ``builders.build_model``; with ``dtype`` (its compute dtype, which
+    ``build_model`` does not take) by the model's factory."""
     from medt_tpu_torch import builders
+    from medt_tpu_torch.models import classifiers
 
-    model = builders.build_model(_cls_args(), device="cuda", use_fused=True,
-                                 plain_cores=plain)
-    model.load_state_dict(variables, strict=True)
-    return model
+    if dtype is None:
+        net = builders.build_model(_cls_args(model), device="cuda",
+                                   use_fused=True, plain_cores=plain)
+    else:
+        net = getattr(classifiers, model)(
+            num_classes=CLS_CLASSES, use_fused=True, plain_cores=plain,
+            dtype=dtype, device="cuda").eval()
+    net.load_state_dict(variables, strict=True)
+    return net
 
 
-def _cls_state(torch, variables, plain: bool, lr: float = CLS_LR):
+def _cls_state(torch, variables, plain: bool, lr: float = CLS_LR,
+               model="axial26s", dtype=None):
     from medt_tpu_torch.training import TrainState, sgd
 
-    model = _cls_model(variables, plain)
-    return TrainState(model, sgd(model.parameters(), lr,
-                                 momentum=CLS_MOMENTUM, weight_decay=CLS_WD))
+    net = _cls_model(variables, plain, model, dtype)
+    return TrainState(net, sgd(net.parameters(), lr, momentum=CLS_MOMENTUM,
+                               weight_decay=CLS_WD))
 
 
 def cls_step_parity(torch, variables, images, labels,
-                    input_noise=STEP_INPUT_NOISE, rel_tol=1e-4):
-    """One axial26s SGD step (label smoothing 0.1) on the kernels against
+                    input_noise=STEP_INPUT_NOISE, rel_tol=1e-4,
+                    model="axial26s"):
+    """One SGD step of a classifier (axial26s by default; label smoothing
+    0.1) on the kernels against
     the same step on plain cores from identical weights (cuDNN
     deterministic), held as held() holds the segmentation steps: the loss,
     every parameter after the update and every running statistic; the
@@ -2513,14 +2563,14 @@ def cls_step_parity(torch, variables, images, labels,
     train_step, _ = make_steps(CLS_SMOOTHING)
 
     def one_step(plain, image):
-        state = _cls_state(torch, variables, plain)
+        state = _cls_state(torch, variables, plain, model=model)
         loss = float(train_step(state, {"image": image, "label": labels})
                      ["loss"])
-        model = state.model
+        net = state.model
         grads = {k: p.grad.detach().clone()
-                 for k, p in model.named_parameters() if p.requires_grad}
-        params = {k: p.detach().clone() for k, p in model.named_parameters()}
-        stats = {k: b.detach().clone() for k, b in model.named_buffers()
+                 for k, p in net.named_parameters() if p.requires_grad}
+        params = {k: p.detach().clone() for k, p in net.named_parameters()}
+        stats = {k: b.detach().clone() for k, b in net.named_buffers()
                  if k.endswith(("running_mean", "running_var"))}
         return loss, grads, params, stats
 
@@ -2545,27 +2595,29 @@ def cls_step_parity(torch, variables, images, labels,
     return loss_k, loss_p, checks, grad_checks, counts
 
 
-def _cls_forward_parity(torch, variables, images, col):
-    """An eval forward on the kernels (counted) against plain cores at
-    LOGITS_ATOL, its routes against CLS_ROUTES's column ``col``."""
+def _cls_forward_parity(torch, variables, images, col, model="axial26s",
+                        routes=None):
+    """An eval forward of a classifier (axial26s by default) on the
+    kernels (counted) against plain cores at LOGITS_ATOL, its routes
+    against column ``col`` of ``routes`` (CLS_ROUTES by default)."""
     from medt_tpu_torch import ops
     from medt_tpu_torch.training.state import normalize
 
     x = normalize(images, "cuda")
     out = {}
     for plain in (False, True):
-        model = _cls_model(variables, plain).eval()
+        net = _cls_model(variables, plain, model).eval()
         ops.reset_launch_counts()
         with torch.no_grad():
-            out[plain] = model(x)
+            out[plain] = net(x)
         torch.cuda.synchronize()
         if not plain:
             counts = ops.launch_counts()
-            routes = cls_routes_seen(model)
+            seen = cls_routes_seen(net)
     err = float((out[False] - out[True]).abs().max())
     return {"max_abs_err": err, "ok": err <= LOGITS_ATOL and bool(
         torch.isfinite(out[False]).all()), "launches": counts,
-        "routes_ok": routes == cls_routes_expected(col)}
+        "routes_ok": seen == cls_routes_expected(col, routes)}
 
 
 def _cls_cli(torch):
@@ -2614,6 +2666,34 @@ def _cls_cli(torch):
             "wall_s": wall_s, "checkpoint_bytes": ckpt_bytes}
 
 
+def profiled_step_ms(torch, train_step, state, batch, steps=2):
+    """Device kernel ms per step over ``steps`` profiled train steps, and
+    the port's kernels' share by CUDA kernel name (CLS_OWN_KERNELS, each
+    event counted once)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from medt_tpu_torch.profile_serve import _device_us
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            train_step(state, batch)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and _device_us(e) > 0
+               and not getattr(e, "is_user_annotation", False)
+               and not e.key.startswith("Optimizer.")]
+    device_ms = sum(_device_us(e) for e in kernels) / steps / 1e3 \
+        if kernels else "not measured"
+    own_ms = {}
+    for e in kernels:
+        name = next((n for n in CLS_OWN_KERNELS if n in e.key), None)
+        if name is not None:
+            own_ms[name] = own_ms.get(name, 0.0) + _device_us(e) / steps / 1e3
+    return device_ms, own_ms
+
+
 def phase_cls(torch):
     """The classification harness on the card: each kernel at axial26s's
     geometries against its plain version; axial26s at 224 px, 1000
@@ -2623,11 +2703,9 @@ def phase_cls(torch):
     step against plain cores, each with exact launch counts and routes;
     then cli.train_cls on resnet18 over an ImageFolder."""
     import numpy as np
-    from torch.profiler import ProfilerActivity, profile
 
     from medt_tpu_torch import builders, ops
     from medt_tpu_torch.cli.train_cls import make_steps
-    from medt_tpu_torch.profile_serve import _device_us
 
     rows, per_call = _cls_kernel_rows(torch)
     failed = [r for r in rows if not r["ok"]]
@@ -2668,23 +2746,7 @@ def phase_cls(torch):
     counts = ops.launch_counts()
     # -- end of the counted run ----------------------------------------------
     losses = torch.stack(losses).tolist()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(2):
-            train_step(state, batch)
-        torch.cuda.synchronize()
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA
-               and _device_us(e) > 0
-               and not getattr(e, "is_user_annotation", False)
-               and not e.key.startswith("Optimizer.")]
-    device_ms = sum(_device_us(e) for e in kernels) / 2 / 1e3 if kernels \
-        else "not measured"
-    own_ms = {}     # the port's kernels by name, each event counted once
-    for e in kernels:
-        name = next((n for n in CLS_OWN_KERNELS if n in e.key), None)
-        if name is not None:
-            own_ms[name] = own_ms.get(name, 0.0) + _device_us(e) / 2 / 1e3
+    device_ms, own_ms = profiled_step_ms(torch, train_step, state, batch)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     del state
     torch.cuda.empty_cache()
@@ -2739,7 +2801,267 @@ def phase_cls(torch):
     return counts
 
 
-# ---- 19. data parallel -------------------------------------------------------
+# ---- 19. cls_wide: axial50m and axial50l on the wide kernels -----------------
+
+# (span, gp, stripes per image, sites) of axial50m (s = 0.75) and axial50l
+# (s = 1.0) at 224 px and the route of each site in CLS_CALLS's four calls
+# (a batch-8 train step, a batch-8 eval forward, a batch-1 eval forward, a
+# batch-1 train step). Every gp but axial50l's 16 runs the wide kernels; a
+# batch-1 train site at span 56 takes the flash route at a gp the stripe
+# kernels do not take (fused_route).
+CLS_WIDE_ROUTES = {
+    "axial50m": {
+        (56, 12, 56, 6): ("flash", "flash", "eval", "flash"),
+        (56, 24, 56, 2): ("flash", "flash", "eval", "flash"),
+        (28, 24, 28, 6): ("flash", "flash", "eval", "flash"),
+        (28, 48, 28, 2): ("flash", "flash", "eval", "flash"),
+        (14, 48, 14, 10): ("lanes", "eval", "eval", "lanes"),
+        (14, 96, 14, 2): ("lanes", "eval", "eval", "lanes"),
+        (7, 96, 7, 4): ("lanes", "eval", "eval", "lanes"),
+    },
+    "axial50l": {
+        (56, 16, 56, 6): ("flash", "flash", "eval", "stripe"),
+        (56, 32, 56, 2): ("flash", "flash", "eval", "flash"),
+        (28, 32, 28, 6): ("flash", "flash", "eval", "flash"),
+        (28, 64, 28, 2): ("flash", "flash", "eval", "flash"),
+        (14, 64, 14, 10): ("lanes", "eval", "eval", "lanes"),
+        (14, 128, 14, 2): ("lanes", "eval", "eval", "lanes"),
+        (7, 128, 7, 4): ("lanes", "eval", "eval", "lanes"),
+    },
+}
+# the calls each model runs in the phase: axial50m at batch 8, axial50l at
+# batch 1
+CLS_WIDE_CALLS = {"axial50m": ("b8_step", "b8_forward"),
+                  "axial50l": ("b1_forward", "b1_step")}
+# the wide kernels' entries of the summary line: the wrapper, the source
+# of its wide kernel, and the call of the phase that is its main path
+WIDE_SOURCES = {
+    "lanes_attn_fwd": "medt_tpu_torch/csrc/axial_wide.cu",
+    "lanes_attn_bwd": "medt_tpu_torch/csrc/axial_wide.cu",
+    "flash_lanes_fwd": "medt_tpu_torch/csrc/axial_wide.cu",
+    "flash_lanes_bwd": "medt_tpu_torch/csrc/axial_wide.cu",
+    "moment_sums_fwd": "medt_tpu_torch/csrc/moments_wide.cu",
+    "moment_sums_bwd": "medt_tpu_torch/csrc/moments_wide.cu",
+    "axial_eval_fwd": "medt_tpu_torch/csrc/axial_eval_fwd.cu",
+}
+
+
+def _cls_wide_bf16_rows(torch, routes, call):
+    """Each bf16 entry point at each geometry of ``call`` (bf16_row), held
+    to its float32 twin bit for bit; then per kernel the launches, ms,
+    float32 ms, plain ms and bound with 2-byte qkv summed over the call's
+    sites."""
+    geo = cls_geometries(routes, (call,))
+    rows = {}
+    for seed, (kernel, L, gp, S, _) in enumerate(geo[call]):
+        key = (kernel, L, gp, S)
+        if kernel not in BF16_KERNELS or key in rows:
+            continue
+        row = bf16_row(torch, kernel, L, gp, S, True, 2000 + seed, reps=7,
+                       inner=3)
+        row["ok"] = row["ok"] and row["bits_equal_float32_twin"]
+        rows[key] = row
+        print(json.dumps({"geometry": {**row, "path": "axial50m"}}),
+              flush=True)
+    torch.cuda.empty_cache()
+    bf16_geo = {call: [g for g in geo[call] if g[0] in BF16_KERNELS]}
+    per_call = _per_call(rows, bf16_geo)[call]
+    for kernel, k in per_call.items():
+        k["float32_ms"] = sum(rows[(kk, L, gp, S)]["float32_ms"] * n
+                              for kk, L, gp, S, n in bf16_geo[call]
+                              if kk == kernel)
+    return list(rows.values()), per_call
+
+
+def phase_cls_wide(torch):
+    """axial50m and axial50l at 224 px (1000 classes, ``use_fused``) on
+    the wide kernels: each kernel at each geometry of axial50m's batch-8
+    calls and axial50l's batch-1 calls against its plain version, and the
+    bf16 entry points at axial50m's batch-8 step geometries against their
+    float32 twins; axial50m at batch 8: one SGD step against plain cores,
+    a counted warm-up and CLS_STEPS timed steps at CLS_LEARN_LR with a
+    falling loss, an eval forward against plain cores; axial50l at batch
+    1: an eval forward and a train step against plain cores; axial50m in
+    bf16: one counted step with a finite loss. Every call's launches and
+    routes exact."""
+    import numpy as np
+
+    from medt_tpu_torch import builders, ops
+    from medt_tpu_torch.cli.train_cls import make_steps
+
+    rows, per_call = [], {}
+    for model, calls in CLS_WIDE_CALLS.items():
+        r, pc = _cls_kernel_rows(torch, CLS_WIDE_ROUTES[model], calls, model,
+                                 seed=len(rows) + 3)
+        rows += r
+        per_call.update({f"{model}_{c}": v for c, v in pc.items()})
+    m_routes, l_routes = CLS_WIDE_ROUTES["axial50m"], CLS_WIDE_ROUTES[
+        "axial50l"]
+    bf16_rows, bf16_per_call = _cls_wide_bf16_rows(torch, m_routes,
+                                                   "b8_step")
+    failed = [r for r in rows + bf16_rows if not r["ok"]]
+    check(not failed, f"kernel disagrees with its plain version or its "
+                      f"float32 twin: {failed}")
+
+    rng = np.random.default_rng(0)
+    images = rng.standard_normal((8, CLS_IMG, CLS_IMG, 3)).astype(np.float32)
+    labels = rng.integers(0, CLS_CLASSES, 8).astype(np.int32)
+
+    # -- axial50m, batch 8: one step against plain cores ---------------------
+    var_m = builders.build_model(_cls_args("axial50m"), device="cpu",
+                                 seed=0).state_dict()
+    loss_k, loss_p, checks, grads, step_counts = cls_step_parity(
+        torch, var_m, images, labels, model="axial50m")
+    bad = [c for c in checks if not c["ok"]]
+    parity = {"loss_kernels": loss_k, "loss_plain": loss_p,
+              "tensors": len(checks), "failed": len(bad),
+              "worst": max(checks, key=lambda c: c["err"] / c["tol"]),
+              "gradients_worst": max(grads,
+                                     key=lambda c: c["err"] / c["tol"]),
+              "gradients_beyond_bound": sum(not c["ok"] for c in grads)}
+    check(not bad, f"axial50m step on kernels vs plain cores: {bad[:5]}")
+    b8_step = cls_launches("b8_step", m_routes)
+    check(step_counts == launches_of(step_counts, b8_step, 1),
+          f"axial50m b8 step launches {step_counts}")
+
+    # -- the main path, counted: a warm-up step, then CLS_STEPS timed -------
+    train_step, _ = make_steps(CLS_SMOOTHING)
+    state = _cls_state(torch, var_m, plain=False, lr=CLS_LEARN_LR,
+                       model="axial50m")
+    batch = {"image": images, "label": labels}
+    ops.reset_launch_counts()
+    loss0 = float(train_step(state, batch)["loss"])
+    routes = cls_routes_seen(state.model)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses = [train_step(state, batch)["loss"] for _ in range(CLS_STEPS)]
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) / CLS_STEPS * 1e3
+    counts = ops.launch_counts()
+    # -- end of the counted run ----------------------------------------------
+    losses = torch.stack(losses).tolist()
+    device_ms, own_ms = profiled_step_ms(torch, train_step, state, batch)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    del state
+    torch.cuda.empty_cache()
+    check(counts == launches_of(counts, b8_step, CLS_STEPS + 1),
+          f"axial50m launches {counts} for {CLS_STEPS + 1} steps")
+    check(routes == cls_routes_expected(0, m_routes),
+          f"axial50m routes {routes}")
+    check(all(math.isfinite(v) for v in losses), f"non-finite loss {losses}")
+    check(statistics.median(losses) < CLS_LOSS_FALL * loss0,
+          f"loss did not fall: {loss0} {losses}")
+    forwards = {"axial50m_b8_forward": _cls_forward_parity(
+        torch, var_m, images, 1, "axial50m", m_routes)}
+
+    # -- axial50l, batch 1: an eval forward and a train step -----------------
+    var_l = builders.build_model(_cls_args("axial50l"), device="cpu",
+                                 seed=0).state_dict()
+    forwards["axial50l_b1_forward"] = _cls_forward_parity(
+        torch, var_l, images[:1], 2, "axial50l", l_routes)
+    for call, r in forwards.items():
+        model, c = call.split("_", 1)
+        check(r["ok"] and r["routes_ok"], f"{call}: {r}")
+        check(r["launches"] == launches_of(
+            r["launches"], cls_launches(c, CLS_WIDE_ROUTES[model]), 1),
+            f"{call}: {r}")
+    loss1_k, loss1_p, checks1, grads1, counts1 = cls_step_parity(
+        torch, var_l, images[:1], labels[:1], model="axial50l")
+    bad1 = [c for c in checks1 if not c["ok"]]
+    parity_b1 = {"loss_kernels": loss1_k, "loss_plain": loss1_p,
+                 "tensors": len(checks1), "failed": len(bad1),
+                 "worst": max(checks1, key=lambda c: c["err"] / c["tol"]),
+                 "gradients_worst": max(grads1,
+                                        key=lambda c: c["err"] / c["tol"]),
+                 "gradients_beyond_bound": sum(not c["ok"] for c in grads1),
+                 "launches": counts1}
+    check(not bad1, f"axial50l batch-1 step vs plain cores: {bad1[:5]}")
+    check(counts1 == launches_of(counts1, cls_launches("b1_step", l_routes),
+                                 1), f"axial50l b1 step launches {counts1}")
+
+    # -- axial50m in bf16: one counted step ----------------------------------
+    state = _cls_state(torch, var_m, plain=False, lr=CLS_LEARN_LR,
+                       model="axial50m", dtype=torch.bfloat16)
+    ops.reset_launch_counts()
+    loss_bf16 = float(train_step(state, batch)["loss"])
+    torch.cuda.synchronize()
+    counts_bf16 = ops.launch_counts()
+    del state
+    torch.cuda.empty_cache()
+    want_bf16 = launches_of(counts_bf16, {f"{k}_bf16": v
+                                          for k, v in b8_step.items()}, 1)
+    check(math.isfinite(loss_bf16), f"axial50m bf16 loss {loss_bf16}")
+    check(counts_bf16 == want_bf16, f"axial50m bf16 launches {counts_bf16}")
+
+    emit("cls_wide", models=list(CLS_WIDE_CALLS), img=CLS_IMG,
+         classes=CLS_CLASSES, optimizer="sgd", lr=CLS_LR,
+         momentum=CLS_MOMENTUM, weight_decay=CLS_WD,
+         label_smoothing=CLS_SMOOTHING, geometries=len(rows),
+         bf16_geometries=len(bf16_rows), kernels_per_call=per_call,
+         bf16_kernels_per_call=bf16_per_call,
+         launches_per_call={f"{m}_{c}": cls_launches(c, CLS_WIDE_ROUTES[m])
+                            for m, calls in CLS_WIDE_CALLS.items()
+                            for c in calls},
+         step_parity=parity, launches=counts, steps_counted=CLS_STEPS + 1,
+         learn_lr=CLS_LEARN_LR, loss_step0=loss0, losses=losses,
+         wall_ms_per_step=wall_ms, images_per_s=8 / wall_ms * 1e3,
+         device_kernel_ms_per_step=device_ms,
+         port_kernels_device_ms_per_step=own_ms,
+         port_kernels_device_ms_total=sum(own_ms.values()),
+         peak_memory_gb=peak_gb, forwards=forwards,
+         b1_step_parity=parity_b1, bf16_step={
+             "loss": loss_bf16, "launches": counts_bf16},
+         tolerance={"forward": KERNEL_ATOL,
+                    "backward_and_moments_rtol": SUM_RTOL,
+                    "logits": LOGITS_ATOL,
+                    "bf16_vs_float32_twin": "bit-equal"})
+    return {"b8_steps": counts, "b8_forward":
+            forwards["axial50m_b8_forward"]["launches"],
+            "bf16_step": counts_bf16, "rows": rows, "bf16_rows": bf16_rows,
+            "per_call": per_call, "bf16_per_call": bf16_per_call}
+
+
+def wide_summary(wide):
+    """The summary line's entries of the wide kernels (every gp outside 2,
+    4, 8 and 16), one per wrapper that runs one, and one per bf16 entry
+    point: times per call of its main path in ``cls_wide``, axial50m at
+    batch 8 (a train step, or an eval forward for the eval kernel; the
+    bf16 entry points a bf16 step), where every site is wide; launches
+    from that path's counted run."""
+    entries = []
+    for name, source in WIDE_SOURCES.items():
+        for bf16 in (False, True):
+            if bf16 and name not in BF16_KERNELS:
+                continue
+            if bf16:
+                k = wide["bf16_per_call"][name]
+                launches = wide["bf16_step"].get(f"{name}_bf16", 0)
+                mine = [r for r in wide["bf16_rows"]
+                        if r["kernel"] == f"{name}_bf16"]
+            else:
+                call = "axial50m_b8_forward" if name == "axial_eval_fwd" \
+                    else "axial50m_b8_step"
+                k = wide["per_call"][call][name]
+                counted = wide["b8_forward"] if name == "axial_eval_fwd" \
+                    else wide["b8_steps"]
+                launches = counted.get(name, 0)
+                mine = [r for r in wide["rows"] if r["kernel"] == name
+                        and r["gp"] not in (2, 4, 8, 16)]
+            entry = {
+                "name": f"{name}{'_bf16' if bf16 else ''}_wide",
+                "route": "cuda", "source": source,
+                "replaces": REPLACES[name], "launches": launches,
+                "max_abs_err": max(r["max_abs_err"] for r in mine),
+                "ms": k["ms"], "plain_ms": k["plain_ms"],
+                "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
+                "library_ms": None, "gp": sorted({r["gp"] for r in mine})}
+            if bf16:
+                entry["float32_ms"] = k["float32_ms"]
+            entries.append(entry)
+    return entries
+
+
+# ---- 20. data parallel -------------------------------------------------------
 
 DP_BATCH = 16        # global; 8 a rank on two ranks
 DP_TIMED = 3         # timed steps per rank after the counted one
@@ -3153,12 +3475,14 @@ def main() -> int:
                           ("zoo", phase_zoo), ("bf16", phase_bf16),
                           ("remat", phase_remat),
                           ("bf16_cli", phase_bf16_cli), ("cls", phase_cls),
-                          ("dp", phase_dp)):
+                          ("cls_wide", phase_cls_wide), ("dp", phase_dp)):
             counts[phase] = fn(torch)
     except Exception as e:  # report the phase, then fail without "ok"
         emit(phase, ok=False, error=f"{type(e).__name__}: {e}")
         return 1
-    print(json.dumps(summary(rows, counts)), flush=True)
+    line = summary(rows, counts)
+    line["kernels"] += wide_summary(counts["cls_wide"])
+    print(json.dumps(line), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

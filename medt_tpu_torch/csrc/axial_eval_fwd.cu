@@ -22,11 +22,12 @@
 // output affine beside the similarity affine of each (stripe, group) pair
 // and writes each plane that a lane holds after the body's reduce-scatter;
 // the summation order is the body's own (eval has no step parity to keep).
-// At gp 32 and 64 (the axial-attention classifiers' layer-3 and layer-4
-// sites) the entry point takes csrc/wide_attn.cuh's body instead, one
-// query row a thread with the value channels in chunks of 16, under the
-// same epilogue arithmetic (EvalWide below): the shared body's per-pair
-// accumulators and staged tables are sized for gp <= 16.
+// At every even gp up to 128 outside 2, 4, 8 and 16 (the axial-attention
+// classifiers' sites at gp 12 to 128) the entry point takes
+// csrc/wide_attn.cuh's body instead, one query row a thread with the value
+// channels in chunks of 16, under the same epilogue arithmetic (EvalWide
+// below): the shared body's per-pair accumulators and staged tables are
+// sized for gp <= 16.
 // The kernel launches on the caller's stream, allocates nothing and does
 // not synchronise; the entry point returns cudaGetLastError().
 
@@ -68,25 +69,28 @@ struct EvalEpilogue {
   }
 };
 
-// The same epilogue over csrc/wide_attn.cuh's body (gp 32 and 64).
+// The same epilogue over csrc/wide_attn.cuh's body (the wide widths).
 struct EvalWide {
   struct Params {
     const float* out_aff;  // (g, 4, gp)
     float* out;            // (S, g, gp, L)
-    int g, L;
+    int g, gp, L;
   };
-  template <int GP, bool POS>
+  template <bool POS>
   __device__ __forceinline__ static void store(
-      const Params& e, int gi, int i, int s, int p0,
+      const Params& e, int gi, int i, int s, int p0, int n,
       const float (&sv)[wide::kChunkP], const float (&sve)[wide::kChunkP]) {
+    const int GP = e.gp;
     const float* oa = e.out_aff + gi * 4 * GP;
     float* o = e.out + ((size_t)s * e.g + gi) * GP * e.L + i;
 #pragma unroll
     for (int u = 0; u < wide::kChunkP; ++u) {
-      const int p = p0 + u;
-      const float x = POS ? sve[u] : 0.f;
-      o[(size_t)p * e.L] = (sv[u] * oa[p] + oa[GP + p]) +
-                           (x * oa[2 * GP + p] + oa[3 * GP + p]);
+      if (u < n) {
+        const int p = p0 + u;
+        const float x = POS ? sve[u] : 0.f;
+        o[(size_t)p * e.L] = (sv[u] * oa[p] + oa[GP + p]) +
+                             (x * oa[2 * GP + p] + oa[3 * GP + p]);
+      }
     }
   }
   __device__ __forceinline__ static void stats(const Params&, int, int, int,
@@ -107,11 +111,11 @@ int medt_axial_eval_fwd(const float* q, const float* k, const float* v,
                         long long q_sg, long long k_ss, long long k_sg,
                         long long v_ss, long long v_sg, int S, int g, int gp,
                         int L, int has_pos, void* stream_ptr) {
-  if (gp == 32 || gp == 64) {
+  if (wide::is_wide(gp)) {
     const wide::Stripes x{q, k, v, qemb, kemb, vemb, q_ss, q_sg, k_ss,
                           k_sg, v_ss, v_sg, gp, L, S};
     return wide::launch_fwd<wide::Stripes, EvalWide>(
-        x, {out_aff, out, g, L}, sim_aff, g, has_pos != 0,
+        x, {out_aff, out, g, gp, L}, sim_aff, g, has_pos != 0,
         static_cast<cudaStream_t>(stream_ptr));
   }
   const medt::StripeArgs x{q, k, v, qemb, kemb, vemb, sim_aff,

@@ -1,19 +1,23 @@
-// The lanes-contract attention core at wide group planes (gp 32 and 64),
-// forward and backward, for Hopper (sm_90a).
+// The lanes-contract attention core at wide group planes (every even gp up
+// to 128 outside 2, 4, 8 and 16), forward and backward, for Hopper (sm_90a).
 //
-// Replaces, at gp 32 and 64, the Pallas TPU kernels of
+// Replaces, at those widths, the Pallas TPU kernels of
 // medt_tpu/ops/pallas_axial_lanes.py that the kernels of
 // csrc/axial_lanes_{fwd,bwd}.cu (lanes_attn_core, spans <= 16) and
 // csrc/axial_flash_{fwd,bwd}.cu (flash_lanes_core, spans 17..64) replace
-// at gp <= 16: the forwards _fwd_kernel and _flash_fwd_kernel and the
-// backwards _bwd_kernel and _flash_bwd_kernel. The axial-attention
-// classifiers (axial26s at s = 0.5) run their layer-3 and layer-4 sites at
-// gp 32 and 64; the segmentation models never pass gp 16. The contract is
+// at gp 2, 4, 8 and 16: the forwards _fwd_kernel and _flash_fwd_kernel and
+// the backwards _bwd_kernel and _flash_bwd_kernel. The axial-attention
+// classifiers run their sites at gp 12 to 128 (axial26s and axial50s at
+// 32 and 64 in layers 3-4; axial50m 12, 24, 48, 96; axial50l 32, 64, 128
+// beside 16); the segmentation models never pass gp 16. The contract is
 // the lanes one (ops/axial_lanes.py): qkv (g, 2gp, L, S), tables qemb,
 // kemb_t (c, L, L) and vemb (gp, L, L), affine (g, 8) -> sv, sve (g, gp, L,
 // S), and the flash contract's row max m and denominator l (g, L, S); the
 // backward gives dqkv, the table gradients (2gp, L, L) and daff (g, 8).
-// Everything is float32 (the bf16 entry points stop at gp 16).
+// qkv (and dqkv) are float32 or bf16 (the _bf16 entry points): bf16 is
+// converted where it is read and dqkv rounded once where it is stored, so
+// every other output equals the float32 entry point's on the upcast qkv,
+// bit for bit, and dqkv is its dqkv rounded once.
 //
 // Design, for correctness first (the designs for gp <= 16 do not scale:
 // csrc/wide_attn.cuh says why):
@@ -32,9 +36,10 @@
 //          term over the stripes (lanes over stripes, coalesced; warp_sum),
 //          one slot per group;
 //       4. medt::bwd_finalize sums the slots in a fixed order.
-//     The scratch costs 2 g L^2 S floats (5.6 MB at the widest axial26s
-//     site: span 28, gp 32, 224 stripes); no float atomics, the same bits
-//     every run.
+//     The scratch costs 2 g L^2 S floats (90 MB at axial50m's widest train
+//     site: span 56, 448 stripes); no float atomics, the same bits every
+//     run. Each kernel is instantiated per register bucket of c
+//     (wide::cm_bucket) and takes gp at run time, as the forward does.
 // What bounds it on the H100: device memory at its bound (each input read
 // once, each output written once); this design also writes and reads the
 // (g, L, L, S) scratch twice and re-reads k, v and the tables per row
@@ -43,6 +48,7 @@
 // passes the scratch) and do not synchronise; the entry points return the
 // first CUDA error of their launches.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stddef.h>
 
@@ -65,19 +71,21 @@ struct LanesEpilogue {
     float* sve;
     float* m;  // null: the lanes contract, no statistics
     float* l;
-    int L, S;
+    int gp, L, S;
   };
-  template <int GP, bool POS>
+  template <bool POS>
   __device__ __forceinline__ static void store(const Params& e, int gi, int i,
-                                               int s, int p0,
+                                               int s, int p0, int n,
                                                const float (&sv)[kChunkP],
                                                const float (&sve)[kChunkP]) {
     const size_t LS = (size_t)e.L * e.S;
-    const size_t o = ((size_t)gi * GP + p0) * LS + (size_t)i * e.S + s;
+    const size_t o = ((size_t)gi * e.gp + p0) * LS + (size_t)i * e.S + s;
 #pragma unroll
     for (int u = 0; u < kChunkP; ++u) {
-      e.sv[o + u * LS] = sv[u];
-      if constexpr (POS) e.sve[o + u * LS] = sve[u];
+      if (u < n) {
+        e.sv[o + u * LS] = sv[u];
+        if constexpr (POS) e.sve[o + u * LS] = sve[u];
+      }
     }
   }
   __device__ __forceinline__ static void stats(const Params& e, int gi, int i,
@@ -89,8 +97,9 @@ struct LanesEpilogue {
   }
 };
 
+template <class T>
 struct BwdArgs {
-  Lanes x;
+  Lanes<T> x;
   const float* aff;
   const float* m;     // saved (flash contract) or null (lanes contract)
   const float* l;
@@ -98,31 +107,32 @@ struct BwdArgs {
   const float* sve;
   const float* dsv;   // (g, gp, L, S)
   const float* dsve;
-  float* dqkv;        // (g, 2gp, L, S)
+  T* dqkv;            // (g, 2gp, L, S)
   float* prob;        // (g, L, L, S) scratch: p_ij
   float* dlog;        // (g, L, L, S) scratch: dsim_ij, then dlog_ij
   float* tab_part;    // (g, 2gp, L, L), positions only
   float* aff_part;    // (ceil(L / kRows) * ceil(S / kStripes), g, 4)
 };
 
-__device__ __forceinline__ size_t pair_at(const BwdArgs& a, int gi, int i,
+template <class T>
+__device__ __forceinline__ size_t pair_at(const BwdArgs<T>& a, int gi, int i,
                                           int j, int s) {
   const int L = a.x.L;
   return (((size_t)gi * L + i) * L + j) * a.x.S + s;
 }
 
-__device__ __forceinline__ size_t plane_at(const BwdArgs& a, int gi, int p,
+template <class T>
+__device__ __forceinline__ size_t plane_at(const BwdArgs<T>& a, int gi, int p,
                                            int gp, int i, int s) {
   return (((size_t)gi * gp + p) * a.x.L + i) * a.x.S + s;
 }
 
 // 1. thread (query i, stripe s): probabilities, dsim, dlog, dq, daff sums
-template <int GP, bool POS>
-__global__ void __launch_bounds__(kThreads) wide_rows_kernel(BwdArgs a) {
-  constexpr int C = GP / 2;
+template <int CM, bool POS, class T>
+__global__ void __launch_bounds__(kThreads) wide_rows_kernel(BwdArgs<T> a) {
   __shared__ float wsum[kThreads / 32][4];
-  const Lanes& x = a.x;
-  const int L = x.L, S = x.S;
+  const Lanes<T>& x = a.x;
+  const int L = x.L, S = x.S, GP = x.gp, C = GP / 2;
   const int s = blockIdx.x * kStripes + threadIdx.x;
   const int i = blockIdx.y * kRows + threadIdx.y;
   const int gi = blockIdx.z;
@@ -133,16 +143,16 @@ __global__ void __launch_bounds__(kThreads) wide_rows_kernel(BwdArgs a) {
   for (int k = 0; k < 6; ++k) af[k] = __ldg(a.aff + gi * 8 + k);
   float s_qk = 0.f, s_b = 0.f, s_qr = 0.f, s_kr = 0.f;
   if (active) {
-    float q[C];
-#pragma unroll
-    for (int c = 0; c < C; ++c) q[c] = x.q(gi, c, i, s);
+    float q[CM];
+    wide::load_q(x, q, gi, i, s);
     float* prow = a.prob + pair_at(a, gi, i, 0, s);   // + j * S
     float* drow = a.dlog + pair_at(a, gi, i, 0, s);
     // logits, then the softmax from (m, l), recomputed or saved
     float m = -3.0e38f;
     for (int j = 0; j < L; ++j) {
       float qk, qr, kr;
-      const float lg = wide::logit<C, POS>(x, q, gi, i, j, s, af, qk, qr, kr);
+      const float lg = wide::logit<CM, POS>(x, q, gi, i, j, s, af, qk, qr,
+                                            kr);
       prow[(size_t)j * S] = lg;
       m = fmaxf(m, lg);
     }
@@ -161,7 +171,7 @@ __global__ void __launch_bounds__(kThreads) wide_rows_kernel(BwdArgs a) {
       const float p = expf(prow[(size_t)j * S] - m) * inv_l;
       prow[(size_t)j * S] = p;
       float d = 0.f;
-#pragma unroll 16
+#pragma unroll 4
       for (int pp = 0; pp < GP; ++pp) {
         d = fmaf(__ldg(a.dsv + plane_at(a, gi, pp, GP, i, s)),
                  x.v(gi, pp, j, s), d);
@@ -175,7 +185,7 @@ __global__ void __launch_bounds__(kThreads) wide_rows_kernel(BwdArgs a) {
     }
     if (a.m != nullptr) {  // the flash contract: delta from the outputs
       delta = 0.f;
-#pragma unroll 16
+#pragma unroll 4
       for (int pp = 0; pp < GP; ++pp) {
         const size_t o = plane_at(a, gi, pp, GP, i, s);
         delta = fmaf(a.dsv[o], a.sv[o], delta);
@@ -184,19 +194,21 @@ __global__ void __launch_bounds__(kThreads) wide_rows_kernel(BwdArgs a) {
     }
     // dlog_ij = p_ij (dsim_ij - delta); dq (one accumulator a channel:
     // dq[c] = sum_j dlog_ij (a0 k[c,j] + a2 qemb[c,i,j])) and the daff sums
-    float dq[C];
+    float dq[CM];
 #pragma unroll
-    for (int c = 0; c < C; ++c) dq[c] = 0.f;
+    for (int c = 0; c < CM; ++c) dq[c] = 0.f;
     for (int j = 0; j < L; ++j) {
       const float dl = prow[(size_t)j * S] * (drow[(size_t)j * S] - delta);
       drow[(size_t)j * S] = dl;
       float qk, qr, kr;
-      wide::logit<C, POS>(x, q, gi, i, j, s, af, qk, qr, kr);
+      wide::logit<CM, POS>(x, q, gi, i, j, s, af, qk, qr, kr);
 #pragma unroll
-      for (int c = 0; c < C; ++c) {
-        float w = af[0] * x.k(gi, c, j, s);
-        if constexpr (POS) w = fmaf(af[2], x.tq(c, i, j), w);
-        dq[c] = fmaf(dl, w, dq[c]);
+      for (int c = 0; c < CM; ++c) {
+        if (c < C) {
+          float w = af[0] * x.k(gi, c, j, s);
+          if constexpr (POS) w = fmaf(af[2], x.tq(c, i, j), w);
+          dq[c] = fmaf(dl, w, dq[c]);
+        }
       }
       s_b += dl;
       s_qk = fmaf(dl, qk, s_qk);
@@ -206,7 +218,11 @@ __global__ void __launch_bounds__(kThreads) wide_rows_kernel(BwdArgs a) {
       }
     }
 #pragma unroll
-    for (int c = 0; c < C; ++c) a.dqkv[plane_at(a, gi, c, 2 * GP, i, s)] = dq[c];
+    for (int c = 0; c < CM; ++c) {
+      if (c < C) {
+        a.dqkv[plane_at(a, gi, c, 2 * GP, i, s)] = flash2::from_f32<T>(dq[c]);
+      }
+    }
   }
   const float sums[4] = {s_qk, s_b, s_qr, s_kr};
 #pragma unroll
@@ -225,32 +241,38 @@ __global__ void __launch_bounds__(kThreads) wide_rows_kernel(BwdArgs a) {
 }
 
 // 2. thread (key j, stripe s): dk from dlog, dv from p
-template <int GP, bool POS>
-__global__ void __launch_bounds__(kThreads) wide_cols_kernel(BwdArgs a) {
-  constexpr int C = GP / 2;
-  const Lanes& x = a.x;
-  const int L = x.L, S = x.S;
+template <int CM, bool POS, class T>
+__global__ void __launch_bounds__(kThreads) wide_cols_kernel(BwdArgs<T> a) {
+  const Lanes<T>& x = a.x;
+  const int L = x.L, S = x.S, GP = x.gp, C = GP / 2;
   const int s = blockIdx.x * kStripes + threadIdx.x;
   const int j = blockIdx.y * kRows + threadIdx.y;
   const int gi = blockIdx.z;
   if (s >= S || j >= L) return;
   const float a0 = __ldg(a.aff + gi * 8), a4 = __ldg(a.aff + gi * 8 + 4);
-  float dk[C];
+  float dk[CM];
 #pragma unroll
-  for (int c = 0; c < C; ++c) dk[c] = 0.f;
+  for (int c = 0; c < CM; ++c) dk[c] = 0.f;
   for (int i = 0; i < L; ++i) {
     const float dl = a.dlog[pair_at(a, gi, i, j, s)];
 #pragma unroll
-    for (int c = 0; c < C; ++c) {
-      float w = a0 * x.q(gi, c, i, s);
-      if constexpr (POS) w = fmaf(a4, x.tk(c, i, j), w);
-      dk[c] = fmaf(dl, w, dk[c]);
+    for (int c = 0; c < CM; ++c) {
+      if (c < C) {
+        float w = a0 * x.q(gi, c, i, s);
+        if constexpr (POS) w = fmaf(a4, x.tk(c, i, j), w);
+        dk[c] = fmaf(dl, w, dk[c]);
+      }
     }
   }
 #pragma unroll
-  for (int c = 0; c < C; ++c)
-    a.dqkv[plane_at(a, gi, C + c, 2 * GP, j, s)] = dk[c];
+  for (int c = 0; c < CM; ++c) {
+    if (c < C) {
+      a.dqkv[plane_at(a, gi, C + c, 2 * GP, j, s)] =
+          flash2::from_f32<T>(dk[c]);
+    }
+  }
   for (int p0 = 0; p0 < GP; p0 += kChunkP) {
+    const int n = min(kChunkP, GP - p0);
     float dv[kChunkP];
 #pragma unroll
     for (int u = 0; u < kChunkP; ++u) dv[u] = 0.f;
@@ -258,13 +280,19 @@ __global__ void __launch_bounds__(kThreads) wide_cols_kernel(BwdArgs a) {
       const float pr = a.prob[pair_at(a, gi, i, j, s)];
 #pragma unroll
       for (int u = 0; u < kChunkP; ++u) {
-        dv[u] = fmaf(pr, __ldg(a.dsv + plane_at(a, gi, p0 + u, GP, i, s)),
-                     dv[u]);
+        if (u < n) {
+          dv[u] = fmaf(pr, __ldg(a.dsv + plane_at(a, gi, p0 + u, GP, i, s)),
+                       dv[u]);
+        }
       }
     }
 #pragma unroll
-    for (int u = 0; u < kChunkP; ++u)
-      a.dqkv[plane_at(a, gi, GP + p0 + u, 2 * GP, j, s)] = dv[u];
+    for (int u = 0; u < kChunkP; ++u) {
+      if (u < n) {
+        a.dqkv[plane_at(a, gi, GP + p0 + u, 2 * GP, j, s)] =
+            flash2::from_f32<T>(dv[u]);
+      }
+    }
   }
 }
 
@@ -274,12 +302,11 @@ __global__ void __launch_bounds__(kThreads) wide_cols_kernel(BwdArgs a) {
 //   dlog_ij k[c,j],  dvemb[p,i,j] = sum_s p_ij dsve[p,i]
 constexpr int kTabWarps = 8;
 
-template <int GP>
+template <class T>
 __global__ void __launch_bounds__(kTabWarps * 32) wide_tables_kernel(
-    BwdArgs a) {
-  constexpr int C = GP / 2;
-  const Lanes& x = a.x;
-  const int L = x.L, S = x.S, LL = L * L;
+    BwdArgs<T> a) {
+  const Lanes<T>& x = a.x;
+  const int L = x.L, S = x.S, LL = L * L, GP = x.gp, C = GP / 2;
   const int lane = threadIdx.x & 31;
   const int e = blockIdx.x * kTabWarps + (threadIdx.x >> 5);
   const int gi = blockIdx.y;
@@ -306,26 +333,75 @@ __global__ void __launch_bounds__(kTabWarps * 32) wide_tables_kernel(
   }
 }
 
-template <int GP, bool POS>
-cudaError_t bwd_launches(const BwdArgs& a, int g, cudaStream_t stream) {
+template <int CM, bool POS, class T>
+cudaError_t bwd_launches(const BwdArgs<T>& a, int g, cudaStream_t stream) {
   const dim3 grid((a.x.S + kStripes - 1) / kStripes,
                   (a.x.L + kRows - 1) / kRows, g);
   const dim3 block(kStripes, kRows);
-  wide_rows_kernel<GP, POS><<<grid, block, 0, stream>>>(a);
+  wide_rows_kernel<CM, POS, T><<<grid, block, 0, stream>>>(a);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  wide_cols_kernel<GP, POS><<<grid, block, 0, stream>>>(a);
+  wide_cols_kernel<CM, POS, T><<<grid, block, 0, stream>>>(a);
   err = cudaGetLastError();
   if (err != cudaSuccess || !POS) return err;
-  const int elems = 2 * GP * a.x.L * a.x.L;
-  wide_tables_kernel<GP><<<dim3((elems + kTabWarps - 1) / kTabWarps, g),
-                           kTabWarps * 32, 0, stream>>>(a);
+  const int elems = 2 * a.x.gp * a.x.L * a.x.L;
+  wide_tables_kernel<T><<<dim3((elems + kTabWarps - 1) / kTabWarps, g),
+                          kTabWarps * 32, 0, stream>>>(a);
   return cudaGetLastError();
+}
+
+template <int CM, class T>
+cudaError_t bwd_cm(const BwdArgs<T>& a, int g, bool pos, cudaStream_t st) {
+  return pos ? bwd_launches<CM, true, T>(a, g, st)
+             : bwd_launches<CM, false, T>(a, g, st);
 }
 
 bool bad_geometry(int g, int gp, int L, int S) {
   return g < 1 || g > 65535 || S < 1 || L < 1 || L > wide::kMaxSpan ||
-         (gp != 32 && gp != 64);
+         !wide::gp_ok(gp);
+}
+
+template <class T>
+int wide_fwd(const T* qkv, const float* qemb, const float* kemb_t,
+             const float* vemb, const float* aff, float* sv, float* sve,
+             float* m, float* l, int g, int gp, int L, int S, int has_pos,
+             int save_ml, void* stream) {
+  if (bad_geometry(g, gp, L, S)) return (int)cudaErrorInvalidValue;
+  const Lanes<T> x{qkv, qemb, kemb_t, vemb, gp, L, S};
+  const LanesEpilogue::Params e{sv, sve, save_ml ? m : nullptr,
+                                save_ml ? l : nullptr, gp, L, S};
+  return wide::launch_fwd<Lanes<T>, LanesEpilogue>(
+      x, e, aff, g, has_pos != 0, static_cast<cudaStream_t>(stream));
+}
+
+template <class T>
+int wide_bwd(const T* qkv, const float* qemb, const float* kemb_t,
+             const float* vemb, const float* aff, const float* m,
+             const float* l, const float* sv, const float* sve,
+             const float* dsv, const float* dsve, T* dqkv, float* dtables,
+             float* daff, float* prob, float* dlog, float* tab_part,
+             float* aff_part, int g, int gp, int L, int S, int has_pos,
+             int saved, int n_aff_part, void* stream) {
+  const int slots = ((L + kRows - 1) / kRows) * ((S + kStripes - 1) / kStripes);
+  if (bad_geometry(g, gp, L, S) || n_aff_part != slots) {
+    return (int)cudaErrorInvalidValue;
+  }
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const bool pos = has_pos != 0;
+  const BwdArgs<T> a{Lanes<T>{qkv, qemb, kemb_t, vemb, gp, L, S}, aff,
+                     saved ? m : nullptr, saved ? l : nullptr, sv, sve, dsv,
+                     dsve, dqkv, prob, dlog, tab_part, aff_part};
+  cudaError_t err;
+  switch (wide::cm_bucket(gp / 2)) {
+    case 8: err = bwd_cm<8>(a, g, pos, st); break;
+    case 16: err = bwd_cm<16>(a, g, pos, st); break;
+    case 32: err = bwd_cm<32>(a, g, pos, st); break;
+    default: err = bwd_cm<64>(a, g, pos, st); break;
+  }
+  if (err != cudaSuccess) return (int)err;
+  medt::bwd_finalize(tab_part, dtables, pos ? g : 0, (size_t)2 * gp * L * L,
+                     aff_part, daff, n_aff_part, g, has_pos, st);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -333,26 +409,34 @@ bool bad_geometry(int g, int gp, int L, int S) {
 extern "C" {
 
 // The lanes (save_ml == 0) or flash (save_ml != 0: m, l (g, L, S) written)
-// forward at gp 32 or 64 and spans up to 64. sve is not written without
-// positions.
+// forward at any even gp up to 128 and spans up to 64. sve is not written
+// without positions.
 int medt_wide_attn_fwd(const float* qkv, const float* qemb,
                        const float* kemb_t, const float* vemb,
                        const float* aff, float* sv, float* sve, float* m,
                        float* l, int g, int gp, int L, int S, int has_pos,
                        int save_ml, void* stream) {
-  if (bad_geometry(g, gp, L, S)) return (int)cudaErrorInvalidValue;
-  const Lanes x{qkv, qemb, kemb_t, vemb, gp, L, S};
-  const LanesEpilogue::Params e{sv, sve, save_ml ? m : nullptr,
-                                save_ml ? l : nullptr, L, S};
-  return wide::launch_fwd<Lanes, LanesEpilogue>(
-      x, e, aff, g, has_pos != 0, static_cast<cudaStream_t>(stream));
+  return wide_fwd(qkv, qemb, kemb_t, vemb, aff, sv, sve, m, l, g, gp, L, S,
+                  has_pos, save_ml, stream);
 }
 
-// The backward at gp 32 or 64, spans up to 64: the lanes contract (saved
-// == 0: m, l, sv, sve not read) or the flash contract (saved != 0). dtables
-// (2gp, L, L) and tab_part (g, 2gp, L, L) are not touched without
-// positions, nor dsve read; prob and dlog are (g, L, L, S) scratch;
-// aff_part holds n_aff_part = ceil(L / 4) * ceil(S / 32) slots of (g, 4).
+// The same on bf16 qkv: the float32 entry point's outputs on the upcast
+// qkv, bit for bit.
+int medt_wide_attn_fwd_bf16(const __nv_bfloat16* qkv, const float* qemb,
+                            const float* kemb_t, const float* vemb,
+                            const float* aff, float* sv, float* sve,
+                            float* m, float* l, int g, int gp, int L, int S,
+                            int has_pos, int save_ml, void* stream) {
+  return wide_fwd(qkv, qemb, kemb_t, vemb, aff, sv, sve, m, l, g, gp, L, S,
+                  has_pos, save_ml, stream);
+}
+
+// The backward at any even gp up to 128, spans up to 64: the lanes
+// contract (saved == 0: m, l, sv, sve not read) or the flash contract
+// (saved != 0). dtables (2gp, L, L) and tab_part (g, 2gp, L, L) are not
+// touched without positions, nor dsve read; prob and dlog are (g, L, L, S)
+// scratch; aff_part holds n_aff_part = ceil(L / 4) * ceil(S / 32) slots of
+// (g, 4).
 int medt_wide_attn_bwd(const float* qkv, const float* qemb,
                        const float* kemb_t, const float* vemb,
                        const float* aff, const float* m, const float* l,
@@ -361,27 +445,26 @@ int medt_wide_attn_bwd(const float* qkv, const float* qemb,
                        float* daff, float* prob, float* dlog, float* tab_part,
                        float* aff_part, int g, int gp, int L, int S,
                        int has_pos, int saved, int n_aff_part, void* stream) {
-  const int slots = ((L + kRows - 1) / kRows) * ((S + kStripes - 1) / kStripes);
-  if (bad_geometry(g, gp, L, S) || n_aff_part != slots) {
-    return (int)cudaErrorInvalidValue;
-  }
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const bool pos = has_pos != 0;
-  const BwdArgs a{Lanes{qkv, qemb, kemb_t, vemb, gp, L, S}, aff,
-                  saved ? m : nullptr, saved ? l : nullptr, sv, sve, dsv,
-                  dsve, dqkv, prob, dlog, tab_part, aff_part};
-  cudaError_t err;
-  if (gp == 32) {
-    err = pos ? bwd_launches<32, true>(a, g, st)
-              : bwd_launches<32, false>(a, g, st);
-  } else {
-    err = pos ? bwd_launches<64, true>(a, g, st)
-              : bwd_launches<64, false>(a, g, st);
-  }
-  if (err != cudaSuccess) return (int)err;
-  medt::bwd_finalize(tab_part, dtables, pos ? g : 0, (size_t)2 * gp * L * L,
-                     aff_part, daff, n_aff_part, g, has_pos, st);
-  return (int)cudaGetLastError();
+  return wide_bwd(qkv, qemb, kemb_t, vemb, aff, m, l, sv, sve, dsv, dsve,
+                  dqkv, dtables, daff, prob, dlog, tab_part, aff_part, g, gp,
+                  L, S, has_pos, saved, n_aff_part, stream);
+}
+
+// The same on bf16 qkv: dqkv (bf16) is the float32 entry point's dqkv on
+// the upcast qkv rounded once, every other output its own, bit for bit.
+int medt_wide_attn_bwd_bf16(const __nv_bfloat16* qkv, const float* qemb,
+                            const float* kemb_t, const float* vemb,
+                            const float* aff, const float* m, const float* l,
+                            const float* sv, const float* sve,
+                            const float* dsv, const float* dsve,
+                            __nv_bfloat16* dqkv, float* dtables, float* daff,
+                            float* prob, float* dlog, float* tab_part,
+                            float* aff_part, int g, int gp, int L, int S,
+                            int has_pos, int saved, int n_aff_part,
+                            void* stream) {
+  return wide_bwd(qkv, qemb, kemb_t, vemb, aff, m, l, sv, sve, dsv, dsve,
+                  dqkv, dtables, daff, prob, dlog, tab_part, aff_part, g, gp,
+                  L, S, has_pos, saved, n_aff_part, stream);
 }
 
 }  // extern "C"

@@ -68,12 +68,13 @@
 // read, and each dqkv value is rounded once where it is stored, so a bf16
 // qkv gives the float32 kernels' sums and table gradients on its upcast,
 // bit for bit, and their dqkv rounded once.
-// At gp 32 and 64 (c = 16, 32: the axial-attention classifiers' layer-3
-// and layer-4 sites) the per-stripe sums above no longer fit: the c(c+1)/2
-// pair sums of a stripe (528 at c = 32) and the staged slab and tables pass
-// a block's shared memory. There the float32 entry points take two kernels
-// of their own, for correctness first, under the same partial layouts and
-// finalizes:
+// At the wide widths, every even gp up to 128 outside 2, 4, 8 and 16 (the
+// axial-attention classifiers' sites at gp 12 to 128; c = 6 to 64), the
+// per-stripe sums above no longer fit: the c(c+1)/2 pair sums of a stripe
+// (528 at c = 32) and the staged slab and tables pass a block's shared
+// memory. There the entry points take two kernels of their own
+// (csrc/moments_wide.cu), for correctness first, under the same partial
+// layouts and finalizes, on float32 or bf16 qkv alike:
 //   * moments_wide_fwd_kernel: a block owns one group and kFwdStripes
 //     stripes (lane = stripe), its warps take the rows l in turn; a thread
 //     sums its (l, stripe)'s terms directly: qk_lj over the keys j (s1_qk
@@ -88,16 +89,16 @@
 //     accumulators; then, with positions, the tile's table partial, one
 //     value per (table row, position) over its TS stripes.
 // Both read q and k from device memory (L1 and L2) where the designs
-// above stage them. The bf16 entry points stop at gp 16.
+// above stage them, and their table terms cost c^2 a row: at gp 128 the
+// backward's tile partial alone is 8320 rows of L.
 // Kernels launch on the caller's stream, allocate nothing and do not
 // synchronise; the entry points return cudaGetLastError().
 
 #include <cuda_runtime.h>
 #include <stddef.h>
 
-#include <type_traits>
-
 #include "flash2_tiles.cuh"
+#include "moments_wide.cuh"
 #include "reduce.cuh"
 
 namespace {
@@ -697,192 +698,20 @@ cudaError_t bwd_c(const MomBwdArgs<T>& a, int g, int ts, bool pos,
   }
 }
 
-// gp 32 and 64 (c = 16, 32): the wide kernels
-constexpr bool is_wide(int gp) { return gp == 32 || gp == 64; }
-
-// Forward at c = 16, 32: a thread per (row l, stripe), rows l = warp,
-// warp + kFwdWarps, ...; each stripe past the edge adds 0.
-template <int C, bool HAS_POS>
-__global__ void __launch_bounds__(kFwdThreads)
-moments_wide_fwd_kernel(MomFwdArgs<float> a) {
-  __shared__ float wsum[kFwdWarps][6];
-  const int L = a.L, S = a.S, gi = blockIdx.y;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int s = blockIdx.x * kFwdStripes + lane;
-  const bool valid = s < S;
-  const size_t LS = (size_t)L * S;
-  const float* base = a.qkv + (size_t)gi * 4 * C * LS + (valid ? s : 0);
-  auto at = [&](int row, int l) {
-    return valid ? __ldg(base + row * LS + (size_t)l * S) : 0.f;
-  };
-  float v[6] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-  for (int l = warp; l < L; l += kFwdWarps) {
-    float x[C];
-#pragma unroll
-    for (int c = 0; c < C; ++c) x[c] = at(c, l);
-    for (int j = 0; j < L; ++j) {
-      float d = 0.f;
-#pragma unroll
-      for (int c = 0; c < C; ++c) d = fmaf(x[c], at(C + c, j), d);
-      v[0] += d;
-      v[1] = fmaf(d, d, v[1]);
-    }
-    if constexpr (HAS_POS) {
-#pragma unroll
-      for (int K = 0; K < 2; ++K) {
-        if (K == 1) {
-#pragma unroll
-          for (int c = 0; c < C; ++c) x[c] = at(C + c, l);
-        }
-        const float* r = K ? a.r_k : a.r_q;
-        const float* e = K ? a.e_k : a.e_q;
-        float s1 = 0.f, s2 = 0.f;
-        // c unrolled (x[c] from registers); d not, its x[d] read again
-        // from L1: two unrolled loops over c^2 (e) loads spilled
-#pragma unroll
-        for (int c = 0; c < C; ++c) {
-          s1 = fmaf(x[c], __ldg(r + c * L + l), s1);
-          float ed = 0.f;
-#pragma unroll 4
-          for (int d = 0; d < C; ++d)
-            ed = fmaf(__ldg(e + ((size_t)c * C + d) * L + l),
-                      at(K * C + d, l), ed);
-          s2 = fmaf(x[c], ed, s2);
-        }
-        v[2 + 2 * K] += s1;
-        v[3 + 2 * K] += s2;
-      }
-    }
-  }
-#pragma unroll
-  for (int k = 0; k < 6; ++k) {
-    const float w = warp_sum(v[k]);
-    if (lane == 0) wsum[warp][k] = w;
-  }
-  __syncthreads();
-  if (threadIdx.x < 6) {
-    float w = 0.f;
-#pragma unroll
-    for (int k = 0; k < kFwdWarps; ++k) w += wsum[k][threadIdx.x];
-    a.part[((size_t)gi * gridDim.x + blockIdx.x) * 6 + threadIdx.x] = w;
-  }
+// The wide widths (every even gp up to 128 outside 2, 4, 8 and 16) run the
+// kernels of csrc/moments_wide.cu (its own source, so the two compile in
+// parallel) under this file's partial layouts and finalizes.
+constexpr bool is_wide(int gp) {
+  return gp != 2 && gp != 4 && gp != 8 && gp != 16;
 }
-
-// Backward at c = 16, 32 over tiles of ts stripes (bwd_tile): dq, dk and
-// the zero v rows, a thread per (row l, stripe); then, with positions, the
-// tile's table partial.
-template <int C, bool HAS_POS>
-__global__ void __launch_bounds__(kBwdThreads)
-moments_wide_bwd_kernel(MomBwdArgs<float> a, int ts) {
-  constexpr int T2 = 2 * C + 2 * C * C;
-  const int L = a.L, S = a.S, gi = blockIdx.y, s0 = blockIdx.x * ts;
-  const size_t LS = (size_t)L * S;
-  const float* base = a.qkv + (size_t)gi * 4 * C * LS;
-  float* out = a.dqkv + (size_t)gi * 4 * C * LS;
-  const float* cg = a.ct + gi * 8;
-  const float c0 = cg[0], c1 = cg[1], c2 = cg[2], c3 = cg[3], c4 = cg[4],
-              c5 = cg[5];
-  for (int e = threadIdx.x; e < L * ts; e += kBwdThreads) {
-    const int l = e / ts, s = s0 + e % ts;
-    if (s >= S) continue;
-    const float* col = base + s;  // (row, position) at col[row * LS + pos * S]
-#pragma unroll
-    for (int K = 0; K < 2; ++K) {  // dq (x = q), then dk (x = k)
-      const int mine = K ? C : 0, other = K ? 0 : C;
-      float x[C], acc[C];
-#pragma unroll
-      for (int c = 0; c < C; ++c) {
-        x[c] = __ldg(col + (mine + c) * LS + (size_t)l * S);
-        acc[c] = 0.f;
-      }
-      for (int j = 0; j < L; ++j) {
-        float d = 0.f;
-#pragma unroll
-        for (int c = 0; c < C; ++c)
-          d = fmaf(x[c], __ldg(col + (other + c) * LS + (size_t)j * S), d);
-        const float w = fmaf(2.f * c1, d, c0);
-#pragma unroll
-        for (int c = 0; c < C; ++c)
-          acc[c] = fmaf(__ldg(col + (other + c) * LS + (size_t)j * S), w,
-                        acc[c]);
-      }
-      if constexpr (HAS_POS) {
-        const float* r = K ? a.r_k : a.r_q;
-        const float* et = K ? a.e_k : a.e_q;
-        const float cr = K ? c4 : c2, ce = K ? c5 : c3;
-        // c unrolled (acc[c] in registers); d not, its x[d] read again
-        // from L1 (see the forward)
-#pragma unroll
-        for (int c = 0; c < C; ++c) {
-          float ed = 0.f;
-#pragma unroll 4
-          for (int d = 0; d < C; ++d) {
-            ed = fmaf(__ldg(et + ((size_t)c * C + d) * L + l) +
-                          __ldg(et + ((size_t)d * C + c) * L + l),
-                      __ldg(col + (mine + d) * LS + (size_t)l * S), ed);
-          }
-          acc[c] += cr * __ldg(r + c * L + l) + ce * ed;
-        }
-      }
-#pragma unroll
-      for (int c = 0; c < C; ++c)
-        out[(mine + c) * LS + (size_t)l * S + s] = acc[c];
-    }
-    for (int p = 0; p < 2 * C; ++p)  // v rows
-      out[(2 * C + p) * LS + (size_t)l * S + s] = 0.f;
-  }
-  if constexpr (HAS_POS) {
-    // rows: dr_q (C), de_q (C * C, [c][d]), dr_k (C), de_k (C * C)
-    float* part = a.part + ((size_t)gi * gridDim.x + blockIdx.x) * T2 * L;
-    const int s1 = min(s0 + ts, S);
-    for (int e = threadIdx.x; e < T2 * L; e += kBwdThreads) {
-      const int row = e / L, l = e - row * L;
-      const bool on_k = row >= C + C * C;
-      const int rk = on_k ? row - (C + C * C) : row;
-      const float* x = base + (on_k ? C : 0) * LS + (size_t)l * S;
-      float sum = 0.f;
-      if (rk < C) {
-        for (int s = s0; s < s1; ++s) sum += __ldg(x + rk * LS + s);
-        part[e] = (on_k ? c4 : c2) * sum;
-      } else {
-        const int c = (rk - C) / C, d = (rk - C) % C;
-        for (int s = s0; s < s1; ++s)
-          sum = fmaf(__ldg(x + c * LS + s), __ldg(x + d * LS + s), sum);
-        part[e] = (on_k ? c5 : c3) * sum;
-      }
-    }
-  }
-}
-
-template <int C>
-cudaError_t wide_fwd(const MomFwdArgs<float>& a, int g, bool pos,
-                     cudaStream_t stream) {
-  const dim3 grid((a.S + kFwdStripes - 1) / kFwdStripes, g);
-  if (pos) {
-    moments_wide_fwd_kernel<C, true><<<grid, kFwdThreads, 0, stream>>>(a);
-  } else {
-    moments_wide_fwd_kernel<C, false><<<grid, kFwdThreads, 0, stream>>>(a);
-  }
-  return cudaGetLastError();
-}
-
-template <int C>
-cudaError_t wide_bwd(const MomBwdArgs<float>& a, int g, int ts, bool pos,
-                     cudaStream_t stream) {
-  const dim3 grid((a.S + ts - 1) / ts, g);
-  if (pos) {
-    moments_wide_bwd_kernel<C, true><<<grid, kBwdThreads, 0, stream>>>(a,
-                                                                       ts);
-  } else {
-    moments_wide_bwd_kernel<C, false><<<grid, kBwdThreads, 0, stream>>>(a,
-                                                                        ts);
-  }
-  return cudaGetLastError();
-}
+static_assert(kFwdStripes == medt_moments::kWideFwdStripes &&
+                  kFwdThreads == medt_moments::kWideThreads &&
+                  kBwdThreads == medt_moments::kWideThreads,
+              "moments_wide.cu's tiles and partial layouts are this file's");
 
 bool bad_geometry(int g, int gp, int L, int S) {
-  return g < 1 || g > 65535 || S < 1 || L < 1 || L > 65535 ||
-         !(gp == 2 || gp == 4 || gp == 8 || gp == 16 || is_wide(gp));
+  return g < 1 || g > 65535 || S < 1 || L < 1 || L > 65535 || gp < 2 ||
+         gp > 128 || gp % 2 != 0;
 }
 
 template <class T>
@@ -901,12 +730,8 @@ int moments_fwd(const T* qkv, const float* r_q, const float* e_q,
                         S % flash2::kChunk<T> == 0 && flash2::aligned16(qkv)};
   cudaError_t err;
   if (is_wide(gp)) {
-    if constexpr (!std::is_same<T, float>::value) {
-      return (int)cudaErrorInvalidValue;  // float32 only at gp 32, 64
-    } else {
-      err = gp == 32 ? wide_fwd<16>(a, g, pos, stream)
-                     : wide_fwd<32>(a, g, pos, stream);
-    }
+    err = medt_moments::wide_fwd(qkv, r_q, e_q, r_k, e_k, part, g, gp / 2,
+                                 L, S, pos, stream);
   } else {
     switch (gp / 2) {
       case 1: err = fwd_c<1>(a, g, pos, stream); break;
@@ -941,12 +766,8 @@ int moments_bwd(const T* qkv, const float* r_q, const float* e_q,
                         S % flash2::kChunk<T> == 0 && flash2::aligned16(qkv)};
   cudaError_t err;
   if (is_wide(gp)) {
-    if constexpr (!std::is_same<T, float>::value) {
-      return (int)cudaErrorInvalidValue;  // float32 only at gp 32, 64
-    } else {
-      err = gp == 32 ? wide_bwd<16>(a, g, ts, pos, stream)
-                     : wide_bwd<32>(a, g, ts, pos, stream);
-    }
+    err = medt_moments::wide_bwd(qkv, r_q, e_q, r_k, e_k, ct, dqkv, part, g,
+                                 ts, c, L, S, pos, stream);
   } else {
     switch (c) {
       case 1: err = bwd_c<1>(a, g, ts, pos, stream); break;

@@ -53,7 +53,8 @@ SIGNATURES = {
     "medt_axial_eval_fwd": [_P] * 9 + [_L] * 6 + [_I] * 5 + [_P],
     "medt_stripe_attn_fwd": [_P] * 9 + [_L] * 6 + [_I] * 5 + [_P],
     "medt_stripe_attn_bwd": [_P] * 16 + [_L] * 6 + [_I] * 7 + [_P],
-    # the lanes and flash contracts at gp 32 and 64 (csrc/axial_wide.cu)
+    # the lanes and flash contracts at the wide widths, every even gp up
+    # to 128 outside 2, 4, 8 and 16 (csrc/axial_wide.cu)
     "medt_wide_attn_fwd": [_P] * 9 + [_I] * 6 + [_P],
     "medt_wide_attn_bwd": [_P] * 18 + [_I] * 7 + [_P],
 }
@@ -63,7 +64,8 @@ SIGNATURES.update({
     f"{name}_bf16": SIGNATURES[name] for name in (
         "medt_lanes_attn_fwd", "medt_flash_lanes_fwd", "medt_flash2_lanes_fwd",
         "medt_lanes_attn_bwd", "medt_flash_lanes_bwd", "medt_flash2_lanes_bwd",
-        "medt_moment_sums_fwd", "medt_moment_sums_bwd")})
+        "medt_moment_sums_fwd", "medt_moment_sums_bwd", "medt_wide_attn_fwd",
+        "medt_wide_attn_bwd")})
 
 
 class BuildError(RuntimeError):
@@ -96,20 +98,26 @@ def nvcc_path() -> str:
 
 class BuildResult:
     """Where the library is, how long the build took (0 when it was already
-    built) and what nvcc printed (register and shared-memory use)."""
+    built), how long each source's compile took (empty then) and what nvcc
+    printed (register and shared-memory use)."""
 
-    def __init__(self, path: Path, seconds: float, log: str):
+    def __init__(self, path: Path, seconds: float, log: str,
+                 source_seconds: Optional[dict] = None):
         self.path, self.seconds, self.log = path, seconds, log
+        self.source_seconds = source_seconds or {}
 
 
 def _run(cmd, timeout: float):
-    """One nvcc command: (return code, output)."""
+    """One nvcc command: (return code, output, seconds)."""
+    t0 = time.perf_counter()
     try:
         proc = subprocess.run(cmd, capture_output=True, text=True,
                               timeout=timeout)
     except subprocess.TimeoutExpired:
-        return None, f"nvcc timed out after {timeout} s: {' '.join(cmd)}"
-    return proc.returncode, proc.stdout + proc.stderr
+        return (None, f"nvcc timed out after {timeout} s: {' '.join(cmd)}",
+                time.perf_counter() - t0)
+    return proc.returncode, proc.stdout + proc.stderr, \
+        time.perf_counter() - t0
 
 
 def build(timeout: float = 600.0) -> BuildResult:
@@ -138,11 +146,12 @@ def build(timeout: float = 600.0) -> BuildResult:
     try:
         with ThreadPoolExecutor(max_workers=len(compiles)) as pool:
             results = list(pool.map(lambda c: _run(c, timeout), compiles))
-        log = "".join(out for _, out in results)
-        failed = [(rc, out) for rc, out in results if rc != 0]
+        log = "".join(out for _, out, _ in results)
+        source_seconds = {p.name: sec for p, (_, _, sec) in zip(cu, results)}
+        failed = [(rc, out) for rc, out, _ in results if rc != 0]
         if not failed:
-            rc, out = _run([nvcc, *LINK_FLAGS, "-o", str(tmp), *objs],
-                           timeout)
+            rc, out, _ = _run([nvcc, *LINK_FLAGS, "-o", str(tmp), *objs],
+                              timeout)
             log += out
             if rc != 0:
                 failed = [(rc, out)]
@@ -154,7 +163,7 @@ def build(timeout: float = 600.0) -> BuildResult:
         os.replace(tmp, target)
     finally:
         shutil.rmtree(objdir, ignore_errors=True)
-    return BuildResult(target, time.perf_counter() - t0, log)
+    return BuildResult(target, time.perf_counter() - t0, log, source_seconds)
 
 
 class _Library:

@@ -8,11 +8,11 @@ Port of ``medt_tpu/models/classifiers.py``:
   int({128, 256, 512, 1024} * s) with spans base, base, base / 2, base / 4
   for base = img_size // 4 (56, 56, 28, 14 at 224 px), global average
   pooling and a linear ``fc``. The factories axial26s, axial50s (s = 0.5),
-  axial50m (0.75) and axial50l (1.0) follow model_codes.py:2259-2277. At
-  s = 0.5 the group planes are 8, 16, 32 and 64 in layers 1-4, so
-  ``use_fused`` runs the kernels at gp 32 and 64 there; axial50m's 12, 24,
-  48, 96 and axial50l's 128 raise on the fused path (no kernel takes them
-  yet). As in JAX, ``use_fused`` is off by default.
+  axial50m (0.75) and axial50l (1.0) follow model_codes.py:2259-2277. The
+  group planes of layers 1-4 are 8, 16, 32, 64 at s = 0.5, 12, 24, 48, 96
+  at s = 0.75 and 16, 32, 64, 128 at s = 1.0; under ``use_fused`` every
+  one of them runs on the kernels (gp 12 and up on the wide ones). As in
+  JAX, ``use_fused`` is off by default.
 * ``ConvAutoencoder`` (``:89-110``; model_codes.py:2224-2256): a 3-level
   encoder of stride-2 3x3 convs + BN + ReLU, a decoder of 3x3 convs + BN +
   bilinear x2 + ReLU, and a 3x3 output conv followed by one more bilinear

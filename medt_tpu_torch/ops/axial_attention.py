@@ -34,7 +34,11 @@ Two paths, as in JAX:
   ``fused_attn_core`` in JAX) on a stripe-major q/k/v split, with the
   similarity-BN moments from the stripe-major einsums of :mod:`.moments`
   (as JAX computes them there, with XLA and not with the moments kernel);
-  the output BN is applied per half in the stripe-major layout.
+  the output BN is applied per half in the stripe-major layout. The stripe
+  kernels take gp 2, 4, 8 and 16; a site of any other width there takes
+  the flash route instead, whose wide kernels compute the same function
+  (``fused_attn_core``'s contract) on the lanes layout, at any stripe
+  count.
 * the **eval route** of the fused path: in eval mode, at spans <= 64 with
   fewer than 128 stripes (batch-1 evaluation), the site runs the fused eval
   kernel (:mod:`.axial_eval`, ``fused_eval_attention`` in JAX) on a
@@ -42,10 +46,10 @@ Two paths, as in JAX:
   routes such sites to its eval kernel where the lanes family refuses them.
   The TPU admission checks (VMEM budgets, flash's ``gp * span <= 256``,
   ``fused_train_supported``) are not ported; :func:`fused_route` is the
-  whole rule, and a group width that the route's kernels do not take
-  (``ROUTE_GP``: gp 2..64 in powers of two, the stripe and flash2 kernels
-  up to 16) raises ``ValueError`` on the fused path, on any device, plain
-  cores included, rather than turn to the plain attention.
+  whole rule, and a group width that the route's kernels do not take (an
+  odd gp or one over 128, and flash2 above 16: ``axial_lanes.check_gp``)
+  raises ``ValueError`` on the fused path, on any device, plain cores
+  included, rather than turn to the plain attention.
 * the **plain path** (``_jnp_attention`` in JAX), for the other modes
   (gated_sig in eval mode, gated_data in both),
   whenever ``use_fused`` is off, and on the fused path at spans over 256
@@ -80,10 +84,8 @@ from torch import nn
 from .attn_core import fold_train_affine, pack_sim_affine, relative_logit_index
 from .axial_eval import EVAL_MAX_SPAN, fused_eval_attention
 from .axial_lanes import (
-    FLASH2_GP,
     FLASH2_MAX_SPAN,
     FLASH_MAX_SPAN,
-    KERNEL_GP,
     LANES_MAX_SPAN,
     check_gp,
     flash2_lanes_core,
@@ -134,32 +136,29 @@ LANES_MIN_STRIPES = 128
 STRIPE_MIN_SPAN = 32
 
 
-def fused_route(span: int, stripes: int, training: bool) -> str:
+def fused_route(span: int, stripes: int, training: bool,
+                gp: Optional[int] = None) -> str:
     """The core a fused-path site runs: "eval", "stripe", "lanes", "flash"
     or "flash2" (spans 65..256, in both modes at any stripe count); longer
     spans take "plain", the module's plain attention, in both modes. No
     kernel of either package takes them: JAX sends them to XLA attention
     (train mode admits span <= 256, eval mode the flash2 or eval-kernel
-    admission)."""
+    admission). A train site that would take the stripe route at a ``gp``
+    the stripe kernels do not take (``STRIPE_GP``; None: one they take)
+    takes "flash": its wide kernels serve the stripe contract."""
     if span > FLASH2_MAX_SPAN:
         return "plain"
     few = stripes < LANES_MIN_STRIPES
     if not training and span <= EVAL_MAX_SPAN and few:
         return "eval"
-    if training and STRIPE_MIN_SPAN <= span <= STRIPE_MAX_SPAN and few:
+    if training and STRIPE_MIN_SPAN <= span <= STRIPE_MAX_SPAN and few \
+            and (gp is None or gp in STRIPE_GP):
         return "stripe"
     if span <= LANES_MAX_SPAN:
         return "lanes"
     if span <= FLASH_MAX_SPAN:
         return "flash"
     return "flash2"
-
-
-# the group planes each route's kernels take: gp 32 and 64 (the
-# axial-attention classifiers at s = 0.5) on the lanes, flash, eval and
-# moments kernels; no path sends a wider gp to the stripe or flash2 ones
-ROUTE_GP = {"eval": KERNEL_GP, "lanes": KERNEL_GP, "flash": KERNEL_GP,
-            "stripe": STRIPE_GP, "flash2": FLASH2_GP}
 
 
 def lanes_family_core(qkv, qemb, kemb_t, vemb, sim_affine,
@@ -321,10 +320,10 @@ class AxialAttention(nn.Module):
                        else FUSED_EVAL_MODES)
         if self.use_fused and self.mode in fused_modes:
             stripes = n * qkv.shape[3]
-            route = fused_route(L, stripes, self.training)
+            route = fused_route(L, stripes, self.training, self.gp)
             if route != "plain":  # a gp no kernel takes raises, on any device
                 check_gp(f"AxialAttention ({route} route)", self.gp,
-                         ROUTE_GP[route])
+                         narrow_only=route == "flash2")
             self.last_route = (route, L, self.groups, self.gp, stripes,
                                self.mode != MODE_WOPOS)
             if route == "eval":

@@ -27,9 +27,10 @@ is no fallback from a CUDA tensor to the plain version. The kernel takes
 the stripe-major layout with free stripe and group strides, so
 :func:`fused_eval_attention` hands it three views of one fused
 ``(S, g, 2gp, L)`` qkv tensor without splitting it. There is no backward:
-asking for a gradient raises. At gp 32 and 64 the same entry point runs
-``csrc/wide_attn.cuh``'s body (one query row a thread, value channels in
-chunks of 16); gp outside ``KERNEL_GP`` raises ``ValueError``.
+asking for a gradient raises. At the wide widths (every even gp up to 128
+outside 2, 4, 8 and 16) the same entry point runs ``csrc/wide_attn.cuh``'s
+body (one query row a thread, value channels in chunks of 16); any other
+gp raises ``ValueError`` (``axial_lanes.check_gp``).
 """
 from __future__ import annotations
 

@@ -49,12 +49,15 @@ is float32. The plain versions take bf16 qkv as its exact float32 upcast
 and round dqkv once. The TPU kernels' blocking (``_JB_*``, ``Sb``, VMEM
 budgets) is not ported: the kernels size themselves for the H100.
 
-The lanes and flash kernels take gp in ``KERNEL_GP``; at gp 32 and 64
-(``WIDE_GP``: the axial-attention classifiers' layers 3 and 4) their
+Group planes: the lanes and flash kernels take every even gp from 2 to
+128 (``MAX_GP``), as the Pallas kernels do. At gp 2, 4, 8 and 16
+(``NARROW_GP``) they run the designs above; at every other width
+(:func:`is_wide`: the axial-attention classifiers' gp 12 to 128) their
 wrappers launch ``csrc/axial_wide.cu`` (one query row a thread, the value
-channels in chunks of 16; float32 only, so bf16 qkv raises there), and
-count the launch as their own. flash2 takes gp up to 16 (``FLASH2_GP``):
-no path sends it a wider one. Any other gp raises ``ValueError``.
+channels in chunks of 16), in float32 or bf16, and count the launch as
+their own. flash2 takes gp up to 16 (``NARROW_GP``): no path sends it a
+wider one (ROADMAP.md section 2). Any other gp raises ``ValueError``
+(:func:`check_gp`).
 """
 from __future__ import annotations
 
@@ -76,24 +79,30 @@ from .attn_core import attend, attn_logits
 LANES_MAX_SPAN = 16
 FLASH_MAX_SPAN = 64
 FLASH2_MAX_SPAN = 256
-KERNEL_GP = (2, 4, 8, 16, 32, 64)
-WIDE_GP = (32, 64)
-FLASH2_GP = (2, 4, 8, 16)
-GP_TODO = ("gp 12, 24, 48, 96 and 128 (axial50m, axial50l) have no kernel "
-           "yet: ROADMAP.md section 1, 'Group planes past the kernels' "
-           "widths'")
+# the first designs' widths; every other even gp up to MAX_GP takes the
+# wide kernels
+NARROW_GP = (2, 4, 8, 16)
+MAX_GP = 128
+GP_OPEN = ("ROADMAP.md section 2: flash2 keeps gp <= 16, and no kernel "
+           "takes an odd gp or one over 128")
 
 
-def check_gp(name: str, gp, gps=KERNEL_GP, qkv_dtype=torch.float32):
-    """Raise ``ValueError`` unless a kernel takes ``gp`` group planes (the
-    wide ones in float32 only)."""
-    if gp not in gps:
-        raise ValueError(f"{name}: group planes gp={gp} not in {gps}; "
-                         f"{GP_TODO}")
-    if gp in WIDE_GP and qkv_dtype != torch.float32:
-        raise ValueError(f"{name}: gp={gp} kernels take float32 qkv only, "
-                         f"got {qkv_dtype} (bf16 at gp 32 and 64: ROADMAP.md "
-                         "section 1)")
+def is_wide(gp: int) -> bool:
+    """Whether a width runs the wide kernels (every even gp up to 128
+    outside ``NARROW_GP``)."""
+    return gp not in NARROW_GP
+
+
+def check_gp(name: str, gp, narrow_only: bool = False):
+    """Raise ``ValueError`` unless a kernel takes ``gp`` group planes: an
+    even gp from 2 to ``MAX_GP``; with ``narrow_only`` (the flash2 and
+    stripe kernels) one of ``NARROW_GP``."""
+    if gp != int(gp) or gp % 2 or not 2 <= gp <= MAX_GP:
+        raise ValueError(f"{name}: group planes gp={gp}: the kernels take "
+                         f"an even gp from 2 to {MAX_GP}; {GP_OPEN}")
+    if narrow_only and gp not in NARROW_GP:
+        raise ValueError(f"{name}: group planes gp={gp} not in {NARROW_GP}; "
+                         f"{GP_OPEN}")
 
 
 def _has_pos(qemb: torch.Tensor) -> bool:
@@ -237,7 +246,7 @@ flash2_lanes_bwd_plain = flash_lanes_bwd_plain
 # ---- kernel wrappers --------------------------------------------------------
 
 def _check(qkv, qemb, kemb_t, vemb, sim_affine, max_span: int, name: str,
-           gps=KERNEL_GP, **extra):
+           narrow_only: bool = False, **extra):
     """Validate what a kernel takes; returns (g, gp, L, S, has_pos).
     ``extra`` names further operands: ``"gp"``-shaped (g, gp, L, S) or
     ``"row"``-shaped (g, L, S) tensors, given as (tensor, kind)."""
@@ -248,7 +257,7 @@ def _check(qkv, qemb, kemb_t, vemb, sim_affine, max_span: int, name: str,
     gp = r2 // 2
     c = gp // 2
     has_pos = _has_pos(qemb)
-    check_gp(name, r2 / 2 if r2 % 2 else gp, gps, qkv.dtype)
+    check_gp(name, r2 / 2 if r2 % 2 else gp, narrow_only)
     if not 1 <= L <= max_span:
         raise ValueError(f"{name}: span {L} outside 1..{max_span}")
     tables = {"qemb": (qemb, (c, L, L)), "kemb_t": (kemb_t, (c, L, L)),
@@ -286,15 +295,16 @@ def _no_stripes_fwd(qkv, g, gp, L, save_ml: bool):
 
 def _wide_fwd(wrapper, qkv, qemb, kemb_t, vemb, sim_affine, g, gp, L, S,
               has_pos, save_ml: bool):
-    """The forward at gp 32 or 64 (``medt_wide_attn_fwd``), counted as a
-    launch of ``wrapper``: ``(sv, sve)``, and ``m, l`` with ``save_ml``."""
+    """The forward at a wide gp (``medt_wide_attn_fwd``, or its bf16 entry
+    point), counted as a launch of ``wrapper``: ``(sv, sve)``, and ``m, l``
+    with ``save_ml``."""
     dev = qkv.device
     sv = torch.empty((g, gp, L, S), dtype=torch.float32, device=dev)
     sve = torch.empty_like(sv) if has_pos else sv
     m = torch.empty((g, L, S), dtype=torch.float32, device=dev) \
         if save_ml else sv
     l = torch.empty_like(m) if save_ml else sv
-    launch(wrapper, library().medt_wide_attn_fwd, qkv,
+    launch(wrapper, getattr(library(), entry("wide_attn_fwd", qkv)), qkv,
            ptr(qkv), ptr(qemb), ptr(kemb_t), ptr(vemb), ptr(sim_affine),
            ptr(sv), ptr(sve), ptr(m), ptr(l), g, gp, L, S, int(has_pos),
            int(save_ml))
@@ -308,7 +318,7 @@ def lanes_attn_fwd(qkv, qemb, kemb_t, vemb, sim_affine):
                                   LANES_MAX_SPAN, "lanes_attn_fwd")
     if S == 0:
         return _no_stripes_fwd(qkv, g, gp, L, save_ml=False)
-    if gp in WIDE_GP:
+    if is_wide(gp):
         return _wide_fwd(lanes_attn_fwd, qkv, qemb, kemb_t, vemb, sim_affine,
                          g, gp, L, S, has_pos, save_ml=False)
     sv = torch.empty((g, gp, L, S), dtype=torch.float32, device=qkv.device)
@@ -324,12 +334,11 @@ def _streamed_fwd(wrapper, max_span: int, qkv, qemb, kemb_t, vemb,
     """Launch the forward kernel of ``wrapper`` (``medt_<its name>``),
     which also saves m and l: ``(sv, sve, m, l)``."""
     name = wrapper.__name__
-    gps = FLASH2_GP if name.startswith("flash2") else KERNEL_GP
     g, gp, L, S, has_pos = _check(qkv, qemb, kemb_t, vemb, sim_affine,
-                                  max_span, name, gps)
+                                  max_span, name, name.startswith("flash2"))
     if S == 0:
         return _no_stripes_fwd(qkv, g, gp, L, save_ml=True)
-    if gp in WIDE_GP:
+    if is_wide(gp):
         return _wide_fwd(wrapper, qkv, qemb, kemb_t, vemb, sim_affine, g,
                          gp, L, S, has_pos, save_ml=True)
     dev = qkv.device
@@ -433,17 +442,18 @@ def _no_stripes_bwd(qkv, g, gp, L, has_pos):
 
 
 def _wide_bwd_slots(L: int, S: int) -> int:
-    """daff partial slots of a backward at gp 32 or 64: one per block of 4
+    """daff partial slots of a backward at a wide gp: one per block of 4
     query rows x 32 stripes (csrc/axial_wide.cu: wide_rows_kernel)."""
     return -(-L // 4) * -(-S // 32)
 
 
 def _wide_bwd(wrapper, qkv, qemb, kemb_t, vemb, sim_affine, saved, dsv,
               dsve, g, gp, L, S, has_pos):
-    """The backward at gp 32 or 64 (``medt_wide_attn_bwd``), counted as a
-    launch of ``wrapper``: the lanes contract when ``saved`` is None, else
-    the flash contract from the forward's ``(m, l, sv, sve)``. ``(dqkv,
-    dqemb, dkemb_t, dvemb, daff)``."""
+    """The backward at a wide gp (``medt_wide_attn_bwd``, or its bf16 entry
+    point, which writes dqkv in bf16), counted as a launch of ``wrapper``:
+    the lanes contract when ``saved`` is None, else the flash contract from
+    the forward's ``(m, l, sv, sve)``. ``(dqkv, dqemb, dkemb_t, dvemb,
+    daff)``."""
     dev = qkv.device
     f32 = dict(dtype=torch.float32, device=dev)
     e = 2 * gp * L * L if has_pos else 0
@@ -451,9 +461,9 @@ def _wide_bwd(wrapper, qkv, qemb, kemb_t, vemb, sim_affine, saved, dsv,
     out = torch.empty(e + g * 8, **f32)
     pairs = g * L * L * S
     scratch = torch.empty(2 * pairs + g * e + n_aff * g * 4, **f32)
-    dqkv = torch.empty((g, 2 * gp, L, S), **f32)
+    dqkv = torch.empty((g, 2 * gp, L, S), dtype=qkv.dtype, device=dev)
     m, l, sv, sve = saved if saved is not None else (dsv,) * 4
-    launch(wrapper, library().medt_wide_attn_bwd, qkv,
+    launch(wrapper, getattr(library(), entry("wide_attn_bwd", qkv)), qkv,
            ptr(qkv), ptr(qemb), ptr(kemb_t), ptr(vemb), ptr(sim_affine),
            ptr(m), ptr(l), ptr(sv), ptr(sve if has_pos else sv), ptr(dsv),
            ptr(dsve if has_pos else dsv), ptr(dqkv), ptr(out), ptr(out[e:]),
@@ -475,7 +485,7 @@ def lanes_attn_bwd(qkv, qemb, kemb_t, vemb, sim_affine, dsv, dsve):
                                   LANES_MAX_SPAN, "lanes_attn_bwd", **extra)
     if S == 0:
         return _no_stripes_bwd(qkv, g, gp, L, has_pos)
-    if gp in WIDE_GP:
+    if is_wide(gp):
         return _wide_bwd(lanes_attn_bwd, qkv, qemb, kemb_t, vemb, sim_affine,
                          None, dsv, dsve, g, gp, L, S, has_pos)
     b, n_tab, n_aff = _bwd_buffers(qkv, "lanes", g, gp, L, S, has_pos)
@@ -498,12 +508,12 @@ def _streamed_bwd(wrapper, max_span: int, qkv, qemb, kemb_t, vemb,
              "dsv": (dsv, "gp")}
     if _has_pos(qemb):
         extra.update(sve=(sve, "gp"), dsve=(dsve, "gp"))
-    gps = FLASH2_GP if name.startswith("flash2") else KERNEL_GP
     g, gp, L, S, has_pos = _check(qkv, qemb, kemb_t, vemb, sim_affine,
-                                  max_span, name, gps, **extra)
+                                  max_span, name, name.startswith("flash2"),
+                                  **extra)
     if S == 0:
         return _no_stripes_bwd(qkv, g, gp, L, has_pos)
-    if gp in WIDE_GP:
+    if is_wide(gp):
         return _wide_bwd(wrapper, qkv, qemb, kemb_t, vemb, sim_affine,
                          (m, l, sv, sve), dsv, dsve, g, gp, L, S, has_pos)
     b, n_tab, n_aff = _bwd_buffers(qkv, "tiled", g, gp, L, S, has_pos)

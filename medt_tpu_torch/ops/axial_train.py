@@ -45,11 +45,13 @@ from ..kernels.build import library
 from ..kernels.launch import (check_rows, check_tensor, launch, ptr,
                               strides)
 from .attn_core import attn_core_plain
-from .axial_lanes import check_gp
+from .axial_lanes import NARROW_GP, check_gp
 
 STRIPE_MAX_SPAN = 64
-# the stripe kernels' group planes: no path sends them a wider one
-STRIPE_GP = (2, 4, 8, 16)
+# the stripe kernels' group planes; axial_attention.fused_route sends a
+# train site of any other width to the wide flash kernels, which compute
+# the same function on the lanes layout
+STRIPE_GP = NARROW_GP
 # The backward's block (csrc/axial_stripe_bwd.cu: kWideGp, span_bucket,
 # chunk_stripes): a block owns one group and a chunk of 4 stripes with
 # positions at spans over 32 below BWD_WIDE_GP group planes, else 2; its
@@ -117,7 +119,7 @@ def _check(q, k, v, qemb, kemb, vemb, sim_affine, name: str, **extra):
         raise ValueError(f"{name}: q, k, v must be (S, g, rows, L)")
     S, g, c, L = q.shape
     gp = v.shape[2]
-    check_gp(name, gp, STRIPE_GP)
+    check_gp(name, gp, narrow_only=True)
     if c != gp // 2:
         raise ValueError(f"{name}: q has {c} rows for gp={gp}")
     if not 1 <= L <= STRIPE_MAX_SPAN:

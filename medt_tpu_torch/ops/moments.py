@@ -33,9 +33,10 @@ qkv and the backward's dqkv, written in bf16, is its gradient rounded once
 (launches in ``.launches_bf16``). The tables and sums stay float32. The
 plain versions take bf16 qkv as its exact upcast and round dqkv once.
 
-At gp 32 and 64 (float32 only) the entry points run kernels of their own
-(``moments_wide_{fwd,bwd}_kernel``), under the same partial layouts,
-finalizes and wrapper buffers.
+At the wide widths (every even gp up to 128 outside 2, 4, 8 and 16:
+``axial_lanes.is_wide``) the entry points, float32 and bf16, run kernels
+of their own (``csrc/moments_wide.cu``: ``moments_wide_{fwd,bwd}_kernel``),
+under the same partial layouts, finalizes and wrapper buffers.
 """
 from __future__ import annotations
 
@@ -128,7 +129,7 @@ def _check(qkv, r_q, e_q, r_k, e_k, name, **extra):
     g, r2, L, S = qkv.shape
     gp = r2 // 2
     c = gp // 2
-    check_gp(name, r2 / 2 if r2 % 2 else gp, qkv_dtype=qkv.dtype)
+    check_gp(name, r2 / 2 if r2 % 2 else gp)
     has_pos = _has_pos(r_q)
     shapes = {"qkv": (qkv, (g, r2, L, S))}
     tables = {"r_q": (r_q, (c, L)), "e_q": (e_q, (c, c, L)),

@@ -439,9 +439,11 @@ def test_build_model_resolves_classifiers_then_segmentation():
     spans = sorted({blk.span for blk in ax.modules()
                     if isinstance(blk, AxialAttention)})
     assert spans == [7, 14, 28, 56] and ax.fc.out_features == 3
-    with pytest.raises(ValueError, match="ROADMAP"):     # gp 12 at s 0.75
-        with torch.no_grad():
-            ax(torch.zeros(1, 3, 224, 224))
+    gps = sorted({blk.gp for blk in ax.modules()
+                  if isinstance(blk, AxialAttention)})
+    assert gps == [12, 24, 48, 96]      # s 0.75: each on the wide kernels
+    for gp in gps:
+        axial_lanes.check_gp("axial50m", gp)
     seg = builders.build_model(a(modelname="axialunet", imgsize=32),
                                device="cpu")
     assert type(seg).__name__ == "ResAxialAttentionUNet"

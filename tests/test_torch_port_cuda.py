@@ -1287,39 +1287,47 @@ def test_wide_gp_kernels_match_plain_on_card(cuda_device, kernel, L, gp, S,
 
 
 def test_gp_outside_the_kernels_raises_value_error():
-    """Every gp outside (2, 4, 8, 16, 32, 64) raises ValueError naming the
-    roadmap item, at the wrappers (before any device check) and on the
-    fused path of AxialAttention on any device, plain cores included; the
-    stripe and flash2 kernels stop at gp 16; bf16 stops at gp 16. Nothing
+    """An odd gp and a gp over 128 raise ValueError naming the roadmap
+    entry, at the wrappers (before any device check); flash2 and the
+    stripe kernels stop at gp 16; every even gp from 2 to 128 passes. On
+    the fused path of AxialAttention, on any device and plain cores
+    included, a wide gp runs (gp 12 in eval and train mode, equal to the
+    plain attention on the same weights) and a train site at the stripe
+    route's span and stripe count at gp 32 takes the flash route; nothing
     turns to the plain attention."""
     from medt_tpu_torch.ops import AxialAttention
 
-    for gp in (6, 12, 24, 48, 96, 128):
+    for gp in (7, 130):
         args = core_inputs(46, g=2, gp=gp, L=8, S=16, has_pos=True)
         with pytest.raises(ValueError, match="ROADMAP"):
             axial_lanes.lanes_attn_fwd(*args)
         with pytest.raises(ValueError, match="ROADMAP"):
             moments.moment_sums_fwd(*moment_inputs(46, 2, gp, 8, 16, True))
     with pytest.raises(ValueError, match="ROADMAP"):
-        axial_lanes.check_gp("flash2_lanes_fwd", 32, axial_lanes.FLASH2_GP)
-    with pytest.raises(ValueError, match="float32"):
-        axial_lanes.check_gp("lanes_attn_fwd", 64,
-                             qkv_dtype=torch.bfloat16)
-    x = torch.zeros(1, 24, 8, 4)
+        axial_lanes.check_gp("flash2_lanes_fwd", 32, narrow_only=True)
+    with pytest.raises(ValueError, match="ROADMAP"):
+        axial_lanes.check_gp("stripe_attn_fwd", 24, narrow_only=True)
+    for gp in range(2, 130, 2):
+        axial_lanes.check_gp("lanes_attn_fwd", gp)
+    x = torch.from_numpy(np.random.default_rng(47).normal(
+        size=(1, 24, 8, 4)).astype(np.float32))
     for train in (False, True):
+        ref = AxialAttention(24, 96, 8, groups=8, mode="full",
+                             device="cpu").train(train)
+        sd = {k: v.clone() for k, v in ref.state_dict().items()}
+        want = ref(x)
         for plain in (False, True):
             op = AxialAttention(24, 96, 8, groups=8, mode="full",
                                 use_fused=True, plain_cores=plain,
                                 device="cpu").train(train)
-            with pytest.raises(ValueError, match="gp=12"):
-                op(x)
-        ok = AxialAttention(24, 96, 8, groups=8, mode="full",
-                            device="cpu").train(train)
-        assert ok(x).shape == (1, 96, 8, 4)
-    # the stripe route (train mode, span 32..64, under 128 stripes) stops at
-    # gp 16: gp 32 there raises rather than run the plain attention
+            op.load_state_dict(sd)
+            torch.testing.assert_close(op(x), want, atol=1e-4, rtol=0)
+            assert op.last_route[0] == ("lanes" if train else "eval")
+            assert op.gp == 12
+    # the stripe route (train mode, span 32..64, under 128 stripes) takes
+    # gp 2 to 16; gp 32 there runs on the flash route
     stripe = AxialAttention(8, 256, 32, groups=8, mode="full",
                             use_fused=True, plain_cores=True,
                             device="cpu").train()
-    with pytest.raises(ValueError, match="stripe route"):
-        stripe(torch.zeros(1, 8, 32, 2))
+    assert stripe(torch.zeros(1, 8, 32, 2)).shape == (1, 256, 32, 2)
+    assert stripe.last_route[0] == "flash"
