@@ -2387,11 +2387,13 @@ CLS_LOSS_FALL = 0.75
 # the port's kernels in a profiled axial26s step, by the name of the CUDA
 # kernel (the first that a kernel's name contains): the gp <= 16 designs,
 # then the wide ones (rows 1 and 3 share wide_fwd_kernel, rows 2 and 4
-# the wide backward's three kernels)
+# the wide backward's row, column and table kernels; the moments names
+# first, as "wide_tab_kernel" is part of "moments_wide_tab_kernel")
 CLS_OWN_KERNELS = (
-    "moments_wide_fwd_kernel", "moments_wide_bwd_kernel",
-    "wide_fwd_kernel", "wide_rows_kernel", "wide_cols_kernel",
-    "wide_tables_kernel", "axial_lanes_fwd_kernel", "lanes_bwd_kernel",
+    "moments_wide_fwd_kernel", "moments_wide_dqk_kernel",
+    "moments_wide_tab_kernel", "wide_fwd_kernel", "wide_row_kernel",
+    "wide_col_kernel", "wide_tab_kernel", "axial_lanes_fwd_kernel",
+    "lanes_bwd_kernel",
     "tiled_fwd_kernel", "tiled_bwd_row_kernel", "tiled_bwd_col_kernel",
     "bwd_finalize_kernel", "moments_fwd_kernel", "moments_finalize_kernel",
     "moments_bwd_kernel", "tab_finalize_kernel")
@@ -2837,9 +2839,9 @@ CLS_WIDE_CALLS = {"axial50m": ("b8_step", "b8_forward"),
 # of its wide kernel, and the call of the phase that is its main path
 WIDE_SOURCES = {
     "lanes_attn_fwd": "medt_tpu_torch/csrc/axial_wide.cu",
-    "lanes_attn_bwd": "medt_tpu_torch/csrc/axial_wide.cu",
+    "lanes_attn_bwd": "medt_tpu_torch/csrc/axial_wide_bwd.cu",
     "flash_lanes_fwd": "medt_tpu_torch/csrc/axial_wide.cu",
-    "flash_lanes_bwd": "medt_tpu_torch/csrc/axial_wide.cu",
+    "flash_lanes_bwd": "medt_tpu_torch/csrc/axial_wide_bwd.cu",
     "moment_sums_fwd": "medt_tpu_torch/csrc/moments_wide.cu",
     "moment_sums_bwd": "medt_tpu_torch/csrc/moments_wide.cu",
     "axial_eval_fwd": "medt_tpu_torch/csrc/axial_eval_fwd.cu",

@@ -3,7 +3,7 @@
 
     python3 compare_kernels.py [--root DIR] [--sites DIR2]
                                [--family lanes flash flash2 moments
-                                         stripe eval]
+                                         stripe eval wide]
                                [--out FILE]
 
 Runs the ``device``, ``build`` and ``kernels`` phases of ``DIR/chip_smoke.py``
@@ -18,15 +18,24 @@ design has to beat (rows with ``path`` ``"<path>:flash2"``); ``moments``
 runs the moments forward and backward, ``stripe`` the stripe train core's
 forward and backward, ``eval`` the batch-1 eval kernel; the lanes,
 flash, flash2 and moments families also run their bf16 entry points
-(kernels ``<name>_bf16``, the smoke's bf16 rows). Then, for each
+(kernels ``<name>_bf16``, the smoke's bf16 rows). ``wide`` runs every
+kernel at the wide group planes (gp 12-128) at the geometries of the
+smoke's ``cls_wide`` phase (``CLS_WIDE_ROUTES``): axial50m's batch-8 step
+and forward and axial50l's batch-1 forward and step (rows 1-4, 7-9, and
+row 11's wide route, the flash kernels at axial50l's batch-1 train sites),
+one row per site and path (``path`` ``"axial50m_b8_step"`` and so on), and
+the bf16 entry points at axial50m's batch-8 step geometries; the per-call
+sums over ``axial50m_b8_step`` and ``axial50l_b1_step`` are each wide
+kernel's time over those steps. Then, for each
 geometry, on inputs seeded by the geometry alone, a ``torch.profiler``
 window over a few calls splits its device time by CUDA kernel (row pass,
 column pass, reductions) and a host clock times the
 wrapper's enqueue alone (``host_ms``: checks, allocations, the ``ctypes``
 call and the launches, the card left to run), and ``out_sha256`` hashes its
 outputs on those seeded inputs (two trees give the same bits where the
-hashes agree). Writes one JSON object with the rows, the per-call sums
-over each main path (``launches_per_call`` times ms, per kernel and path),
+hashes agree), and ``peak_alloc_mb`` is what one call allocates at its
+peak (outputs and scratch). Writes one JSON object with the rows, the
+per-call sums over each main path (``launches_per_call`` times ms, per kernel and path),
 the split and the card; prints the card, the per-call sums and, per site,
 the events, device and host ms with the output hash.
 
@@ -55,7 +64,8 @@ import time
 from pathlib import Path
 
 HERE = Path(__file__).resolve().parent
-FAMILIES = ("lanes", "flash", "flash2", "moments", "stripe", "eval")
+FAMILIES = ("lanes", "flash", "flash2", "moments", "stripe", "eval",
+            "wide")
 
 
 def family(kernel: str) -> str:
@@ -102,6 +112,18 @@ def host_ms(torch, fn, calls: int = 20) -> float:
     return (t1 - t0) / calls * 1e3
 
 
+def peak_alloc_mb(torch, fn) -> float:
+    """MiB that one call of ``fn`` allocates at its peak over what was
+    allocated before it: the wrapper's outputs and scratch."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    out = fn()
+    torch.cuda.synchronize()
+    del out
+    return (torch.cuda.max_memory_allocated() - base) / 2 ** 20
+
+
 def out_sha256(torch, outputs) -> str:
     """sha256 of a kernel call's outputs' bytes, in order (as bytes, which
     numpy takes in every dtype, bf16 too)."""
@@ -126,6 +148,30 @@ def flash2_baseline(geometries) -> list:
     return [(g[0].replace("flash_", "flash2_"), *g[1:6], f"{g[6]}:flash2")
             for g in geometries
             if g[0] in ("flash_lanes_fwd", "flash_lanes_bwd")]
+
+
+def wide_geometries(smoke) -> list:
+    """(kernel, span, gp, stripes, has_pos, launches per call, path) of the
+    smoke's ``cls_wide`` calls: one row per kernel, site and call, path
+    ``<model>_<call>``, launches the call's sites of that geometry."""
+    rows = []
+    for model, calls in smoke.CLS_WIDE_CALLS.items():
+        geo = smoke.cls_geometries(smoke.CLS_WIDE_ROUTES[model], calls)
+        for call, sites in geo.items():
+            seen = {}
+            for kernel, L, gp, S, n in sites:
+                key = (kernel, L, gp, S)
+                seen[key] = seen.get(key, 0) + n
+            rows += [(k, L, gp, S, True, n, f"{model}_{call}")
+                     for (k, L, gp, S), n in seen.items()
+                     if gp not in (2, 4, 8, 16)]
+    return rows
+
+
+def wide_bf16_geometries(smoke) -> list:
+    """The bf16 entry points' rows at axial50m's batch-8 step geometries."""
+    return [r for r in wide_geometries(smoke)
+            if r[6] == "axial50m_b8_step" and r[0] in smoke.BF16_KERNELS]
 
 
 def main(argv=None) -> int:
@@ -165,6 +211,13 @@ def main(argv=None) -> int:
     chosen = [g for g in geometries if family(g[0]) in args.family]
     if "flash" in args.family:
         chosen += flash2_baseline(chosen)
+    if "wide" in args.family:
+        site_smoke = sites if args.sites else smoke
+        chosen += wide_geometries(site_smoke)
+        narrow_bf16 = [g for g in smoke._bf16_geometries()
+                       if family(g[0]) in args.family]
+        wide_bf16 = wide_bf16_geometries(site_smoke)
+        smoke._bf16_geometries = lambda: narrow_bf16 + wide_bf16
     smoke.GEOMETRIES = chosen
     smi, name = smoke.phase_device(torch)
     smoke.phase_build()
@@ -187,11 +240,13 @@ def main(argv=None) -> int:
             by_kernel = split_by_kernel(torch, fn)
         r["device_ms"] = sum(by_kernel.values())
         r["host_ms"] = host_ms(torch, fn)
+        r["peak_alloc_mb"] = peak_alloc_mb(torch, fn)
         r["out_sha256"] = out_sha256(torch, fn())
         split.append({"kernel": r["kernel"], "span": r["span"], "gp": r["gp"],
                       "S": r["S"], "has_pos": r["has_pos"], "path": r["path"],
                       "launches_per_call": r["launches_per_call"],
                       "device_ms": r["device_ms"], "host_ms": r["host_ms"],
+                      "peak_alloc_mb": r["peak_alloc_mb"],
                       "ms_by_kernel": by_kernel})
         del fn
         torch.cuda.empty_cache()
@@ -217,7 +272,8 @@ def main(argv=None) -> int:
         Path(args.out).write_text(text)
     sites = [{k: r[k] for k in ("kernel", "span", "gp", "S", "has_pos",
                                  "path", "launches_per_call", "ms",
-                                 "device_ms", "host_ms", "out_sha256")}
+                                 "device_ms", "host_ms", "peak_alloc_mb",
+                                 "out_sha256")}
              for r in rows]
     print(json.dumps({"card": smi, "root": str(root),
                       "per_main_path_call": per_call, "sites": sites}),

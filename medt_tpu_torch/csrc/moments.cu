@@ -72,25 +72,14 @@
 // axial-attention classifiers' sites at gp 12 to 128; c = 6 to 64), the
 // per-stripe sums above no longer fit: the c(c+1)/2 pair sums of a stripe
 // (528 at c = 32) and the staged slab and tables pass a block's shared
-// memory. There the entry points take two kernels of their own
-// (csrc/moments_wide.cu), for correctness first, under the same partial
-// layouts and finalizes, on float32 or bf16 qkv alike:
-//   * moments_wide_fwd_kernel: a block owns one group and kFwdStripes
-//     stripes (lane = stripe), its warps take the rows l in turn; a thread
-//     sums its (l, stripe)'s terms directly: qk_lj over the keys j (s1_qk
-//     and s2_qk as sums of qk and qk^2, which equal the factored forms),
-//     and with positions sum_c q r_q and sum_cd q q e_q at row l (k's
-//     alike); the block's sums go to its slot of the partials by warp_sum
-//     and its warps in order;
-//   * moments_wide_bwd_kernel: a block owns one group and the backward's
-//     tile of TS stripes; a thread per (row l, stripe) writes dq[., l] =
-//     sum_j k[., j] (ct0 + 2 ct1 qk_lj) plus the table terms, and dk
-//     alike (sum_d kk[c,d] q[d,l] = sum_j k[c,j] qk_lj), with c
-//     accumulators; then, with positions, the tile's table partial, one
-//     value per (table row, position) over its TS stripes.
-// Both read q and k from device memory (L1 and L2) where the designs
-// above stage them, and their table terms cost c^2 a row: at gp 128 the
-// backward's tile partial alone is 8320 rows of L.
+// memory. There the entry points take kernels of their own
+// (csrc/moments_wide.cu, whose header says how), on float32 or bf16 qkv
+// alike, under this file's finalizes: the forward
+// (moments_wide_fwd_kernel) under the same partial layout; the backward
+// (moments_wide_dqk_kernel, then with positions moments_wide_tab_kernel)
+// with its own tile and table-partial slots
+// (moments_wide.cuh: wide_dqk_tile, wide_bwd_slots), at spans up to
+// kWideMaxBwdSpan (64).
 // Kernels launch on the caller's stream, allocate nothing and do not
 // synchronise; the entry points return cudaGetLastError().
 
@@ -758,7 +747,12 @@ int moments_bwd(const T* qkv, const float* r_q, const float* e_q,
   const int c = gp / 2;
   const int ts = bwd_tile(c, L, S, g);
   const int tiles = (S + ts - 1) / ts;
-  if (tiles > 65535 || (has_pos && n_part != g * tiles)) {
+  if (is_wide(gp)) {
+    if (L > medt_moments::kWideMaxBwdSpan ||
+        (has_pos && n_part != medt_moments::wide_bwd_slots(L, S))) {
+      return (int)cudaErrorInvalidValue;
+    }
+  } else if (tiles > 65535 || (has_pos && n_part != g * tiles)) {
     return (int)cudaErrorInvalidValue;
   }
   const bool pos = has_pos != 0;
@@ -767,7 +761,7 @@ int moments_bwd(const T* qkv, const float* r_q, const float* e_q,
   cudaError_t err;
   if (is_wide(gp)) {
     err = medt_moments::wide_bwd(qkv, r_q, e_q, r_k, e_k, ct, dqkv, part, g,
-                                 ts, c, L, S, pos, stream);
+                                 c, L, S, pos, stream);
   } else {
     switch (c) {
       case 1: err = bwd_c<1>(a, g, ts, pos, stream); break;
@@ -812,7 +806,8 @@ int medt_moment_sums_fwd_bf16(const __nv_bfloat16* qkv, const float* r_q,
 // Backward: dqkv (g, 2gp, L, S), v rows written zero; dtables (2c + 2c^2,
 // L) = dr_q (c, L), de_q (c, c, L), dr_k, de_k (unused without positions);
 // part: the table-gradient partials (g * ceil(S / TS), 2c + 2c^2, L), TS
-// as bwd_tile gives it (unused without positions). Spans up to 256.
+// as bwd_tile gives it, or at a wide gp (wide_bwd_slots, 2c + 2c^2, L)
+// (unused without positions). Spans up to 256 (64 at a wide gp).
 int medt_moment_sums_bwd(const float* qkv, const float* r_q, const float* e_q,
                          const float* r_k, const float* e_k, const float* ct,
                          float* dqkv, float* dtables, float* part, int g,

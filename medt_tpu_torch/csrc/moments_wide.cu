@@ -7,31 +7,41 @@
 // medt_tpu/ops/pallas_moments.py that csrc/moments.cu replaces at gp 2, 4,
 // 8 and 16: moment_sums_core's forward (_moments_kernel) and backward
 // (_moments_bwd_kernel); the sums and the backward's formulas are
-// moments.cu's (see its header). Design, for correctness first:
-//   * moments_wide_fwd_kernel: a block owns one group and kWideFwdStripes
-//     stripes (lane = stripe), its warps take the rows l in turn; a thread
-//     sums its (l, stripe)'s terms directly: qk_lj over the keys j (s1_qk
-//     and s2_qk as sums of qk and qk^2, which equal the factored forms),
-//     and with positions sum_c q r_q and sum_cd q q e_q at row l (k's
-//     alike); the block's sums go to its slot of moments.cu's partials by
-//     warp_sum and its warps in order;
-//   * moments_wide_bwd_kernel: a block owns one group and the backward's
-//     tile of ts stripes (moments.cu's bwd_tile); a thread per (row l,
-//     stripe) writes dq[., l] = sum_j k[., j] (ct0 + 2 ct1 qk_lj) plus the
-//     table terms, and dk alike, with c accumulators, and the zero v rows;
-//     then, with positions, the tile's table partial, one value per (table
-//     row, position) over its ts stripes.
-// Each is instantiated per register bucket CM of c (8, 16, 32, 64) and
-// takes c at run time; every loop over channels stops at c, so a width's
-// sums run in the same order whichever bucket takes it. qkv (and dqkv) are
-// float32 or bf16: bf16 is converted where it is read and dqkv rounded
-// once where it is stored. What bounds it on the H100: device memory at
-// the bound (each q/k element read once for ~c^2 operations); these
-// kernels read q and k again from L1/L2 for every row and their table
-// terms cost c^2 a row (at gp 128 the backward's tile partial alone is
-// 8320 rows of L), so they are latency-bound, and at bucket 64 ptxas
-// spills registers. They launch on the caller's stream, allocate nothing
-// and do not synchronise.
+// moments.cu's (see its header).
+//   * moments_wide_fwd_kernel (a first design, for correctness): a block
+//     owns one group and kWideFwdStripes stripes (lane = stripe), its warps
+//     take the rows l in turn; a thread sums its (l, stripe)'s terms
+//     directly: qk_lj over the keys j (s1_qk and s2_qk as sums of qk and
+//     qk^2, which equal the factored forms), and with positions sum_c q r_q
+//     and sum_cd q q e_q at row l (k's alike); the block's sums go to its
+//     slot of moments.cu's partials by warp_sum and its warps in order.
+//     Instantiated per register bucket CM of c (8, 16, 32, 64), c at run
+//     time. It reads q and k again from L1/L2 for every row and its table
+//     terms cost c^2 a row: latency-bound, and at bucket 64 ptxas spills.
+//   * the backward, two launches. What bounds it: per stripe the dq/dk
+//     work is 3cL^2 FMAs (w = c0 + 2 c1 qk, then K w^T and Q w) and the
+//     e terms 2c^2 L, the table partial c^2 L (the Gram of q, and of k,
+//     over the stripes); at the classifiers' sites (spans 7-56, c 6-48) a
+//     launch moves a few MB, so it is bound by latency and by how many
+//     blocks keep the SMs busy. The first design had one thread per
+//     (row, stripe) over tiles of 8 stripes (56 items on a 256-thread
+//     block at span 7, 56 blocks for 132 SMs), computed qk twice, read
+//     each operand four times per pair and re-read e + e^T per (row,
+//     stripe), and its table partial was 2c + 2c^2 rows of sums a block.
+//     moments_wide_dqk_kernel: a block owns one group and wide_dqk_tile's
+//     TS stripes (8 down to 1, so the grid keeps 264 blocks), stages their
+//     q/k slab in shared memory, forms each stripe's L x L w once and
+//     takes every dq and dk (and the zero v rows) from the staged slab;
+//     moments_wide_tab_kernel (positions only): a block per (position,
+//     q or k, stripe split) sums, over every group, the Gram of x and its
+//     r column as a register-tiled product (4 x 4 outputs a thread, the
+//     upper triangle only, each value written to [c][d] and [d][c]),
+//     wide_bwd_slots splits, one partial slot each; moments.cu's
+//     tab_finalize sums the slots in a fixed order. No atomics.
+// qkv (and dqkv) are float32 or bf16: bf16 is converted where it is read
+// and dqkv rounded once where it is stored, so every other output equals
+// the float32 kernel's on the upcast qkv. Kernels launch on the caller's
+// stream, allocate nothing and do not synchronise.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -47,6 +57,7 @@ using flash2::from_f32;
 using flash2::to_f32;
 using medt::warp_sum;
 using medt_moments::kWideFwdStripes;
+using medt_moments::kWideTabStripes;
 using medt_moments::kWideThreads;
 
 constexpr int kWideWarps = kWideThreads / 32;
@@ -156,95 +167,218 @@ moments_wide_fwd_kernel(FwdArgs<T> a, int C) {
   }
 }
 
-// Backward at the wide widths over tiles of ts stripes (bwd_tile): dq, dk
-// and the zero v rows, a thread per (row l, stripe); then, with positions,
-// the tile's table partial.
-template <int CM, bool HAS_POS, class T>
+// The backward's q/k tile (moments_wide.cuh: wide_dqk_tile): a block owns
+// one group and TS stripes, TS the largest of 8, 4, 2, 1 whose slab (q and
+// k, 2c x L, and w, L x Lw, a stripe) fits kWideSlabFloats and whose grid
+// keeps kWideMinBlocks blocks.
+__host__ __device__ constexpr int w_stride(int L) { return L | 1; }
+
+__host__ __device__ constexpr int dqk_stripe_floats(int c, int L) {
+  return 2 * c * L + L * w_stride(L);
+}
+
+// dq, dk and the zero v rows. A block stages its TS stripes' q and k (2c x
+// L each) in shared memory, forms each stripe's w[l][j] = c0 + 2 c1 qk_lj
+// once, then a thread per (row, position, stripe) takes
+//   dq[c,l] = sum_j k[c,j] w[l][j]  (+ c2 r_q[c,l] + c3 sum_d e2_q[c,d,l]
+//   q[d,l]),  dk[c,j] = sum_l q[c,l] w[l][j]  (k's terms alike),
+// e2 = e + e^T, every sum from the staged slab.
+template <bool HAS_POS, class T>
 __global__ void __launch_bounds__(kWideThreads)
-moments_wide_bwd_kernel(BwdArgs<T> a, int ts, int C) {
-  const int T2 = 2 * C + 2 * C * C;
-  const int L = a.L, S = a.S, gi = blockIdx.y, s0 = blockIdx.x * ts;
+moments_wide_dqk_kernel(BwdArgs<T> a, int ts, int C) {
+  extern __shared__ float4 smem4[];
+  float* Qs = reinterpret_cast<float*>(smem4);  // [t][q c, then k c][l]
+  float* W = Qs + (size_t)ts * 2 * C * a.L;     // [t][l][Lw]
+  const int L = a.L, S = a.S, Lw = w_stride(L), gi = blockIdx.y;
+  const int s0 = blockIdx.x * ts;
   const size_t LS = (size_t)L * S;
-  const T* base = a.qkv + (size_t)gi * 4 * C * LS;
-  T* out = a.dqkv + (size_t)gi * 4 * C * LS;
+  const T* base = a.qkv + (size_t)gi * 4 * C * LS + s0;
+  T* out = a.dqkv + (size_t)gi * 4 * C * LS + s0;
   const float* cg = a.ct + gi * 8;
   const float c0 = cg[0], c1 = cg[1], c2 = cg[2], c3 = cg[3], c4 = cg[4],
               c5 = cg[5];
-  for (int e = threadIdx.x; e < L * ts; e += kWideThreads) {
-    const int l = e / ts, s = s0 + e % ts;
-    if (s >= S) continue;
-    const T* col = base + s;  // (row, position) at col[row * LS + pos * S]
-#pragma unroll
-    for (int K = 0; K < 2; ++K) {  // dq (x = q), then dk (x = k)
-      const int mine = K ? C : 0, other = K ? 0 : C;
-      float x[CM], acc[CM];
-#pragma unroll
-      for (int c = 0; c < CM; ++c) {
-        x[c] = c < C ? ldf(col + (mine + c) * LS + (size_t)l * S) : 0.f;
-        acc[c] = 0.f;
+  const int nst = min(ts, S - s0);
+  const int nslab = 2 * C * L * ts;
+  for (int e = threadIdx.x; e < nslab; e += kWideThreads) {
+    const int t = e % ts, rest = e / ts, l = rest % L, row = rest / L;
+    const float v = t < nst ? ldf(base + row * LS + (size_t)l * S + t) : 0.f;
+    Qs[((size_t)t * 2 * C + row) * L + l] = v;  // q rows then k rows
+  }
+  __syncthreads();
+  const size_t stripe = (size_t)2 * C * L;
+  for (int e = threadIdx.x; e < ts * L * L; e += kWideThreads) {
+    const int j = e % L, rest = e / L, l = rest % L, t = rest / L;
+    const float* q = Qs + t * stripe;
+    const float* k = q + (size_t)C * L;
+    float d = 0.f;
+    for (int c = 0; c < C; ++c) d = fmaf(q[c * L + l], k[c * L + j], d);
+    W[((size_t)t * L + l) * Lw + j] = fmaf(2.f * c1, d, c0);
+  }
+  __syncthreads();
+  for (int e = threadIdx.x; e < 2 * C * L * ts; e += kWideThreads) {
+    const int t = e % ts, rest = e / ts, l = rest % L, row = rest / L;
+    const int K = row >= C, c = row - K * C;
+    const float* q = Qs + t * stripe;
+    const float* k = q + (size_t)C * L;
+    const float* w = W + (size_t)t * L * Lw;
+    float acc = 0.f;
+    if (K == 0) {
+      for (int j = 0; j < L; ++j) acc = fmaf(k[c * L + j], w[l * Lw + j], acc);
+    } else {
+      for (int i = 0; i < L; ++i) acc = fmaf(q[c * L + i], w[i * Lw + l], acc);
+    }
+    if constexpr (HAS_POS) {
+      const float* r = K ? a.r_k : a.r_q;
+      const float* et = K ? a.e_k : a.e_q;
+      const float* x = K ? k : q;
+      float ed = 0.f;
+      for (int d = 0; d < C; ++d) {
+        ed = fmaf(__ldg(et + ((size_t)c * C + d) * L + l) +
+                      __ldg(et + ((size_t)d * C + c) * L + l),
+                  x[d * L + l], ed);
       }
-      for (int j = 0; j < L; ++j) {
-        float d = 0.f;
+      acc += (K ? c4 : c2) * __ldg(r + c * L + l) + (K ? c5 : c3) * ed;
+    }
+    if (t < nst) {
+      out[row * LS + (size_t)l * S + t] = from_f32<T>(acc);
+      out[(2 * C + row) * LS + (size_t)l * S + t] = from_f32<T>(0.f);
+    }
+  }
+}
+
+// The table partials (positions only): a block per (position l, q or k,
+// split of the stripes) sums, over every group and its split's stripes,
+//   G[c][d] = sum ct_e[g] x[c,l,s] x[d,l,s]  and  R[c] = sum ct_r[g] x[c,l,s]
+// (x = q with ct_e, ct_r = c3, c2; x = k with c5, c4) as a register-tiled
+// product: the stripes staged kWideTabStripes at a time, x padded with a
+// ones channel at c4 = round4(c) so that R is the Gram's last column; a
+// thread holds a 4 x 4 tile of the upper triangle (NSUB threads share a
+// tile's stripes when tiles are fewer than threads, summed in a fixed
+// order), each value written to [c][d] and [d][c]. One slot per split.
+struct MomTab {
+  int C4, X, NB, NT, NSUB;
+  __host__ __device__ MomTab(int c) {
+    C4 = (c + 3) & ~3;
+    X = C4 + 4;  // channels of a staged stripe: x, then the ones channel
+    NB = X / 4;
+    NT = NB * (NB + 1) / 2;
+    NSUB = NT >= kWideThreads ? 1 : kWideThreads / NT;
+  }
+  __host__ __device__ int smem_floats() const {
+    const int stage = kWideTabStripes * X;
+    const int red = NSUB > 1 ? NSUB * NT * 16 : 0;
+    return stage > red ? stage : red;
+  }
+};
+
+template <class T>
+__global__ void __launch_bounds__(kWideThreads)
+moments_wide_tab_kernel(BwdArgs<T> a, int g, int C, int nsplit) {
+  extern __shared__ float4 smem4[];
+  float* X = reinterpret_cast<float*>(smem4);  // [t][X]
+  const int L = a.L, S = a.S, l = blockIdx.x, K = blockIdx.y;
+  const int split = blockIdx.z, tid = threadIdx.x;
+  const MomTab sh(C);
+  const int u = sh.NSUB > 1 ? tid / sh.NT : 0;
+  const int t0 = sh.NSUB > 1 ? tid % sh.NT : tid;
+  const int s_lo = (int)((long long)S * split / nsplit);
+  const int s_hi = (int)((long long)S * (split + 1) / nsplit);
+  const size_t LS = (size_t)L * S;
+  // this thread's tile (a <= b), or none; at most one when NT <= threads
+  // (kWideThreads >= NT for c <= 64: 153 tiles at c = 64)
+  int ta = 0, tb = 0;
+  const bool active = u < sh.NSUB && t0 < sh.NT;
+  if (active) {
+    int rem = t0;
+    while (rem >= sh.NB - ta) {
+      rem -= sh.NB - ta;
+      ++ta;
+    }
+    tb = ta + rem;
+  }
+  float tot[4][4], acc[4][4];
 #pragma unroll
-        for (int c = 0; c < CM; ++c) {
-          if (c < C)
-            d = fmaf(x[c], ldf(col + (other + c) * LS + (size_t)j * S), d);
-        }
-        const float w = fmaf(2.f * c1, d, c0);
+  for (int r = 0; r < 4; ++r) {
 #pragma unroll
-        for (int c = 0; c < CM; ++c) {
-          if (c < C)
-            acc[c] = fmaf(ldf(col + (other + c) * LS + (size_t)j * S), w,
-                          acc[c]);
-        }
+    for (int q = 0; q < 4; ++q) tot[r][q] = 0.f;
+  }
+  for (int gi = 0; gi < g; ++gi) {
+    const T* x = a.qkv + ((size_t)gi * 4 * C + K * C) * LS + (size_t)l * S;
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+#pragma unroll
+      for (int q = 0; q < 4; ++q) acc[r][q] = 0.f;
+    }
+    for (int s0 = s_lo; s0 < s_hi; s0 += kWideTabStripes) {
+      const int nst = min(kWideTabStripes, s_hi - s0);
+      for (int e = tid; e < sh.X * kWideTabStripes; e += kWideThreads) {
+        const int t = e % kWideTabStripes, c = e / kWideTabStripes;
+        float v = 0.f;
+        if (t < nst) v = c < C ? ldf(x + c * LS + s0 + t) : c == sh.C4 ? 1.f : 0.f;
+        X[t * sh.X + c] = v;
       }
-      if constexpr (HAS_POS) {
-        const float* r = K ? a.r_k : a.r_q;
-        const float* et = K ? a.e_k : a.e_q;
-        const float cr = K ? c4 : c2, ce = K ? c5 : c3;
-        // c unrolled (acc[c] in registers); d not, its x[d] read again
-        // from L1 (see the forward)
+      __syncthreads();
+      if (active) {
+        for (int t = u; t < nst; t += sh.NSUB) {
+          const float4 av = *reinterpret_cast<const float4*>(X + t * sh.X + 4 * ta);
+          const float4 bv = *reinterpret_cast<const float4*>(X + t * sh.X + 4 * tb);
+          const float ar[4] = {av.x, av.y, av.z, av.w};
+          const float br[4] = {bv.x, bv.y, bv.z, bv.w};
 #pragma unroll
-        for (int c = 0; c < CM; ++c) {
-          if (c < C) {
-            float ed = 0.f;
-#pragma unroll 4
-            for (int d = 0; d < C; ++d) {
-              ed = fmaf(__ldg(et + ((size_t)c * C + d) * L + l) +
-                            __ldg(et + ((size_t)d * C + c) * L + l),
-                        ldf(col + (mine + d) * LS + (size_t)l * S), ed);
-            }
-            acc[c] += cr * __ldg(r + c * L + l) + ce * ed;
+          for (int r = 0; r < 4; ++r) {
+#pragma unroll
+            for (int q = 0; q < 4; ++q) acc[r][q] = fmaf(ar[r], br[q], acc[r][q]);
           }
         }
       }
+      __syncthreads();
+    }
+    const float* cg = a.ct + gi * 8;
+    const float we = K ? cg[5] : cg[3], wr = K ? cg[4] : cg[2];
+    const float w = tb == sh.NB - 1 ? wr : we;
 #pragma unroll
-      for (int c = 0; c < CM; ++c) {
-        if (c < C)
-          out[(mine + c) * LS + (size_t)l * S + s] = from_f32<T>(acc[c]);
+    for (int r = 0; r < 4; ++r) {
+#pragma unroll
+      for (int q = 0; q < 4; ++q) tot[r][q] = fmaf(w, acc[r][q], tot[r][q]);
+    }
+  }
+  if (sh.NSUB > 1) {
+    if (active) {
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+#pragma unroll
+        for (int q = 0; q < 4; ++q) X[(u * sh.NT + t0) * 16 + r * 4 + q] = tot[r][q];
       }
     }
-    for (int p = 0; p < 2 * C; ++p)  // v rows
-      out[(2 * C + p) * LS + (size_t)l * S + s] = from_f32<T>(0.f);
+    __syncthreads();
+    if (tid >= sh.NT) return;
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        float v = 0.f;
+        for (int w = 0; w < sh.NSUB; ++w) v += X[(w * sh.NT + tid) * 16 + r * 4 + q];
+        tot[r][q] = v;
+      }
+    }
+  } else if (!active) {
+    return;
   }
-  if constexpr (HAS_POS) {
-    // rows: dr_q (C), de_q (C * C, [c][d]), dr_k (C), de_k (C * C)
-    float* part = a.part + ((size_t)gi * gridDim.x + blockIdx.x) * T2 * L;
-    const int s1 = min(s0 + ts, S);
-    for (int e = threadIdx.x; e < T2 * L; e += kWideThreads) {
-      const int row = e / L, l = e - row * L;
-      const bool on_k = row >= C + C * C;
-      const int rk = on_k ? row - (C + C * C) : row;
-      const T* x = base + (on_k ? C : 0) * LS + (size_t)l * S;
-      float sum = 0.f;
-      if (rk < C) {
-        for (int s = s0; s < s1; ++s) sum += ldf(x + rk * LS + s);
-        part[e] = (on_k ? c4 : c2) * sum;
-      } else {
-        const int c = (rk - C) / C, d = (rk - C) % C;
-        for (int s = s0; s < s1; ++s)
-          sum = fmaf(ldf(x + c * LS + s), ldf(x + d * LS + s), sum);
-        part[e] = (on_k ? c5 : c3) * sum;
+  // rows: dr_q (C), de_q (C * C, [c][d]), dr_k (C), de_k (C * C)
+  const int T2 = 2 * C + 2 * C * C;
+  float* part = a.part + ((size_t)split * T2 + K * (C + C * C)) * L + l;
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const int c = 4 * ta + r;
+    if (c >= C) continue;
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int d = 4 * tb + q;
+      if (tb == sh.NB - 1) {
+        if (d == sh.C4) part[(size_t)c * L] = tot[r][q];
+      } else if (d < C) {
+        part[(size_t)(C + c * C + d) * L] = tot[r][q];
+        if (ta != tb) part[(size_t)(C + d * C + c) * L] = tot[r][q];
       }
     }
   }
@@ -264,21 +398,6 @@ cudaError_t wide_fwd_cm(const FwdArgs<T>& a, int g, int C, bool pos,
   return cudaGetLastError();
 }
 
-template <int CM, class T>
-cudaError_t wide_bwd_cm(const BwdArgs<T>& a, int g, int ts, int C,
-                        bool pos, cudaStream_t stream) {
-  const dim3 grid((a.S + ts - 1) / ts, g);
-  if (pos) {
-    moments_wide_bwd_kernel<CM, true, T><<<grid, kWideThreads, 0, stream>>>(
-        a, ts, C);
-  } else {
-    moments_wide_bwd_kernel<CM, false, T><<<grid, kWideThreads, 0, stream>>>(
-        a, ts, C);
-  }
-  return cudaGetLastError();
-}
-
-
 template <class T>
 cudaError_t fwd(const T* qkv, const float* r_q, const float* e_q,
                 const float* r_k, const float* e_k, float* part, int g, int C,
@@ -295,15 +414,26 @@ cudaError_t fwd(const T* qkv, const float* r_q, const float* e_q,
 template <class T>
 cudaError_t bwd(const T* qkv, const float* r_q, const float* e_q,
                 const float* r_k, const float* e_k, const float* ct, T* dqkv,
-                float* part, int g, int ts, int C, int L, int S, bool pos,
+                float* part, int g, int C, int L, int S, bool pos,
                 cudaStream_t stream) {
   const BwdArgs<T> a{qkv, r_q, e_q, r_k, e_k, ct, dqkv, part, L, S};
-  switch (cm_bucket(C)) {
-    case 8: return wide_bwd_cm<8>(a, g, ts, C, pos, stream);
-    case 16: return wide_bwd_cm<16>(a, g, ts, C, pos, stream);
-    case 32: return wide_bwd_cm<32>(a, g, ts, C, pos, stream);
-    default: return wide_bwd_cm<64>(a, g, ts, C, pos, stream);
-  }
+  const int ts = medt_moments::wide_dqk_tile(C, L, S, g);
+  const size_t smem = (size_t)ts * dqk_stripe_floats(C, L) * sizeof(float);
+  auto dqk = pos ? moments_wide_dqk_kernel<true, T>
+                 : moments_wide_dqk_kernel<false, T>;
+  cudaError_t err = flash2::allow_smem(dqk, smem);
+  if (err != cudaSuccess) return err;
+  dqk<<<dim3((S + ts - 1) / ts, g), kWideThreads, smem, stream>>>(a, ts, C);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || !pos) return err;
+  const int nsplit = medt_moments::wide_bwd_slots(L, S);
+  const MomTab sh(C);
+  const size_t smem_t = (size_t)sh.smem_floats() * sizeof(float);
+  err = flash2::allow_smem(moments_wide_tab_kernel<T>, smem_t);
+  if (err != cudaSuccess) return err;
+  moments_wide_tab_kernel<T><<<dim3(L, 2, nsplit), kWideThreads, smem_t,
+                               stream>>>(a, g, C, nsplit);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -325,18 +455,17 @@ cudaError_t wide_fwd(const __nv_bfloat16* qkv, const float* r_q,
 
 cudaError_t wide_bwd(const float* qkv, const float* r_q, const float* e_q,
                      const float* r_k, const float* e_k, const float* ct,
-                     float* dqkv, float* part, int g, int ts, int c, int L,
-                     int S, bool pos, cudaStream_t stream) {
-  return bwd(qkv, r_q, e_q, r_k, e_k, ct, dqkv, part, g, ts, c, L, S, pos,
+                     float* dqkv, float* part, int g, int c, int L, int S,
+                     bool pos, cudaStream_t stream) {
+  return bwd(qkv, r_q, e_q, r_k, e_k, ct, dqkv, part, g, c, L, S, pos,
              stream);
 }
 
 cudaError_t wide_bwd(const __nv_bfloat16* qkv, const float* r_q,
                      const float* e_q, const float* r_k, const float* e_k,
                      const float* ct, __nv_bfloat16* dqkv, float* part, int g,
-                     int ts, int c, int L, int S, bool pos,
-                     cudaStream_t stream) {
-  return bwd(qkv, r_q, e_q, r_k, e_k, ct, dqkv, part, g, ts, c, L, S, pos,
+                     int c, int L, int S, bool pos, cudaStream_t stream) {
+  return bwd(qkv, r_q, e_q, r_k, e_k, ct, dqkv, part, g, c, L, S, pos,
              stream);
 }
 

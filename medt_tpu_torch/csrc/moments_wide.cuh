@@ -14,7 +14,36 @@
 namespace medt_moments {
 
 constexpr int kWideFwdStripes = 32;  // stripes of a forward block
-constexpr int kWideThreads = 256;    // threads of a block, both kernels
+constexpr int kWideThreads = 256;    // threads of a block, every kernel
+// the backward's tiles (ops/moments.py mirrors them): the dq/dk kernel's
+// stripes a block (wide_dqk_tile) and the table kernel's stripe splits,
+// one partial slot each (wide_bwd_slots); spans up to kWideMaxBwdSpan
+constexpr int kWideMaxTile = 8;
+constexpr int kWideSlabFloats = 12288;
+constexpr int kWideMinBlocks = 264;
+constexpr int kWideTabStripes = 32;
+constexpr int kWideMaxBwdSpan = 64;
+
+// the largest of 8, 4, 2, 1 stripes whose q/k slab and w matrices (2cL +
+// L (L | 1) floats a stripe) fit kWideSlabFloats and whose grid keeps
+// kWideMinBlocks blocks
+inline int wide_dqk_tile(int c, int L, int S, int g) {
+  int ts = kWideMaxTile;
+  while (ts > 1 && ((long long)ts * (2 * c * L + L * (L | 1)) >
+                        kWideSlabFloats ||
+                    (long long)g * ((S + ts - 1) / ts) < kWideMinBlocks)) {
+    ts /= 2;
+  }
+  return ts;
+}
+
+// table-partial slots: splits of the stripes until 2L splits-blocks reach
+// kWideMinBlocks, each split at least kWideTabStripes stripes
+inline int wide_bwd_slots(int L, int S) {
+  const int want = (kWideMinBlocks + 2 * L - 1) / (2 * L);
+  const int most = (S + kWideTabStripes - 1) / kWideTabStripes;
+  return want < most ? want : most;
+}
 
 cudaError_t wide_fwd(const float* qkv, const float* r_q, const float* e_q,
                      const float* r_k, const float* e_k, float* part, int g,
@@ -25,12 +54,11 @@ cudaError_t wide_fwd(const __nv_bfloat16* qkv, const float* r_q,
                      cudaStream_t stream);
 cudaError_t wide_bwd(const float* qkv, const float* r_q, const float* e_q,
                      const float* r_k, const float* e_k, const float* ct,
-                     float* dqkv, float* part, int g, int ts, int c, int L,
-                     int S, bool pos, cudaStream_t stream);
+                     float* dqkv, float* part, int g, int c, int L, int S,
+                     bool pos, cudaStream_t stream);
 cudaError_t wide_bwd(const __nv_bfloat16* qkv, const float* r_q,
                      const float* e_q, const float* r_k, const float* e_k,
                      const float* ct, __nv_bfloat16* dqkv, float* part, int g,
-                     int ts, int c, int L, int S, bool pos,
-                     cudaStream_t stream);
+                     int c, int L, int S, bool pos, cudaStream_t stream);
 
 }  // namespace medt_moments

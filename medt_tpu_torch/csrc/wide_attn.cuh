@@ -159,8 +159,7 @@ __device__ __forceinline__ void load_q(const Lay& x, float (&q)[CM], int gi,
 }
 
 // The logit of query i and key j of stripe s: q (the query's row, in
-// registers) against k's column j; qk, qr and kr come back for the
-// backward's sums.
+// registers) against k's column j; qk, qr and kr come back to the caller.
 template <int CM, bool POS, class Lay>
 __device__ __forceinline__ float logit(const Lay& x, const float (&q)[CM],
                                        int gi, int i, int j, int s,

@@ -54,7 +54,7 @@ SIGNATURES = {
     "medt_stripe_attn_fwd": [_P] * 9 + [_L] * 6 + [_I] * 5 + [_P],
     "medt_stripe_attn_bwd": [_P] * 16 + [_L] * 6 + [_I] * 7 + [_P],
     # the lanes and flash contracts at the wide widths, every even gp up
-    # to 128 outside 2, 4, 8 and 16 (csrc/axial_wide.cu)
+    # to 128 outside 2, 4, 8 and 16 (csrc/axial_wide.cu, axial_wide_bwd.cu)
     "medt_wide_attn_fwd": [_P] * 9 + [_I] * 6 + [_P],
     "medt_wide_attn_bwd": [_P] * 18 + [_I] * 7 + [_P],
 }

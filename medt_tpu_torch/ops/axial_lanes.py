@@ -53,11 +53,13 @@ Group planes: the lanes and flash kernels take every even gp from 2 to
 128 (``MAX_GP``), as the Pallas kernels do. At gp 2, 4, 8 and 16
 (``NARROW_GP``) they run the designs above; at every other width
 (:func:`is_wide`: the axial-attention classifiers' gp 12 to 128) their
-wrappers launch ``csrc/axial_wide.cu`` (one query row a thread, the value
-channels in chunks of 16), in float32 or bf16, and count the launch as
-their own. flash2 takes gp up to 16 (``NARROW_GP``): no path sends it a
-wider one (ROADMAP.md section 2). Any other gp raises ``ValueError``
-(:func:`check_gp`).
+wrappers launch ``csrc/axial_wide.cu`` (the forward: one query row a
+thread, the value channels in chunks of 16) or ``csrc/axial_wide_bwd.cu``
+(the backward: register-tiled row and column passes over a (g, L, L, S)
+scratch of p and dlog, the table gradients as products over the stripes),
+in float32 or bf16, and count the launch as their own. flash2 takes gp
+up to 16 (``NARROW_GP``): no path sends it a wider one (ROADMAP.md
+section 2). Any other gp raises ``ValueError`` (:func:`check_gp`).
 """
 from __future__ import annotations
 
@@ -441,10 +443,48 @@ def _no_stripes_bwd(qkv, g, gp, L, has_pos):
     return (dqkv, *_split_tables(dtables, gp, has_pos), out[e:].view(g, 8))
 
 
-def _wide_bwd_slots(L: int, S: int) -> int:
-    """daff partial slots of a backward at a wide gp: one per block of 4
-    query rows x 32 stripes (csrc/axial_wide.cu: wide_rows_kernel)."""
-    return -(-L // 4) * -(-S // 32)
+# The wide backward's row pass (csrc/axial_wide_bwd.cu: kLanes, kMaxWarps,
+# kKeyWindow, kTileBudget, rows_per_thread, row_keys, row_warps): a block
+# owns 32 stripes, a window of min(8, round4(L)) keys and the query rows
+# of up to 4 warps, each thread 4, 2, 2 or 1 rows by register bucket of c,
+# as many warps as keep its (2gp, rows, window) table tile within the
+# budget; one daff slot per block
+WIDE_LANES = 32
+WIDE_MAX_WARPS = 4
+WIDE_KEY_WINDOW = 8
+WIDE_TILE_BUDGET = 112 * 1024
+
+
+def wide_row_keys(L: int) -> int:
+    """Keys of a wide backward row-pass block."""
+    return min(-(-L // 4) * 4, WIDE_KEY_WINDOW)
+
+
+def wide_row_queries(gp: int, L: int) -> int:
+    """Query rows of a wide backward row-pass block (its warps times the
+    rows a thread holds)."""
+    c = gp // 2
+    ri = 4 if c <= 8 else 2 if c <= 32 else 1
+    per = 2 * gp * ri * wide_row_keys(L) * 4
+    return max(1, min(WIDE_MAX_WARPS, WIDE_TILE_BUDGET // per)) * ri
+
+
+def _wide_bwd_slots(gp: int, L: int, S: int) -> int:
+    """daff partial slots of a backward at a wide gp: one per row-pass
+    block of ``wide_row_queries`` rows x ``wide_row_keys`` keys x 32
+    stripes."""
+    return (-(-L // wide_row_queries(gp, L)) * -(-L // wide_row_keys(L))
+            * -(-S // WIDE_LANES))
+
+
+def wide_bwd_scratch(g: int, gp: int, L: int, S: int, has_pos: bool,
+                     lanes: bool) -> int:
+    """Floats of a wide backward's scratch: p and dlog (g, L, L, S) each,
+    the lanes contract's m, l and delta (3, g, L, S), the table partials
+    (g, 2gp, L, L) with positions and the daff partials."""
+    e = 2 * gp * L * L if has_pos else 0
+    return (2 * g * L * L * S + (3 * g * L * S if lanes else 0) + g * e
+            + _wide_bwd_slots(gp, L, S) * g * 4)
 
 
 def _wide_bwd(wrapper, qkv, qemb, kemb_t, vemb, sim_affine, saved, dsv,
@@ -457,18 +497,22 @@ def _wide_bwd(wrapper, qkv, qemb, kemb_t, vemb, sim_affine, saved, dsv,
     dev = qkv.device
     f32 = dict(dtype=torch.float32, device=dev)
     e = 2 * gp * L * L if has_pos else 0
-    n_aff = _wide_bwd_slots(L, S)
+    n_aff = _wide_bwd_slots(gp, L, S)
     out = torch.empty(e + g * 8, **f32)
+    lanes = saved is None
     pairs = g * L * L * S
-    scratch = torch.empty(2 * pairs + g * e + n_aff * g * 4, **f32)
+    p_end = pairs + (3 * g * L * S if lanes else 0)   # p, then the stats
+    scratch = torch.empty(wide_bwd_scratch(g, gp, L, S, has_pos, lanes),
+                          **f32)
     dqkv = torch.empty((g, 2 * gp, L, S), dtype=qkv.dtype, device=dev)
     m, l, sv, sve = saved if saved is not None else (dsv,) * 4
     launch(wrapper, getattr(library(), entry("wide_attn_bwd", qkv)), qkv,
            ptr(qkv), ptr(qemb), ptr(kemb_t), ptr(vemb), ptr(sim_affine),
            ptr(m), ptr(l), ptr(sv), ptr(sve if has_pos else sv), ptr(dsv),
            ptr(dsve if has_pos else dsv), ptr(dqkv), ptr(out), ptr(out[e:]),
-           ptr(scratch), ptr(scratch[pairs:]), ptr(scratch[2 * pairs:]),
-           ptr(scratch[2 * pairs + g * e:]), g, gp, L, S, int(has_pos),
+           ptr(scratch), ptr(scratch[p_end:]),
+           ptr(scratch[p_end + pairs:]),
+           ptr(scratch[p_end + pairs + g * e:]), g, gp, L, S, int(has_pos),
            int(saved is not None), n_aff)
     dtables = out[:e].view(2 * gp if has_pos else 0, L, L)
     return (dqkv, *_split_tables(dtables, gp, has_pos), out[e:].view(g, 8))

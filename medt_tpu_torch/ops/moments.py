@@ -35,8 +35,11 @@ plain versions take bf16 qkv as its exact upcast and round dqkv once.
 
 At the wide widths (every even gp up to 128 outside 2, 4, 8 and 16:
 ``axial_lanes.is_wide``) the entry points, float32 and bf16, run kernels
-of their own (``csrc/moments_wide.cu``: ``moments_wide_{fwd,bwd}_kernel``),
-under the same partial layouts, finalizes and wrapper buffers.
+of their own (``csrc/moments_wide.cu``: ``moments_wide_fwd_kernel``, and
+``moments_wide_dqk_kernel`` with ``moments_wide_tab_kernel`` for the
+backward) under the same finalizes; the backward's table partials have a
+slot per split of the stripes (:func:`wide_bwd_slots`), and it takes spans
+up to ``WIDE_MAX_BWD_SPAN``.
 """
 from __future__ import annotations
 
@@ -54,7 +57,7 @@ from ..kernels.launch import (
     widened,
 )
 from ..parallel import sync
-from .axial_lanes import check_gp
+from .axial_lanes import check_gp, is_wide
 
 
 def _split_qk(qkv):
@@ -196,13 +199,34 @@ def bwd_tile(c: int, L: int, S: int, g: int) -> int:
     return ts
 
 
+# The wide widths' backward (csrc/moments_wide.cuh: kWideMinBlocks,
+# kWideTabStripes, kWideMaxBwdSpan, wide_bwd_slots): its table partials
+# have one slot per split of the stripes, splits added until the (span x 2
+# x splits) grid reaches 264 blocks, each at least 32 stripes
+WIDE_MIN_BLOCKS = 264
+WIDE_TAB_STRIPES = 32
+WIDE_MAX_BWD_SPAN = 64
+
+
+def wide_bwd_slots(L: int, S: int) -> int:
+    """Table-partial slots of a moments backward launch at a wide gp."""
+    return min(-(-WIDE_MIN_BLOCKS // (2 * L)), -(-S // WIDE_TAB_STRIPES))
+
+
+def bwd_slots(gp: int, L: int, S: int, g: int) -> int:
+    """Table-partial slots of a moments backward launch with positions."""
+    if is_wide(gp):
+        return wide_bwd_slots(L, S)
+    return g * -(-S // bwd_tile(gp // 2, L, S, g))
+
+
 def bwd_buffers(qkv, g, gp, L, S, has_pos):
     """dqkv (in qkv's dtype) and, in one more allocation, dtables (2c + 2c^2, L) then the
     table partials (n_part, 2c + 2c^2, L), both empty without positions:
     ``(dqkv, dtables, part, n_part)``."""
     c = gp // 2
     rows = 2 * c + 2 * c * c if has_pos else 0
-    n_part = g * -(-S // bwd_tile(c, L, S, g)) if has_pos else 0
+    n_part = bwd_slots(gp, L, S, g) if has_pos else 0
     f32 = dict(dtype=torch.float32, device=qkv.device)
     dqkv = torch.empty(tuple(qkv.shape), dtype=qkv.dtype, device=qkv.device)
     tables = torch.empty(((1 + n_part) * rows * L,), **f32)
@@ -217,8 +241,9 @@ def moment_sums_bwd(qkv, r_q, e_q, r_k, e_k, ct):
     g, gp, L, S, has_pos = _check(
         qkv, r_q, e_q, r_k, e_k, "moment_sums_bwd",
         ct=(ct, (qkv.shape[0], 8)))
-    if L > BWD_MAX_SPAN:
-        raise ValueError(f"moment_sums_bwd: span {L} > {BWD_MAX_SPAN}")
+    max_span = WIDE_MAX_BWD_SPAN if is_wide(gp) else BWD_MAX_SPAN
+    if L > max_span:
+        raise ValueError(f"moment_sums_bwd: span {L} > {max_span} at gp {gp}")
     c = gp // 2
     dqkv, dtables, part, n_part = bwd_buffers(qkv, g, gp, L, S, has_pos)
     if S == 0:      # no stripes: empty dqkv, zero table gradients

@@ -31,6 +31,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import _torch_threads  # noqa: F401  (one PyTorch thread)
 
 from medt_tpu.models import build_model as jax_build_model
 from medt_tpu.ops.pallas_axial_lanes import flash2_lanes_core as jax_flash2

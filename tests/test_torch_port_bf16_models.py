@@ -16,6 +16,7 @@ tests/test_torch_port_bf16.py.
 import numpy as np
 import pytest
 import torch
+import _torch_threads  # noqa: F401  (one PyTorch thread)
 
 from medt_tpu_torch.config import parse_config
 from medt_tpu_torch.data import blob_batch

@@ -40,6 +40,7 @@ import numpy as np
 import optax
 import pytest
 import torch
+import _torch_threads  # noqa: F401  (one PyTorch thread)
 
 from medt_tpu import losses as jlosses
 from medt_tpu import metrics as jmetrics

@@ -13,6 +13,7 @@ CPU.
   the format.
 """
 import pathlib
+import _torch_threads  # noqa: F401  (one PyTorch thread)
 import subprocess
 import sys
 import textwrap

@@ -18,6 +18,7 @@ import sys
 import numpy as np
 import pytest
 import torch
+import _torch_threads  # noqa: F401  (one PyTorch thread)
 
 from medt_tpu_torch.kernels import build as kbuild
 from medt_tpu_torch.ops import axial_eval, axial_lanes, axial_train, moments

@@ -21,6 +21,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import _torch_threads  # noqa: F401  (one PyTorch thread)
 
 from medt_tpu import metrics as jmetrics
 from medt_tpu.config import parse_config as jax_parse_config

@@ -10,6 +10,7 @@ card's machine (``python -m pytest tests/test_torch_port_dp_cuda.py
 """
 import pytest
 import torch
+import _torch_threads  # noqa: F401  (one PyTorch thread)
 
 from medt_tpu_torch import ops
 from medt_tpu_torch.ops import axial_eval, axial_lanes, axial_train, moments

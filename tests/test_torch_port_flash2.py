@@ -19,6 +19,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import _torch_threads  # noqa: F401  (one PyTorch thread)
 
 from medt_tpu.ops import pallas_axial_lanes as jlanes
 from medt_tpu_torch.ops import axial_lanes

@@ -41,6 +41,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import _torch_threads  # noqa: F401  (one PyTorch thread)
 
 from medt_tpu.cli import serve as jax_serve
 from medt_tpu.evaluation import sweep as jax_sweep

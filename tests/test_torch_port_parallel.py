@@ -42,6 +42,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import _torch_threads  # noqa: F401  (one PyTorch thread)
 
 import _torch_dp_ranks as ranks
 from medt_tpu.models import build_model as jax_build_model

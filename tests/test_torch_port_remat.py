@@ -19,6 +19,7 @@ recompute. What is held:
 import numpy as np
 import pytest
 import torch
+import _torch_threads  # noqa: F401  (one PyTorch thread)
 
 from medt_tpu_torch.data import blob_batch
 from medt_tpu_torch.models import build_model

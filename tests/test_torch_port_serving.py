@@ -11,6 +11,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import _torch_threads  # noqa: F401  (one PyTorch thread)
 
 from medt_tpu.metrics import logits_to_foreground as jax_foreground
 from medt_tpu_torch.evaluation import sliding_window_inference

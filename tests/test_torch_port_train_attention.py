@@ -14,6 +14,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import _torch_threads  # noqa: F401  (one PyTorch thread)
 
 from medt_tpu.ops.axial_attention import AxialAttention as JaxAxialAttention
 from medt_tpu_torch.ops.axial_attention import AxialAttention

@@ -5,6 +5,7 @@ every parameter and running statistic after an sgd step). MedT's local
 branch takes joint batch statistics over all patches in both packages.
 """
 from test_torch_port_training import check_train_step
+import _torch_threads  # noqa: F401  (one PyTorch thread)
 
 
 def test_train_step_matches_jax_medt():

@@ -32,6 +32,7 @@ import os
 import numpy as np
 import pytest
 import torch
+import _torch_threads  # one PyTorch thread; default_pool below
 
 from medt_tpu.cli import train as jax_cli_train
 from medt_tpu.config import parse_config as jax_parse_config
@@ -97,13 +98,16 @@ def runs(tmp_path_factory):
                                  N_TRAIN)
     sd = weights.to_state_dict(weights.export_for_model(
         MODEL, jstate.params, jstate.batch_stats))
-    state = _port_run(_argv(root, root / "port"), sd)
-    rng = np.random.default_rng(7)
-    for i in range(2):
-        noisy = {k: v * (1.0 + WEIGHT_NOISE * torch.from_numpy(
-            rng.standard_normal(v.shape)).float())
-            if v.is_floating_point() else v for k, v in sd.items()}
-        _port_run(_argv(root, root / f"spread{i}", val=False), noisy)
+    # the port's runs on PyTorch's own pool: the measured limits of
+    # test_trainer_matches_jax_cli were taken with its summation order
+    with _torch_threads.default_pool():
+        state = _port_run(_argv(root, root / "port"), sd)
+        rng = np.random.default_rng(7)
+        for i in range(2):
+            noisy = {k: v * (1.0 + WEIGHT_NOISE * torch.from_numpy(
+                rng.standard_normal(v.shape)).float())
+                if v.is_floating_point() else v for k, v in sd.items()}
+            _port_run(_argv(root, root / f"spread{i}", val=False), noisy)
     return root, state
 
 

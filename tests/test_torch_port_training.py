@@ -20,6 +20,7 @@ import numpy as np
 import optax
 import pytest
 import torch
+import _torch_threads  # noqa: F401  (one PyTorch thread)
 
 from medt_tpu import losses as jlosses
 from medt_tpu.models import build_model as jax_build_model

@@ -50,9 +50,13 @@ tests/test_torch_port_cuda.py's tolerances, the same bits on a second run,
 one launch counted per call, and each bf16 entry point against its float32
 twin on the upcast qkv, bit for bit (dqkv: the float32 dqkv rounded once).
 """
+import re
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
+import _torch_threads  # noqa: F401  (one PyTorch thread)
 
 from medt_tpu_torch.models.classifiers import AxialAttentionNet
 from medt_tpu_torch.ops import AxialAttention, axial_eval, axial_lanes, moments
@@ -451,3 +455,147 @@ def test_wide_bf16_equals_float32_twin_on_card(cuda_device, kernel, L, gp,
                 assert o.dtype == torch.bfloat16, name
                 w = w.to(torch.bfloat16)
             assert torch.equal(o, w), name
+
+
+# ---- the redesigned wide backwards (rows 2, 4, 11's route and 8) ------------
+
+CSRC = Path(__file__).resolve().parent.parent / "medt_tpu_torch" / "csrc"
+
+
+def _const(text, name):
+    """The value of ``constexpr int name = <int> [* <int>];`` in a source."""
+    m = re.search(rf"constexpr int {name} = (\d+)(?: \* (\d+))?;", text)
+    return int(m.group(1)) * int(m.group(2) or 1)
+
+
+def test_wide_row_tile_follows_the_kernel():
+    """The wrapper's daff slots and scratch follow the row pass's own tile
+    rule, read here from csrc/axial_wide_bwd.cu: a block of 32 stripes, a
+    window of min(kKeyWindow, round4(L)) keys and up to kMaxWarps warps of
+    4, 2, 2 or 1 query rows by register bucket, as many warps as keep the
+    (2gp, rows, window) table tile within kTileBudget bytes; one daff slot
+    a block. Every axial50m and axial50l site gets 4 warps."""
+    src = (CSRC / "axial_wide_bwd.cu").read_text()
+    lanes, warps, window, budget = (_const(src, n) for n in (
+        "kLanes", "kMaxWarps", "kKeyWindow", "kTileBudget"))
+    assert (lanes, warps, window, budget) == (
+        axial_lanes.WIDE_LANES, axial_lanes.WIDE_MAX_WARPS,
+        axial_lanes.WIDE_KEY_WINDOW, axial_lanes.WIDE_TILE_BUDGET)
+    assert "return cm <= 8 ? 4 : cm <= 32 ? 2 : 1;" in src
+    assert "return round4(L) < kKeyWindow ? round4(L) : kKeyWindow;" in src
+    assert "2 * gp * ri * kw * (int)sizeof(float)" in src
+
+    def rows(gp, L):
+        c = gp // 2
+        bucket = 8 if c <= 8 else 16 if c <= 16 else 32 if c <= 32 else 64
+        ri = 4 if bucket <= 8 else 2 if bucket <= 32 else 1
+        kw = min((L + 3) & ~3, window)
+        w = budget // (2 * gp * ri * kw * 4)
+        return min(max(w, 1), warps) * ri, kw
+
+    for gp in range(6, 130, 2):
+        if gp in axial_lanes.NARROW_GP:
+            continue
+        for L in (1, 7, 13, 14, 28, 56, 57, 64):
+            qb, kw = rows(gp, L)
+            assert axial_lanes.wide_row_queries(gp, L) == qb
+            assert axial_lanes.wide_row_keys(L) == kw
+            for S in (1, 33, 448):
+                assert axial_lanes._wide_bwd_slots(gp, L, S) == (
+                    -(-L // qb) * -(-L // kw) * -(-S // lanes))
+    sites = {(56, 12): 16, (56, 24): 8, (28, 24): 8, (28, 48): 8,
+             (14, 48): 8, (14, 96): 4, (7, 96): 4, (56, 32): 8,
+             (28, 32): 8, (28, 64): 8, (14, 64): 8, (14, 128): 4,
+             (7, 128): 4}
+    for (L, gp), qb in sites.items():
+        assert axial_lanes.wide_row_queries(gp, L) == qb, (L, gp)
+    # scratch: p and dlog (g, L, L, S), the lanes stats, table and daff
+    # partials; 90 MB at axial50m's widest train site
+    g, gp, L, S = 8, 12, 56, 448
+    n_aff = -(-L // 16) * -(-L // 8) * -(-S // 32)
+    assert axial_lanes._wide_bwd_slots(gp, L, S) == n_aff == 392
+    assert axial_lanes.wide_bwd_scratch(g, gp, L, S, True, False) == (
+        2 * g * L * L * S + g * 2 * gp * L * L + n_aff * g * 4)
+    assert 2 * g * L * L * S * 4 / 2 ** 20 == 85.75
+    assert axial_lanes.wide_bwd_scratch(g, 48, 14, 112, False, True) == (
+        2 * g * 14 * 14 * 112 + 3 * g * 14 * 112
+        + axial_lanes._wide_bwd_slots(48, 14, 112) * g * 4)
+
+
+def test_wide_moments_slots_follow_the_kernel():
+    """The wide moments backward's table partials have one slot per split
+    of the stripes (csrc/moments_wide.cuh: kWideMinBlocks,
+    kWideTabStripes, kWideMaxBwdSpan): splits until the (span, 2, splits)
+    grid reaches kWideMinBlocks blocks, each at least kWideTabStripes
+    stripes; narrow widths keep their per-block slots; spans past
+    kWideMaxBwdSpan at a wide gp are refused."""
+    src = (CSRC / "moments_wide.cuh").read_text()
+    assert (_const(src, "kWideMinBlocks"), _const(src, "kWideTabStripes"),
+            _const(src, "kWideMaxBwdSpan")) == (
+        moments.WIDE_MIN_BLOCKS, moments.WIDE_TAB_STRIPES,
+        moments.WIDE_MAX_BWD_SPAN)
+    for L, S in [(56, 448), (28, 224), (14, 112), (7, 56), (7, 7),
+                 (64, 3584), (1, 1), (13, 100)]:
+        want = min(-(-264 // (2 * L)), -(-S // 32))
+        assert moments.wide_bwd_slots(L, S) == want
+        for gp in (12, 96, 128):
+            assert moments.bwd_slots(gp, L, S, 8) == want
+            qkv = torch.empty((8, 2 * gp, L, S), device="meta")
+            _, dtables, part, n_part = moments.bwd_buffers(qkv, 8, gp, L, S,
+                                                           True)
+            c = gp // 2
+            assert part.shape == (want, 2 * c + 2 * c * c, L)
+    assert moments.bwd_slots(16, 56, 448, 8) == 8 * -(-448 // moments.bwd_tile(
+        8, 56, 448, 8))
+    assert moments.wide_bwd_slots(56, 448) == 3
+    assert moments.wide_bwd_slots(7, 56) == 2
+
+
+# (kernel, span, gp, stripes, has_pos): every register-bucket edge (gp 6,
+# 18, 32, 34, 64, 66, 126, 128), ragged spans (13, 57) and stripe counts,
+# both contracts, with and without positions, and axial50m's span-56 site
+# at batch 64 (3584 stripes)
+WIDE_BWD_GEOMETRIES = [
+    ("lanes", 13, 6, 37, True), ("lanes", 13, 6, 37, False),
+    ("lanes", 16, 18, 100, True), ("lanes", 7, 32, 33, False),
+    ("lanes", 13, 34, 45, True), ("lanes", 16, 64, 70, True),
+    ("lanes", 9, 66, 31, False), ("lanes", 13, 126, 35, True),
+    ("lanes", 14, 128, 112, True),
+    ("flash", 57, 6, 45, True), ("flash", 64, 18, 40, False),
+    ("flash", 57, 32, 33, True), ("flash", 28, 34, 50, False),
+    ("flash", 64, 64, 31, True), ("flash", 17, 66, 40, True),
+    ("flash", 40, 126, 9, True), ("flash", 64, 128, 35, True),
+    ("flash", 56, 12, 3584, True),
+    ("moments", 57, 6, 45, True), ("moments", 13, 18, 100, False),
+    ("moments", 28, 32, 70, True), ("moments", 13, 34, 45, True),
+    ("moments", 64, 64, 40, True), ("moments", 7, 66, 40, True),
+    ("moments", 14, 126, 33, True), ("moments", 64, 128, 37, True),
+    ("moments", 56, 12, 3584, True),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel,L,gp,S,has_pos", WIDE_BWD_GEOMETRIES)
+def test_wide_backward_on_card(cuda_device, kernel, L, gp, S, has_pos):
+    """The wide attention backward (lanes and flash contracts) and moments
+    backward against their plain versions (1e-4 + 1e-4 max|plain|), the
+    same bits on a second run, and the bf16 entry point equal to the
+    float32 kernel on the upcast qkv (dqkv rounded once)."""
+    f32 = _card_calls(kernel, L, gp, S, has_pos, cuda_device)[-1]
+    fn, fargs, plain = f32
+    got, again, want = fn(*fargs), fn(*fargs), plain()
+    torch.cuda.synchronize()
+    for i, (o, a, w) in enumerate(zip(got, again, want)):
+        name = f"{fn.__name__}[{i}] L {L} gp {gp} S {S}"
+        _close(o, w, name)
+        assert torch.equal(o, a), f"{name} differs between two runs"
+    bf16 = _card_calls(kernel, L, gp, S, has_pos, cuda_device,
+                       cast=lambda t: t.bfloat16())[-1]
+    twin = _card_calls(kernel, L, gp, S, has_pos, cuda_device,
+                       cast=lambda t: t.bfloat16().float())[-1]
+    got, ref = bf16[0](*bf16[1]), twin[0](*twin[1])
+    torch.cuda.synchronize()
+    assert got[0].dtype == torch.bfloat16
+    assert torch.equal(got[0], ref[0].to(torch.bfloat16)), "bf16 dqkv"
+    for i, (o, w) in enumerate(zip(got[1:], ref[1:]), 1):
+        assert torch.equal(o, w), f"bf16 {fn.__name__}[{i}]"

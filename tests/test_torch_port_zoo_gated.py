@@ -11,6 +11,7 @@
   ``kernel_registry`` records no kernel site for them either.
 """
 import pytest
+import _torch_threads  # noqa: F401  (one PyTorch thread)
 
 from test_torch_port_training import check_train_step
 from test_torch_port_zoo import _jax_routes, _port_routes

@@ -12,6 +12,7 @@ on both sides.
   deep-supervision loss for unetplusplus's ``(logits, aux)`` tuple.
 """
 import pytest
+import _torch_threads  # noqa: F401  (one PyTorch thread)
 
 from test_torch_port_training import check_train_step
 
