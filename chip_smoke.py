@@ -155,7 +155,27 @@ the start of the script) as it ends:
    step, counted under the ``_bf16`` names, finite loss.
    Each wide kernel and bf16 entry point adds an entry ``<name>_wide`` to
    the summary line.
-20. ``dp`` — data parallel on the one card: two gloo ranks on ``cuda:0``
+20. ``cls_hires`` — axial50m and axial50l at 384 px (the usual fine-tuning
+   resolution; spans 96, 96, 48, 24, so layer 1 and layer 2's first block
+   attend along span 96 at gp 12 and 24, or 16 and 32, on the flash2
+   route, the long-span wide kernels at every gp outside 2, 4, 8 and 16):
+   each kernel of the span-96 sites (flash2 forward and backward, the
+   moments forward and backward) at axial50m's batch-8 and batch-1 and
+   axial50l's batch-1 stripe counts against its plain version, and the
+   flash2 forward and backward over spans 80, 128, 192 and 256 at gp 6,
+   10, 12, 32, 64 and 128 with and without positions (32 stripes); the
+   bf16 entry points at axial50m's span-96 step sites against their
+   float32 twins (bit-equal); axial50m (1000 classes, float32,
+   ``use_fused``, published widths and depth, built by its factory at
+   ``img_size=384``) at batch 8: one SGD step against plain cores, a
+   counted warm-up and 5 timed steps at lr 0.005 (8 + 8 flash2, 20 + 20
+   flash, 4 + 4 lanes, 32 + 32 moments launches a step; the median of the
+   5 losses below 0.75 of the first), wall and device ms, an eval forward
+   (8 flash2, 20 flash, 4 eval) against plain cores; axial50l at batch 1:
+   an eval forward (8 flash2, 24 eval) and a train step against plain
+   cores; axial50m in bf16: one counted step. The summary line gains the
+   ``flash2_lanes_{fwd,bwd}[_bf16]_wide`` entries.
+21. ``dp`` — data parallel on the one card: two gloo ranks on ``cuda:0``
    (``parallel.run_data_parallel``; MedT 128, Adam-L2, the kernels, the
    same seeded weights on both) take a DDP train step at global batch 16
    (8 rows a rank) and at global batch 1 (one rank holds the row, the
@@ -2364,6 +2384,7 @@ CLS_CALLS = (("b8_step", 8, True), ("b8_forward", 8, False),
 ROUTE_KERNELS = {"eval": ("axial_eval_fwd",),
                  "lanes": ("lanes_attn_fwd", "lanes_attn_bwd"),
                  "flash": ("flash_lanes_fwd", "flash_lanes_bwd"),
+                 "flash2": ("flash2_lanes_fwd", "flash2_lanes_bwd"),
                  "stripe": ("stripe_attn_fwd", "stripe_attn_bwd")}
 # JAX's train_cls defaults: SGD, momentum 0.9, L2 1e-4, lr 0.1; label
 # smoothing 0.1
@@ -2386,11 +2407,13 @@ CLS_LOSS_FALL = 0.75
 # loss_fell does, against the same CLS_LOSS_FALL
 # the port's kernels in a profiled axial26s step, by the name of the CUDA
 # kernel (the first that a kernel's name contains): the gp <= 16 designs,
-# then the wide ones (rows 1 and 3 share wide_fwd_kernel, rows 2 and 4
-# the wide backward's row, column and table kernels; the moments names
-# first, as "wide_tab_kernel" is part of "moments_wide_tab_kernel")
+# then the wide ones (the long-span flash2 kernels; rows 1 and 3 share
+# wide_fwd_kernel, rows 2 and 4 the wide backward's row, column and table
+# kernels; the moments names first, as "wide_tab_kernel" is part of
+# "moments_wide_tab_kernel")
 CLS_OWN_KERNELS = (
-    "moments_wide_fwd_kernel", "moments_wide_dqk_kernel",
+    "long_fwd_kernel", "long_row_kernel", "long_col_kernel",
+    "long_tab_kernel", "moments_wide_fwd_kernel", "moments_wide_dqk_kernel",
     "moments_wide_tab_kernel", "wide_fwd_kernel", "wide_row_kernel",
     "wide_col_kernel", "wide_tab_kernel", "axial_lanes_fwd_kernel",
     "lanes_bwd_kernel",
@@ -2402,10 +2425,10 @@ CLS_CLI_PER_CLASS = 8
 
 def route_kernels(route: str, training: bool) -> tuple:
     """The kernels one site on ``route`` launches: the route's forward
-    and, training, its backward and, on the lanes and flash routes, the
-    moments forward and backward."""
+    and, training, its backward and, on the lanes, flash and flash2
+    routes, the moments forward and backward."""
     kernels = ROUTE_KERNELS[route][:2 if training else 1]
-    if training and route in ("lanes", "flash"):
+    if training and route in ("lanes", "flash", "flash2"):
         kernels += ("moment_sums_fwd", "moment_sums_bwd")
     return kernels
 
@@ -2519,37 +2542,39 @@ def _cls_args(model="axial26s", **kw):
     return argparse.Namespace(model=model, num_classes=CLS_CLASSES, **kw)
 
 
-def _cls_model(variables, plain: bool, model="axial26s", dtype=None):
+def _cls_model(variables, plain: bool, model="axial26s", dtype=None,
+               img=CLS_IMG):
     """A classifier (axial26s by default) on the card under ``use_fused``
     (``plain``: plain cores) with ``variables`` loaded, built by
-    ``builders.build_model``; with ``dtype`` (its compute dtype, which
-    ``build_model`` does not take) by the model's factory."""
+    ``builders.build_model``; with ``dtype`` (its compute dtype) or at
+    another ``img`` than 224 px (neither of which ``build_model`` takes)
+    by the model's factory."""
     from medt_tpu_torch import builders
     from medt_tpu_torch.models import classifiers
 
-    if dtype is None:
+    if dtype is None and img == CLS_IMG:
         net = builders.build_model(_cls_args(model), device="cuda",
                                    use_fused=True, plain_cores=plain)
     else:
         net = getattr(classifiers, model)(
-            num_classes=CLS_CLASSES, use_fused=True, plain_cores=plain,
-            dtype=dtype, device="cuda").eval()
+            num_classes=CLS_CLASSES, img_size=img, use_fused=True,
+            plain_cores=plain, dtype=dtype, device="cuda").eval()
     net.load_state_dict(variables, strict=True)
     return net
 
 
 def _cls_state(torch, variables, plain: bool, lr: float = CLS_LR,
-               model="axial26s", dtype=None):
+               model="axial26s", dtype=None, img=CLS_IMG):
     from medt_tpu_torch.training import TrainState, sgd
 
-    net = _cls_model(variables, plain, model, dtype)
+    net = _cls_model(variables, plain, model, dtype, img)
     return TrainState(net, sgd(net.parameters(), lr, momentum=CLS_MOMENTUM,
                                weight_decay=CLS_WD))
 
 
 def cls_step_parity(torch, variables, images, labels,
                     input_noise=STEP_INPUT_NOISE, rel_tol=1e-4,
-                    model="axial26s"):
+                    model="axial26s", img=CLS_IMG):
     """One SGD step of a classifier (axial26s by default; label smoothing
     0.1) on the kernels against
     the same step on plain cores from identical weights (cuDNN
@@ -2565,7 +2590,7 @@ def cls_step_parity(torch, variables, images, labels,
     train_step, _ = make_steps(CLS_SMOOTHING)
 
     def one_step(plain, image):
-        state = _cls_state(torch, variables, plain, model=model)
+        state = _cls_state(torch, variables, plain, model=model, img=img)
         loss = float(train_step(state, {"image": image, "label": labels})
                      ["loss"])
         net = state.model
@@ -2597,8 +2622,23 @@ def cls_step_parity(torch, variables, images, labels,
     return loss_k, loss_p, checks, grad_checks, counts
 
 
+def _parity_summary(loss_k, loss_p, checks, grads, counts=None):
+    """A step parity's record (losses, tensors held, the worst tensor and
+    gradient against its bound, launches if given) and its failed
+    checks."""
+    bad = [c for c in checks if not c["ok"]]
+    out = {"loss_kernels": loss_k, "loss_plain": loss_p,
+           "tensors": len(checks), "failed": len(bad),
+           "worst": max(checks, key=lambda c: c["err"] / c["tol"]),
+           "gradients_worst": max(grads, key=lambda c: c["err"] / c["tol"]),
+           "gradients_beyond_bound": sum(not c["ok"] for c in grads)}
+    if counts is not None:
+        out["launches"] = counts
+    return out, bad
+
+
 def _cls_forward_parity(torch, variables, images, col, model="axial26s",
-                        routes=None):
+                        routes=None, img=CLS_IMG):
     """An eval forward of a classifier (axial26s by default) on the
     kernels (counted) against plain cores at LOGITS_ATOL, its routes
     against column ``col`` of ``routes`` (CLS_ROUTES by default)."""
@@ -2608,7 +2648,7 @@ def _cls_forward_parity(torch, variables, images, col, model="axial26s",
     x = normalize(images, "cuda")
     out = {}
     for plain in (False, True):
-        net = _cls_model(variables, plain, model).eval()
+        net = _cls_model(variables, plain, model, img=img).eval()
         ops.reset_launch_counts()
         with torch.no_grad():
             out[plain] = net(x)
@@ -2722,13 +2762,7 @@ def phase_cls(torch):
     # -- batch 8: one step against plain cores -------------------------------
     loss_k, loss_p, checks, grads, step_counts = cls_step_parity(
         torch, variables, images, labels)
-    bad = [c for c in checks if not c["ok"]]
-    parity = {"loss_kernels": loss_k, "loss_plain": loss_p,
-              "tensors": len(checks), "failed": len(bad),
-              "worst": max(checks, key=lambda c: c["err"] / c["tol"]),
-              "gradients_worst": max(grads,
-                                     key=lambda c: c["err"] / c["tol"]),
-              "gradients_beyond_bound": sum(not c["ok"] for c in grads)}
+    parity, bad = _parity_summary(loss_k, loss_p, checks, grads)
     check(not bad, f"axial26s step on kernels vs plain cores: {bad[:5]}")
     check(step_counts == launches_of(step_counts, cls_launches("b8_step"), 1),
           f"axial26s b8 step launches {step_counts}")
@@ -2771,14 +2805,8 @@ def phase_cls(torch):
                                            1), f"axial26s {call}: {r}")
     loss1_k, loss1_p, checks1, grads1, counts1 = cls_step_parity(
         torch, variables, images[:1], labels[:1])
-    bad1 = [c for c in checks1 if not c["ok"]]
-    parity_b1 = {"loss_kernels": loss1_k, "loss_plain": loss1_p,
-                 "tensors": len(checks1), "failed": len(bad1),
-                 "worst": max(checks1, key=lambda c: c["err"] / c["tol"]),
-                 "gradients_worst": max(grads1,
-                                        key=lambda c: c["err"] / c["tol"]),
-                 "gradients_beyond_bound": sum(not c["ok"] for c in grads1),
-                 "launches": counts1}
+    parity_b1, bad1 = _parity_summary(loss1_k, loss1_p, checks1, grads1,
+                                      counts1)
     check(not bad1, f"axial26s batch-1 step vs plain cores: {bad1[:5]}")
     check(counts1 == launches_of(counts1, cls_launches("b1_step"), 1),
           f"axial26s b1 step launches {counts1}")
@@ -2914,13 +2942,7 @@ def phase_cls_wide(torch):
                                  seed=0).state_dict()
     loss_k, loss_p, checks, grads, step_counts = cls_step_parity(
         torch, var_m, images, labels, model="axial50m")
-    bad = [c for c in checks if not c["ok"]]
-    parity = {"loss_kernels": loss_k, "loss_plain": loss_p,
-              "tensors": len(checks), "failed": len(bad),
-              "worst": max(checks, key=lambda c: c["err"] / c["tol"]),
-              "gradients_worst": max(grads,
-                                     key=lambda c: c["err"] / c["tol"]),
-              "gradients_beyond_bound": sum(not c["ok"] for c in grads)}
+    parity, bad = _parity_summary(loss_k, loss_p, checks, grads)
     check(not bad, f"axial50m step on kernels vs plain cores: {bad[:5]}")
     b8_step = cls_launches("b8_step", m_routes)
     check(step_counts == launches_of(step_counts, b8_step, 1),
@@ -2969,14 +2991,8 @@ def phase_cls_wide(torch):
             f"{call}: {r}")
     loss1_k, loss1_p, checks1, grads1, counts1 = cls_step_parity(
         torch, var_l, images[:1], labels[:1], model="axial50l")
-    bad1 = [c for c in checks1 if not c["ok"]]
-    parity_b1 = {"loss_kernels": loss1_k, "loss_plain": loss1_p,
-                 "tensors": len(checks1), "failed": len(bad1),
-                 "worst": max(checks1, key=lambda c: c["err"] / c["tol"]),
-                 "gradients_worst": max(grads1,
-                                        key=lambda c: c["err"] / c["tol"]),
-                 "gradients_beyond_bound": sum(not c["ok"] for c in grads1),
-                 "launches": counts1}
+    parity_b1, bad1 = _parity_summary(loss1_k, loss1_p, checks1, grads1,
+                                      counts1)
     check(not bad1, f"axial50l batch-1 step vs plain cores: {bad1[:5]}")
     check(counts1 == launches_of(counts1, cls_launches("b1_step", l_routes),
                                  1), f"axial50l b1 step launches {counts1}")
@@ -3063,7 +3079,287 @@ def wide_summary(wide):
     return entries
 
 
-# ---- 20. data parallel -------------------------------------------------------
+# ---- 20. cls_hires: axial50m and axial50l at 384 px ------------------------
+
+HIRES_IMG = 384
+# The counted steps' learning rate at 384 px: SGD with momentum 0.9 on one
+# repeated batch at CLS_LEARN_LR overshoots there, and the median of the
+# CLS_STEPS losses fell below CLS_LOSS_FALL of the first in one run
+# (H100: 6.79, then 5.99, 4.34, 4.18, 4.15, 5.29) and missed it in
+# another (5.97, 4.09, 5.10, 4.56, 5.66: median 5.10 against 5.09); at
+# half of it the first five steps fell in turn (6.83, then 5.91, 5.37,
+# 4.71, 3.28, 3.76, with TF32 convolutions)
+HIRES_LEARN_LR = 0.005
+# (span, gp, stripes per image, sites) of axial50m and axial50l at 384 px
+# (base span 96) and each site's route in CLS_CALLS's four calls: spans 96
+# take flash2 in both modes at any stripe count (gp 12, 24, 32 on the
+# long-span wide kernels, axial50l's gp 16 on the narrow flash2); spans 48
+# and 24 take flash (eval under 128 stripes; a batch-1 train site at span
+# 48 would take the stripe route at gp 16 and takes flash at these
+# widths); span 12 lanes (eval at both eval batches: 96 and 12 stripes).
+CLS_HIRES_ROUTES = {
+    "axial50m": {
+        (96, 12, 96, 6): ("flash2",) * 4,
+        (96, 24, 96, 2): ("flash2",) * 4,
+        (48, 24, 48, 6): ("flash", "flash", "eval", "flash"),
+        (48, 48, 48, 2): ("flash", "flash", "eval", "flash"),
+        (24, 48, 24, 10): ("flash", "flash", "eval", "flash"),
+        (24, 96, 24, 2): ("flash", "flash", "eval", "flash"),
+        (12, 96, 12, 4): ("lanes", "eval", "eval", "lanes"),
+    },
+    "axial50l": {
+        (96, 16, 96, 6): ("flash2",) * 4,
+        (96, 32, 96, 2): ("flash2",) * 4,
+        (48, 32, 48, 6): ("flash", "flash", "eval", "flash"),
+        (48, 64, 48, 2): ("flash", "flash", "eval", "flash"),
+        (24, 64, 24, 10): ("flash", "flash", "eval", "flash"),
+        (24, 128, 24, 2): ("flash", "flash", "eval", "flash"),
+        (12, 128, 12, 4): ("lanes", "eval", "eval", "lanes"),
+    },
+}
+# axial50m at batch 8 (its main path: a train step and an eval forward),
+# axial50l at batch 1; the kernels are also held at axial50m's batch-1
+# stripe count
+CLS_HIRES_CALLS = {"axial50m": ("b8_step", "b8_forward"),
+                   "axial50l": ("b1_forward", "b1_step")}
+HIRES_KERNEL_CALLS = {"axial50m": ("b8_step", "b8_forward", "b1_step"),
+                      "axial50l": ("b1_forward", "b1_step")}
+# the long-span kernels off the models' paths: spans 80-256 at every
+# register bucket, with and without positions, at HIRES_SWEEP_STRIPES
+HIRES_SWEEP = [(L, gp, pos) for L in (80, 128, 192, 256)
+               for gp in (6, 10, 12, 32, 64, 128) for pos in (True, False)]
+HIRES_SWEEP_STRIPES = 32
+LONG_SOURCES = {"flash2_lanes_fwd": "medt_tpu_torch/csrc/axial_wide_long_fwd.cu",
+                "flash2_lanes_bwd": "medt_tpu_torch/csrc/axial_wide_long_bwd.cu"}
+
+
+def long_routes(routes):
+    """The sites of a routes table at spans over 64 (the flash2 route)."""
+    return {k: v for k, v in routes.items() if k[0] > 64}
+
+
+def _hires_sweep_rows(torch):
+    """The flash2 forward and backward at every HIRES_SWEEP geometry
+    against their plain versions, with CUDA-event times and bounds."""
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    rows = []
+    S = HIRES_SWEEP_STRIPES
+    for L, gp, pos in HIRES_SWEEP:
+        for kernel in ("flash2_lanes_fwd", "flash2_lanes_bwd"):
+            fn, plain = kernel_calls(torch, gen, kernel, gp, L, S, pos)
+            got, again, want = fn(), fn(), plain()
+            torch.cuda.synchronize()
+            err, ok = compare(torch, kernel, got, want)
+            repeatable = all(torch.equal(a, b) for a, b in zip(got, again))
+            nbytes, ops = work(kernel, gp, L, S, pos)
+            t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F32_FLOPS_PER_S
+            row = {"kernel": kernel, "span": L, "gp": gp, "S": S,
+                   "g": GROUPS, "has_pos": pos, "path": "sweep",
+                   "max_abs_err": err, "ok": ok and repeatable,
+                   "repeatable": repeatable,
+                   "ms": time_ms(torch, fn, reps=3, inner=2),
+                   "plain_ms": time_ms(torch, plain, reps=2, inner=1),
+                   "bytes": nbytes, "ops": ops,
+                   "bound_ms": max(t_bytes, t_ops) * 1e3,
+                   "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+            rows.append(row)
+            print(json.dumps({"geometry": row}), flush=True)
+            del fn, plain, got, again, want
+    torch.cuda.empty_cache()
+    return rows
+
+
+def _hires_variables(torch, model):
+    """Seeded weights of ``model`` at HIRES_IMG (its position tables have
+    2 * span - 1 columns, so the 224 px weights do not load), on the
+    CPU."""
+    from medt_tpu_torch.models import classifiers
+
+    net = getattr(classifiers, model)(
+        num_classes=CLS_CLASSES, img_size=HIRES_IMG,
+        generator=torch.Generator().manual_seed(0), device="cpu")
+    return net.state_dict()
+
+
+def phase_cls_hires(torch):
+    """axial50m and axial50l at 384 px (1000 classes, ``use_fused``,
+    published widths and depth, built by their factories) on the kernels:
+    each kernel of the long-span (span 96) sites of axial50m's batch-8 and
+    batch-1 and axial50l's batch-1 calls against its plain version, and a
+    sweep of the flash2 forward and backward over spans 80-256 and gp
+    6-128; the bf16 entry points at axial50m's span-96 step sites against
+    their float32 twins (bit-equal); axial50m at batch 8: one SGD step
+    against plain
+    cores, a counted warm-up and CLS_STEPS timed steps at HIRES_LEARN_LR
+    with a falling loss, wall and device ms, an eval forward against plain
+    cores; axial50l at batch 1: an eval forward and a train step against
+    plain cores; axial50m in bf16: one counted step. Every call's
+    launches and routes exact."""
+    import numpy as np
+
+    from medt_tpu_torch import ops
+    from medt_tpu_torch.cli.train_cls import make_steps
+
+    rows, per_call = [], {}
+    for model, calls in HIRES_KERNEL_CALLS.items():
+        r, pc = _cls_kernel_rows(torch, long_routes(CLS_HIRES_ROUTES[model]),
+                                 calls, f"{model}_{HIRES_IMG}",
+                                 seed=len(rows) + 31)
+        rows += r
+        per_call.update({f"{model}_{c}": v for c, v in pc.items()})
+    sweep = _hires_sweep_rows(torch)
+    m_routes = CLS_HIRES_ROUTES["axial50m"]
+    l_routes = CLS_HIRES_ROUTES["axial50l"]
+    bf16_rows, bf16_per_call = _cls_wide_bf16_rows(
+        torch, long_routes(m_routes), "b8_step")
+    failed = [r for r in rows + sweep + bf16_rows if not r["ok"]]
+    check(not failed, f"kernel disagrees with its plain version or its "
+                      f"float32 twin: {failed}")
+
+    rng = np.random.default_rng(0)
+    images = rng.standard_normal((8, HIRES_IMG, HIRES_IMG, 3)).astype(
+        np.float32)
+    labels = rng.integers(0, CLS_CLASSES, 8).astype(np.int32)
+    hires = dict(img=HIRES_IMG)
+
+    # -- axial50m, batch 8: one step against plain cores ---------------------
+    var_m = _hires_variables(torch, "axial50m")
+    loss_k, loss_p, checks, grads, step_counts = cls_step_parity(
+        torch, var_m, images, labels, model="axial50m", **hires)
+    parity, bad = _parity_summary(loss_k, loss_p, checks, grads)
+    check(not bad, f"axial50m-384 step on kernels vs plain cores: {bad[:5]}")
+    b8_step = cls_launches("b8_step", m_routes)
+    check(step_counts == launches_of(step_counts, b8_step, 1),
+          f"axial50m-384 b8 step launches {step_counts}")
+
+    # -- the main path, counted: a warm-up step, then CLS_STEPS timed -------
+    train_step, _ = make_steps(CLS_SMOOTHING)
+    state = _cls_state(torch, var_m, plain=False, lr=HIRES_LEARN_LR,
+                       model="axial50m", **hires)
+    batch = {"image": images, "label": labels}
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    loss0 = float(train_step(state, batch)["loss"])
+    routes = cls_routes_seen(state.model)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses = [train_step(state, batch)["loss"] for _ in range(CLS_STEPS)]
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) / CLS_STEPS * 1e3
+    counts = ops.launch_counts()
+    # -- end of the counted run ----------------------------------------------
+    losses = torch.stack(losses).tolist()
+    device_ms, own_ms = profiled_step_ms(torch, train_step, state, batch)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    del state
+    torch.cuda.empty_cache()
+    check(counts == launches_of(counts, b8_step, CLS_STEPS + 1),
+          f"axial50m-384 launches {counts} for {CLS_STEPS + 1} steps")
+    check(routes == cls_routes_expected(0, m_routes),
+          f"axial50m-384 routes {routes}")
+    check(all(math.isfinite(v) for v in losses), f"non-finite loss {losses}")
+    check(statistics.median(losses) < CLS_LOSS_FALL * loss0,
+          f"loss did not fall: {loss0} {losses}")
+    forwards = {"axial50m_b8_forward": _cls_forward_parity(
+        torch, var_m, images, 1, "axial50m", m_routes, **hires)}
+
+    # -- axial50l, batch 1: an eval forward and a train step -----------------
+    var_l = _hires_variables(torch, "axial50l")
+    forwards["axial50l_b1_forward"] = _cls_forward_parity(
+        torch, var_l, images[:1], 2, "axial50l", l_routes, **hires)
+    for call, r in forwards.items():
+        model, c = call.split("_", 1)
+        check(r["ok"] and r["routes_ok"], f"{call}: {r}")
+        check(r["launches"] == launches_of(
+            r["launches"], cls_launches(c, CLS_HIRES_ROUTES[model]), 1),
+            f"{call}: {r}")
+    loss1_k, loss1_p, checks1, grads1, counts1 = cls_step_parity(
+        torch, var_l, images[:1], labels[:1], model="axial50l", **hires)
+    parity_b1, bad1 = _parity_summary(loss1_k, loss1_p, checks1, grads1,
+                                      counts1)
+    check(not bad1, f"axial50l-384 batch-1 step vs plain cores: {bad1[:5]}")
+    check(counts1 == launches_of(counts1, cls_launches("b1_step", l_routes),
+                                 1), f"axial50l-384 b1 step launches {counts1}")
+
+    # -- axial50m in bf16: one counted step ----------------------------------
+    state = _cls_state(torch, var_m, plain=False, lr=HIRES_LEARN_LR,
+                       model="axial50m", dtype=torch.bfloat16, **hires)
+    ops.reset_launch_counts()
+    loss_bf16 = float(train_step(state, batch)["loss"])
+    torch.cuda.synchronize()
+    counts_bf16 = ops.launch_counts()
+    del state
+    torch.cuda.empty_cache()
+    want_bf16 = launches_of(counts_bf16, {f"{k}_bf16": v
+                                          for k, v in b8_step.items()}, 1)
+    check(math.isfinite(loss_bf16), f"axial50m-384 bf16 loss {loss_bf16}")
+    check(counts_bf16 == want_bf16,
+          f"axial50m-384 bf16 launches {counts_bf16}")
+
+    emit("cls_hires", models=list(CLS_HIRES_CALLS), img=HIRES_IMG,
+         classes=CLS_CLASSES, optimizer="sgd", lr=CLS_LR,
+         momentum=CLS_MOMENTUM, weight_decay=CLS_WD,
+         label_smoothing=CLS_SMOOTHING, geometries=len(rows),
+         sweep_geometries=len(sweep), bf16_geometries=len(bf16_rows),
+         sweep_worst=max(sweep, key=lambda r: r["max_abs_err"]),
+         kernels_per_call=per_call, bf16_kernels_per_call=bf16_per_call,
+         launches_per_call={f"{m}_{c}": cls_launches(c, CLS_HIRES_ROUTES[m])
+                            for m, calls in CLS_HIRES_CALLS.items()
+                            for c in calls},
+         step_parity=parity, launches=counts, steps_counted=CLS_STEPS + 1,
+         learn_lr=HIRES_LEARN_LR, loss_step0=loss0, losses=losses,
+         wall_ms_per_step=wall_ms, images_per_s=8 / wall_ms * 1e3,
+         device_kernel_ms_per_step=device_ms,
+         port_kernels_device_ms_per_step=own_ms,
+         port_kernels_device_ms_total=sum(own_ms.values()),
+         peak_memory_gb=peak_gb, forwards=forwards,
+         b1_step_parity=parity_b1, bf16_step={
+             "loss": loss_bf16, "launches": counts_bf16},
+         tolerance={"forward": KERNEL_ATOL,
+                    "backward_and_moments_rtol": SUM_RTOL,
+                    "logits": LOGITS_ATOL,
+                    "bf16_vs_float32_twin": "bit-equal"})
+    return {"b8_steps": counts, "bf16_step": counts_bf16, "rows": rows,
+            "sweep": sweep, "bf16_rows": bf16_rows, "per_call": per_call,
+            "bf16_per_call": bf16_per_call}
+
+
+def hires_summary(hires):
+    """The summary line's entries of the long-span wide kernels (the flash2
+    wrappers at a wide gp), float32 and bf16: times per axial50m-384
+    batch-8 train step (every span-96 site wide; the bf16 entry points in
+    the bf16 step), launches from that path's counted run."""
+    entries = []
+    for name, source in LONG_SOURCES.items():
+        for bf16 in (False, True):
+            suffix = "_bf16" if bf16 else ""
+            if bf16:
+                k = hires["bf16_per_call"][name]
+                launches = hires["bf16_step"].get(f"{name}_bf16", 0)
+                mine = [r for r in hires["bf16_rows"]
+                        if r["kernel"] == f"{name}_bf16"]
+            else:
+                k = hires["per_call"]["axial50m_b8_step"][name]
+                launches = hires["b8_steps"].get(name, 0)
+                mine = [r for r in hires["rows"] + hires["sweep"]
+                        if r["kernel"] == name
+                        and r["gp"] not in (2, 4, 8, 16)]
+            entry = {
+                "name": f"{name}{suffix}_wide", "route": "cuda",
+                "source": source, "replaces": REPLACES[name],
+                "launches": launches,
+                "max_abs_err": max(r["max_abs_err"] for r in mine),
+                "ms": k["ms"], "plain_ms": k["plain_ms"],
+                "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
+                "library_ms": None, "spans": sorted({r["span"] for r in mine}),
+                "gp": sorted({r["gp"] for r in mine})}
+            if bf16:
+                entry["float32_ms"] = k["float32_ms"]
+            entries.append(entry)
+    return entries
+
+
+# ---- 21. data parallel -------------------------------------------------------
 
 DP_BATCH = 16        # global; 8 a rank on two ranks
 DP_TIMED = 3         # timed steps per rank after the counted one
@@ -3477,13 +3773,15 @@ def main() -> int:
                           ("zoo", phase_zoo), ("bf16", phase_bf16),
                           ("remat", phase_remat),
                           ("bf16_cli", phase_bf16_cli), ("cls", phase_cls),
-                          ("cls_wide", phase_cls_wide), ("dp", phase_dp)):
+                          ("cls_wide", phase_cls_wide),
+                          ("cls_hires", phase_cls_hires), ("dp", phase_dp)):
             counts[phase] = fn(torch)
     except Exception as e:  # report the phase, then fail without "ok"
         emit(phase, ok=False, error=f"{type(e).__name__}: {e}")
         return 1
     line = summary(rows, counts)
     line["kernels"] += wide_summary(counts["cls_wide"])
+    line["kernels"] += hires_summary(counts["cls_hires"])
     print(json.dumps(line), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

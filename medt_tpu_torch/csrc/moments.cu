@@ -78,8 +78,8 @@
 // (moments_wide_fwd_kernel) under the same partial layout; the backward
 // (moments_wide_dqk_kernel, then with positions moments_wide_tab_kernel)
 // with its own tile and table-partial slots
-// (moments_wide.cuh: wide_dqk_tile, wide_bwd_slots), at spans up to
-// kWideMaxBwdSpan (64).
+// (moments_wide.cuh: wide_dqk_tile, wide_dqk_rows, wide_bwd_slots), at
+// spans up to kMaxBwdSpan (256), as the narrow widths.
 // Kernels launch on the caller's stream, allocate nothing and do not
 // synchronise; the entry points return cudaGetLastError().
 
@@ -748,8 +748,7 @@ int moments_bwd(const T* qkv, const float* r_q, const float* e_q,
   const int ts = bwd_tile(c, L, S, g);
   const int tiles = (S + ts - 1) / ts;
   if (is_wide(gp)) {
-    if (L > medt_moments::kWideMaxBwdSpan ||
-        (has_pos && n_part != medt_moments::wide_bwd_slots(L, S))) {
+    if (has_pos && n_part != medt_moments::wide_bwd_slots(L, S)) {
       return (int)cudaErrorInvalidValue;
     }
   } else if (tiles > 65535 || (has_pos && n_part != g * tiles)) {
@@ -807,7 +806,7 @@ int medt_moment_sums_fwd_bf16(const __nv_bfloat16* qkv, const float* r_q,
 // L) = dr_q (c, L), de_q (c, c, L), dr_k, de_k (unused without positions);
 // part: the table-gradient partials (g * ceil(S / TS), 2c + 2c^2, L), TS
 // as bwd_tile gives it, or at a wide gp (wide_bwd_slots, 2c + 2c^2, L)
-// (unused without positions). Spans up to 256 (64 at a wide gp).
+// (unused without positions). Spans up to 256.
 int medt_moment_sums_bwd(const float* qkv, const float* r_q, const float* e_q,
                          const float* r_k, const float* e_k, const float* ct,
                          float* dqkv, float* dtables, float* part, int g,

@@ -30,8 +30,10 @@
 //     stripe), and its table partial was 2c + 2c^2 rows of sums a block.
 //     moments_wide_dqk_kernel: a block owns one group and wide_dqk_tile's
 //     TS stripes (8 down to 1, so the grid keeps 264 blocks), stages their
-//     q/k slab in shared memory, forms each stripe's L x L w once and
-//     takes every dq and dk (and the zero v rows) from the staged slab;
+//     q/k slab in shared memory, forms each stripe's L x L w once (in
+//     tiles of rows where it passes the shared memory, spans above about
+//     160, the dk sums carried over the tiles) and takes every dq and dk
+//     (and the zero v rows) from the staged slab;
 //     moments_wide_tab_kernel (positions only): a block per (position,
 //     q or k, stripe split) sums, over every group, the Gram of x and its
 //     r column as a register-tiled product (4 x 4 outputs a thread, the
@@ -167,29 +169,47 @@ moments_wide_fwd_kernel(FwdArgs<T> a, int C) {
   }
 }
 
-// The backward's q/k tile (moments_wide.cuh: wide_dqk_tile): a block owns
-// one group and TS stripes, TS the largest of 8, 4, 2, 1 whose slab (q and
-// k, 2c x L, and w, L x Lw, a stripe) fits kWideSlabFloats and whose grid
-// keeps kWideMinBlocks blocks.
+// The backward's q/k tile (moments_wide.cuh: wide_dqk_tile,
+// wide_dqk_rows): a block owns one group and TS stripes, TS the largest of
+// 8, 4, 2, 1 whose slab (q and k, 2c x L, and w, L x Lw, a stripe) fits
+// kWideSlabFloats and whose grid keeps kWideMinBlocks blocks; w is formed
+// LT rows at a time, LT = L unless a stripe's slab and whole w pass
+// kWideMaxSmemFloats (spans above about 160, where TS is 1), and then the
+// dk sums carry over the row tiles in shared memory (c x L more floats).
 __host__ __device__ constexpr int w_stride(int L) { return L | 1; }
 
-__host__ __device__ constexpr int dqk_stripe_floats(int c, int L) {
-  return 2 * c * L + L * w_stride(L);
+__host__ __device__ constexpr int dqk_stripe_floats(int c, int L, int lt) {
+  return 2 * c * L + lt * w_stride(L) + (lt < L ? c * L : 0);
+}
+
+// sum_d e2[c,d,l] x[d,l], e2 = e + e^T, over a staged x (c rows of L)
+__device__ __forceinline__ float e2_dot(const float* et, const float* x,
+                                        int c, int l, int C, int L) {
+  float ed = 0.f;
+  for (int d = 0; d < C; ++d) {
+    ed = fmaf(__ldg(et + ((size_t)c * C + d) * L + l) +
+                  __ldg(et + ((size_t)d * C + c) * L + l),
+              x[d * L + l], ed);
+  }
+  return ed;
 }
 
 // dq, dk and the zero v rows. A block stages its TS stripes' q and k (2c x
-// L each) in shared memory, forms each stripe's w[l][j] = c0 + 2 c1 qk_lj
-// once, then a thread per (row, position, stripe) takes
+// L each) in shared memory, then per tile of LT rows l forms each stripe's
+// w[l][j] = c0 + 2 c1 qk_lj once and takes
 //   dq[c,l] = sum_j k[c,j] w[l][j]  (+ c2 r_q[c,l] + c3 sum_d e2_q[c,d,l]
-//   q[d,l]),  dk[c,j] = sum_l q[c,l] w[l][j]  (k's terms alike),
-// e2 = e + e^T, every sum from the staged slab.
+//   q[d,l]) for the tile's rows, and the tile's terms of
+//   dk[c,j] = sum_l q[c,l] w[l][j] for every key j (k's terms alike once
+//   the last tile is in), e2 = e + e^T, every sum from the staged slab in
+//   index order, so that the row tiles do not change a bit.
 template <bool HAS_POS, class T>
 __global__ void __launch_bounds__(kWideThreads)
-moments_wide_dqk_kernel(BwdArgs<T> a, int ts, int C) {
+moments_wide_dqk_kernel(BwdArgs<T> a, int ts, int C, int lt) {
   extern __shared__ float4 smem4[];
-  float* Qs = reinterpret_cast<float*>(smem4);  // [t][q c, then k c][l]
-  float* W = Qs + (size_t)ts * 2 * C * a.L;     // [t][l][Lw]
   const int L = a.L, S = a.S, Lw = w_stride(L), gi = blockIdx.y;
+  float* Qs = reinterpret_cast<float*>(smem4);  // [t][q c, then k c][l]
+  float* W = Qs + (size_t)ts * 2 * C * L;       // [t][lt][Lw]
+  float* DK = W + (size_t)ts * lt * Lw;         // [t][c][j], when lt < L
   const int s0 = blockIdx.x * ts;
   const size_t LS = (size_t)L * S;
   const T* base = a.qkv + (size_t)gi * 4 * C * LS + s0;
@@ -199,50 +219,68 @@ moments_wide_dqk_kernel(BwdArgs<T> a, int ts, int C) {
               c5 = cg[5];
   const int nst = min(ts, S - s0);
   const int nslab = 2 * C * L * ts;
+  const bool tiled = lt < L;
   for (int e = threadIdx.x; e < nslab; e += kWideThreads) {
     const int t = e % ts, rest = e / ts, l = rest % L, row = rest / L;
     const float v = t < nst ? ldf(base + row * LS + (size_t)l * S + t) : 0.f;
     Qs[((size_t)t * 2 * C + row) * L + l] = v;  // q rows then k rows
   }
-  __syncthreads();
-  const size_t stripe = (size_t)2 * C * L;
-  for (int e = threadIdx.x; e < ts * L * L; e += kWideThreads) {
-    const int j = e % L, rest = e / L, l = rest % L, t = rest / L;
-    const float* q = Qs + t * stripe;
-    const float* k = q + (size_t)C * L;
-    float d = 0.f;
-    for (int c = 0; c < C; ++c) d = fmaf(q[c * L + l], k[c * L + j], d);
-    W[((size_t)t * L + l) * Lw + j] = fmaf(2.f * c1, d, c0);
+  if (tiled) {
+    for (int e = threadIdx.x; e < ts * C * L; e += kWideThreads) DK[e] = 0.f;
   }
   __syncthreads();
-  for (int e = threadIdx.x; e < 2 * C * L * ts; e += kWideThreads) {
-    const int t = e % ts, rest = e / ts, l = rest % L, row = rest / L;
-    const int K = row >= C, c = row - K * C;
-    const float* q = Qs + t * stripe;
-    const float* k = q + (size_t)C * L;
-    const float* w = W + (size_t)t * L * Lw;
-    float acc = 0.f;
-    if (K == 0) {
-      for (int j = 0; j < L; ++j) acc = fmaf(k[c * L + j], w[l * Lw + j], acc);
-    } else {
-      for (int i = 0; i < L; ++i) acc = fmaf(q[c * L + i], w[i * Lw + l], acc);
+  const size_t stripe = (size_t)2 * C * L;
+  for (int l0 = 0; l0 < L; l0 += lt) {
+    const int nl = min(lt, L - l0);
+    const bool last = l0 + nl == L;
+    for (int e = threadIdx.x; e < ts * nl * L; e += kWideThreads) {
+      const int j = e % L, rest = e / L, lr = rest % nl, t = rest / nl;
+      const float* q = Qs + t * stripe;
+      const float* k = q + (size_t)C * L;
+      float d = 0.f;
+      for (int c = 0; c < C; ++c) d = fmaf(q[c * L + l0 + lr], k[c * L + j], d);
+      W[((size_t)t * lt + lr) * Lw + j] = fmaf(2.f * c1, d, c0);
     }
-    if constexpr (HAS_POS) {
-      const float* r = K ? a.r_k : a.r_q;
-      const float* et = K ? a.e_k : a.e_q;
-      const float* x = K ? k : q;
-      float ed = 0.f;
-      for (int d = 0; d < C; ++d) {
-        ed = fmaf(__ldg(et + ((size_t)c * C + d) * L + l) +
-                      __ldg(et + ((size_t)d * C + c) * L + l),
-                  x[d * L + l], ed);
+    __syncthreads();
+    for (int e = threadIdx.x; e < C * nl * ts; e += kWideThreads) {
+      const int t = e % ts, rest = e / ts, lr = rest % nl, c = rest / nl;
+      const int l = l0 + lr;
+      const float* q = Qs + t * stripe;
+      const float* k = q + (size_t)C * L;
+      const float* w = W + ((size_t)t * lt + lr) * Lw;
+      float acc = 0.f;
+      for (int j = 0; j < L; ++j) acc = fmaf(k[c * L + j], w[j], acc);
+      if constexpr (HAS_POS) {
+        acc += c2 * __ldg(a.r_q + c * L + l) + c3 * e2_dot(a.e_q, q, c, l, C, L);
       }
-      acc += (K ? c4 : c2) * __ldg(r + c * L + l) + (K ? c5 : c3) * ed;
+      if (t < nst) {
+        out[c * LS + (size_t)l * S + t] = from_f32<T>(acc);
+        out[(2 * C + c) * LS + (size_t)l * S + t] = from_f32<T>(0.f);
+      }
     }
-    if (t < nst) {
-      out[row * LS + (size_t)l * S + t] = from_f32<T>(acc);
-      out[(2 * C + row) * LS + (size_t)l * S + t] = from_f32<T>(0.f);
+    for (int e = threadIdx.x; e < C * L * ts; e += kWideThreads) {
+      const int t = e % ts, rest = e / ts, j = rest % L, c = rest / L;
+      const float* q = Qs + t * stripe;
+      const float* k = q + (size_t)C * L;
+      const float* w = W + (size_t)t * lt * Lw + j;
+      float* dk = DK + ((size_t)t * C + c) * L + j;
+      float acc = tiled ? *dk : 0.f;
+      for (int lr = 0; lr < nl; ++lr) {
+        acc = fmaf(q[c * L + l0 + lr], w[(size_t)lr * Lw], acc);
+      }
+      if (!last) {
+        *dk = acc;
+        continue;
+      }
+      if constexpr (HAS_POS) {
+        acc += c4 * __ldg(a.r_k + c * L + j) + c5 * e2_dot(a.e_k, k, c, j, C, L);
+      }
+      if (t < nst) {
+        out[(C + c) * LS + (size_t)j * S + t] = from_f32<T>(acc);
+        out[(3 * C + c) * LS + (size_t)j * S + t] = from_f32<T>(0.f);
+      }
     }
+    __syncthreads();  // the next tile writes W and reads DK
   }
 }
 
@@ -418,12 +456,15 @@ cudaError_t bwd(const T* qkv, const float* r_q, const float* e_q,
                 cudaStream_t stream) {
   const BwdArgs<T> a{qkv, r_q, e_q, r_k, e_k, ct, dqkv, part, L, S};
   const int ts = medt_moments::wide_dqk_tile(C, L, S, g);
-  const size_t smem = (size_t)ts * dqk_stripe_floats(C, L) * sizeof(float);
+  const int lt = medt_moments::wide_dqk_rows(C, L);
+  const size_t smem =
+      (size_t)ts * dqk_stripe_floats(C, L, lt) * sizeof(float);
   auto dqk = pos ? moments_wide_dqk_kernel<true, T>
                  : moments_wide_dqk_kernel<false, T>;
   cudaError_t err = flash2::allow_smem(dqk, smem);
   if (err != cudaSuccess) return err;
-  dqk<<<dim3((S + ts - 1) / ts, g), kWideThreads, smem, stream>>>(a, ts, C);
+  dqk<<<dim3((S + ts - 1) / ts, g), kWideThreads, smem, stream>>>(a, ts, C,
+                                                                 lt);
   err = cudaGetLastError();
   if (err != cudaSuccess || !pos) return err;
   const int nsplit = medt_moments::wide_bwd_slots(L, S);

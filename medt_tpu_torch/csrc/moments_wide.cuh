@@ -15,14 +15,16 @@ namespace medt_moments {
 
 constexpr int kWideFwdStripes = 32;  // stripes of a forward block
 constexpr int kWideThreads = 256;    // threads of a block, every kernel
-// the backward's tiles (ops/moments.py mirrors them): the dq/dk kernel's
-// stripes a block (wide_dqk_tile) and the table kernel's stripe splits,
-// one partial slot each (wide_bwd_slots); spans up to kWideMaxBwdSpan
+// the backward's tiles (ops/moments.py mirrors the slots): the dq/dk
+// kernel's stripes a block (wide_dqk_tile) and w rows a tile
+// (wide_dqk_rows), and the table kernel's stripe splits, one partial slot
+// each (wide_bwd_slots); spans up to moments.cu's kMaxBwdSpan (256)
 constexpr int kWideMaxTile = 8;
 constexpr int kWideSlabFloats = 12288;
 constexpr int kWideMinBlocks = 264;
 constexpr int kWideTabStripes = 32;
-constexpr int kWideMaxBwdSpan = 64;
+// the shared memory a dq/dk block may hold (224 KB of the 227 KB limit)
+constexpr int kWideMaxSmemFloats = 56 * 1024;
 
 // the largest of 8, 4, 2, 1 stripes whose q/k slab and w matrices (2cL +
 // L (L | 1) floats a stripe) fit kWideSlabFloats and whose grid keeps
@@ -35,6 +37,16 @@ inline int wide_dqk_tile(int c, int L, int S, int g) {
     ts /= 2;
   }
   return ts;
+}
+
+// rows of w a dq/dk block forms at a time: all L where a stripe's q/k slab
+// and w (2cL + L (L | 1) floats) fit kWideMaxSmemFloats, else as many as
+// fit beside the slab and the dk sums carried over the tiles (3cL floats;
+// at least 31 rows at c = 64, L = 256)
+inline int wide_dqk_rows(int c, int L) {
+  const int Lw = L | 1;
+  if (2 * c * L + L * Lw <= kWideMaxSmemFloats) return L;
+  return (kWideMaxSmemFloats - 3 * c * L) / Lw;
 }
 
 // table-partial slots: splits of the stripes until 2L splits-blocks reach

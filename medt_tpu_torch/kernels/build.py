@@ -57,6 +57,10 @@ SIGNATURES = {
     # to 128 outside 2, 4, 8 and 16 (csrc/axial_wide.cu, axial_wide_bwd.cu)
     "medt_wide_attn_fwd": [_P] * 9 + [_I] * 6 + [_P],
     "medt_wide_attn_bwd": [_P] * 18 + [_I] * 7 + [_P],
+    # the flash2 contract at the wide widths, spans up to 256
+    # (csrc/axial_wide_long_fwd.cu, axial_wide_long_bwd.cu)
+    "medt_wide_long_fwd": [_P] * 9 + [_I] * 5 + [_P],
+    "medt_wide_long_bwd": [_P] * 16 + [_I] * 6 + [_P],
 }
 # the bf16 entry points of rows 1-8 (qkv, and dqkv, in bf16) take the
 # float32 ones' arguments
@@ -65,7 +69,7 @@ SIGNATURES.update({
         "medt_lanes_attn_fwd", "medt_flash_lanes_fwd", "medt_flash2_lanes_fwd",
         "medt_lanes_attn_bwd", "medt_flash_lanes_bwd", "medt_flash2_lanes_bwd",
         "medt_moment_sums_fwd", "medt_moment_sums_bwd", "medt_wide_attn_fwd",
-        "medt_wide_attn_bwd")})
+        "medt_wide_attn_bwd", "medt_wide_long_fwd", "medt_wide_long_bwd")})
 
 
 class BuildError(RuntimeError):

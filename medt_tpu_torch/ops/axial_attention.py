@@ -46,10 +46,13 @@ Two paths, as in JAX:
   routes such sites to its eval kernel where the lanes family refuses them.
   The TPU admission checks (VMEM budgets, flash's ``gp * span <= 256``,
   ``fused_train_supported``) are not ported; :func:`fused_route` is the
-  whole rule, and a group width that the route's kernels do not take (an
-  odd gp or one over 128, and flash2 above 16: ``axial_lanes.check_gp``)
-  raises ``ValueError`` on the fused path, on any device, plain cores
-  included, rather than turn to the plain attention.
+  whole rule. Every route's kernels take every even gp from 2 to 128 at
+  every span they take (flash2's wide widths, spans 65..256 in both modes,
+  run the long-span wide kernels; the stripe route takes gp 2..16 only and
+  a wider site the flash route), and a group width no kernel takes (an odd
+  gp or one over 128: ``axial_lanes.check_gp``) raises ``ValueError`` on
+  the fused path, on any device, plain cores included, rather than turn to
+  the plain attention.
 * the **plain path** (``_jnp_attention`` in JAX), for the other modes
   (gated_sig in eval mode, gated_data in both),
   whenever ``use_fused`` is off, and on the fused path at spans over 256
@@ -322,8 +325,7 @@ class AxialAttention(nn.Module):
             stripes = n * qkv.shape[3]
             route = fused_route(L, stripes, self.training, self.gp)
             if route != "plain":  # a gp no kernel takes raises, on any device
-                check_gp(f"AxialAttention ({route} route)", self.gp,
-                         narrow_only=route == "flash2")
+                check_gp(f"AxialAttention ({route} route)", self.gp)
             self.last_route = (route, L, self.groups, self.gp, stripes,
                                self.mode != MODE_WOPOS)
             if route == "eval":

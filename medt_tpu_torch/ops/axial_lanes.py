@@ -57,9 +57,14 @@ wrappers launch ``csrc/axial_wide.cu`` (the forward: one query row a
 thread, the value channels in chunks of 16) or ``csrc/axial_wide_bwd.cu``
 (the backward: register-tiled row and column passes over a (g, L, L, S)
 scratch of p and dlog, the table gradients as products over the stripes),
-in float32 or bf16, and count the launch as their own. flash2 takes gp
-up to 16 (``NARROW_GP``): no path sends it a wider one (ROADMAP.md
-section 2). Any other gp raises ``ValueError`` (:func:`check_gp`).
+in float32 or bf16, and count the launch as their own. The flash2
+wrappers take the same widths: at a wide gp they launch the long-span
+wide kernels, ``csrc/axial_wide_long_fwd.cu`` (a query row a thread, the
+key tiles staged in shared memory, the softmax online) and
+``csrc/axial_wide_long_bwd.cu`` with ``_col.cu`` (row, column and table
+passes that rebuild p from m and l: no (g, L, L, S) scratch, no table
+partials), at spans up to 256 (``csrc/wide_long.cuh``). Any other gp raises
+``ValueError`` (:func:`check_gp`).
 """
 from __future__ import annotations
 
@@ -85,8 +90,9 @@ FLASH2_MAX_SPAN = 256
 # wide kernels
 NARROW_GP = (2, 4, 8, 16)
 MAX_GP = 128
-GP_OPEN = ("ROADMAP.md section 2: flash2 keeps gp <= 16, and no kernel "
-           "takes an odd gp or one over 128")
+GP_OPEN = ("ROADMAP.md section 2: the stripe kernels keep gp <= 16 (a "
+           "wider train site takes the flash route), and no kernel takes an "
+           "odd gp or one over 128")
 
 
 def is_wide(gp: int) -> bool:
@@ -97,8 +103,9 @@ def is_wide(gp: int) -> bool:
 
 def check_gp(name: str, gp, narrow_only: bool = False):
     """Raise ``ValueError`` unless a kernel takes ``gp`` group planes: an
-    even gp from 2 to ``MAX_GP``; with ``narrow_only`` (the flash2 and
-    stripe kernels) one of ``NARROW_GP``."""
+    even gp from 2 to ``MAX_GP`` (the lanes, flash and flash2 kernels at
+    every span they take); with ``narrow_only`` (the stripe kernels) one
+    of ``NARROW_GP``."""
     if gp != int(gp) or gp % 2 or not 2 <= gp <= MAX_GP:
         raise ValueError(f"{name}: group planes gp={gp}: the kernels take "
                          f"an even gp from 2 to {MAX_GP}; {GP_OPEN}")
@@ -248,7 +255,7 @@ flash2_lanes_bwd_plain = flash_lanes_bwd_plain
 # ---- kernel wrappers --------------------------------------------------------
 
 def _check(qkv, qemb, kemb_t, vemb, sim_affine, max_span: int, name: str,
-           narrow_only: bool = False, **extra):
+           **extra):
     """Validate what a kernel takes; returns (g, gp, L, S, has_pos).
     ``extra`` names further operands: ``"gp"``-shaped (g, gp, L, S) or
     ``"row"``-shaped (g, L, S) tensors, given as (tensor, kind)."""
@@ -259,7 +266,7 @@ def _check(qkv, qemb, kemb_t, vemb, sim_affine, max_span: int, name: str,
     gp = r2 // 2
     c = gp // 2
     has_pos = _has_pos(qemb)
-    check_gp(name, r2 / 2 if r2 % 2 else gp, narrow_only)
+    check_gp(name, r2 / 2 if r2 % 2 else gp)
     if not 1 <= L <= max_span:
         raise ValueError(f"{name}: span {L} outside 1..{max_span}")
     tables = {"qemb": (qemb, (c, L, L)), "kemb_t": (kemb_t, (c, L, L)),
@@ -337,9 +344,12 @@ def _streamed_fwd(wrapper, max_span: int, qkv, qemb, kemb_t, vemb,
     which also saves m and l: ``(sv, sve, m, l)``."""
     name = wrapper.__name__
     g, gp, L, S, has_pos = _check(qkv, qemb, kemb_t, vemb, sim_affine,
-                                  max_span, name, name.startswith("flash2"))
+                                  max_span, name)
     if S == 0:
         return _no_stripes_fwd(qkv, g, gp, L, save_ml=True)
+    if is_wide(gp) and max_span > FLASH_MAX_SPAN:
+        return _long_fwd(wrapper, qkv, qemb, kemb_t, vemb, sim_affine, g, gp,
+                         L, S, has_pos)
     if is_wide(gp):
         return _wide_fwd(wrapper, qkv, qemb, kemb_t, vemb, sim_affine, g,
                          gp, L, S, has_pos, save_ml=True)
@@ -518,6 +528,54 @@ def _wide_bwd(wrapper, qkv, qemb, kemb_t, vemb, sim_affine, saved, dsv,
     return (dqkv, *_split_tables(dtables, gp, has_pos), out[e:].view(g, 8))
 
 
+def long_bwd_slots(L: int, S: int) -> int:
+    """daff partial slots a flash2 backward at a wide gp may write
+    (csrc/wide_long.cuh: slot_capacity): one per row-pass block of 32
+    stripes and 8, 4, 2 or 1 query rows, at most one per row and 32
+    stripes. Its scratch holds delta (g, L, S) before them."""
+    return L * -(-S // WIDE_LANES)
+
+
+def _long_fwd(wrapper, qkv, qemb, kemb_t, vemb, sim_affine, g, gp, L, S,
+              has_pos):
+    """The flash2 forward at a wide gp (``medt_wide_long_fwd``, or its bf16
+    entry point), counted as a launch of ``wrapper``: ``(sv, sve, m, l)``."""
+    dev = qkv.device
+    sv = torch.empty((g, gp, L, S), dtype=torch.float32, device=dev)
+    sve = torch.empty_like(sv) if has_pos else sv
+    m = torch.empty((g, L, S), dtype=torch.float32, device=dev)
+    l = torch.empty_like(m)
+    launch(wrapper, getattr(library(), entry("wide_long_fwd", qkv)), qkv,
+           ptr(qkv), ptr(qemb), ptr(kemb_t), ptr(vemb), ptr(sim_affine),
+           ptr(sv), ptr(sve), ptr(m), ptr(l), g, gp, L, S, int(has_pos))
+    return sv, (sve if has_pos else _zeros_like_view(sv)), m, l
+
+
+def _long_bwd(wrapper, qkv, qemb, kemb_t, vemb, sim_affine, saved, dsv,
+              dsve, g, gp, L, S, has_pos):
+    """The flash2 backward at a wide gp (``medt_wide_long_bwd``, or its
+    bf16 entry point, which writes dqkv in bf16) from the forward's
+    ``(m, l, sv, sve)``, counted as a launch of ``wrapper``: ``(dqkv,
+    dqemb, dkemb_t, dvemb, daff)``."""
+    dev = qkv.device
+    f32 = dict(dtype=torch.float32, device=dev)
+    e = 2 * gp * L * L if has_pos else 0
+    n_aff = long_bwd_slots(L, S)
+    out = torch.empty(e + g * 8, **f32)
+    rows = g * L * S
+    scratch = torch.empty(rows + n_aff * g * 4, **f32)
+    dqkv = torch.empty((g, 2 * gp, L, S), dtype=qkv.dtype, device=dev)
+    m, l, sv, sve = saved
+    launch(wrapper, getattr(library(), entry("wide_long_bwd", qkv)), qkv,
+           ptr(qkv), ptr(qemb), ptr(kemb_t), ptr(vemb), ptr(sim_affine),
+           ptr(m), ptr(l), ptr(sv), ptr(sve if has_pos else sv), ptr(dsv),
+           ptr(dsve if has_pos else dsv), ptr(dqkv), ptr(out), ptr(out[e:]),
+           ptr(scratch), ptr(scratch[rows:]), g, gp, L, S, int(has_pos),
+           n_aff)
+    dtables = out[:e].view(2 * gp if has_pos else 0, L, L)
+    return (dqkv, *_split_tables(dtables, gp, has_pos), out[e:].view(g, 8))
+
+
 def lanes_attn_bwd(qkv, qemb, kemb_t, vemb, sim_affine, dsv, dsve):
     """Launch the lanes backward (spans <= 16) on CUDA tensors:
     ``(dqkv, dqemb, dkemb_t, dvemb, daff)``. ``dsve`` is ignored (and may
@@ -553,10 +611,12 @@ def _streamed_bwd(wrapper, max_span: int, qkv, qemb, kemb_t, vemb,
     if _has_pos(qemb):
         extra.update(sve=(sve, "gp"), dsve=(dsve, "gp"))
     g, gp, L, S, has_pos = _check(qkv, qemb, kemb_t, vemb, sim_affine,
-                                  max_span, name, name.startswith("flash2"),
-                                  **extra)
+                                  max_span, name, **extra)
     if S == 0:
         return _no_stripes_bwd(qkv, g, gp, L, has_pos)
+    if is_wide(gp) and max_span > FLASH_MAX_SPAN:
+        return _long_bwd(wrapper, qkv, qemb, kemb_t, vemb, sim_affine,
+                         (m, l, sv, sve), dsv, dsve, g, gp, L, S, has_pos)
     if is_wide(gp):
         return _wide_bwd(wrapper, qkv, qemb, kemb_t, vemb, sim_affine,
                          (m, l, sv, sve), dsv, dsve, g, gp, L, S, has_pos)
@@ -584,7 +644,9 @@ def flash2_lanes_bwd(qkv, qemb, kemb_t, vemb, sim_affine, m, l, sv, sve,
     """Launch the flash2 backward (spans <= 256) on CUDA tensors, from the
     forward's saved ``(m, l, sv, sve)``: ``(dqkv, dqemb, dkemb_t, dvemb,
     daff)``. ``sve``/``dsve`` are ignored without positions. The table
-    partials it allocates are (g * ceil(S/128), 2gp, L, L) floats."""
+    partials it allocates are (g * ceil(S/128), 2gp, L, L) floats at gp 2,
+    4, 8 and 16; at a wide gp none (its scratch is delta and the daff
+    slots, :func:`long_bwd_slots`)."""
     return _streamed_bwd(flash2_lanes_bwd, FLASH2_MAX_SPAN, qkv, qemb,
                          kemb_t, vemb, sim_affine, m, l, sv, sve, dsv, dsve)
 
@@ -712,8 +774,9 @@ def flash_lanes_core(qkv, qemb, kemb_t, vemb, sim_affine, plain=False):
 
 
 def flash2_lanes_core(qkv, qemb, kemb_t, vemb, sim_affine, plain=False):
-    """Spans 65..256, differentiable: the kernels on CUDA tensors, the plain
-    versions on CPU tensors or when ``plain`` is set."""
+    """Spans 65..256, every even gp up to 128, differentiable: the kernels
+    on CUDA tensors, the plain versions on CPU tensors or when ``plain``
+    is set."""
     return Flash2LanesCore.apply(qkv, qemb, kemb_t, vemb, sim_affine, plain)
 
 

@@ -39,7 +39,8 @@ of their own (``csrc/moments_wide.cu``: ``moments_wide_fwd_kernel``, and
 ``moments_wide_dqk_kernel`` with ``moments_wide_tab_kernel`` for the
 backward) under the same finalizes; the backward's table partials have a
 slot per split of the stripes (:func:`wide_bwd_slots`), and it takes spans
-up to ``WIDE_MAX_BWD_SPAN``.
+up to ``BWD_MAX_SPAN`` (256) as the narrow widths do (above about 160
+its dq/dk kernel forms each stripe's (L, L) w in tiles of rows).
 """
 from __future__ import annotations
 
@@ -200,12 +201,11 @@ def bwd_tile(c: int, L: int, S: int, g: int) -> int:
 
 
 # The wide widths' backward (csrc/moments_wide.cuh: kWideMinBlocks,
-# kWideTabStripes, kWideMaxBwdSpan, wide_bwd_slots): its table partials
+# kWideTabStripes, wide_bwd_slots): its table partials
 # have one slot per split of the stripes, splits added until the (span x 2
 # x splits) grid reaches 264 blocks, each at least 32 stripes
 WIDE_MIN_BLOCKS = 264
 WIDE_TAB_STRIPES = 32
-WIDE_MAX_BWD_SPAN = 64
 
 
 def wide_bwd_slots(L: int, S: int) -> int:
@@ -241,9 +241,8 @@ def moment_sums_bwd(qkv, r_q, e_q, r_k, e_k, ct):
     g, gp, L, S, has_pos = _check(
         qkv, r_q, e_q, r_k, e_k, "moment_sums_bwd",
         ct=(ct, (qkv.shape[0], 8)))
-    max_span = WIDE_MAX_BWD_SPAN if is_wide(gp) else BWD_MAX_SPAN
-    if L > max_span:
-        raise ValueError(f"moment_sums_bwd: span {L} > {max_span} at gp {gp}")
+    if L > BWD_MAX_SPAN:
+        raise ValueError(f"moment_sums_bwd: span {L} > {BWD_MAX_SPAN}")
     c = gp // 2
     dqkv, dtables, part, n_part = bwd_buffers(qkv, g, gp, L, S, has_pos)
     if S == 0:      # no stripes: empty dqkv, zero table gradients

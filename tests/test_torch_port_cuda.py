@@ -1289,8 +1289,10 @@ def test_wide_gp_kernels_match_plain_on_card(cuda_device, kernel, L, gp, S,
 
 def test_gp_outside_the_kernels_raises_value_error():
     """An odd gp and a gp over 128 raise ValueError naming the roadmap
-    entry, at the wrappers (before any device check); flash2 and the
-    stripe kernels stop at gp 16; every even gp from 2 to 128 passes. On
+    entry, at the wrappers (before any device check); the stripe kernels
+    stop at gp 16 and flash2 takes a wide gp (its wrapper refuses a CPU
+    tensor at gp 32 only for its device); every even gp from 2 to 128
+    passes. On
     the fused path of AxialAttention, on any device and plain cores
     included, a wide gp runs (gp 12 in eval and train mode, equal to the
     plain attention on the same weights) and a train site at the stripe
@@ -1304,8 +1306,9 @@ def test_gp_outside_the_kernels_raises_value_error():
             axial_lanes.lanes_attn_fwd(*args)
         with pytest.raises(ValueError, match="ROADMAP"):
             moments.moment_sums_fwd(*moment_inputs(46, 2, gp, 8, 16, True))
-    with pytest.raises(ValueError, match="ROADMAP"):
-        axial_lanes.check_gp("flash2_lanes_fwd", 32, narrow_only=True)
+    with pytest.raises(ValueError, match="CUDA"):
+        axial_lanes.flash2_lanes_fwd(*core_inputs(46, g=2, gp=32, L=80,
+                                                  S=16, has_pos=True))
     with pytest.raises(ValueError, match="ROADMAP"):
         axial_lanes.check_gp("stripe_attn_fwd", 24, narrow_only=True)
     for gp in range(2, 130, 2):

@@ -39,8 +39,9 @@ card's machine, which has no JAX):
   train step's logits, loss, input and parameter gradients and every BN
   running statistic, as tests/test_torch_port_cls.py holds the ResNets'
   steps (the eval route at these widths is held by the eval-core test);
-* ``check_gp``: an odd gp, gp 130 and flash2 at gp 32 raise, gp 12 and 128
-  pass and the wrappers take them with bf16 qkv; ``AxialAttention`` on
+* ``check_gp``: an odd gp, gp 130 and the stripe kernels at gp 32 raise,
+  gp 12 and 128 pass and the wrappers (flash2's too) take them with bf16
+  qkv; ``AxialAttention`` on
   the fused path at gp 6, 24 and 128, float32 and bf16 compute, on the
   eval, lanes and (in the stripe route's place) flash routes.
 
@@ -48,7 +49,11 @@ On the card (marked ``cuda``; skipped without one): each wide kernel
 against its plain version at gp 12, 24, 48, 96 and 128 under
 tests/test_torch_port_cuda.py's tolerances, the same bits on a second run,
 one launch counted per call, and each bf16 entry point against its float32
-twin on the upcast qkv, bit for bit (dqkv: the float32 dqkv rounded once).
+twin on the upcast qkv, bit for bit (dqkv: the float32 dqkv rounded once);
+the same for the long-span wide kernels (the flash2 wrappers at a wide gp,
+``csrc/wide_long.cuh``) and the wide moments kernels at spans 80-256:
+axial50m's and axial50l's span-96 sites at 384 px and a sweep over spans
+80, 128, 192 and 256 at gp 6, 10, 12, 32, 64 and 128.
 """
 import re
 from pathlib import Path
@@ -304,18 +309,21 @@ def test_axial_net_wide_gp_matches_jax(jx, s, gps):
 # ---- the width rule ---------------------------------------------------------------
 
 def test_check_gp_rule():
-    """Odd gp, gp over 128 and flash2 above 16 raise naming the roadmap
-    entry; gp 12 and 128 pass, and the wrappers take them with bf16 qkv
+    """Odd gp, gp over 128 and the stripe kernels above 16 raise naming
+    the roadmap entry; gp 12 and 128 pass, and the wrappers, flash2's
+    among them since its long-span wide kernels, take them with bf16 qkv
     (their checks pass; the CPU tensor is refused after them)."""
     for gp in (7, 13, 130):
         with pytest.raises(ValueError, match="ROADMAP"):
             axial_lanes.check_gp("lanes_attn_fwd", gp)
     with pytest.raises(ValueError, match="ROADMAP"):
-        axial_lanes.check_gp("flash2_lanes_fwd", 32, narrow_only=True)
+        axial_lanes.check_gp("stripe_attn_fwd", 32, narrow_only=True)
     for gp in (12, 128):
         axial_lanes.check_gp("lanes_attn_fwd", gp)
+        axial_lanes.check_gp("flash2_lanes_fwd", gp)
         qkv, *rest = core_inputs(95, g=2, gp=gp, L=4, S=8, has_pos=True)
-        for fn in (axial_lanes.lanes_attn_fwd, axial_lanes.flash_lanes_fwd):
+        for fn in (axial_lanes.lanes_attn_fwd, axial_lanes.flash_lanes_fwd,
+                   axial_lanes.flash2_lanes_fwd):
             with pytest.raises(ValueError, match="CUDA"):
                 fn(qkv.bfloat16(), *rest)
         with pytest.raises(ValueError, match="CUDA"):
@@ -397,9 +405,10 @@ def _card_calls(kernel, L, gp, S, has_pos, device, cast=None):
                  lambda: axial_lanes.lanes_attn_bwd_plain(*args, dsv, dsve))]
     sv, sve, m, l = axial_lanes.flash_lanes_plain(*args)
     saved = (m, l, sv, sve)
-    return [(axial_lanes.flash_lanes_fwd, args,
-             lambda: axial_lanes.flash_lanes_plain(*args)),
-            (axial_lanes.flash_lanes_bwd, (*args, *saved, dsv, dsve),
+    fwd, bwd = (getattr(axial_lanes, f"{kernel}_lanes_{d}")
+                for d in ("fwd", "bwd"))
+    return [(fwd, args, lambda: axial_lanes.flash_lanes_plain(*args)),
+            (bwd, (*args, *saved, dsv, dsve),
              lambda: axial_lanes.flash_lanes_bwd_plain(*args, *saved, dsv,
                                                        dsve))]
 
@@ -525,15 +534,15 @@ def test_wide_row_tile_follows_the_kernel():
 def test_wide_moments_slots_follow_the_kernel():
     """The wide moments backward's table partials have one slot per split
     of the stripes (csrc/moments_wide.cuh: kWideMinBlocks,
-    kWideTabStripes, kWideMaxBwdSpan): splits until the (span, 2, splits)
+    kWideTabStripes): splits until the (span, 2, splits)
     grid reaches kWideMinBlocks blocks, each at least kWideTabStripes
-    stripes; narrow widths keep their per-block slots; spans past
-    kWideMaxBwdSpan at a wide gp are refused."""
+    stripes; narrow widths keep their per-block slots; a wide gp takes
+    the narrow widths' span cap (csrc/moments.cu: kMaxBwdSpan)."""
     src = (CSRC / "moments_wide.cuh").read_text()
     assert (_const(src, "kWideMinBlocks"), _const(src, "kWideTabStripes"),
-            _const(src, "kWideMaxBwdSpan")) == (
+            _const((CSRC / "moments.cu").read_text(), "kMaxBwdSpan")) == (
         moments.WIDE_MIN_BLOCKS, moments.WIDE_TAB_STRIPES,
-        moments.WIDE_MAX_BWD_SPAN)
+        moments.BWD_MAX_SPAN)
     for L, S in [(56, 448), (28, 224), (14, 112), (7, 56), (7, 7),
                  (64, 3584), (1, 1), (13, 100)]:
         want = min(-(-264 // (2 * L)), -(-S // 32))
@@ -599,3 +608,70 @@ def test_wide_backward_on_card(cuda_device, kernel, L, gp, S, has_pos):
     assert torch.equal(got[0], ref[0].to(torch.bfloat16)), "bf16 dqkv"
     for i, (o, w) in enumerate(zip(got[1:], ref[1:]), 1):
         assert torch.equal(o, w), f"bf16 {fn.__name__}[{i}]"
+
+
+# ---- the long-span wide kernels (rows 5-6 and rows 10-11's long-span sites)
+# and the wide moments backward above span 64 (row 8) --------------------------
+
+# (kernel, span, gp, stripes, has_pos): axial50m's span-96 sites at 384 px
+# (gp 12 and 24 at batch 8 and 1), axial50l's gp-32 site at batch 1, and a
+# sweep over spans 80, 128, 192 and 256 at gp 6, 10, 12, 32, 64 and 128
+# (every register bucket) with and without positions, at ragged stripe
+# counts; the moments at the same sites and at the sweep's corners
+LONG_GEOMETRIES = [
+    ("flash2", 96, 12, 768, True), ("flash2", 96, 24, 768, True),
+    ("flash2", 96, 12, 96, True), ("flash2", 96, 24, 96, True),
+    ("flash2", 96, 32, 96, True),
+] + [("flash2", L, gp, S, pos)
+     for L, S in ((80, 45), (128, 33), (192, 20), (256, 9))
+     for gp in (6, 10, 12, 32, 64, 128) for pos in (True, False)] + [
+    ("moments", 96, 12, 768, True), ("moments", 96, 24, 768, True),
+    ("moments", 96, 32, 96, True), ("moments", 80, 10, 45, False),
+    ("moments", 128, 64, 33, True), ("moments", 192, 128, 20, True),
+    ("moments", 256, 6, 9, True), ("moments", 256, 128, 9, True),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel,L,gp,S,has_pos", LONG_GEOMETRIES)
+def test_long_wide_kernels_on_card(cuda_device, kernel, L, gp, S, has_pos):
+    """The flash2 wrappers at a wide gp (the long-span wide kernels) and
+    the wide moments kernels at spans 80-256 against their plain versions
+    (forward: atol 1e-4, m and l plus rtol 1e-5; backward and moments 1e-4
+    + 1e-4 max|plain|), the same bits on a second run, one launch a call,
+    and each bf16 entry point equal to its float32 twin on the upcast qkv
+    (dqkv: the float32 dqkv rounded once), counted under launches_bf16."""
+    calls = _card_calls(kernel, L, gp, S, has_pos, cuda_device)
+    bf16 = _card_calls(kernel, L, gp, S, has_pos, cuda_device,
+                       cast=lambda t: t.bfloat16())
+    twin = _card_calls(kernel, L, gp, S, has_pos, cuda_device,
+                       cast=lambda t: t.bfloat16().float())
+    for (fn, fargs, plain), (_, bargs, _), (_, targs, _) in zip(calls, bf16,
+                                                                twin):
+        before = fn.launches
+        got, again = fn(*fargs), fn(*fargs)
+        if isinstance(got, torch.Tensor):
+            got, again = (got,), (again,)
+        want = plain()
+        torch.cuda.synchronize()
+        assert fn.launches == before + 2, fn.__name__
+        for i, (o, a, w) in enumerate(zip(got, again, want)):
+            name = f"{fn.__name__}[{i}] L {L} gp {gp} S {S}"
+            if fn.__name__ == "flash2_lanes_fwd":
+                rtol = 1e-5 if i >= 2 else 0.0   # m and l
+                torch.testing.assert_close(o, w, atol=1e-4, rtol=rtol,
+                                           msg=name)
+            else:
+                _close(o, w, name)
+            assert torch.equal(o, a), f"{name} differs between two runs"
+        before = fn.launches_bf16
+        got, ref = fn(*bargs), fn(*targs)
+        if isinstance(got, torch.Tensor):
+            got, ref = (got,), (ref,)
+        torch.cuda.synchronize()
+        assert fn.launches_bf16 == before + 1, fn.__name__
+        for i, (o, w) in enumerate(zip(got, ref)):
+            if fn.__name__.endswith("_bwd") and i == 0:
+                assert o.dtype == torch.bfloat16
+                w = w.to(torch.bfloat16)
+            assert torch.equal(o, w), f"bf16 {fn.__name__}[{i}] L {L} gp {gp}"
