@@ -169,8 +169,10 @@ the start of the script) as it ends:
    ``use_fused``, published widths and depth, built by its factory at
    ``img_size=384``) at batch 8: one SGD step against plain cores, a
    counted warm-up and 5 timed steps at lr 0.005 (8 + 8 flash2, 20 + 20
-   flash, 4 + 4 lanes, 32 + 32 moments launches a step; the median of the
-   5 losses below 0.75 of the first), wall and device ms, an eval forward
+   flash, 4 + 4 lanes, 32 + 32 moments launches a step), then 7 runs more
+   from the same weights on the batch perturbed by 1e-6 (relative): the
+   median of each run's 5 losses over its first, averaged over the 8
+   runs, below 0.75; wall and device ms, an eval forward
    (8 flash2, 20 flash, 4 eval) against plain cores; axial50l at batch 1:
    an eval forward (8 flash2, 24 eval) and a train step against plain
    cores; axial50m in bf16: one counted step. The summary line gains the
@@ -3090,6 +3092,18 @@ HIRES_IMG = 384
 # half of it the first five steps fell in turn (6.83, then 5.91, 5.37,
 # 4.71, 3.28, 3.76, with TF32 convolutions)
 HIRES_LEARN_LR = 0.005
+# The learning check at 384 px holds the mean over HIRES_LEARN_RUNS runs of
+# the median of the CLS_STEPS losses over the step-0 loss against
+# CLS_LOSS_FALL: the counted run, and HIRES_LEARN_RUNS - 1 runs more from
+# the same weights, each on the batch times 1 + STEP_INPUT_NOISE * n (n
+# standard normal, drawn anew a run). One run's ratio is a draw and not a
+# measurement: the first SGD step inflates the attention logits' scale,
+# which the similarity BN leaves free, by orders of magnitude on every
+# implementation, and from there the float32 rounding of the first
+# backward (cuDNN's included) decides the 5-step curve, so that a single
+# run missed CLS_LOSS_FALL now and then on plain cores and on the kernels
+# of every tree measured (``train_losses.py --model axial50m-384``).
+HIRES_LEARN_RUNS = 8
 # (span, gp, stripes per image, sites) of axial50m and axial50l at 384 px
 # (base span 96) and each site's route in CLS_CALLS's four calls: spans 96
 # take flash2 in both modes at any stripe count (gp 12, 24, 32 on the
@@ -3181,6 +3195,32 @@ def _hires_variables(torch, model):
     return net.state_dict()
 
 
+def hires_learn_runs(torch, train_step, variables, images, labels, runs):
+    """The learning check's runs after the counted one: axial50m-384 on the
+    kernels from ``variables`` at HIRES_LEARN_LR, each on the batch times
+    1 + STEP_INPUT_NOISE * n (n drawn anew a run), a step and then
+    CLS_STEPS steps; each run's median loss over its step-0 loss."""
+    import numpy as np
+
+    rng = np.random.default_rng(2)
+    out = []
+    for _ in range(runs):
+        image = (images * (1.0 + STEP_INPUT_NOISE * rng.standard_normal(
+            images.shape))).astype(np.float32)
+        batch = {"image": image, "label": labels}
+        state = _cls_state(torch, variables, plain=False, lr=HIRES_LEARN_LR,
+                           model="axial50m", img=HIRES_IMG)
+        loss0 = float(train_step(state, batch)["loss"])
+        losses = torch.stack([train_step(state, batch)["loss"]
+                              for _ in range(CLS_STEPS)]).tolist()
+        check(all(math.isfinite(v) for v in losses),
+              f"non-finite loss {losses}")
+        out.append(statistics.median(losses) / loss0)
+        del state
+        torch.cuda.empty_cache()
+    return out
+
+
 def phase_cls_hires(torch):
     """axial50m and axial50l at 384 px (1000 classes, ``use_fused``,
     published widths and depth, built by their factories) on the kernels:
@@ -3190,8 +3230,9 @@ def phase_cls_hires(torch):
     6-128; the bf16 entry points at axial50m's span-96 step sites against
     their float32 twins (bit-equal); axial50m at batch 8: one SGD step
     against plain
-    cores, a counted warm-up and CLS_STEPS timed steps at HIRES_LEARN_LR
-    with a falling loss, wall and device ms, an eval forward against plain
+    cores, a counted warm-up and CLS_STEPS timed steps at HIRES_LEARN_LR,
+    then HIRES_LEARN_RUNS - 1 runs more on a perturbed batch, with a
+    falling loss on average, wall and device ms, an eval forward against plain
     cores; axial50l at batch 1: an eval forward and a train step against
     plain cores; axial50m in bf16: one counted step. Every call's
     launches and routes exact."""
@@ -3258,8 +3299,11 @@ def phase_cls_hires(torch):
     check(routes == cls_routes_expected(0, m_routes),
           f"axial50m-384 routes {routes}")
     check(all(math.isfinite(v) for v in losses), f"non-finite loss {losses}")
-    check(statistics.median(losses) < CLS_LOSS_FALL * loss0,
-          f"loss did not fall: {loss0} {losses}")
+    learn = [statistics.median(losses) / loss0] + hires_learn_runs(
+        torch, train_step, var_m, images, labels, HIRES_LEARN_RUNS - 1)
+    check(statistics.mean(learn) < CLS_LOSS_FALL,
+          f"loss did not fall: step 0 {loss0}, counted {losses}; median over "
+          f"step-0 loss of the {len(learn)} runs {learn}")
     forwards = {"axial50m_b8_forward": _cls_forward_parity(
         torch, var_m, images, 1, "axial50m", m_routes, **hires)}
 
@@ -3308,6 +3352,7 @@ def phase_cls_hires(torch):
                             for c in calls},
          step_parity=parity, launches=counts, steps_counted=CLS_STEPS + 1,
          learn_lr=HIRES_LEARN_LR, loss_step0=loss0, losses=losses,
+         learn_runs=learn, learn_mean=statistics.mean(learn),
          wall_ms_per_step=wall_ms, images_per_s=8 / wall_ms * 1e3,
          device_kernel_ms_per_step=device_ms,
          port_kernels_device_ms_per_step=own_ms,

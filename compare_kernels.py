@@ -24,9 +24,13 @@ smoke's ``cls_wide`` phase (``CLS_WIDE_ROUTES``): axial50m's batch-8 step
 and forward and axial50l's batch-1 forward and step (rows 1-4, 7-9, and
 row 11's wide route, the flash kernels at axial50l's batch-1 train sites),
 one row per site and path (``path`` ``"axial50m_b8_step"`` and so on), and
-the bf16 entry points at axial50m's batch-8 step geometries; the per-call
-sums over ``axial50m_b8_step`` and ``axial50l_b1_step`` are each wide
-kernel's time over those steps. Then, for each
+the bf16 entry points at axial50m's batch-8 step geometries; and the wide
+forwards (rows 1, 3, 7, 9) at the ``cls_hires`` phase's calls (axial50m
+and axial50l at 384 px, ``CLS_HIRES_ROUTES``; path
+``"axial50m384_b8_step"`` and so on): the attention forwards at spans 48,
+24 and 12 and the moments forward at every site, the span-96 ones
+included. The per-call sums over each path are each wide kernel's time
+over that call. Then, for each
 geometry, on inputs seeded by the geometry alone, a ``torch.profiler``
 window over a few calls splits its device time by CUDA kernel (row pass,
 column pass, reductions) and a host clock times the
@@ -150,21 +154,44 @@ def flash2_baseline(geometries) -> list:
             if g[0] in ("flash_lanes_fwd", "flash_lanes_bwd")]
 
 
+# the wide forwards (csrc/wide_attn.cuh's body and the wide moments
+# forward) that ``wide`` also times at the 384 px sites
+WIDE_FORWARDS = ("lanes_attn_fwd", "flash_lanes_fwd", "axial_eval_fwd",
+                 "moment_sums_fwd")
+
+
+def _site_rows(smoke, routes, calls, path, keep):
+    """One row per kernel and site of a classifier's ``calls`` on
+    ``routes`` whose (kernel, span) ``keep`` takes, launches summed over
+    the call's sites of that geometry; narrow gp left out."""
+    rows = []
+    for call, sites in smoke.cls_geometries(routes, calls).items():
+        seen = {}
+        for kernel, L, gp, S, n in sites:
+            if gp in (2, 4, 8, 16) or not keep(kernel, L):
+                continue
+            key = (kernel, L, gp, S)
+            seen[key] = seen.get(key, 0) + n
+        rows += [(k, L, gp, S, True, n, f"{path}_{call}")
+                 for (k, L, gp, S), n in seen.items()]
+    return rows
+
+
 def wide_geometries(smoke) -> list:
     """(kernel, span, gp, stripes, has_pos, launches per call, path) of the
-    smoke's ``cls_wide`` calls: one row per kernel, site and call, path
-    ``<model>_<call>``, launches the call's sites of that geometry."""
+    smoke's ``cls_wide`` calls (every wide kernel; path
+    ``<model>_<call>``) and of its ``cls_hires`` calls (path
+    ``<model>384_<call>``): the wide forwards at the spans up to 64 and the
+    moments forward at the span-96 sites."""
     rows = []
     for model, calls in smoke.CLS_WIDE_CALLS.items():
-        geo = smoke.cls_geometries(smoke.CLS_WIDE_ROUTES[model], calls)
-        for call, sites in geo.items():
-            seen = {}
-            for kernel, L, gp, S, n in sites:
-                key = (kernel, L, gp, S)
-                seen[key] = seen.get(key, 0) + n
-            rows += [(k, L, gp, S, True, n, f"{model}_{call}")
-                     for (k, L, gp, S), n in seen.items()
-                     if gp not in (2, 4, 8, 16)]
+        rows += _site_rows(smoke, smoke.CLS_WIDE_ROUTES[model], calls, model,
+                           lambda k, L: True)
+    for model, calls in smoke.CLS_HIRES_CALLS.items():
+        rows += _site_rows(
+            smoke, smoke.CLS_HIRES_ROUTES[model], calls, f"{model}384",
+            lambda k, L: k in WIDE_FORWARDS and (
+                L <= 64 or k == "moment_sums_fwd"))
     return rows
 
 

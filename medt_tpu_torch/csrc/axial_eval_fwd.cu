@@ -24,10 +24,11 @@
 // the summation order is the body's own (eval has no step parity to keep).
 // At every even gp up to 128 outside 2, 4, 8 and 16 (the axial-attention
 // classifiers' sites at gp 12 to 128) the entry point takes
-// csrc/wide_attn.cuh's body instead, one query row a thread with the value
-// channels in chunks of 16, under the same epilogue arithmetic (EvalWide
-// below): the shared body's per-pair accumulators and staged tables are
-// sized for gp <= 16.
+// csrc/wide_attn.cuh's body instead (a block stages its stripes' k and v
+// rows, transposed from this layout, and its rows' tables in rounds of
+// channels or planes; a thread takes R query rows of one stripe), under
+// the same epilogue arithmetic (EvalWide below): the shared
+// body's per-pair accumulators and staged tables are sized for gp <= 16.
 // The kernel launches on the caller's stream, allocates nothing and does
 // not synchronise; the entry point returns cudaGetLastError().
 
@@ -79,12 +80,13 @@ struct EvalWide {
   template <bool POS>
   __device__ __forceinline__ static void store(
       const Params& e, int gi, int i, int s, int p0, int n,
-      const float (&sv)[wide::kChunkP], const float (&sve)[wide::kChunkP]) {
+      const float (&sv)[wide::kFwdChunk],
+      const float (&sve)[wide::kFwdChunk]) {
     const int GP = e.gp;
     const float* oa = e.out_aff + gi * 4 * GP;
     float* o = e.out + ((size_t)s * e.g + gi) * GP * e.L + i;
 #pragma unroll
-    for (int u = 0; u < wide::kChunkP; ++u) {
+    for (int u = 0; u < wide::kFwdChunk; ++u) {
       if (u < n) {
         const int p = p0 + u;
         const float x = POS ? sve[u] : 0.f;
@@ -115,7 +117,7 @@ int medt_axial_eval_fwd(const float* q, const float* k, const float* v,
     const wide::Stripes x{q, k, v, qemb, kemb, vemb, q_ss, q_sg, k_ss,
                           k_sg, v_ss, v_sg, gp, L, S};
     return wide::launch_fwd<wide::Stripes, EvalWide>(
-        x, {out_aff, out, g, gp, L}, sim_aff, g, has_pos != 0,
+        x, {out_aff, out, g, gp, L}, sim_aff, g, has_pos != 0, true, false,
         static_cast<cudaStream_t>(stream_ptr));
   }
   const medt::StripeArgs x{q, k, v, qemb, kemb, vemb, sim_aff,

@@ -18,11 +18,13 @@
 // is read, so the outputs equal the float32 entry point's on the upcast
 // qkv, bit for bit.
 //
-// Design, for correctness first (the designs for gp <= 16 do not scale:
-// csrc/wide_attn.cuh says why): csrc/wide_attn.cuh's body, one query row a
-// thread, the value channels in chunks of 16; with save_ml it also writes
-// m and l. What bounds it on the H100: latency and the L1/L2 traffic of
-// re-reading k, v and the tables for every query row (wide_attn.cuh).
+// Design: csrc/wide_attn.cuh's body (wide_fwd_kernel): a block stages the
+// k and v rows of its group, stripes and keys and its rows' table entries
+// in shared memory in rounds of channels or planes, and a thread takes R
+// query rows of one stripe, so that each staged load feeds R rows (or
+// four keys); with save_ml it also writes m and l. What bounds it on
+// the H100: shared-memory loads, and at small grids latency
+// (wide_attn.cuh).
 // Kernels launch on the caller's stream, allocate nothing and do not
 // synchronise; the entry points return the first CUDA error of their
 // launches.
@@ -35,7 +37,7 @@
 
 namespace {
 
-using wide::kChunkP;
+using wide::kFwdChunk;
 using wide::Lanes;
 
 // sv, sve (g, gp, L, S) and, for the flash contract, m and l (g, L, S)
@@ -50,12 +52,12 @@ struct LanesEpilogue {
   template <bool POS>
   __device__ __forceinline__ static void store(const Params& e, int gi, int i,
                                                int s, int p0, int n,
-                                               const float (&sv)[kChunkP],
-                                               const float (&sve)[kChunkP]) {
+                                               const float (&sv)[kFwdChunk],
+                                               const float (&sve)[kFwdChunk]) {
     const size_t LS = (size_t)e.L * e.S;
     const size_t o = ((size_t)gi * e.gp + p0) * LS + (size_t)i * e.S + s;
 #pragma unroll
-    for (int u = 0; u < kChunkP; ++u) {
+    for (int u = 0; u < kFwdChunk; ++u) {
       if (u < n) {
         e.sv[o + u * LS] = sv[u];
         if constexpr (POS) e.sve[o + u * LS] = sve[u];
@@ -85,8 +87,10 @@ int wide_fwd(const T* qkv, const float* qemb, const float* kemb_t,
   const Lanes<T> x{qkv, qemb, kemb_t, vemb, gp, L, S};
   const LanesEpilogue::Params e{sv, sve, save_ml ? m : nullptr,
                                 save_ml ? l : nullptr, gp, L, S};
+  const bool vec = S % flash2::kChunk<T> == 0 && flash2::aligned16(qkv);
   return wide::launch_fwd<Lanes<T>, LanesEpilogue>(
-      x, e, aff, g, has_pos != 0, static_cast<cudaStream_t>(stream));
+      x, e, aff, g, has_pos != 0, false, vec,
+      static_cast<cudaStream_t>(stream));
 }
 
 }  // namespace

@@ -75,7 +75,9 @@
 // memory. There the entry points take kernels of their own
 // (csrc/moments_wide.cu, whose header says how), on float32 or bf16 qkv
 // alike, under this file's finalizes: the forward
-// (moments_wide_fwd_kernel) under the same partial layout; the backward
+// (moments_wide_fwd_kernel, the factored sums over a staged q/k slab) with
+// one partial slot per block of its tile (moments_wide.cuh:
+// wide_fwd_tile); the backward
 // (moments_wide_dqk_kernel, then with positions moments_wide_tab_kernel)
 // with its own tile and table-partial slots
 // (moments_wide.cuh: wide_dqk_tile, wide_dqk_rows, wide_bwd_slots), at
@@ -689,18 +691,26 @@ cudaError_t bwd_c(const MomBwdArgs<T>& a, int g, int ts, bool pos,
 
 // The wide widths (every even gp up to 128 outside 2, 4, 8 and 16) run the
 // kernels of csrc/moments_wide.cu (its own source, so the two compile in
-// parallel) under this file's partial layouts and finalizes.
+// parallel) under this file's finalizes: the forward's partials one slot
+// per block of its tile (moments_wide.cuh: wide_fwd_tile stripes), the
+// backward's this file's layout.
 constexpr bool is_wide(int gp) {
   return gp != 2 && gp != 4 && gp != 8 && gp != 16;
 }
-static_assert(kFwdStripes == medt_moments::kWideFwdStripes &&
-                  kFwdThreads == medt_moments::kWideThreads &&
+static_assert(kFwdThreads == medt_moments::kWideThreads &&
                   kBwdThreads == medt_moments::kWideThreads,
-              "moments_wide.cu's tiles and partial layouts are this file's");
+              "moments_wide.cu's blocks are this file's");
 
 bool bad_geometry(int g, int gp, int L, int S) {
   return g < 1 || g > 65535 || S < 1 || L < 1 || L > 65535 || gp < 2 ||
          gp > 128 || gp % 2 != 0;
+}
+
+// stripes a forward block: kFwdStripes, or at a wide gp the wide forward's
+// tile; the forward's partials have one slot per block
+int fwd_tile(int g, int gp, int L, int S) {
+  return is_wide(gp) ? medt_moments::wide_fwd_tile(gp / 2, L, S, g)
+                     : kFwdStripes;
 }
 
 template <class T>
@@ -709,8 +719,10 @@ int moments_fwd(const T* qkv, const float* r_q, const float* e_q,
                 int g, int gp, int L, int S, int has_pos, int n_part,
                 void* stream_ptr) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  const int tiles = (S + kFwdStripes - 1) / kFwdStripes;
-  if (bad_geometry(g, gp, L, S) || n_part != g * tiles) {
+  if (bad_geometry(g, gp, L, S)) return (int)cudaErrorInvalidValue;
+  const int ts = fwd_tile(g, gp, L, S);
+  const int tiles = (S + ts - 1) / ts;
+  if (n_part != g * tiles) {
     return (int)cudaErrorInvalidValue;
   }
   const bool pos = has_pos != 0;
@@ -782,7 +794,8 @@ int moments_bwd(const T* qkv, const float* r_q, const float* e_q,
 
 extern "C" {
 
-// Forward: out (g, 8); part scratch (g * ceil(S / kFwdStripes), 6).
+// Forward: out (g, 8); part scratch (n_part, 6), a slot per block
+// (medt_moment_sums_fwd_slots).
 int medt_moment_sums_fwd(const float* qkv, const float* r_q, const float* e_q,
                          const float* r_k, const float* e_k, float* out,
                          float* part, int g, int gp, int L, int S,
@@ -800,6 +813,15 @@ int medt_moment_sums_fwd_bf16(const __nv_bfloat16* qkv, const float* r_q,
                               int n_part, void* stream) {
   return moments_fwd(qkv, r_q, e_q, r_k, e_k, out, part, g, gp, L, S,
                      has_pos, n_part, stream);
+}
+
+// The forward's partial slots, the n_part its entry points take: g *
+// ceil(S / kFwdStripes), or at a wide gp g * ceil(S / wide_fwd_tile); -1
+// for a geometry they refuse.
+int medt_moment_sums_fwd_slots(int g, int gp, int L, int S) {
+  if (bad_geometry(g, gp, L, S)) return -1;
+  const int ts = fwd_tile(g, gp, L, S);
+  return g * ((S + ts - 1) / ts);
 }
 
 // Backward: dqkv (g, 2gp, L, S), v rows written zero; dtables (2c + 2c^2,

@@ -8,16 +8,22 @@
 // 8 and 16: moment_sums_core's forward (_moments_kernel) and backward
 // (_moments_bwd_kernel); the sums and the backward's formulas are
 // moments.cu's (see its header).
-//   * moments_wide_fwd_kernel (a first design, for correctness): a block
-//     owns one group and kWideFwdStripes stripes (lane = stripe), its warps
-//     take the rows l in turn; a thread sums its (l, stripe)'s terms
-//     directly: qk_lj over the keys j (s1_qk and s2_qk as sums of qk and
-//     qk^2, which equal the factored forms), and with positions sum_c q r_q
-//     and sum_cd q q e_q at row l (k's alike); the block's sums go to its
-//     slot of moments.cu's partials by warp_sum and its warps in order.
-//     Instantiated per register bucket CM of c (8, 16, 32, 64), c at run
-//     time. It reads q and k again from L1/L2 for every row and its table
-//     terms cost c^2 a row: latency-bound, and at bucket 64 ptxas spills.
+//   * moments_wide_fwd_kernel: JAX's factored sums (s1_qk from the
+//     channel sums, s2_qk from the upper triangles of sum_l q_c q_d and
+//     sum_l k_c k_d, per stripe; the position terms from the Gram over the
+//     block's stripes at each row l against e and r), so a stripe costs
+//     about c^2 L FMAs from shared memory and no table is read per (row,
+//     stripe). A block owns one group and
+//     wide_fwd_tile's ts stripes (32 down to 4, so that the grid keeps 264
+//     blocks), reads each q and k element from device memory once into a
+//     shared slab (the whole span where it fits 96 KB: every path site),
+//     and its threads take 4 x 4 register tiles of the upper triangle of
+//     the Gram (below); one partial slot a block, summed by moments.cu's
+//     finalize in a fixed order. Every site takes the factored form: at
+//     the gp-96 sites of span 7 (c > L) the direct L^2 c form would do
+//     fewer FMAs, but both are far under the launch's latency there.
+//     What bounds it: latency and, at large c and small ts, the L2 reads
+//     of e (each block reads all of it: 16 c^2 L bytes).
 //   * the backward, two launches. What bounds it: per stripe the dq/dk
 //     work is 3cL^2 FMAs (w = c0 + 2 c1 qk, then K w^T and Q w) and the
 //     e terms 2c^2 L, the table partial c^2 L (the Gram of q, and of k,
@@ -58,7 +64,6 @@ namespace {
 using flash2::from_f32;
 using flash2::to_f32;
 using medt::warp_sum;
-using medt_moments::kWideFwdStripes;
 using medt_moments::kWideTabStripes;
 using medt_moments::kWideThreads;
 
@@ -88,85 +93,9 @@ struct BwdArgs {
   int L, S;
 };
 
-constexpr int cm_bucket(int c) {
-  return c <= 8 ? 8 : c <= 16 ? 16 : c <= 32 ? 32 : 64;
-}
-
 template <class T>
 __device__ __forceinline__ float ldf(const T* p) {
   return to_f32(__ldg(p));
-}
-
-// Forward at the wide widths: a thread per (row l, stripe), rows l = warp,
-// warp + kWideWarps, ...; each stripe past the edge adds 0.
-template <int CM, bool HAS_POS, class T>
-__global__ void __launch_bounds__(kWideThreads)
-moments_wide_fwd_kernel(FwdArgs<T> a, int C) {
-  __shared__ float wsum[kWideWarps][6];
-  const int L = a.L, S = a.S, gi = blockIdx.y;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int s = blockIdx.x * kWideFwdStripes + lane;
-  const bool valid = s < S;
-  const size_t LS = (size_t)L * S;
-  const T* base = a.qkv + (size_t)gi * 4 * C * LS + (valid ? s : 0);
-  auto at = [&](int row, int l) {
-    return valid ? ldf(base + row * LS + (size_t)l * S) : 0.f;
-  };
-  float v[6] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-  for (int l = warp; l < L; l += kWideWarps) {
-    float x[CM];
-#pragma unroll
-    for (int c = 0; c < CM; ++c) x[c] = c < C ? at(c, l) : 0.f;
-    for (int j = 0; j < L; ++j) {
-      float d = 0.f;
-#pragma unroll
-      for (int c = 0; c < CM; ++c) {
-        if (c < C) d = fmaf(x[c], at(C + c, j), d);
-      }
-      v[0] += d;
-      v[1] = fmaf(d, d, v[1]);
-    }
-    if constexpr (HAS_POS) {
-#pragma unroll
-      for (int K = 0; K < 2; ++K) {
-        if (K == 1) {
-#pragma unroll
-          for (int c = 0; c < CM; ++c) x[c] = c < C ? at(C + c, l) : 0.f;
-        }
-        const float* r = K ? a.r_k : a.r_q;
-        const float* e = K ? a.e_k : a.e_q;
-        float s1 = 0.f, s2 = 0.f;
-        // c unrolled (x[c] from registers); d not, its x[d] read again
-        // from L1: two unrolled loops over c^2 (e) loads spilled
-#pragma unroll
-        for (int c = 0; c < CM; ++c) {
-          if (c < C) {
-            s1 = fmaf(x[c], __ldg(r + c * L + l), s1);
-            float ed = 0.f;
-#pragma unroll 4
-            for (int d = 0; d < C; ++d)
-              ed = fmaf(__ldg(e + ((size_t)c * C + d) * L + l),
-                        at(K * C + d, l), ed);
-            s2 = fmaf(x[c], ed, s2);
-          }
-        }
-        v[2 + 2 * K] += s1;
-        v[3 + 2 * K] += s2;
-      }
-    }
-  }
-#pragma unroll
-  for (int k = 0; k < 6; ++k) {
-    const float w = warp_sum(v[k]);
-    if (lane == 0) wsum[warp][k] = w;
-  }
-  __syncthreads();
-  if (threadIdx.x < 6) {
-    float w = 0.f;
-#pragma unroll
-    for (int k = 0; k < kWideWarps; ++k) w += wsum[k][threadIdx.x];
-    a.part[((size_t)gi * gridDim.x + blockIdx.x) * 6 + threadIdx.x] = w;
-  }
 }
 
 // The backward's q/k tile (moments_wide.cuh: wide_dqk_tile,
@@ -422,18 +351,204 @@ moments_wide_tab_kernel(BwdArgs<T> a, int g, int C, int nsplit) {
   }
 }
 
-template <int CM, class T>
-cudaError_t wide_fwd_cm(const FwdArgs<T>& a, int g, int C, bool pos,
-                        cudaStream_t stream) {
-  const dim3 grid((a.S + kWideFwdStripes - 1) / kWideFwdStripes, g);
-  if (pos) {
-    moments_wide_fwd_kernel<CM, true, T><<<grid, kWideThreads, 0, stream>>>(
-        a, C);
-  } else {
-    moments_wide_fwd_kernel<CM, false, T><<<grid, kWideThreads, 0, stream>>>(
-        a, C);
+// The forward at the wide widths, factored as JAX's kernel takes it
+// (medt_tpu/ops/pallas_moments.py): a block owns one group and ts stripes
+// (moments_wide.cuh: wide_fwd_tile) and stages their q and k rows once,
+// [l][stripe][channel] (channels padded to MomTab's X: zeros to c4, a ones
+// channel at c4, zeros; zero past S), lc rows l at a time
+// (wide_fwd_rows: the whole span wherever it fits). Its threads then take
+// 4 x 4 tiles of the upper triangle of the (X x X) Gram, as
+// moments_wide_tab_kernel does:
+//   pass A (qk), a unit per (tile, stripe): the Gram of q and of k over the
+//     stripe's rows l; after the last rows, s2_qk += f sum QQ KK (f = 2 off
+//     the diagonal, where the tile stands for its mirror too) and, on the
+//     ones column, s1_qk += sum_c Qs_c Ks_c (Qs = sum_l q);
+//   pass B (positions), a unit per (tile, row l), l fastest so that the
+//     reads of e run along L: the Gram over the block's stripes at row l,
+//     contracted with e_q[:, :, l] (e + e^T off the diagonal) for s2_qr and,
+//     on the ones column, with r_q[:, l] for s1_qr; k's alike.
+// Where the span does not fit (ts = 1, lc < L) a thread holds at most one
+// pass-A unit (153 tiles at c = 64) and carries its Gram over the chunks.
+// The thread sums go to the block's slot by warp_sum and the warps in
+// order; moments.cu's finalize adds the slots in a fixed order.
+template <bool HAS_POS, class T>
+__global__ void __launch_bounds__(kWideThreads)
+moments_wide_fwd_kernel(FwdArgs<T> a, int C, int ts, int lc) {
+  extern __shared__ float4 smem4[];
+  __shared__ float wsum[kWideWarps][6];
+  const MomTab sh(C);
+  const int NB = sh.NB, NT = sh.NT, C4 = sh.C4;
+  const int pt = medt_moments::fwd_stripe_pitch(C);   // floats a stripe
+  const int pl = medt_moments::fwd_row_pitch(C, ts);  // floats a row l
+  float* XQ = reinterpret_cast<float*>(smem4);        // [lc][ts][pt]
+  float* XK = XQ + (size_t)lc * pl;
+  const int L = a.L, S = a.S, gi = blockIdx.y, tid = threadIdx.x;
+  const int lane = tid & 31, warp = tid >> 5;
+  const int s0 = blockIdx.x * ts, nst = min(ts, S - s0);
+  const size_t LS = (size_t)L * S;
+  const T* qb = a.qkv + (size_t)gi * 4 * C * LS + s0;
+  const T* kb = qb + (size_t)C * LS;
+  // (ta, tb) of a tile index, row-major over the upper triangle
+  auto tile = [&](int t, int& ta, int& tb) {
+    ta = 0;
+    while (t >= NB - ta) {
+      t -= NB - ta;
+      ++ta;
+    }
+    tb = ta + t;
+  };
+  auto quad = [](const float* p, float (&x)[4]) {
+    const float4 v = *reinterpret_cast<const float4*>(p);
+    x[0] = v.x;
+    x[1] = v.y;
+    x[2] = v.z;
+    x[3] = v.w;
+  };
+  float v[6] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+  float aq[4][4], ak[4][4];
+  for (int l0 = 0; l0 < L; l0 += lc) {
+    const int nl = min(lc, L - l0);
+    const bool last = l0 + nl == L;
+    __syncthreads();  // the last chunk's reads are done
+    // a 16-byte chunk of channels of one (row, stripe) a step, stripes
+    // fastest: four reads along S, one conflict-free 16-byte store
+    for (int e = tid; e < nl * NB * ts; e += kWideThreads) {
+      const int t = e % ts, kq = (e / ts) % NB, l = e / (ts * NB);
+      float xq[4], xk[4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const int ch = 4 * kq + u;
+        const bool in = t < nst && ch < C;
+        const size_t o = ch * LS + (size_t)(l0 + l) * S + t;
+        const float one = t < nst && ch == C4 ? 1.f : 0.f;
+        xq[u] = in ? to_f32(qb[o]) : one;
+        xk[u] = in ? to_f32(kb[o]) : one;
+      }
+      const size_t o = (size_t)l * pl + t * pt + 4 * kq;
+      *reinterpret_cast<float4*>(XQ + o) = make_float4(xq[0], xq[1], xq[2],
+                                                       xq[3]);
+      *reinterpret_cast<float4*>(XK + o) = make_float4(xk[0], xk[1], xk[2],
+                                                       xk[3]);
+    }
+    __syncthreads();
+    // pass A: per stripe, the Gram of q and of k over the rows
+    for (int u = tid; u < NT * ts; u += kWideThreads) {
+      int ta, tb;
+      tile(u % NT, ta, tb);
+      const int t = u / NT;
+      if (l0 == 0) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+#pragma unroll
+          for (int j = 0; j < 4; ++j) aq[i][j] = ak[i][j] = 0.f;
+        }
+      }
+      const float* pq = XQ + t * pt;
+      const float* pk = XK + t * pt;
+      for (int l = 0; l < nl; ++l, pq += pl, pk += pl) {
+        float q0[4], q1[4], k0[4], k1[4];
+        quad(pq + 4 * ta, q0);
+        quad(pq + 4 * tb, q1);
+        quad(pk + 4 * ta, k0);
+        quad(pk + 4 * tb, k1);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            aq[i][j] = fmaf(q0[i], q1[j], aq[i][j]);
+            ak[i][j] = fmaf(k0[i], k1[j], ak[i][j]);
+          }
+        }
+      }
+      if (!last) continue;
+      if (tb < NB - 1) {
+        float d = 0.f;
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+#pragma unroll
+          for (int j = 0; j < 4; ++j) d = fmaf(aq[i][j], ak[i][j], d);
+        }
+        v[1] = fmaf(ta == tb ? 1.f : 2.f, d, v[1]);
+      } else if (ta < NB - 1) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) v[0] = fmaf(aq[i][0], ak[i][0], v[0]);
+      }
+    }
+    if constexpr (HAS_POS) {
+      // pass B: per row l, the Gram over the block's stripes
+      for (int u = tid; u < NT * nl; u += kWideThreads) {
+        const int l = u % nl, gl = l0 + l;
+        int ta, tb;
+        tile(u / nl, ta, tb);
+        if (ta == NB - 1) continue;  // the ones channel with itself
+        float gq[4][4], gk[4][4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+#pragma unroll
+          for (int j = 0; j < 4; ++j) gq[i][j] = gk[i][j] = 0.f;
+        }
+        const float* pq = XQ + (size_t)l * pl;
+        const float* pk = XK + (size_t)l * pl;
+        for (int t = 0; t < ts; ++t, pq += pt, pk += pt) {
+          float q0[4], q1[4], k0[4], k1[4];
+          quad(pq + 4 * ta, q0);
+          quad(pq + 4 * tb, q1);
+          quad(pk + 4 * ta, k0);
+          quad(pk + 4 * tb, k1);
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+#pragma unroll
+            for (int j = 0; j < 4; ++j) {
+              gq[i][j] = fmaf(q0[i], q1[j], gq[i][j]);
+              gk[i][j] = fmaf(k0[i], k1[j], gk[i][j]);
+            }
+          }
+        }
+        if (tb == NB - 1) {  // the ones column: sum_s x[c], against r
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const int c = 4 * ta + i;
+            if (c < C) {
+              v[2] = fmaf(gq[i][0], __ldg(a.r_q + (size_t)c * L + gl), v[2]);
+              v[4] = fmaf(gk[i][0], __ldg(a.r_k + (size_t)c * L + gl), v[4]);
+            }
+          }
+          continue;
+        }
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int c = 4 * ta + i;
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const int d = 4 * tb + j;
+            if (c < C && d < C) {
+              const size_t cd = ((size_t)c * C + d) * L + gl;
+              const size_t dc = ((size_t)d * C + c) * L + gl;
+              float eq = __ldg(a.e_q + cd), ek = __ldg(a.e_k + cd);
+              if (ta != tb) {
+                eq += __ldg(a.e_q + dc);
+                ek += __ldg(a.e_k + dc);
+              }
+              v[3] = fmaf(gq[i][j], eq, v[3]);
+              v[5] = fmaf(gk[i][j], ek, v[5]);
+            }
+          }
+        }
+      }
+    }
   }
-  return cudaGetLastError();
+#pragma unroll
+  for (int k = 0; k < 6; ++k) {
+    const float w = warp_sum(v[k]);
+    if (lane == 0) wsum[warp][k] = w;
+  }
+  __syncthreads();
+  if (tid < 6) {
+    float w = 0.f;
+#pragma unroll
+    for (int k = 0; k < kWideWarps; ++k) w += wsum[k][tid];
+    a.part[((size_t)gi * gridDim.x + blockIdx.x) * 6 + tid] = w;
+  }
 }
 
 template <class T>
@@ -441,12 +556,17 @@ cudaError_t fwd(const T* qkv, const float* r_q, const float* e_q,
                 const float* r_k, const float* e_k, float* part, int g, int C,
                 int L, int S, bool pos, cudaStream_t stream) {
   const FwdArgs<T> a{qkv, r_q, e_q, r_k, e_k, part, L, S};
-  switch (cm_bucket(C)) {
-    case 8: return wide_fwd_cm<8>(a, g, C, pos, stream);
-    case 16: return wide_fwd_cm<16>(a, g, C, pos, stream);
-    case 32: return wide_fwd_cm<32>(a, g, C, pos, stream);
-    default: return wide_fwd_cm<64>(a, g, C, pos, stream);
-  }
+  const int ts = medt_moments::wide_fwd_tile(C, L, S, g);
+  const int lc = medt_moments::wide_fwd_rows(C, L, ts);
+  const size_t smem = (size_t)2 * lc * medt_moments::fwd_row_pitch(C, ts) *
+                      sizeof(float);
+  auto kernel = pos ? moments_wide_fwd_kernel<true, T>
+                    : moments_wide_fwd_kernel<false, T>;
+  const cudaError_t err = flash2::allow_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<dim3((S + ts - 1) / ts, g), kWideThreads, smem, stream>>>(a, C, ts,
+                                                                    lc);
+  return cudaGetLastError();
 }
 
 template <class T>

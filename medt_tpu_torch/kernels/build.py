@@ -61,6 +61,8 @@ SIGNATURES = {
     # (csrc/axial_wide_long_fwd.cu, axial_wide_long_bwd.cu)
     "medt_wide_long_fwd": [_P] * 9 + [_I] * 5 + [_P],
     "medt_wide_long_bwd": [_P] * 16 + [_I] * 6 + [_P],
+    # the moments forward's partial slots for (g, gp, L, S), -1 if refused
+    "medt_moment_sums_fwd_slots": [_I] * 4,
 }
 # the bf16 entry points of rows 1-8 (qkv, and dqkv, in bf16) take the
 # float32 ones' arguments

@@ -29,7 +29,9 @@ the stripe-major layout with free stripe and group strides, so
 ``(S, g, 2gp, L)`` qkv tensor without splitting it. There is no backward:
 asking for a gradient raises. At the wide widths (every even gp up to 128
 outside 2, 4, 8 and 16) the same entry point runs ``csrc/wide_attn.cuh``'s
-body (one query row a thread, value channels in chunks of 16); any other
+body (a block stages its stripes' k and v rows and its rows' tables in
+chunks of 4 channels or planes; a thread takes 2 or 4 query rows of one
+stripe); any other
 gp raises ``ValueError`` (``axial_lanes.check_gp``).
 """
 from __future__ import annotations

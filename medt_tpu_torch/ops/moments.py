@@ -37,8 +37,10 @@ At the wide widths (every even gp up to 128 outside 2, 4, 8 and 16:
 ``axial_lanes.is_wide``) the entry points, float32 and bf16, run kernels
 of their own (``csrc/moments_wide.cu``: ``moments_wide_fwd_kernel``, and
 ``moments_wide_dqk_kernel`` with ``moments_wide_tab_kernel`` for the
-backward) under the same finalizes; the backward's table partials have a
-slot per split of the stripes (:func:`wide_bwd_slots`), and it takes spans
+backward) under the same finalizes; the forward's partials have a slot
+per block of its tile, a count that the kernel library gives
+(:func:`fwd_slots`), the backward's table partials a slot per split of
+the stripes (:func:`wide_bwd_slots`), and the backward takes spans
 up to ``BWD_MAX_SPAN`` (256) as the narrow widths do (above about 160
 its dq/dk kernel forms each stripe's (L, L) w in tiles of rows).
 """
@@ -155,11 +157,25 @@ def _check(qkv, r_q, e_q, r_k, e_k, name, **extra):
 FWD_STRIPES = 32
 
 
+def fwd_slots(gp: int, L: int, S: int, g: int) -> int:
+    """Partial slots of a moments forward launch, one per block: blocks of
+    FWD_STRIPES stripes, or at a wide gp of the wide forward's tile, whose
+    count the kernel library gives (csrc/moments.cu:
+    medt_moment_sums_fwd_slots)."""
+    if not is_wide(gp) or S == 0:
+        return g * -(-S // FWD_STRIPES)
+    n_part = library().medt_moment_sums_fwd_slots(g, gp, L, S)
+    if n_part < 0:
+        raise ValueError(f"moment_sums_fwd: no kernel for g {g}, gp {gp}, "
+                         f"L {L}, S {S}")
+    return n_part
+
+
 def fwd_buffers(qkv, g, gp, L, S):
     """The forward's (g, 8) sums and, in the same allocation, its tile
-    partials (n_part, 6), one per block of FWD_STRIPES stripes: ``(out,
-    part, n_part)``."""
-    n_part = g * -(-S // FWD_STRIPES)
+    partials (n_part, 6), one per block (fwd_slots): ``(out, part,
+    n_part)``."""
+    n_part = fwd_slots(gp, L, S, g)
     buf = torch.empty((g * 8 + n_part * 6,), dtype=torch.float32,
                       device=qkv.device)
     return buf[:g * 8].view(g, 8), buf[g * 8:].view(n_part, 6), n_part

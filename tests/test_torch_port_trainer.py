@@ -83,12 +83,9 @@ def _log(direc):
         return [json.loads(line) for line in f]
 
 
-@pytest.fixture(scope="module")
-def runs(tmp_path_factory):
-    """JAX's cli.train and the port's trainer from JAX's initial weights;
-    then the port twice more, without validation, from those weights
-    perturbed by WEIGHT_NOISE (relative), for its own spread."""
-    root = tmp_path_factory.mktemp("trainer")
+def _jax_run(root):
+    """JAX's cli.train on new PNG folders under ``root``, and JAX's initial
+    weights as the port's state dict."""
     make_png_dataset(str(root / "train"), N_TRAIN, IMG, seed=0)
     make_png_dataset(str(root / "val"), N_VAL, IMG, seed=1)
     jax_cli_train.main(_argv(root, root / "jax") + ["--use_pallas", "no"])
@@ -96,18 +93,34 @@ def runs(tmp_path_factory):
     with kernel_mesh_scope():  # setup_state installs JAX's kernel mesh
         jstate = jax_setup_state(jax_parse_config(_argv(root, root / "jax")),
                                  N_TRAIN)
-    sd = weights.to_state_dict(weights.export_for_model(
+    return weights.to_state_dict(weights.export_for_model(
         MODEL, jstate.params, jstate.batch_stats))
+
+
+def _port_runs(root, sd, spread):
+    """The port's trainer from ``sd``; then ``spread`` more runs, without
+    validation, from ``sd`` perturbed by WEIGHT_NOISE (relative)."""
+    state = _port_run(_argv(root, root / "port"), sd)
+    rng = np.random.default_rng(7)
+    for i in range(spread):
+        noisy = {k: v * (1.0 + WEIGHT_NOISE * torch.from_numpy(
+            rng.standard_normal(v.shape)).float())
+            if v.is_floating_point() else v for k, v in sd.items()}
+        _port_run(_argv(root, root / f"spread{i}", val=False), noisy)
+    return state
+
+
+@pytest.fixture(scope="module")
+def runs(tmp_path_factory):
+    """JAX's cli.train and the port's trainer from JAX's initial weights;
+    then the port twice more, without validation, from those weights
+    perturbed by WEIGHT_NOISE (relative), for its own spread."""
+    root = tmp_path_factory.mktemp("trainer")
+    sd = _jax_run(root)
     # the port's runs on PyTorch's own pool: the measured limits of
     # test_trainer_matches_jax_cli were taken with its summation order
     with _torch_threads.default_pool():
-        state = _port_run(_argv(root, root / "port"), sd)
-        rng = np.random.default_rng(7)
-        for i in range(2):
-            noisy = {k: v * (1.0 + WEIGHT_NOISE * torch.from_numpy(
-                rng.standard_normal(v.shape)).float())
-                if v.is_floating_point() else v for k, v in sd.items()}
-            _port_run(_argv(root, root / f"spread{i}", val=False), noisy)
+        state = _port_runs(root, sd, 2)
     return root, state
 
 
@@ -290,3 +303,29 @@ def test_latest_checkpoint_and_refusals(tmp_path):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             cli_train.main(["--train_dataset", str(tmp_path)])
+
+
+if __name__ == "__main__":
+    # JAX_PLATFORMS=cpu PYTHONPATH=. python tests/test_torch_port_trainer.py
+    # [RUNS]: the ``runs`` fixture on this file's one PyTorch thread with
+    # RUNS (default 8) perturbed runs; per epoch, as JSON, the port's
+    # distance from JAX, the spread of all its runs and the limit of
+    # test_trainer_matches_jax_cli on it, and that limit on the spread of
+    # the fixture's own three runs
+    import sys
+    import tempfile
+    from pathlib import Path
+
+    n = int(sys.argv[1]) if len(sys.argv) > 1 else 8
+    root = Path(tempfile.mkdtemp())
+    _port_runs(root, _jax_run(root), n)
+    spreads = [_log(root / f"spread{i}") for i in range(n)]
+    for epoch, (je, pe) in enumerate(zip(_log(root / "jax"),
+                                         _log(root / "port"))):
+        losses = [pe["loss"]] + [log[epoch]["loss"] for log in spreads]
+        spread, own = (max(ls) - min(ls) for ls in (losses, losses[:3]))
+        print(json.dumps({
+            "epoch": epoch, "jax": je["loss"], "losses": losses,
+            "distance": abs(pe["loss"] - je["loss"]), "spread": spread,
+            "limit": 1e-4 * abs(je["loss"]) + NOISE_FACTOR * spread,
+            "limit_fixture": 1e-4 * abs(je["loss"]) + NOISE_FACTOR * own}))

@@ -39,6 +39,9 @@ card's machine, which has no JAX):
   train step's logits, loss, input and parameter gradients and every BN
   running statistic, as tests/test_torch_port_cls.py holds the ResNets'
   steps (the eval route at these widths is held by the eval-core test);
+* the wide moments forward's partial slots: ``ops/moments.py::fwd_slots``
+  takes their count from the kernel library's rule
+  (``csrc/moments.cu::medt_moment_sums_fwd_slots``);
 * ``check_gp``: an odd gp, gp 130 and the stripe kernels at gp 32 raise,
   gp 12 and 128 pass and the wrappers (flash2's too) take them with bf16
   qkv; ``AxialAttention`` on
@@ -50,7 +53,10 @@ against its plain version at gp 12, 24, 48, 96 and 128 under
 tests/test_torch_port_cuda.py's tolerances, the same bits on a second run,
 one launch counted per call, and each bf16 entry point against its float32
 twin on the upcast qkv, bit for bit (dqkv: the float32 dqkv rounded once);
-the same for the long-span wide kernels (the flash2 wrappers at a wide gp,
+the forwards' tile edges (stripe counts that leave a tile part full,
+spans 7 and 64, gp 6, 66 and 128, without positions, the moments forward
+at span 96); the same for the long-span wide kernels (the flash2 wrappers
+at a wide gp,
 ``csrc/wide_long.cuh``) and the wide moments kernels at spans 80-256:
 axial50m's and axial50l's span-96 sites at 384 px and a sweep over spans
 80, 128, 192 and 256 at gp 6, 10, 12, 32, 64 and 128.
@@ -374,6 +380,22 @@ WIDE_GEOMETRIES = [
     ("eval", 56, 12, 56, True), ("eval", 28, 24, 5, False),
     ("eval", 14, 48, 112, True), ("eval", 14, 96, 14, True),
     ("eval", 7, 128, 7, True),
+    # the forwards' tiles (csrc/wide_attn.cuh: 8, 16 or 32 stripes a block,
+    # 2 or 4 rows a thread, the value planes split across blocks at small
+    # grids) and the moments forward's (csrc/moments_wide.cuh:
+    # wide_fwd_tile): stripe counts that leave a tile part full (7, 33,
+    # 56), spans 7 and 64, gp 6, 66 and 128, without positions, the
+    # stripe-major layout's views (strides free) at the same edges, and
+    # the moments forward at span 96 and at (7, 96)
+    ("lanes", 7, 6, 33, True), ("lanes", 13, 66, 7, False),
+    ("lanes", 16, 128, 56, True),
+    ("flash", 64, 6, 33, True), ("flash", 64, 66, 56, False),
+    ("flash", 64, 128, 7, True), ("flash", 33, 24, 56, False),
+    ("eval", 64, 6, 33, False), ("eval", 64, 128, 7, True),
+    ("eval", 7, 66, 56, True), ("eval", 33, 24, 33, True),
+    ("moments", 96, 12, 56, True), ("moments", 96, 24, 33, False),
+    ("moments", 7, 96, 56, True), ("moments", 64, 6, 7, True),
+    ("moments", 64, 128, 33, True), ("moments", 7, 66, 56, False),
 ]
 
 
@@ -558,6 +580,49 @@ def test_wide_moments_slots_follow_the_kernel():
         8, 56, 448, 8))
     assert moments.wide_bwd_slots(56, 448) == 3
     assert moments.wide_bwd_slots(7, 56) == 2
+
+
+def test_wide_moments_fwd_tile_follows_the_kernel(monkeypatch):
+    """The wide moments forward's partials have one slot per block of its
+    tile, a count that the kernel library exports
+    (csrc/moments.cu: medt_moment_sums_fwd_slots, the rule its entry
+    points check n_part against): fwd_buffers asks it at a wide gp, and
+    sizes the narrow widths' partials itself, one slot per 32 stripes
+    (kFwdStripes), as it does without stripes."""
+    src = (CSRC / "moments.cu").read_text()
+    slots = src[src.index("int medt_moment_sums_fwd_slots("):]
+    slots = slots[:slots.index("\n}\n")]
+    fwd = src[src.index("int moments_fwd("):]
+    fwd = fwd[:fwd.index("\n}\n")]
+    for body in (slots, fwd):
+        assert "const int ts = fwd_tile(g, gp, L, S);" in body
+    assert "return g * ((S + ts - 1) / ts);" in slots
+    assert "n_part != g * tiles" in fwd
+    tile = src[src.index("int fwd_tile("):]
+    assert "medt_moments::wide_fwd_tile(gp / 2, L, S, g)" in \
+        tile[:tile.index("\n}\n")]
+    assert _const(src, "kFwdStripes") == moments.FWD_STRIPES
+
+    asked = []
+
+    class Library:
+        def medt_moment_sums_fwd_slots(self, g, gp, L, S):
+            asked.append((g, gp, L, S))
+            return -1 if gp == 66 else g * (S // 4 + 1)
+
+    monkeypatch.setattr(moments, "library", Library)
+    for gp, L, S, want in [(12, 56, 448, 8 * 113), (96, 7, 56, 8 * 15),
+                           (16, 56, 448, 8 * 14), (12, 56, 0, 0),
+                           (2, 301, 33, 8 * 2)]:
+        qkv = torch.empty((8, 2 * gp, L, S), device="meta")
+        out, part, n_part = moments.fwd_buffers(qkv, 8, gp, L, S)
+        assert n_part == want == part.shape[0], (gp, L, S, n_part)
+        assert out.shape == (8, 8) and part.shape == (n_part, 6)
+        assert part.storage_offset() == out.numel()
+    assert asked == [(8, 12, 56, 448), (8, 96, 7, 56)]
+    with pytest.raises(ValueError, match="no kernel"):
+        moments.fwd_buffers(torch.empty((8, 132, 7, 9), device="meta"),
+                            8, 66, 7, 9)
 
 
 # (kernel, span, gp, stripes, has_pos): every register-bucket edge (gp 6,
