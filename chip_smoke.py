@@ -409,8 +409,15 @@ class PhaseFailed(RuntimeError):
     pass
 
 
+# the card's name and power limit (nvidia-smi), set by phase_device: every
+# later phase line carries it beside its times
+CARD = None
+
+
 def emit(phase: str, **fields):
     line = {"phase": phase, "seconds": round(time.perf_counter() - T0, 3)}
+    if CARD is not None:
+        line["card"] = CARD
     line.update(fields)
     print(json.dumps(line), flush=True)
 
@@ -432,6 +439,8 @@ def phase_device(torch):
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     name = torch.cuda.get_device_name(0)
+    global CARD
+    CARD = smi
     emit("device", nvidia_smi=smi, torch_name=name,
          count=torch.cuda.device_count(), torch=torch.__version__,
          cuda=torch.version.cuda, tf32="off (cudnn and matmul)")
@@ -2409,13 +2418,14 @@ CLS_LOSS_FALL = 0.75
 # loss_fell does, against the same CLS_LOSS_FALL
 # the port's kernels in a profiled axial26s step, by the name of the CUDA
 # kernel (the first that a kernel's name contains): the gp <= 16 designs,
-# then the wide ones (the long-span flash2 kernels; rows 1 and 3 share
-# wide_fwd_kernel, rows 2 and 4 the wide backward's row, column and table
-# kernels; the moments names first, as "wide_tab_kernel" is part of
-# "moments_wide_tab_kernel")
+# then the wide ones (the long-span flash2 kernels: the forward and the
+# backward's row pass, which also sums the table gradients, and column
+# pass; rows 1 and 3 share wide_fwd_kernel, rows 2 and 4 the wide
+# backward's row, column and table kernels; the moments names first, as
+# "wide_tab_kernel" is part of "moments_wide_tab_kernel")
 CLS_OWN_KERNELS = (
     "long_fwd_kernel", "long_row_kernel", "long_col_kernel",
-    "long_tab_kernel", "moments_wide_fwd_kernel", "moments_wide_dqk_kernel",
+    "moments_wide_fwd_kernel", "moments_wide_dqk_kernel",
     "moments_wide_tab_kernel", "wide_fwd_kernel", "wide_row_kernel",
     "wide_col_kernel", "wide_tab_kernel", "axial_lanes_fwd_kernel",
     "lanes_bwd_kernel",

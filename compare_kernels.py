@@ -3,7 +3,7 @@
 
     python3 compare_kernels.py [--root DIR] [--sites DIR2]
                                [--family lanes flash flash2 moments
-                                         stripe eval wide]
+                                         stripe eval wide long]
                                [--out FILE]
 
 Runs the ``device``, ``build`` and ``kernels`` phases of ``DIR/chip_smoke.py``
@@ -29,7 +29,17 @@ forwards (rows 1, 3, 7, 9) at the ``cls_hires`` phase's calls (axial50m
 and axial50l at 384 px, ``CLS_HIRES_ROUTES``; path
 ``"axial50m384_b8_step"`` and so on): the attention forwards at spans 48,
 24 and 12 and the moments forward at every site, the span-96 ones
-included. The per-call sums over each path are each wide kernel's time
+included. ``long`` runs the long-span wide kernels (rows 5 and 6, the
+flash2 forward and backward at a wide gp) at the span-96 sites of the
+smoke's ``cls_hires`` calls (``CLS_HIRES_ROUTES`` through
+``long_routes``): axial50m-384's batch-8 step and forward and
+axial50l-384's batch-1 step (rows 10-11's long-span sites; path
+``axial50m384_b8_step`` and so on), beside them the moments backward at
+those sites (row 8 at span 96) and the flash forward and backward at
+axial50l's batch-1 step at 224 px, span 56 (rows 10-11's wide route; path
+``axial50l_b1_step``), and the flash2 pair at one ``HIRES_SWEEP`` geometry
+per register bucket (span 128, gp 12, 32, 64, 128, 32 stripes; path
+``sweep``). The per-call sums over each path are each wide kernel's time
 over that call. Then, for each
 geometry, on inputs seeded by the geometry alone, a ``torch.profiler``
 window over a few calls splits its device time by CUDA kernel (row pass,
@@ -69,7 +79,7 @@ from pathlib import Path
 
 HERE = Path(__file__).resolve().parent
 FAMILIES = ("lanes", "flash", "flash2", "moments", "stripe", "eval",
-            "wide")
+            "wide", "long")
 
 
 def family(kernel: str) -> str:
@@ -195,6 +205,34 @@ def wide_geometries(smoke) -> list:
     return rows
 
 
+# the kernels that ``long`` times at the 384 px span-96 sites: rows 5, 6
+# and 8
+LONG_KERNELS = ("flash2_lanes_fwd", "flash2_lanes_bwd", "moment_sums_bwd")
+LONG_CALLS = {"axial50m": ("b8_step", "b8_forward"), "axial50l": ("b1_step",)}
+# one HIRES_SWEEP geometry per register bucket of c = gp / 2
+LONG_SWEEP = [(128, gp, True) for gp in (12, 32, 64, 128)]
+
+
+def long_geometries(smoke) -> list:
+    """(kernel, span, gp, stripes, has_pos, launches per call, path) of
+    the long-span wide kernels and row 8 at the smoke's ``cls_hires``
+    span-96 calls (path ``<model>384_<call>``), rows 10-11's wide route at
+    axial50l's 224 px batch-1 step (span 56) and the flash2 pair at
+    LONG_SWEEP (path ``sweep``, no launches)."""
+    rows = []
+    for model, calls in LONG_CALLS.items():
+        rows += _site_rows(
+            smoke, smoke.long_routes(smoke.CLS_HIRES_ROUTES[model]), calls,
+            f"{model}384", lambda k, L: k in LONG_KERNELS)
+    rows += _site_rows(smoke, smoke.CLS_WIDE_ROUTES["axial50l"], ("b1_step",),
+                       "axial50l", lambda k, L: k.startswith("flash_lanes")
+                       and L == 56)
+    rows += [(k, L, gp, smoke.HIRES_SWEEP_STRIPES, pos, 0, "sweep")
+             for L, gp, pos in LONG_SWEEP
+             for k in ("flash2_lanes_fwd", "flash2_lanes_bwd")]
+    return rows
+
+
 def wide_bf16_geometries(smoke) -> list:
     """The bf16 entry points' rows at axial50m's batch-8 step geometries."""
     return [r for r in wide_geometries(smoke)
@@ -238,13 +276,20 @@ def main(argv=None) -> int:
     chosen = [g for g in geometries if family(g[0]) in args.family]
     if "flash" in args.family:
         chosen += flash2_baseline(chosen)
-    if "wide" in args.family:
-        site_smoke = sites if args.sites else smoke
-        chosen += wide_geometries(site_smoke)
-        narrow_bf16 = [g for g in smoke._bf16_geometries()
-                       if family(g[0]) in args.family]
-        wide_bf16 = wide_bf16_geometries(site_smoke)
-        smoke._bf16_geometries = lambda: narrow_bf16 + wide_bf16
+    site_smoke = sites if args.sites else smoke
+    if "wide" in args.family or "long" in args.family:
+        bf16 = [g for g in smoke._bf16_geometries()
+                if family(g[0]) in args.family]
+        if "wide" in args.family:
+            chosen += wide_geometries(site_smoke)
+            bf16 += wide_bf16_geometries(site_smoke)
+        if "long" in args.family:
+            long_rows = long_geometries(site_smoke)
+            chosen += long_rows
+            # the bf16 entry points of rows 5 and 6 at axial50m-384's step
+            bf16 += [r for r in long_rows if r[6] == "axial50m384_b8_step"
+                     and r[0].startswith("flash2")]
+        smoke._bf16_geometries = lambda: bf16
     smoke.GEOMETRIES = chosen
     smi, name = smoke.phase_device(torch)
     smoke.phase_build()

@@ -2,14 +2,20 @@
 // every even gp up to 128 outside 2, 4, 8 and 16), for Hopper (sm_90a).
 // What it replaces, its contract and its design: csrc/wide_long.cuh.
 //
-// A thread owns one (group, query row, stripe); a block 32 stripes and R
-// query rows (fwd_floats, pick_rows). Per tile of KT keys the block stages
-// the keys' k and v rows of its 32 stripes and its rows' table entries;
-// each thread then forms the tile's logits from its q row (registers) and
-// the staged k and tables, takes the tile's max, rescales its sv and sve
-// accumulators (shared memory) and l once, and adds the tile's weighted v
-// and vemb terms in key order. At the end each accumulator is divided by
-// l; m and l are written for the backward.
+// long_fwd_kernel: a block of kThreads owns one group, 32 stripes (lane =
+// stripe), RB query rows (RT a thread) and one chunk of at most
+// fwd_planes(CM) value planes (grid axis y: row tile x chunk). Per tile of
+// KT keys (a ring of one to three cp.async slots) the block stages the
+// keys' k rows and its chunk's v rows of its 32 stripes and, with
+// positions, its rows' qemb, kemb_t and (chunk) vemb entries
+// ([row][channel][key]); each
+// thread forms the tile's RT x KT logits from its q rows (registers), the
+// staged k (a0 k and a4 k once a key, shared by the rows) and 16-byte
+// table broadcasts as sum_c q (a0 k + a2 qemb) + a4 k kemb_t + (a1 + a3 +
+// a5), takes the tile's max, rescales its accumulators and l once and adds
+// the tile's weighted v and vemb terms in key order. Its sv and sve
+// accumulators stay in registers. At the end each is divided by l; the
+// first chunk's blocks write m and l.
 // Kernels launch on the caller's stream, allocate nothing and do not
 // synchronise; the entry points return the launch's CUDA error.
 
@@ -18,129 +24,220 @@
 namespace wide_long {
 namespace {
 
-// shared memory of a forward block of R rows: the k and v tile, the table
-// tile, the sv (and sve) accumulators
-inline int fwd_floats(int gp, bool pos, int R) {
-  const int C = gp / 2, KT = key_tile(wide::cm_bucket(C));
-  return (C + gp) * KT * kStripes + (pos ? (2 * C + gp) * R * KT : 0) +
-         (pos ? 2 : 1) * gp * kStripes * R;
-}
-
-template <int CM, bool POS, class T>
-__global__ void __launch_bounds__(kStripes * kMaxRows, min_blocks(CM))
+template <int CM, bool EX, bool POS, class T>
+__global__ void __launch_bounds__(kThreads, fwd_blocks(CM))
 long_fwd_kernel(wide::Lanes<T> x, const float* __restrict__ aff,
                 float* __restrict__ sv, float* __restrict__ sve,
-                float* __restrict__ m_out, float* __restrict__ l_out) {
-  constexpr int KT = key_tile(CM);
-  extern __shared__ float sm[];
-  const int R = blockDim.y, nt = kStripes * R;
-  const int lane = threadIdx.x, y = threadIdx.y, t = y * kStripes + lane;
-  const int L = x.L, S = x.S, GP = x.gp, C = GP / 2;
-  const int s0 = blockIdx.x * kStripes, i0 = blockIdx.y * R;
-  const int gi = blockIdx.z, s = s0 + lane, i = i0 + y;
-  const bool live = s < S && i < L;
-  float* Ks = sm;                               // [c][u][lane]
-  float* Vs = Ks + C * KT * kStripes;           // [p][u][lane]
-  float* Ts = Vs + GP * KT * kStripes;          // [r][ch][u], positions
-  float* Acc = Ts + (POS ? (2 * C + GP) * R * KT : 0);  // [ch][t]
-  // this row's table tile: qemb, kemb_t, vemb rows at fixed offsets
-  const int NCH = 2 * C + GP;
-  const float* Tq = Ts + y * NCH * KT;
-  const float* Tk = Tq + C * KT;
-  const float* Tv = Tk + C * KT;
+                float* __restrict__ m_out, float* __restrict__ l_out, int pc,
+                int nchunk, int nslot, bool vec) {
+  constexpr int RT = fwd_rows(CM), KT = fwd_keys(CM), PM = fwd_planes(CM);
+  constexpr int RB = kWarps * RT;
+  extern __shared__ __align__(16) float sm[];
+  const int L = x.L, S = x.S, C = EX ? CM : x.gp / 2, GP = 2 * C;
+  const int t = threadIdx.x, lane = t & 31, w = t >> 5;
+  const int s0 = blockIdx.x * kStripes, s = s0 + lane;
+  const int rt = blockIdx.y / nchunk, ck = blockIdx.y - rt * nchunk;
+  const int i0 = rt * RB, rw = w * RT;  // the block's first row; the warp's
+  const int pv0 = ck * pc;
+  const int np = EX && PM >= 2 * CM ? 2 * CM : min(pc, GP - pv0);
+  const int gi = blockIdx.z;
+  const int nch = 2 * C + np;
+  const int kf = C * KT * kStripes, vf = np * KT * kStripes;
+  const int tf = POS ? RB * nch * KT : 0;
+  const int slot_f = kf + vf + tf + raw_floats<T>(C + np, KT, vec);
   float a[6];
 #pragma unroll
   for (int k = 0; k < 6; ++k) a[k] = __ldg(aff + gi * 8 + k);
-  float q[CM];
+  const float cst = POS ? a[1] + a[3] + a[5] : a[1];
+  float q[RT][CM];
 #pragma unroll
-  for (int c = 0; c < CM; ++c) q[c] = live && c < C ? x.q(gi, c, i, s) : 0.f;
-  for (int p = 0; p < (POS ? 2 : 1) * GP; ++p) Acc[p * nt + t] = 0.f;
-  float m = -3.0e38f, l = 0.f;
-  for (int j0 = 0; j0 < L; j0 += KT) {
-    const int nk = min(KT, L - j0);
-    __syncthreads();  // the last tile's reads are done
-    stage_qkv<KT>(x, Ks, gi, C, C, j0, nk, s0, t, nt);
-    stage_qkv<KT>(x, Vs, gi, GP, GP, j0, nk, s0, t, nt);
-    if constexpr (POS) {
-      for (int e = t; e < NCH * R * KT; e += nt) {
-        const int u = e % KT, ch = (e / KT) % NCH, r = e / (KT * NCH);
-        Ts[e] = (i0 + r < L && u < nk) ? table_at(x, ch, i0 + r, j0 + u)
-                                       : 0.f;
-      }
+  for (int r = 0; r < RT; ++r) {
+    const int i = i0 + rw + r;
+#pragma unroll
+    for (int c = 0; c < CM; ++c) {
+      q[r][c] = c < C && i < L && s < S ? x.q(gi, c, i, s) : 0.f;
     }
+  }
+  float acc[RT][PM], ace[RT][POS ? PM : 1];
+  float mr[RT], lr[RT];
+#pragma unroll
+  for (int r = 0; r < RT; ++r) {
+    mr[r] = -3.0e38f;
+    lr[r] = 0.f;
+#pragma unroll
+    for (int p = 0; p < PM; ++p) {
+      acc[r][p] = 0.f;
+      if constexpr (POS) ace[r][p] = 0.f;
+    }
+  }
+  const int ntile = (L + KT - 1) / KT;
+  auto issue = [&](int it) {
+    float* base = sm + (it % nslot) * slot_f;
+    const int j0 = it * KT;
+    float* raw = base + kf + vf + tf;
+    stage_rows<KT>(x, base, raw, gi, C, C, j0, s0, kStripes, vec, t,
+                   kThreads);
+    stage_rows<KT>(x, base + kf, raw + raw_floats<T>(C, KT, vec), gi, GP + pv0,
+                   np, j0, s0, kStripes, vec, t, kThreads);
+    if constexpr (POS) {
+      stage_tables<KT>(x, base + kf + vf, i0, RB, pv0, np, j0, false, t,
+                       kThreads);
+    }
+    flash2::cp_async_commit();
+  };
+  for (int it = 0; it < max(nslot - 1, 1) && it < ntile; ++it) issue(it);
+  for (int it = 0; it < ntile; ++it) {
+    if (nslot > 1 && it + nslot - 1 < ntile) issue(it + nslot - 1);
+    ring_wait(ring_later(nslot, it, ntile));
+    float* slot = sm + (it % nslot) * slot_f;
+    float* raw = slot + kf + vf + tf;
+    convert_rows<KT, T>(slot, raw, C, kStripes, vec, t, kThreads);
+    convert_rows<KT, T>(slot + kf, raw + raw_floats<T>(C, KT, vec), np,
+                        kStripes, vec, t, kThreads);
     __syncthreads();
-    if (!live) continue;
-    float w[KT];
-    float mt = m;
+    const float* Ks = slot;
+    const float* Vs = Ks + kf;
+    const float* Ts = Vs + vf;
+    const int j0 = it * KT;
+    float wv[RT][KT];
 #pragma unroll
-    for (int u = 0; u < KT; ++u) {
-      float qk = 0.f, qr = 0.f, kr = 0.f;
+    for (int r = 0; r < RT; ++r) {
 #pragma unroll
-      for (int c = 0; c < CM; ++c) {
-        if (c < C) {
+      for (int u = 0; u < KT; ++u) wv[r][u] = 0.f;
+    }
+#pragma unroll
+    for (int c = 0; c < CM; ++c) {
+      if (c < C) {
+        float k0[KT], k4[KT];
+#pragma unroll
+        for (int u = 0; u < KT; ++u) {
           const float kc = Ks[(c * KT + u) * kStripes + lane];
-          qk = fmaf(q[c], kc, qk);
+          k0[u] = kc * a[0];
+          k4[u] = kc * a[4];
+        }
+#pragma unroll
+        for (int r = 0; r < RT; ++r) {
           if constexpr (POS) {
-            qr = fmaf(q[c], Tq[c * KT + u], qr);
-            kr = fmaf(kc, Tk[c * KT + u], kr);
+            float tq[KT], tk[KT];
+            load_row<KT>(Ts + ((rw + r) * nch + c) * KT, tq);
+            load_row<KT>(Ts + ((rw + r) * nch + C + c) * KT, tk);
+#pragma unroll
+            for (int u = 0; u < KT; ++u) {
+              wv[r][u] = fmaf(q[r][c], fmaf(a[2], tq[u], k0[u]), wv[r][u]);
+              wv[r][u] = fmaf(k4[u], tk[u], wv[r][u]);
+            }
+          } else {
+#pragma unroll
+            for (int u = 0; u < KT; ++u) {
+              wv[r][u] = fmaf(q[r][c], k0[u], wv[r][u]);
+            }
           }
         }
       }
-      float lg = qk * a[0] + a[1];
-      if constexpr (POS) lg += (qr * a[2] + a[3]) + (kr * a[4] + a[5]);
-      w[u] = u < nk ? lg : -3.0e38f;
-      mt = fmaxf(mt, w[u]);
     }
-    const float scale = expf(m - mt);
-    m = mt;
-    float lt = 0.f;
 #pragma unroll
-    for (int u = 0; u < KT; ++u) {
-      w[u] = u < nk ? expf(w[u] - m) : 0.f;
-      lt += w[u];
-    }
-    l = fmaf(l, scale, lt);
-    for (int p = 0; p < GP; ++p) {
-      float av = Acc[p * nt + t] * scale;
+    for (int r = 0; r < RT; ++r) {
+      float mt = mr[r];
 #pragma unroll
       for (int u = 0; u < KT; ++u) {
-        av = fmaf(w[u], Vs[(p * KT + u) * kStripes + lane], av);
+        wv[r][u] = j0 + u < L ? wv[r][u] + cst : -3.0e38f;
+        mt = fmaxf(mt, wv[r][u]);
       }
-      Acc[p * nt + t] = av;
-      if constexpr (POS) {
-        float ae = Acc[(GP + p) * nt + t] * scale;
+      const float scale = fexp(mr[r] - mt);
+      mr[r] = mt;
+      float lt = 0.f;
 #pragma unroll
-        for (int u = 0; u < KT; ++u) {
-          ae = fmaf(w[u], Tv[p * KT + u], ae);
+      for (int u = 0; u < KT; ++u) {
+        wv[r][u] = j0 + u < L ? fexp(wv[r][u] - mt) : 0.f;
+        lt += wv[r][u];
+      }
+      lr[r] = fmaf(lr[r], scale, lt);
+#pragma unroll
+      for (int p = 0; p < PM; ++p) {
+        if (p < np) {
+          acc[r][p] *= scale;
+          if constexpr (POS) ace[r][p] *= scale;
         }
-        Acc[(GP + p) * nt + t] = ae;
       }
     }
+#pragma unroll
+    for (int p = 0; p < PM; ++p) {
+      if (p < np) {
+        float vv[KT];
+#pragma unroll
+        for (int u = 0; u < KT; ++u) {
+          vv[u] = Vs[(p * KT + u) * kStripes + lane];
+        }
+#pragma unroll
+        for (int r = 0; r < RT; ++r) {
+#pragma unroll
+          for (int u = 0; u < KT; ++u) {
+            acc[r][p] = fmaf(wv[r][u], vv[u], acc[r][p]);
+          }
+          if constexpr (POS) {
+            float tv[KT];
+            load_row<KT>(Ts + ((rw + r) * nch + 2 * C + p) * KT, tv);
+#pragma unroll
+            for (int u = 0; u < KT; ++u) {
+              ace[r][p] = fmaf(wv[r][u], tv[u], ace[r][p]);
+            }
+          }
+        }
+      }
+    }
+    __syncthreads();  // the slot's reads are done
+    if (nslot == 1 && it + 1 < ntile) issue(it + 1);
   }
-  if (!live) return;
-  const float inv_l = 1.f / l;
+  if (s >= S) return;
   const size_t LS = (size_t)L * S;
-  const size_t o = (size_t)gi * GP * LS + (size_t)i * S + s;
-  for (int p = 0; p < GP; ++p) {
-    sv[o + p * LS] = Acc[p * nt + t] * inv_l;
-    if constexpr (POS) sve[o + p * LS] = Acc[(GP + p) * nt + t] * inv_l;
+#pragma unroll
+  for (int r = 0; r < RT; ++r) {
+    const int i = i0 + rw + r;
+    if (i >= L) continue;
+    const float inv_l = 1.f / lr[r];
+    const size_t o = ((size_t)gi * GP + pv0) * LS + (size_t)i * S + s;
+#pragma unroll
+    for (int p = 0; p < PM; ++p) {
+      if (p < np) {
+        sv[o + p * LS] = acc[r][p] * inv_l;
+        if constexpr (POS) sve[o + p * LS] = ace[r][p] * inv_l;
+      }
+    }
+    if (ck == 0) {
+      m_out[((size_t)gi * L + i) * S + s] = mr[r];
+      l_out[((size_t)gi * L + i) * S + s] = lr[r];
+    }
   }
-  m_out[((size_t)gi * L + i) * S + s] = m;
-  l_out[((size_t)gi * L + i) * S + s] = l;
 }
 
-template <int CM, bool POS, class T>
+template <int CM, bool EX, bool POS, class T>
 cudaError_t launch(const wide::Lanes<T>& x, const float* aff, float* sv,
                    float* sve, float* m, float* l, int g,
                    cudaStream_t stream) {
-  const int R = pick_rows([&](int r) { return fwd_floats(x.gp, POS, r); });
-  if (R == 0) return cudaErrorInvalidValue;
-  const size_t smem = (size_t)fwd_floats(x.gp, POS, R) * sizeof(float);
-  auto kernel = long_fwd_kernel<CM, POS, T>;
+  constexpr int RT = fwd_rows(CM), KT = fwd_keys(CM), PM = fwd_planes(CM);
+  constexpr int RB = kWarps * RT;
+  const int C = x.gp / 2, nchunk = (x.gp + PM - 1) / PM;
+  const int pc = (x.gp + nchunk - 1) / nchunk;
+  bool vec = x.S % flash2::kChunk<T> == 0 && flash2::aligned16(x.qkv);
+  auto slot_floats = [&] {
+    return (long long)(C + pc) * KT * kStripes +
+           (POS ? (long long)RB * (2 * C + pc) * KT : 0) +
+           raw_floats<T>(C + pc, KT, vec);
+  };
+  int nslot = pick_slots(0, slot_floats(), fwd_blocks(CM));
+  if (nslot == 0 && raw_floats<T>(1, KT, vec) > 0) {  // bf16 by loads
+    vec = false;
+    nslot = pick_slots(0, slot_floats(), fwd_blocks(CM));
+  }
+  if (nslot == 0) return cudaErrorInvalidValue;
+  const long long slot = slot_floats();
+  const size_t smem = (size_t)nslot * slot * sizeof(float);
+  auto kernel = long_fwd_kernel<CM, EX, POS, T>;
   const cudaError_t err = flash2::allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((x.S + kStripes - 1) / kStripes, (x.L + R - 1) / R, g);
-  kernel<<<grid, dim3(kStripes, R), smem, stream>>>(x, aff, sv, sve, m, l);
+  const dim3 grid(stripe_tiles(x.S), ((x.L + RB - 1) / RB) * nchunk, g);
+  kernel<<<grid, kThreads, smem, stream>>>(x, aff, sv, sve, m, l, pc, nchunk,
+                                           nslot, vec);
   return cudaGetLastError();
 }
 
@@ -148,8 +245,8 @@ template <int CM, class T>
 cudaError_t launch_cm(const wide::Lanes<T>& x, const float* aff, float* sv,
                       float* sve, float* m, float* l, int g, bool pos,
                       cudaStream_t stream) {
-  return pos ? launch<CM, true>(x, aff, sv, sve, m, l, g, stream)
-             : launch<CM, false>(x, aff, sv, sve, m, l, g, stream);
+  return pos ? launch<CM, false, true>(x, aff, sv, sve, m, l, g, stream)
+             : launch<CM, false, false>(x, aff, sv, sve, m, l, g, stream);
 }
 
 template <class T>
@@ -160,12 +257,30 @@ int fwd(const T* qkv, const float* qemb, const float* kemb_t,
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   const bool pos = has_pos != 0;
   const wide::Lanes<T> x{qkv, qemb, kemb_t, vemb, gp, L, S};
-  switch (wide::cm_bucket(gp / 2)) {
-    case 8: return (int)launch_cm<8>(x, aff, sv, sve, m, l, g, pos, stream);
-    case 16: return (int)launch_cm<16>(x, aff, sv, sve, m, l, g, pos, stream);
-    case 32: return (int)launch_cm<32>(x, aff, sv, sve, m, l, g, pos, stream);
-    default: return (int)launch_cm<64>(x, aff, sv, sve, m, l, g, pos, stream);
+  cudaError_t err;
+  if (pos && exact_c(gp) == 6) {  // the exact instances take positions only
+    err = launch<6, true, true>(x, aff, sv, sve, m, l, g, stream);
+  } else if (pos && exact_c(gp) == 12) {
+    err = launch<12, true, true>(x, aff, sv, sve, m, l, g, stream);
+  } else if (pos && exact_c(gp) == 16) {
+    err = launch<16, true, true>(x, aff, sv, sve, m, l, g, stream);
+  } else {
+    switch (wide::cm_bucket(gp / 2)) {
+      case 8:
+        err = launch_cm<8>(x, aff, sv, sve, m, l, g, pos, stream);
+        break;
+      case 16:
+        err = launch_cm<16>(x, aff, sv, sve, m, l, g, pos, stream);
+        break;
+      case 32:
+        err = launch_cm<32>(x, aff, sv, sve, m, l, g, pos, stream);
+        break;
+      default:
+        err = launch_cm<64>(x, aff, sv, sve, m, l, g, pos, stream);
+        break;
+    }
   }
+  return (int)err;
 }
 
 }  // namespace

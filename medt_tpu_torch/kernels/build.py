@@ -60,7 +60,7 @@ SIGNATURES = {
     # the flash2 contract at the wide widths, spans up to 256
     # (csrc/axial_wide_long_fwd.cu, axial_wide_long_bwd.cu)
     "medt_wide_long_fwd": [_P] * 9 + [_I] * 5 + [_P],
-    "medt_wide_long_bwd": [_P] * 16 + [_I] * 6 + [_P],
+    "medt_wide_long_bwd": [_P] * 17 + [_I] * 7 + [_P],
     # the moments forward's partial slots for (g, gp, L, S), -1 if refused
     "medt_moment_sums_fwd_slots": [_I] * 4,
 }

@@ -59,11 +59,13 @@ thread, the value channels in chunks of 16) or ``csrc/axial_wide_bwd.cu``
 scratch of p and dlog, the table gradients as products over the stripes),
 in float32 or bf16, and count the launch as their own. The flash2
 wrappers take the same widths: at a wide gp they launch the long-span
-wide kernels, ``csrc/axial_wide_long_fwd.cu`` (a query row a thread, the
-key tiles staged in shared memory, the softmax online) and
-``csrc/axial_wide_long_bwd.cu`` with ``_col.cu`` (row, column and table
-passes that rebuild p from m and l: no (g, L, L, S) scratch, no table
-partials), at spans up to 256 (``csrc/wide_long.cuh``). Any other gp raises
+wide kernels, ``csrc/axial_wide_long_fwd.cu`` (two query rows a thread,
+the key tiles staged by cp.async, the softmax online, the accumulators in
+registers) and ``csrc/axial_wide_long_bwd.cu`` with ``_col.cu`` (a row
+pass that also sums the table gradients into a bounded number of partial
+slots, :func:`long_bwd_slices`, and a column pass, both rebuilding p from
+m and l: no (g, L, L, S) scratch), at spans up to 256
+(``csrc/wide_long.cuh``). Any other gp raises
 ``ValueError`` (:func:`check_gp`).
 """
 from __future__ import annotations
@@ -530,10 +532,41 @@ def _wide_bwd(wrapper, qkv, qemb, kemb_t, vemb, sim_affine, saved, dsv,
 
 def long_bwd_slots(L: int, S: int) -> int:
     """daff partial slots a flash2 backward at a wide gp may write
-    (csrc/wide_long.cuh: slot_capacity): one per row-pass block of 32
-    stripes and 8, 4, 2 or 1 query rows, at most one per row and 32
-    stripes. Its scratch holds delta (g, L, S) before them."""
+    (csrc/wide_long.cuh: slot_capacity): one per row-pass row tile and 32
+    stripes, at most one per query row and 32 stripes."""
     return L * -(-S // WIDE_LANES)
+
+
+# the long-span row pass (csrc/wide_long.cuh): warps a block, the blocks it
+# aims for, the most floats of table partial slots
+LONG_WARPS = 4
+LONG_TARGET_BLOCKS = 264
+LONG_MAX_PART_FLOATS = 1 << 26
+
+
+def long_bwd_slices(g: int, gp: int, L: int, S: int) -> int:
+    """Table partial slots of a flash2 backward at a wide gp with positions
+    (csrc/wide_long.cuh: row_slices): the row pass's slices of the g *
+    ceil(S/32) (group, stripe-tile) units, enough for 264 blocks over its
+    row tiles (4 warps of 2 query rows up to c = 14, else of 1), no more
+    than the units, no more than 2^26 floats of slots, at least one."""
+    c = gp // 2
+    rb = LONG_WARPS * (2 if c <= 14 else 1)
+    units = g * -(-S // WIDE_LANES)
+    ns = -(-LONG_TARGET_BLOCKS // -(-L // rb))
+    ns = min(ns, LONG_MAX_PART_FLOATS // (2 * gp * L * L), units)
+    return max(ns, 1)
+
+
+def long_bwd_scratch(g: int, gp: int, L: int, S: int,
+                     has_pos: bool) -> dict:
+    """Floats of a flash2 backward's scratch at a wide gp, by part: delta
+    (g, L, S), the daff slots (:func:`long_bwd_slots`, g, 4) and, with
+    positions, the table partial slots (:func:`long_bwd_slices`, 2gp, L,
+    L)."""
+    return {"delta": g * L * S, "aff": long_bwd_slots(L, S) * g * 4,
+            "tables": (long_bwd_slices(g, gp, L, S) * 2 * gp * L * L
+                       if has_pos else 0)}
 
 
 def _long_fwd(wrapper, qkv, qemb, kemb_t, vemb, sim_affine, g, gp, L, S,
@@ -561,17 +594,19 @@ def _long_bwd(wrapper, qkv, qemb, kemb_t, vemb, sim_affine, saved, dsv,
     f32 = dict(dtype=torch.float32, device=dev)
     e = 2 * gp * L * L if has_pos else 0
     n_aff = long_bwd_slots(L, S)
+    n_tab = long_bwd_slices(g, gp, L, S) if has_pos else 0
     out = torch.empty(e + g * 8, **f32)
-    rows = g * L * S
-    scratch = torch.empty(rows + n_aff * g * 4, **f32)
+    part = long_bwd_scratch(g, gp, L, S, has_pos)
+    scratch = torch.empty(sum(part.values()), **f32)
+    aff_at, tab_at = part["delta"], part["delta"] + part["aff"]
     dqkv = torch.empty((g, 2 * gp, L, S), dtype=qkv.dtype, device=dev)
     m, l, sv, sve = saved
     launch(wrapper, getattr(library(), entry("wide_long_bwd", qkv)), qkv,
            ptr(qkv), ptr(qemb), ptr(kemb_t), ptr(vemb), ptr(sim_affine),
            ptr(m), ptr(l), ptr(sv), ptr(sve if has_pos else sv), ptr(dsv),
            ptr(dsve if has_pos else dsv), ptr(dqkv), ptr(out), ptr(out[e:]),
-           ptr(scratch), ptr(scratch[rows:]), g, gp, L, S, int(has_pos),
-           n_aff)
+           ptr(scratch), ptr(scratch[aff_at:]), ptr(scratch[tab_at:]), g, gp,
+           L, S, int(has_pos), n_aff, n_tab)
     dtables = out[:e].view(2 * gp if has_pos else 0, L, L)
     return (dqkv, *_split_tables(dtables, gp, has_pos), out[e:].view(g, 8))
 
@@ -645,8 +680,8 @@ def flash2_lanes_bwd(qkv, qemb, kemb_t, vemb, sim_affine, m, l, sv, sve,
     forward's saved ``(m, l, sv, sve)``: ``(dqkv, dqemb, dkemb_t, dvemb,
     daff)``. ``sve``/``dsve`` are ignored without positions. The table
     partials it allocates are (g * ceil(S/128), 2gp, L, L) floats at gp 2,
-    4, 8 and 16; at a wide gp none (its scratch is delta and the daff
-    slots, :func:`long_bwd_slots`)."""
+    4, 8 and 16; at a wide gp :func:`long_bwd_slices` slots of the same
+    size, a number that does not grow with S (:func:`long_bwd_scratch`)."""
     return _streamed_bwd(flash2_lanes_bwd, FLASH2_MAX_SPAN, qkv, qemb,
                          kemb_t, vemb, sim_affine, m, l, sv, sve, dsv, dsve)
 

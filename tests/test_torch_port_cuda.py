@@ -832,6 +832,66 @@ def test_flash2_kernels_match_plain_on_card(cuda_device, L, gp, S, has_pos):
         assert torch.equal(o, a), f"{name} differs between two runs"
 
 
+# (span, gp, stripes, has_pos) of the long-span wide kernels (the flash2
+# wrappers at a wide gp, csrc/wide_long.cuh): every register bucket of c
+# (gp 12, 24, 48, 128), spans 65, 96, 128 and 256 and 1, 45, 96 and 768
+# stripes, each stripe count once with each bucket and each span (a Latin
+# square), with and without positions
+LONG_WIDE_CARD_GEOMETRIES = [
+    (L, gp, (1, 45, 96, 768)[(b + k) % 4], pos)
+    for b, gp in enumerate((12, 24, 48, 128))
+    for k, L in enumerate((65, 96, 128, 256)) for pos in (True, False)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("L,gp,S,has_pos", LONG_WIDE_CARD_GEOMETRIES)
+def test_long_wide_kernels_match_plain_on_card(cuda_device, L, gp, S,
+                                               has_pos):
+    """The long-span wide forward and backward against the plain versions
+    (forward: sv, sve at 1e-4, m and l also at rtol 1e-5; backward 1e-4 +
+    1e-4 * max|plain| per tensor), the same bits on a second run, one
+    launch counted per call, and the bf16 entry points equal to the
+    float32 kernels on the upcast qkv, bit for bit (dqkv: the float32 dqkv
+    rounded once)."""
+    args = core_inputs(26, g=8, gp=gp, L=L, S=S, has_pos=has_pos,
+                       device=cuda_device)
+    fwd, bwd = axial_lanes.flash2_lanes_fwd, axial_lanes.flash2_lanes_bwd
+    before = (fwd.launches, bwd.launches)
+    got, again = fwd(*args), fwd(*args)
+    want = axial_lanes.flash2_lanes_plain(*args)
+    torch.cuda.synchronize()
+    for name, o, a, w in zip(("sv", "sve", "m", "l"), got, again, want):
+        rtol = 1e-5 if name in ("m", "l") else 0.0
+        torch.testing.assert_close(o, w, atol=1e-4, rtol=rtol, msg=name)
+        assert torch.equal(o, a), f"{name} differs between two runs"
+    sv, sve, m, l = want
+    dsv, dsve = _grads_in(27, 8, gp, L, S, cuda_device)
+    saved = (m, l, sv, sve.contiguous())
+    grads = bwd(*args, *saved, dsv, dsve)
+    again = bwd(*args, *saved, dsv, dsve)
+    want = axial_lanes.flash2_lanes_bwd_plain(*args, *saved, dsv, dsve)
+    torch.cuda.synchronize()
+    assert (fwd.launches, bwd.launches) == (before[0] + 2, before[1] + 2)
+    names = ("dqkv", "dqemb", "dkemb_t", "dvemb", "daff")
+    for name, o, a, w in zip(names, grads, again, want):
+        _close(o, w, name)
+        assert torch.equal(o, a), f"{name} differs between two runs"
+    half = (args[0].bfloat16(), *args[1:])
+    twin = (half[0].float(), *args[1:])
+    before = (fwd.launches_bf16, bwd.launches_bf16)
+    for name, o, w in zip(("sv", "sve", "m", "l"), fwd(*half), fwd(*twin)):
+        assert torch.equal(o, w), f"bf16 {name}"
+    got_b = bwd(*half, *saved, dsv, dsve)
+    got_t = bwd(*twin, *saved, dsv, dsve)
+    torch.cuda.synchronize()
+    assert (fwd.launches_bf16, bwd.launches_bf16) == (before[0] + 1,
+                                                      before[1] + 1)
+    assert got_b[0].dtype == torch.bfloat16
+    assert torch.equal(got_b[0], got_t[0].to(torch.bfloat16)), "bf16 dqkv"
+    for name, o, w in zip(names[1:], got_b[1:], got_t[1:]):
+        assert torch.equal(o, w), f"bf16 {name}"
+
+
 def test_flash2_backward_buffers_follow_the_kernel_tiles():
     """The lanes, flash and flash2 backwards' partials are sized from their
     kernels' own tiles, read here from the sources: the tiled flash and

@@ -330,12 +330,43 @@ def test_axial_net_384_matches_jax():
     assert_step(runs, "axial", loss, gx, gparams, stats)
 
 
+def test_long_span_scratch_is_bounded():
+    """The flash2 backward's scratch at a wide gp (``long_bwd_scratch``):
+    delta (g, L, S), the daff slots and, with positions, ``long_bwd_slices``
+    table partial slots of 2gp L^2 floats, at axial50m-384's sites (span
+    96, gp 12 and 24, 768 stripes: 22 slots, 19.5 and 38.9 MB), axial50l-
+    384's batch-1 site (96, gp 32, 96 stripes: 11 slots, 26.0 MB) and the
+    largest geometry (span 256, gp 128, g 8, 2048 stripes: 4 slots, 268 MB),
+    where the slots stop at 2^26 floats and no longer grow with the stripes;
+    no more slots than (group, 32-stripe) units, one at the least."""
+    mb = 4 / 1e6
+    for (g, gp, L, S), slots, tables_mb in [
+            ((8, 12, 96, 768), 22, 19.46), ((8, 24, 96, 768), 22, 38.93),
+            ((8, 32, 96, 96), 11, 25.95), ((8, 128, 256, 2048), 4, 268.44)]:
+        part = axial_lanes.long_bwd_scratch(g, gp, L, S, True)
+        assert axial_lanes.long_bwd_slices(g, gp, L, S) == slots
+        assert part["delta"] == g * L * S
+        assert part["aff"] == axial_lanes.long_bwd_slots(L, S) * g * 4
+        assert part["tables"] == slots * 2 * gp * L * L
+        assert abs(part["tables"] * mb - tables_mb) < 0.01
+        assert axial_lanes.long_bwd_scratch(g, gp, L, S, False)["tables"] == 0
+    for S in (2048, 4096, 1 << 16):
+        assert (axial_lanes.long_bwd_scratch(8, 128, 256, S, True)["tables"]
+                <= axial_lanes.LONG_MAX_PART_FLOATS)
+    for g, gp, L, S in [(1, 12, 96, 1), (2, 6, 65, 33), (8, 32, 96, 96),
+                        (1, 128, 256, 1)]:
+        assert 1 <= axial_lanes.long_bwd_slices(g, gp, L, S) <= g * -(-S // 32)
+
+
 # ---- the host rules ----------------------------------------------------------------
 
 def test_long_span_host_rules():
     """The flash2 backward at a wide gp allocates the daff slots that
     csrc/wide_long.cuh's slot_capacity gives (one per query row and 32
-    stripes at most); the wide moments backward takes spans up to 256
+    stripes at most) and the table partial slots that its row_slices gives
+    (mirrored by ``long_bwd_slices`` from the source's constants: 4 warps
+    of 2 query rows up to c = 14, else 1, 264 blocks, at most 2^26 floats);
+    the wide moments backward takes spans up to 256
     (csrc/moments.cu's cap for every width); every even gp from 2 to 128 passes check_gp,
     and the fused route sends spans 65-256 to flash2 in both modes."""
     src = (CSRC / "wide_long.cuh").read_text()
@@ -344,6 +375,16 @@ def test_long_span_host_rules():
     assert "return L * ((S + kStripes - 1) / kStripes);" in src
     for L, S in [(96, 768), (96, 96), (256, 2048), (80, 45), (65, 1)]:
         assert axial_lanes.long_bwd_slots(L, S) == L * -(-S // 32)
+    warps = int(re.search(r"constexpr int kWarps = (\d+);", src).group(1))
+    target = int(re.search(r"constexpr int kTargetBlocks = (\d+);",
+                           src).group(1))
+    cap = re.search(r"constexpr long long kMaxPartFloats = 1LL << (\d+);",
+                    src)
+    assert (warps, target, 1 << int(cap.group(1))) == (
+        axial_lanes.LONG_WARPS, axial_lanes.LONG_TARGET_BLOCKS,
+        axial_lanes.LONG_MAX_PART_FLOATS)
+    assert "constexpr int row_rows(int c) { return c <= 14 ? 2 : 1; }" in src
+    assert "const int rb = kWarps * row_rows(gp / 2);" in src
     mom = (CSRC / "moments.cu").read_text()
     assert "constexpr int kMaxBwdSpan = 256;" in mom
     assert moments.BWD_MAX_SPAN == 256
