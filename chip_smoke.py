@@ -194,6 +194,27 @@ the start of the script) as it ends:
    one-card model. ``InferenceEngine(devices=["cuda:0", "cuda:0"])`` at
    batch 16: masks equal to one replica's, launches 2 x (16 lanes + 6
    flash) a batch (8 rows a replica).
+22. ``tp`` — the model axis on the one card: MedT 128 (Adam-L2, the
+   kernels) on the ``(dp, tp)`` meshes (1, 2) and (2, 2), gloo ranks on
+   ``cuda:0``, at global batch 16 and 1; every attention layer split over
+   the two model ranks (g 8 -> 4 a rank), DDP over the data axis. Each
+   rank's loss, gradients and running statistics (gathered into their
+   one-card shapes) against the one-process step under ``step_parity``'s
+   rule; the model ranks' losses equal; each rank's exact launch counts
+   (the one-process call's at its rows; every site at g 4); the batch-16
+   step's checkpoint, gathered over the model axis, loads strictly into a
+   one-card model and holds the ranks' weights. ms of one step per rank
+   after the counted one (the ranks share the card's SMs and copy every
+   collective through the host: no speed). The two-rank world also runs
+   the ``cls_dp`` case, ``cli.train_cls --distributed`` (its record under
+   ``cls_dp``): axial26s at 224 px (``use_fused``, label smoothing, JAX's
+   SGD defaults) at 4 rows a rank of a joint batch of 8 against the
+   one-process step at 8 (loss, accuracy, gradients after DDP's average,
+   running statistics) with exact launch counts; then one epoch of the
+   CLI with resnet18 at 4 rows a rank over an ImageFolder of 14 + 10 PNGs
+   against the one-process run at batch 8: the same steps, one log with
+   its ``val_acc``, a checkpoint that loads strictly into a one-card
+   model.
 
 Then: the per-kernel JSON summary, the card's ``nvidia-smi`` line, and, as
 the last line, ``{"ok": true, "device": ...}``. Any failed phase ends the
@@ -3557,11 +3578,12 @@ def dp_launches(sites, batch, rows, training=True) -> dict:
     from medt_tpu_torch.ops.axial_attention import fused_route
 
     out = {}
-    for _, span, _, _, stripes, _ in sites:
+    for _, span, _, gp, stripes, _ in sites:
         local = stripes // batch * rows
         if not local:
             continue
-        for k in route_kernels(fused_route(span, local, training), training):
+        for k in route_kernels(fused_route(span, local, training, gp),
+                               training):
             out[k] = out.get(k, 0) + 1
     return out
 
@@ -3744,6 +3766,388 @@ def phase_dp(torch):
     return results[f"batch{DP_BATCH}"]["ranks"][0]["launches"]
 
 
+# ---- 22. tp: the model axis -------------------------------------------------
+
+TP_WORLDS = ((1, 2), (2, 2))    # (dp, tp), gloo ranks on cuda:0
+TP_TIMED = 1                    # timed steps per rank after the counted one
+
+
+def tp_step(torch, device, variables, images, masks, mesh=None, timed=0,
+            ckpt=None):
+    """One MedT-128 train step on the kernels (Adam-L2, cuDNN
+    deterministic) from ``variables`` on ``mesh`` (None: one process): the
+    attention layers split over its model axis, DDP over its data axis,
+    this data index's rows of the global batch. Its loss, gradients and
+    running statistics in their one-card shapes (gathered over the model
+    axis), launch counts, rows and the sites' routes (``g`` the local
+    group count); with ``ckpt`` (a directory) then the checkpoint of the
+    step, gathered (the coordinator writes ``<ckpt>/0``) and the
+    parameters after the update; then ``timed`` more steps, timed."""
+    from medt_tpu_torch import ops
+    from medt_tpu_torch.models import build_model
+    from medt_tpu_torch.ops import AxialAttention
+    from medt_tpu_torch.parallel import gather_state_dict, shard_batch
+    from medt_tpu_torch.training import (TrainState, adam_l2,
+                                         data_parallel, save_checkpoint,
+                                         train_step)
+
+    def copy(tensors):   # later steps update the model's tensors in place
+        return {k: t.detach().to("cpu", copy=True)
+                for k, t in tensors.items()}
+
+    torch.backends.cudnn.allow_tf32 = False   # off, as phase_device sets it
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    model = build_model("MedT", img_size=IMG, use_fused=True, device=device)
+    model.load_state_dict(variables, strict=True)
+    model = data_parallel(model, mesh)
+    state = TrainState(model, adam_l2(model.parameters(), TRAIN_LR),
+                       mesh=mesh)
+    batch = {"image": images, "label": masks}
+    if mesh is not None:
+        batch = shard_batch(batch, mesh.data_index, mesh.dp)
+    ops.reset_launch_counts()
+    loss = train_step(state, batch, joint_rows=len(images))["loss"]
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    module = state.module
+    grads = {k: p.grad for k, p in module.named_parameters()
+             if p.requires_grad}
+    stats = {k: b for k, b in module.named_buffers()
+             if k.endswith(("running_mean", "running_var"))}
+    if mesh is not None:
+        grads, stats = (gather_state_dict(module, t) for t in (grads, stats))
+    out = {"loss": float(loss), "launches": launches,
+           "rows": len(batch["image"]), "grads": copy(grads),
+           "stats": copy(stats),
+           "sites": [m.last_route for m in module.modules()
+                     if isinstance(m, AxialAttention)]}
+    if ckpt is not None:
+        save_checkpoint(ckpt, 0, state.model, state.optimizer, step=1,
+                        also_final=False)
+        params = dict(module.named_parameters())
+        full = gather_state_dict(module) if mesh is not None \
+            else module.state_dict()
+        out["params"] = copy({k: v for k, v in full.items() if k in params})
+    if timed:
+        t0 = time.perf_counter()
+        for _ in range(timed):
+            train_step(state, batch, joint_rows=len(images))
+        torch.cuda.synchronize()
+        out["ms_per_step"] = (time.perf_counter() - t0) / timed * 1e3
+    torch.backends.cudnn.deterministic = False
+    return out
+
+
+def _tp_gloo_rank(device, dp, tp, variables, batches, ckpt, cls_case=None):
+    """A rank of a ``(dp, tp)`` gloo world on one card: the step at each
+    global batch of ``batches``, the first one checkpointed under
+    ``ckpt``; then, given ``cls_case`` (``_cls_dp_rank``'s arguments), the
+    ``cls_dp`` case in the same world (one spawn of ranks fewer)."""
+    import torch
+
+    from medt_tpu_torch.parallel import host_shard, join_mesh, make_mesh
+
+    mesh = join_mesh(make_mesh(host_shard()[1], dp, tp))
+    out = {"data_index": mesh.data_index, "model_index": mesh.model_index,
+           "steps": [tp_step(torch, device, variables, images, masks, mesh,
+                             timed=TP_TIMED, ckpt=ckpt if col == 0 else None)
+                     for col, (images, masks) in enumerate(batches)]}
+    if cls_case is not None:
+        out["cls_dp"] = _cls_dp_rank(device, *cls_case)
+    return out
+
+
+def phase_tp(torch):
+    """The model axis on one card: MedT-128 (Adam-L2, the kernels) on the
+    (dp, tp) meshes (1, 2) and (2, 2), gloo ranks on cuda:0, at global
+    batch 16 and 1: each rank's step (gradients and statistics gathered
+    into their one-card shapes) against the one-process step, the model
+    ranks' losses equal, each rank's exact launch counts (the one-process
+    call's at its rows, every site at g/tp groups), and the checkpoint of
+    the batch-16 step gathered into a one-card state dict that loads
+    strictly into a one-card model and holds the ranks' weights. The
+    two-rank world also runs the ``cls_dp`` case (``cls_dp_prepare``,
+    ``cls_dp_check``)."""
+    import shutil
+
+    import numpy as np
+
+    from medt_tpu_torch.data import blob_batch
+    from medt_tpu_torch.models import build_model
+    from medt_tpu_torch.parallel import run_data_parallel
+    from medt_tpu_torch.training import restore_checkpoint
+
+    variables = build_model("MedT", img_size=IMG, seed=0,
+                            device="cpu").state_dict()
+    batches = [blob_batch(n, IMG, seed=0) for n in (DP_BATCH, 1)]
+    root = REPO / "_smoke" / "tp"
+    shutil.rmtree(root, ignore_errors=True)
+    rng = np.random.default_rng(1)
+    wants = []
+    for images, masks in batches:
+        x = images.astype(np.float32) / 255.0
+        noisy = [(x * (1.0 + STEP_INPUT_NOISE * rng.standard_normal(
+            x.shape))).astype(np.float32) for _ in range(2)]
+        wants.append([tp_step(torch, "cuda", variables, im, masks)
+                      for im in [images] + noisy])
+    cls = cls_dp_prepare(torch)
+    worlds = {}
+    for dp, tp in TP_WORLDS:
+        ckpt = root / f"dp{dp}_tp{tp}"
+        t0 = time.perf_counter()
+        ranks = run_data_parallel(
+            _tp_gloo_rank, ["cuda:0"] * (dp * tp), "gloo",
+            args=(dp, tp, variables, batches, str(ckpt),
+                  cls["case"] if dp * tp == 2 else None),
+            timeout_s=DP_TIMEOUT_S)
+        world_s = time.perf_counter() - t0
+        if dp * tp == 2:
+            cls_dp = cls_dp_check(torch, cls, [r["cls_dp"] for r in ranks])
+        results = {}
+        for col, (want, *others) in enumerate(wants):
+            n = len(batches[col][0])
+            per_rank = []
+            for rank, r in enumerate(ranks):
+                res = r["steps"][col]
+                expect = launches_of(want["launches"], dp_launches(
+                    want["sites"], n, res["rows"]), 1)
+                local_g = {site[2] for site in res["sites"]
+                           if site is not None and res["rows"]}
+                parity = _dp_held(torch, res, want, others)
+                per_rank.append({"rank": rank, "data_index":
+                                 r["data_index"], "model_index":
+                                 r["model_index"], "rows": res["rows"],
+                                 "launches": nonzero(res["launches"]),
+                                 "launches_ok": res["launches"] == expect,
+                                 "local_groups": sorted(local_g),
+                                 "ms_per_step": res["ms_per_step"],
+                                 "parity": parity})
+                check(not parity["failed"], f"tp {dp}x{tp} batch {n} rank "
+                      f"{rank} vs one process: {parity['failed']}")
+                check(res["launches"] == expect, f"tp {dp}x{tp} batch {n} "
+                      f"rank {rank} launches {res['launches']} != {expect}")
+                check(local_g <= {GROUPS // tp}, f"tp {dp}x{tp} batch {n} "
+                      f"rank {rank} ran sites at g {local_g}")
+            for a in ranks:
+                for b in ranks:
+                    if a["data_index"] == b["data_index"]:
+                        check(a["steps"][col]["loss"]
+                              == b["steps"][col]["loss"],
+                              f"tp {dp}x{tp} batch {n}: the model ranks' "
+                              "losses differ")
+            results[f"batch{n}"] = {"loss_ranks": ranks[0]["steps"][col]
+                                    ["loss"], "loss_one_process":
+                                    want["loss"], "ranks": per_rank}
+        model = build_model("MedT", img_size=IMG, use_fused=True,
+                            device="cuda")
+        step = restore_checkpoint(str(ckpt / "0"), model)
+        check(step == 1, f"tp {dp}x{tp} checkpoint at step {step}")
+        weights = ranks[0]["steps"][0]["params"]
+        same = all(torch.equal(p.detach().cpu(), weights[k])
+                   for k, p in model.named_parameters())
+        check(same, f"tp {dp}x{tp}: the checkpoint is not the ranks' "
+                    "weights")
+        worlds[f"dp{dp}_tp{tp}"] = {
+            "devices": ["cuda:0"] * (dp * tp), "world_seconds": world_s,
+            "checkpoint": {"step": step, "loads_one_card_strict": True,
+                           "equals_ranks_weights": same},
+            **results}
+        del model
+    shutil.rmtree(root, ignore_errors=True)
+    emit("tp", model="MedT", img=IMG, optimizer="adam_l2", lr=TRAIN_LR,
+         groups=GROUPS, worlds=worlds,
+         one_process_launches={f"batch{len(b[0])}": nonzero(w[0]["launches"])
+                               for b, w in zip(batches, wants)},
+         ms_per_step_note="the ranks share one card's SMs and copy every "
+                          "collective through the host (gloo): the figure "
+                          "is no speed",
+         cls_dp=cls_dp)
+    return worlds
+
+
+# ---- 22, the cls_dp case: cli.train_cls --distributed ----------------------
+
+CLS_DP_BATCH = 8            # joint; 4 rows a rank on two ranks
+CLS_DP_PER_CLASS = (7, 5)   # train, val images per class (2 classes)
+
+
+def cls_dp_step(torch, device, variables, images, labels):
+    """One ``cli.train_cls`` step (label smoothing, SGD as JAX's defaults)
+    of axial26s at 224 px on the kernels from ``variables`` (cuDNN
+    deterministic): in a process group of more than one rank DDP-wrapped,
+    on this rank's rows of the joint batch. Its loss, accuracy,
+    gradients, running statistics, launch counts, rows and the sites'
+    routes."""
+    from medt_tpu_torch import builders, ops
+    from medt_tpu_torch.cli.train_cls import make_steps
+    from medt_tpu_torch.ops import AxialAttention
+    from medt_tpu_torch.parallel import host_shard, shard_batch
+    from medt_tpu_torch.training import TrainState, data_parallel, sgd
+
+    torch.backends.cudnn.allow_tf32 = False   # off, as phase_device sets it
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    net = builders.build_model(_cls_args(), device=device, use_fused=True)
+    net.load_state_dict(variables, strict=True)
+    rank, world = host_shard()
+    model = data_parallel(net) if world > 1 else net
+    state = TrainState(model, sgd(model.parameters(), CLS_LR,
+                                  momentum=CLS_MOMENTUM,
+                                  weight_decay=CLS_WD))
+    batch = shard_batch({"image": images, "label": labels}, rank, world)
+    train_step, _ = make_steps(CLS_SMOOTHING)
+    ops.reset_launch_counts()
+    m = train_step(state, batch, joint_rows=len(images))
+    torch.cuda.synchronize()
+    out = {"loss": float(m["loss"]), "acc": float(m["acc"]),
+           "launches": ops.launch_counts(), "rows": len(batch["image"]),
+           "grads": {k: p.grad.detach().to("cpu", copy=True)
+                     for k, p in net.named_parameters() if p.requires_grad},
+           "stats": {k: b.detach().to("cpu", copy=True)
+                     for k, b in net.named_buffers()
+                     if k.endswith(("running_mean", "running_var"))},
+           "sites": [m.last_route for m in net.modules()
+                     if isinstance(m, AxialAttention)]}
+    torch.backends.cudnn.deterministic = False
+    return out
+
+
+def _cls_dp_argv(root, work_dirs, batch, extra=()):
+    return ["--model", "resnet18", "--num_classes", "2", "--imgsize",
+            str(CLS_IMG), "--epochs", "1", "-b", str(batch),
+            "--train_dataset", str(root / "train"), "--val_dataset",
+            str(root / "val"), "--work_dirs", str(work_dirs), "--workers",
+            "4", *extra]
+
+
+def _cls_dp_rank(device, variables, images, labels, root):
+    """A rank of the two-rank gloo world on one card: the axial26s step on
+    its rows, then one ``cli.train_cls --distributed`` epoch (resnet18, 4
+    rows a rank) and the steps it took."""
+    import torch
+
+    from medt_tpu_torch.cli import train_cls
+
+    # a spawned rank starts with PyTorch's defaults: TF32 off, as
+    # phase_device sets it for this process (cls_dp_step sets it too)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    step = cls_dp_step(torch, device, variables, images, labels)
+    state = train_cls.main(_cls_dp_argv(Path(root), Path(root) / "dp2",
+                                        CLS_DP_BATCH // 2,
+                                        ["--distributed"]), device=device)
+    return {"step": step, "cli_steps": state.step}
+
+
+def cls_dp_prepare(torch):
+    """The ``cls_dp`` case's inputs and one-process runs: a seeded axial26s
+    and joint batch of 8, the one-process step on it and on two
+    1e-6-perturbed copies (the float32 spread), an ImageFolder of 14 + 10
+    PNGs and the one-process CLI epoch over it (resnet18 at batch 8);
+    ``case`` holds ``_cls_dp_rank``'s arguments."""
+    import shutil
+
+    import numpy as np
+
+    from medt_tpu_torch import builders
+    from medt_tpu_torch.cli import train_cls
+    from medt_tpu_torch.data.png import write_png
+
+    variables = builders.build_model(_cls_args(), device="cpu",
+                                     seed=0).state_dict()
+    rng = np.random.default_rng(5)
+    images = rng.standard_normal((CLS_DP_BATCH, CLS_IMG, CLS_IMG, 3)) \
+        .astype(np.float32)
+    labels = rng.integers(0, CLS_CLASSES, CLS_DP_BATCH).astype(np.int32)
+    root = REPO / "_smoke" / "cls_dp"
+    shutil.rmtree(root, ignore_errors=True)
+    for split, n in zip(("train", "val"), CLS_DP_PER_CLASS):
+        for c in ("class_a", "class_b"):
+            (root / split / c).mkdir(parents=True)
+            for i in range(n):
+                write_png(str(root / split / c / f"{i:02d}.png"),
+                          rng.integers(0, 256, (256, 256, 3),
+                                       dtype=np.uint8))
+    wants = [cls_dp_step(torch, "cuda", variables, im, labels)
+             for im in [images] + [(images * (1.0 + STEP_INPUT_NOISE * rng
+                                              .standard_normal(images.shape)))
+                                   .astype(np.float32) for _ in range(2)]]
+    one = train_cls.main(_cls_dp_argv(root, root / "dp1", CLS_DP_BATCH),
+                         device="cuda")
+    return {"root": root, "wants": wants, "one_steps": one.step,
+            "case": (variables, images, labels, str(root))}
+
+
+def cls_dp_check(torch, prepared, ranks) -> dict:
+    """``cli.train_cls --distributed`` on one card, the two ranks'
+    ``_cls_dp_rank`` results against ``cls_dp_prepare``'s one-process
+    runs: the axial26s step at 224 px on the kernels, 4 rows a rank of a
+    joint batch of 8, against the one-process step at 8 (loss, accuracy,
+    gradients after DDP's average, running statistics) with each rank's
+    exact launch counts; then the CLI epoch with resnet18 at 4 rows a
+    rank: the one-process run's steps, one log whose val_acc is the
+    one-process run's, one checkpoint that loads strictly into a one-card
+    model. Its record."""
+    import argparse
+    import shutil
+
+    from medt_tpu_torch import builders
+    from medt_tpu_torch.training import restore_checkpoint
+
+    root = prepared["root"]
+    want, *others = prepared["wants"]
+    per_rank = []
+    for rank, r in enumerate(ranks):
+        res = r["step"]
+        expect = launches_of(want["launches"], dp_launches(
+            want["sites"], CLS_DP_BATCH, res["rows"]), 1)
+        parity = _dp_held(torch, res, want, others)
+        per_rank.append({"rank": rank, "rows": res["rows"],
+                         "loss": res["loss"], "acc": res["acc"],
+                         "launches": nonzero(res["launches"]),
+                         "launches_ok": res["launches"] == expect,
+                         "parity": parity, "cli_steps": r["cli_steps"]})
+        check(not parity["failed"], f"cls_dp rank {rank} vs one process: "
+                                    f"{parity['failed']}")
+        check(res["launches"] == expect, f"cls_dp rank {rank} launches "
+                                         f"{res['launches']} != {expect}")
+        check((res["loss"], res["acc"]) == (ranks[0]["step"]["loss"],
+                                            ranks[0]["step"]["acc"]),
+              "cls_dp: the ranks' losses differ")
+        check(res["acc"] == want["acc"], f"cls_dp rank {rank} accuracy "
+                                         f"{res['acc']} != {want['acc']}")
+        check(r["cli_steps"] == prepared["one_steps"],
+              f"cls_dp rank {rank} took {r['cli_steps']} steps, one process "
+              f"{prepared['one_steps']}")
+
+    def log(d):
+        return [json.loads(line) for line in
+                (root / d / "train_log.jsonl").read_text().splitlines()]
+
+    (got,), (mine,) = log("dp2"), log("dp1")
+    check(got["val_acc"] == mine["val_acc"],
+          f"cls_dp val_acc {got['val_acc']} != one process {mine['val_acc']}")
+    check(abs(got["loss"] - mine["loss"]) <= 1e-3 * abs(mine["loss"]),
+          f"cls_dp loss {got['loss']} vs one process {mine['loss']}")
+    net = builders.build_model(argparse.Namespace(
+        model="resnet18", num_classes=2), device="cuda")
+    step = restore_checkpoint(str(root / "dp2" / "final_model"), net)
+    check(step == prepared["one_steps"], f"cls_dp checkpoint at step {step}")
+    shutil.rmtree(root, ignore_errors=True)
+    return {"model": "axial26s", "img": CLS_IMG, "batch": CLS_DP_BATCH,
+            "devices": ["cuda:0", "cuda:0"],
+            "loss_one_process": want["loss"], "acc_one_process": want["acc"],
+            "one_process_launches": nonzero(want["launches"]),
+            "ranks": per_rank,
+            "train_cls": {"model": "resnet18", "images": {
+                "train": 2 * CLS_DP_PER_CLASS[0],
+                "val": 2 * CLS_DP_PER_CLASS[1]},
+                "batch_per_rank": CLS_DP_BATCH // 2,
+                "steps": prepared["one_steps"], "log_distributed": got,
+                "log_one_process": mine, "checkpoint_step": step}}
+
+
 def summary(rows, counts):
     """One entry per kernel; times per call of its main path: one MedT-128
     batch-16 forward (serving) for the lanes and flash forward cores, one
@@ -3829,7 +4233,8 @@ def main() -> int:
                           ("remat", phase_remat),
                           ("bf16_cli", phase_bf16_cli), ("cls", phase_cls),
                           ("cls_wide", phase_cls_wide),
-                          ("cls_hires", phase_cls_hires), ("dp", phase_dp)):
+                          ("cls_hires", phase_cls_hires), ("dp", phase_dp),
+                          ("tp", phase_tp)):
             counts[phase] = fn(torch)
     except Exception as e:  # report the phase, then fail without "ok"
         emit(phase, ok=False, error=f"{type(e).__name__}: {e}")

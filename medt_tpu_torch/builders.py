@@ -89,19 +89,23 @@ def _shard(args: Any):
 
 
 def build_dataloader(args: Any):
-    """(train_loader, val_loader) over ImageFolder datasets; under
-    ``args.distributed`` each process reads its rank's slice."""
+    """(train_loader, val_loader) over ImageFolder datasets. Under
+    ``args.distributed`` ``batch_size`` is the rows a process loads a
+    step: each loader cuts joint batches of ``world * batch_size`` from
+    one order, the same on every rank, and yields this rank's rows of each
+    (``DataLoader(shard=(rank, world))``), so every rank takes the same
+    number of steps."""
     shard = _shard(args)
     img_size = getattr(args, "imgsize", 224)
-    train_ds = ImageFolderDataset(args.train_dataset, img_size, train=True,
-                                  shard=shard)
-    val_ds = ImageFolderDataset(args.val_dataset, img_size, train=False,
-                                shard=shard)
+    train_ds = ImageFolderDataset(args.train_dataset, img_size, train=True)
+    val_ds = ImageFolderDataset(args.val_dataset, img_size, train=False)
     workers = getattr(args, "workers", 4)
-    batch = getattr(args, "batch_size", 32)
+    batch = getattr(args, "batch_size", 32) * (shard[1] if shard else 1)
     return (
-        DataLoader(train_ds, batch, shuffle=True, num_workers=workers),
-        DataLoader(val_ds, batch, shuffle=False, num_workers=workers),
+        DataLoader(train_ds, batch, shuffle=True, num_workers=workers,
+                   shard=shard),
+        DataLoader(val_ds, batch, shuffle=False, num_workers=workers,
+                   shard=shard),
     )
 
 

@@ -143,6 +143,10 @@ def main(argv=None, device=None):
                        device=device)
     if not cfg.loaddirec:
         raise SystemExit("--loaddirec is required")
+    if (cfg.tp or 1) > 1:
+        raise SystemExit(f"--tp {cfg.tp}: the model axis splits a training "
+                         "run (cli.train); cli.serve serves whole replicas "
+                         "(--dp)")
     dp = cfg.dp or 1
     engine = InferenceEngine(
         cfg.modelname, cfg.imgsize, loaddirec=cfg.loaddirec,

@@ -10,9 +10,12 @@ Flags the reference parses but ignores are honoured: ``--workers``,
 What differs in the port: ``--use_pallas yes`` selects its fused attention
 (``use_fused``, CUDA kernels on the card). ``--dp N`` is the data axis:
 ``cli.train`` trains on N ranks, ``cli.serve`` serves from N replicas
-(more than the visible cards raises, as JAX's serve CLI does; under
-torchrun it must equal the world size). The mesh's other axes (``--sp``,
-``--tp``, ``--num_slices``) take only 1, and ``--platform`` (JAX's backend
+(more than the visible cards raises, as JAX's serve CLI does). ``--tp M``
+is the model axis: ``cli.train`` splits every attention layer's groups
+over M ranks a data index, on ``dp * M`` ranks in all (under torchrun,
+``dp * M`` must equal the world size), and ``--num_slices`` pins the
+number of nodes the data axis spans (:func:`.parallel.make_mesh`). The
+seq axis (``--sp``) takes only 1, and ``--platform`` (JAX's backend
 override) is rejected. ``--dtype
 bfloat16`` computes the activations in bf16 with float32 parameters
 (:attr:`Config.compute_dtype`, JAX's ``setup_state`` mapping), and
@@ -27,7 +30,7 @@ from typing import Optional
 
 import torch
 
-from .parallel.mesh import MESH_TODO, check_dp
+from .parallel.mesh import MESH_TODO, check_mesh
 
 
 @dataclass
@@ -70,7 +73,8 @@ class Config:
     aug: str = "off"
     profile_dir: Optional[str] = None
     # the mesh: the data axis (--dp; None: every visible card for
-    # training); the others take only 1
+    # training, over --tp), the model axis (--tp) and the nodes the data
+    # axis spans (--num_slices); the seq axis (--sp) takes only 1
     dp: Optional[int] = None
     sp: Optional[int] = None
     tp: Optional[int] = None
@@ -125,25 +129,22 @@ def add_args(parser: argparse.ArgumentParser) -> None:
         parser.add_argument(name, *aliases, **kwargs)
 
 
-_MESH_FLAGS = ("sp", "tp", "num_slices")
-
-
 def parse_config(argv=None, description: str = "medt_tpu_torch",
                  device=None) -> Config:
     """Parse ``argv`` into a :class:`Config`. ``device`` is where the run
-    goes (None: the card), which ``--dp`` is checked against
-    (:func:`.parallel.check_dp`)."""
+    goes (None: the card), which ``--dp`` and ``--tp`` are checked against
+    (:func:`.parallel.check_mesh`)."""
     parser = argparse.ArgumentParser(description=description)
     add_args(parser)
     ns = parser.parse_args(argv)
     cfg = Config(**{f.name: getattr(ns, f.name)
                     for f in dataclasses.fields(Config)})
-    for name in _MESH_FLAGS:
-        if getattr(cfg, name) not in (None, 1):
-            parser.error(f"--{name} {getattr(cfg, name)}: {MESH_TODO}")
-    if cfg.dp is not None and cfg.dp < 1:
-        parser.error(f"--dp {cfg.dp}: at least one rank")
-    check_dp(cfg.dp, device)
+    if cfg.sp not in (None, 1):
+        parser.error(f"--sp {cfg.sp}: {MESH_TODO}")
+    for name in ("dp", "tp", "num_slices"):
+        if getattr(cfg, name) is not None and getattr(cfg, name) < 1:
+            parser.error(f"--{name} {getattr(cfg, name)}: at least one")
+    check_mesh(cfg.dp, device, cfg.tp, cfg.num_slices)
     if cfg.platform:
         parser.error("--platform is the JAX package's backend override; the "
                      "port's CLIs run on the card (in-process callers pass "

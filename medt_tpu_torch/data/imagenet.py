@@ -4,8 +4,10 @@ Port of ``medt_tpu/data/imagenet.py`` (reference lib/datasets/
 imagenet1k.py:6-56): the ImageFolder layout ``<root>/<class>/<image>``, a
 RandomResizedCrop + horizontal flip train transform, a Resize(256 *
 size / 224) + CenterCrop eval transform, and per-channel normalisation.
-``shard = (index, count)`` keeps every count-th sample from index on, the
-distributed reader's slice.
+``shard = (index, count)`` keeps every count-th sample from index on, as
+JAX's per-host reader slices the set; the classification driver does not
+use it (its ranks would take unequal step counts) and shards each joint
+batch in the loader instead (``DataLoader(shard=...)``).
 
 The crops draw from the numpy ``Generator`` in JAX's order (scale, log
 ratio, then the crop's row and column, up to ten tries; then the flip), so

@@ -48,7 +48,7 @@ def log_nll_loss(logits: torch.Tensor, labels: torch.Tensor,
         w = valid
     norm = w.sum()
     if sync.active():   # the joint batch's normaliser: this rank's share
-        norm = sync.all_reduce_sum(norm)
+        norm = sync.all_reduce_sum(norm, sync.step_group())
     return (ce * w).sum() / torch.clamp(norm, min=1e-12)
 
 

@@ -69,6 +69,15 @@ compute-dtype operands in float32 and its softmax in float32, cast back to
 the compute dtype before the products with v and the v table. Every route
 casts its output to the compute dtype.
 
+Under a mesh's model axis (:mod:`..parallel.kernel_sharding`) a layer
+split by :meth:`AxialAttention.split_groups` holds and computes only its
+rank's ``g/tp`` groups: ``groups`` and ``out_planes`` are then the local
+counts (``full_groups`` the layer's), the projection, ``bn_qkv``, the
+moments, the similarity-BN fold, the core and the output BN run on them
+at the local geometry on every route, and the forward enters through
+``copy_in`` and leaves through ``gather_out``. An unsplit layer runs as
+before, bit for bit.
+
 Parameters carry the reference's names and shapes (``qkv_transform.weight``
 (2*out, in, 1), ``bn_qkv``, ``bn_similarity``, ``bn_output``, ``relative``,
 ``flatten_index``, ``f_qr``/``f_kr``/``f_sve``/``f_sv``), so reference
@@ -84,6 +93,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel.kernel_sharding import copy_in, gather_out
+from ..parallel.partitioning import attention_rows
 from .attn_core import fold_train_affine, pack_sim_affine, relative_logit_index
 from .axial_eval import EVAL_MAX_SPAN, fused_eval_attention
 from .axial_lanes import (
@@ -189,11 +200,13 @@ class AxialAttention(nn.Module):
     along the width. ``plain_cores`` makes the fused path run the kernels'
     plain versions even on the card (the reference the kernels are held
     against). After a fused-path forward, ``last_route`` holds
-    ``(route, span, g, gp, stripes, has_pos)`` of that call.
-    ``compute_dtype`` (None: the input's) is the dtype of the projection
-    and of the output."""
+    ``(route, span, g, gp, stripes, has_pos)`` of that call (``g`` the
+    local group count of a split layer). ``compute_dtype`` (None: the
+    input's) is the dtype of the projection and of the output.
+    ``model_axis`` is None unless :meth:`split_groups` split the layer."""
 
     compute_dtype: Optional[torch.dtype] = None
+    model_axis = None
 
     def __init__(self, in_planes: int, out_planes: int, span: int,
                  groups: int = 8, stride: int = 1, axis: str = "h",
@@ -215,6 +228,7 @@ class AxialAttention(nn.Module):
             raise ValueError("group planes must be even to split q/k")
         self.in_planes, self.out_planes = in_planes, out_planes
         self.span, self.groups, self.gp = span, groups, gp
+        self.full_groups = groups
         self.stride, self.axis, self.mode = stride, axis, mode
         self.use_fused, self.plain_cores = use_fused, plain_cores
         self.last_route: Optional[tuple] = None
@@ -247,6 +261,42 @@ class AxialAttention(nn.Module):
             for fc in (self.gate_fc1, self.gate_fc2):
                 uniform_by_fan(fc.weight, fc.in_features, generator)
                 uniform_by_fan(fc.bias, fc.in_features, generator)
+
+    @property
+    def has_pos(self) -> bool:
+        return self.mode != MODE_WOPOS
+
+    def split_groups(self, axis):
+        """Keep only rank ``axis.index``'s ``g/tp`` groups of this layer
+        (its weights and statistics one-card, the same on every rank of
+        the axis; :mod:`..parallel.partitioning` says which rows); the
+        forward then computes them and gathers the output over
+        ``axis.group``."""
+        tp = axis.size
+        if self.model_axis is not None or self.groups % tp:
+            raise ValueError(f"cannot split {self.groups} groups over "
+                             f"{tp} ranks")
+        with torch.no_grad():
+            for key, t in list(self.named_parameters()) + list(
+                    self.named_buffers()):
+                rows = attention_rows(key, self.groups, self.gp,
+                                      self.has_pos, tp, axis.index)
+                if rows is None:
+                    continue
+                owner, name = key.split(".")
+                module = getattr(self, owner)
+                local = t[rows.to(t.device)].clone()
+                if isinstance(t, nn.Parameter):
+                    setattr(module, name, nn.Parameter(
+                        local, requires_grad=t.requires_grad))
+                else:
+                    setattr(module, name, local)
+                if hasattr(module, "num_features"):
+                    module.num_features = len(local)
+        self.qkv_transform.out_channels //= tp
+        self.groups //= tp
+        self.out_planes //= tp
+        self.model_axis = axis
 
     # ---- helpers -----------------------------------------------------------
 
@@ -309,6 +359,8 @@ class AxialAttention(nn.Module):
     # ---- forward ------------------------------------------------------------
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.model_axis is not None:
+            x = copy_in(x, self.model_axis)
         x_in = x
         if self.axis == "w":
             x = x.transpose(2, 3)  # attend along dim 2 below
@@ -343,6 +395,8 @@ class AxialAttention(nn.Module):
             out = out.transpose(2, 3)
         if self.stride > 1:
             out = avg_pool(out, self.stride)
+        if self.model_axis is not None:
+            out = gather_out(out, self.model_axis)
         return out
 
     def _sim_affine(self, moments):

@@ -5,8 +5,10 @@ group, and JAX's single-process mesh is to the JAX package:
 :func:`run_data_parallel` spawns one rank per device, joins them in a
 process group over a free localhost port, makes each rank's card the
 current one, runs the caller's function on every rank and destroys the
-group. The CLIs pass ``cuda:0..N-1`` with ``nccl``; a CPU caller passes
-``["cpu", "cpu"]`` with ``gloo``. The rank target lives here, so a spawned
+group. The CLIs pass ``cuda:0..N-1`` with ``nccl`` (``N = dp * tp`` for
+a mesh, :func:`.mesh.data_devices`); a CPU caller passes ``["cpu"] * N``
+with ``gloo``, and a caller may put several ranks on one card with
+``gloo``. The rank target lives here, so a spawned
 rank imports this package and the caller's function's module, nothing
 else of the caller's process.
 

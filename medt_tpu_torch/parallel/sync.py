@@ -16,29 +16,37 @@ its own rows, and every single-process path runs exactly as before, bit
 for bit. Each rank of the step issues the same sums in the same order (the
 same modules run on every rank, whatever its row count, a rank with no
 rows included), so the collectives pair up.
+
+Under a mesh with a model axis (:mod:`.mesh`) the ranks of one data index
+hold the same rows, so the sums run over the data axis's group alone
+(``data_parallel_step(..., group=mesh.data_group)``); the statistics of an
+attention layer split over the model axis are its own groups' on each
+rank (:mod:`.kernel_sharding`).
 """
 from __future__ import annotations
 
 import contextlib
-from typing import Optional, Tuple
+from typing import Any, Optional, Tuple
 
 import torch
 import torch.distributed as dist
 
-# (this rank's rows, the joint batch's rows, the ranks) of the data-parallel
-# step being taken, else None. Process-wide, not per thread: a CUDA backward
-# (and a remat recompute inside it) runs on autograd's own threads.
-_STEP: Optional[Tuple[int, int, int]] = None
+# (this rank's rows, the joint batch's rows, the ranks, their process group)
+# of the data-parallel step being taken, else None. Process-wide, not per
+# thread: a CUDA backward (and a remat recompute inside it) runs on
+# autograd's own threads.
+_STEP: Optional[Tuple[int, int, int, Any]] = None
 
 
 @contextlib.contextmanager
-def data_parallel_step(rows: int, joint_rows: int):
-    """Within, the train-mode statistics are summed over the ranks of the
-    default process group: a step on ``rows`` rows of a joint batch of
-    ``joint_rows``. Enter it around the forward and the backward."""
+def data_parallel_step(rows: int, joint_rows: int, group=None):
+    """Within, the train-mode statistics are summed over the ranks of
+    ``group`` (None: the default process group), the data axis: a step on
+    ``rows`` rows of a joint batch of ``joint_rows``. Enter it around the
+    forward and the backward."""
     global _STEP
     outer, _STEP = _STEP, (int(rows), int(joint_rows),
-                           dist.get_world_size())
+                           dist.get_world_size(group), group)
     try:
         yield
     finally:
@@ -51,26 +59,35 @@ def active() -> bool:
     return _STEP is not None
 
 
+def step_group():
+    """The process group of the data-parallel step being taken (None: the
+    default group)."""
+    return _STEP[3] if _STEP is not None else None
+
+
 class AllReduceSum(torch.autograd.Function):
-    """``x`` summed over the ranks; the backward sums the cotangent over
-    the ranks too (the gradient of a sum that every rank reads)."""
+    """``x`` summed over the ranks of ``group``; the backward sums the
+    cotangent over them too (the gradient of a sum that every rank
+    reads)."""
 
     @staticmethod
-    def forward(ctx, x):
+    def forward(ctx, x, group):
+        ctx.group = group
         total = x.contiguous().clone()
-        dist.all_reduce(total, op=dist.ReduceOp.SUM)
+        dist.all_reduce(total, op=dist.ReduceOp.SUM, group=group)
         return total
 
     @staticmethod
     def backward(ctx, grad):
         total = grad.contiguous().clone()
-        dist.all_reduce(total, op=dist.ReduceOp.SUM)
-        return total
+        dist.all_reduce(total, op=dist.ReduceOp.SUM, group=ctx.group)
+        return total, None
 
 
-def all_reduce_sum(x: torch.Tensor) -> torch.Tensor:
-    """Differentiable sum of ``x`` over the ranks of the default group."""
-    return AllReduceSum.apply(x)
+def all_reduce_sum(x: torch.Tensor, group=None) -> torch.Tensor:
+    """Differentiable sum of ``x`` over the ranks of ``group`` (None: the
+    default group)."""
+    return AllReduceSum.apply(x, group)
 
 
 def sum_over_ranks(sums: torch.Tensor, count: int):
@@ -86,17 +103,17 @@ def sum_over_ranks(sums: torch.Tensor, count: int):
     queue."""
     if not active():
         return sums, count
-    rows, joint, world = _STEP
+    rows, joint, world, group = _STEP
     if rows and count % rows:
         raise ValueError(f"a count of {count} over {rows} rows: a batch "
                          "statistic's count must be a whole count per row")
     if rows and joint >= world:     # every rank holds rows
-        return all_reduce_sum(sums), count // rows * joint
+        return all_reduce_sum(sums, group), count // rows * joint
     # the count is filled in on the device: a tensor made from a host list
     # is a copy from pageable memory, which waits for the card's stream
     packed = torch.cat([sums.reshape(-1).double(), torch.full(
         (1,), float(count), dtype=torch.float64, device=sums.device)])
-    total = all_reduce_sum(packed)
+    total = all_reduce_sum(packed, group)
     sums = total[:-1].to(sums.dtype).view(sums.shape)
     if rows == 0:
         return sums, int(total[-1].item())

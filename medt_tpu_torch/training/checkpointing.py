@@ -20,7 +20,12 @@ Data parallel: the coordinator (rank 0) alone writes, the module out of its
 prefix, and every rank waits at a barrier until the file is there; every
 rank restores onto its own card. A checkpoint of a data-parallel run loads
 into a one-card run and the reverse, as JAX's Orbax checkpoints are
-parallelism-agnostic.
+parallelism-agnostic. Under a mesh's model axis the ranks of each data
+index gather their split attention layers' parts (parameters, statistics
+and the optimizer's state) into the one-card state dict first
+(:func:`..parallel.gather_state_dict`), so the file is a one-card run's in
+the reference's key naming; restoring cuts it again for each rank
+(:func:`..parallel.shard_state_dict`).
 """
 from __future__ import annotations
 
@@ -31,6 +36,11 @@ import torch
 from torch import nn
 
 from ..parallel.distributed import barrier, is_coordinator
+from ..parallel.partitioning import (
+    cut_tensors,
+    gather_state_dict,
+    shard_state_dict,
+)
 from ..utils.weights import is_dead_reference_key
 from .state import unwrap
 
@@ -46,20 +56,61 @@ def _write(path: str, payload: dict):
     os.replace(tmp, path)   # a reader never sees half a file
 
 
+def _optimizer_cut(optimizer: torch.optim.Optimizer, model: nn.Module,
+                   state: dict) -> dict:
+    """``(index in the optimizer's state, field) -> state dict key`` of
+    every tensor of ``state`` (an optimizer state dict) kept per element
+    of a parameter the model axis cuts (Adam's moments, SGD's momentum;
+    not the step count)."""
+    params = [p for group in optimizer.param_groups for p in group["params"]]
+    cut = cut_tensors(model)
+    names = {id(p): k for k, p in model.named_parameters() if k in cut}
+    return {(index, field): names[id(params[index])]
+            for index, fields in state["state"].items()
+            if id(params[index]) in names
+            for field, value in fields.items()
+            if torch.is_tensor(value) and value.dim()}
+
+
+def _map_optimizer(optimizer, model, state: dict, fn) -> dict:
+    """``state`` (an optimizer state dict) with ``fn({key: tensor})``
+    applied to its tensors of cut parameters, field by field."""
+    cut = _optimizer_cut(optimizer, model, state)
+    out = {**state, "state": {i: dict(f) for i, f in state["state"].items()}}
+    for field in sorted({f for _, f in cut}):
+        mine = {(i, f): k for (i, f), k in cut.items() if f == field}
+        mapped = fn({k: state["state"][i][f] for (i, f), k in mine.items()})
+        for (i, f), k in mine.items():
+            out["state"][i][f] = mapped[k]
+    return out
+
+
 def save_checkpoint(direc: str, name, model: nn.Module,
                     optimizer: Optional[torch.optim.Optimizer] = None, *,
                     step: int = 0, also_final: bool = True) -> str:
     """Save under ``<direc>/<name>/ckpt.pth`` (and ``final_model``);
-    returns the path. In a process group every rank calls it: the
-    coordinator writes, the others wait for it."""
+    returns the path. In a process group every rank calls it: the ranks of
+    a split model gather its parts, the coordinator writes, the others
+    wait for it."""
     path = os.path.join(os.path.abspath(direc), str(name), CKPT_FILE)
+    model = unwrap(model)
+    split = bool(cut_tensors(model))
+    state_dict = gather_state_dict(model) if split else None
+    opt_state = None
+    if optimizer is not None:
+        opt_state = optimizer.state_dict()
+        if split:
+            opt_state = _map_optimizer(
+                optimizer, model, opt_state,
+                lambda t: gather_state_dict(model, t))
     if is_coordinator():
-        model = unwrap(model)
+        if state_dict is None:
+            state_dict = model.state_dict()
         payload = {"format": _FORMAT, "step": int(step),
                    "state_dict": {k: v.detach().cpu()
-                                  for k, v in model.state_dict().items()}}
+                                  for k, v in state_dict.items()}}
         if optimizer is not None:
-            payload["optimizer"] = optimizer.state_dict()
+            payload["optimizer"] = opt_state
         _write(path, payload)
         if also_final:
             _write(os.path.join(os.path.abspath(direc), FINAL_NAME,
@@ -90,8 +141,9 @@ def restore_checkpoint(path: str, model: nn.Module,
                        ) -> int:
     """Load a checkpoint (a ``ckpt.pth`` file, its directory, or a reference
     ``.pth`` file) into ``model`` (strict) and, when given and saved, into
-    ``optimizer``. Returns the saved step (0 for a reference file). The
-    tensors are read onto the model's device."""
+    ``optimizer``; a model split over a model axis takes this rank's part.
+    Returns the saved step (0 for a reference file). The tensors are read
+    onto the model's device."""
     model = unwrap(model)
     device = next(model.parameters()).device
     payload = torch.load(_resolve(path), map_location=device,
@@ -99,10 +151,13 @@ def restore_checkpoint(path: str, model: nn.Module,
     if isinstance(payload, Mapping) and payload.get("format") == _FORMAT:
         state_dict, step = payload["state_dict"], payload["step"]
         if optimizer is not None and "optimizer" in payload:
-            optimizer.load_state_dict(payload["optimizer"])
+            optimizer.load_state_dict(_map_optimizer(
+                optimizer, model, payload["optimizer"],
+                lambda t: shard_state_dict(t, model)))
     else:
         state_dict, step = payload, 0
-    model.load_state_dict(_reference_state_dict(state_dict), strict=True)
+    model.load_state_dict(shard_state_dict(
+        _reference_state_dict(state_dict), model), strict=True)
     return int(step)
 
 

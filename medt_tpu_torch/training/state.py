@@ -27,6 +27,15 @@ returned loss is summed over the ranks: the joint batch's, on every rank.
 Under ``remat`` the recompute (which syncs its BN statistics again, in the
 same order on every rank) runs under DDP's ``no_sync``, so DDP's bucket
 bookkeeping sees one forward a step.
+
+Under a mesh with a model axis (``TrainState.mesh``, :mod:`..parallel.
+mesh`), :func:`data_parallel` splits the attention layers by group over
+the model axis and wraps the model in DDP over the data axis alone (not
+at all when the data axis has one rank); the ranks of one data index step
+on the same rows, the statistics and the loss are summed over the data
+axis, and after the backward the gradients of the replicated parameters
+used inside the split layers are summed over the model axis
+(``kernel_sharding.sum_partial_grads``) before the update.
 """
 from __future__ import annotations
 
@@ -44,18 +53,22 @@ from torch.utils.checkpoint import checkpoint
 from ..losses import deep_supervision_loss, log_nll_loss
 from ..ops.norms import frozen_running_stats
 from ..parallel import sync
+from ..parallel.kernel_sharding import shard_model, sum_partial_grads
+from ..parallel.mesh import Mesh
 
 
 @dataclass
 class TrainState:
     """The model (its parameters and BN statistics), the optimizer over its
-    trainable parameters, the count of steps taken and an optional
-    ``step -> lr`` schedule."""
+    trainable parameters, the count of steps taken, an optional ``step ->
+    lr`` schedule, and the mesh :func:`data_parallel` laid the model over
+    (None: the default process group's data axis, or one process)."""
 
     model: nn.Module
     optimizer: torch.optim.Optimizer
     step: int = 0
     schedule: Optional[Callable[[int], float]] = None
+    mesh: Optional[Mesh] = None
 
     @property
     def device(self) -> torch.device:
@@ -68,19 +81,27 @@ class TrainState:
         return unwrap(self.model)
 
 
-def data_parallel(model: nn.Module) -> nn.Module:
-    """``model`` wrapped in ``DistributedDataParallel`` over the default
-    process group when it has more than one rank, else ``model`` itself.
-    Buffers are not broadcast before each forward: the synced running
-    statistics are equal on every rank already. (``broadcast_buffers`` is
-    the keyword both torch 2.11, on the card, and 2.13 take; 2.13 warns
-    that it prefers ``forward_sync_buffers``.)"""
-    if _group_size() <= 1:
+def data_parallel(model: nn.Module, mesh: Optional[Mesh] = None
+                  ) -> nn.Module:
+    """``model`` (its weights one-card, the same on every rank) laid over
+    ``mesh``: its attention layers split over the model axis
+    (``kernel_sharding.shard_model``) when it has more than one rank, then
+    wrapped in ``DistributedDataParallel`` over the data axis when that
+    has more than one rank, else ``model`` itself. Without a mesh, the
+    data axis is the default process group. Buffers are not broadcast
+    before each forward: the synced running statistics are equal on every
+    rank already. (``broadcast_buffers`` is the keyword both torch 2.11,
+    on the card, and 2.13 take; 2.13 warns that it prefers
+    ``forward_sync_buffers``.)"""
+    if mesh is not None and mesh.tp > 1:
+        shard_model(model, mesh.model_axis())
+    if (mesh.dp if mesh is not None else _group_size()) <= 1:
         return model
     device = next(model.parameters()).device
     ids = [device.index] if device.type == "cuda" else None
-    return DistributedDataParallel(model, device_ids=ids,
-                                   broadcast_buffers=False)
+    return DistributedDataParallel(
+        model, device_ids=ids, broadcast_buffers=False,
+        process_group=mesh.data_group if mesh is not None else None)
 
 
 def unwrap(model: nn.Module) -> nn.Module:
@@ -95,15 +116,16 @@ def _group_size() -> int:
         and dist.is_initialized() else 1
 
 
-def _world(model: nn.Module) -> int:
-    """The ranks a step of ``model`` spans: the process group's size for a
-    DDP model, else 1. A bare model in a group of more than one rank would
+def data_world(model: nn.Module, mesh: Optional[Mesh] = None) -> int:
+    """The ranks of the data axis a step of ``model`` spans: the size of a
+    DDP model's process group, else 1. A bare model on a data axis of more
+    than one rank (the mesh's, or the default group without a mesh) would
     step on its own rows' gradient alone, so it raises."""
     if isinstance(model, DistributedDataParallel):
         return torch.distributed.get_world_size(model.process_group)
-    if _group_size() > 1:
-        raise ValueError("in a process group of more than one rank the "
-                         "model must be wrapped in DistributedDataParallel")
+    if (mesh.dp if mesh is not None else _group_size()) > 1:
+        raise ValueError("on a data axis of more than one rank the model "
+                         "must be wrapped in DistributedDataParallel")
     return 1
 
 
@@ -149,16 +171,19 @@ def train_step(state: TrainState, batch: Mapping, *, remat: bool = False,
     returns ``{"loss": <0-d device tensor>}``. ``remat`` recomputes the
     forward in the backward (JAX's ``remat``). For a DDP model in a group
     of more than one rank, ``batch`` is this rank's rows and
-    ``joint_rows`` the joint batch's row count (every rank's together)."""
+    ``joint_rows`` the joint batch's row count (every rank's together);
+    the ranks of one data index pass the same rows."""
     model, device = state.model, state.device
-    world = _world(model)
+    world = data_world(model, state.mesh)
+    group = state.mesh.data_group if state.mesh is not None else None
     if world == 1:
         step = contextlib.nullcontext()
     elif joint_rows is None:
         raise ValueError("a data-parallel step needs joint_rows, the rows "
                          "of the joint batch")
     else:
-        step = sync.data_parallel_step(len(batch["image"]), joint_rows)
+        step = sync.data_parallel_step(len(batch["image"]), joint_rows,
+                                       group)
     model.train()
     with step:
         image = normalize(batch["image"], device)
@@ -177,6 +202,7 @@ def train_step(state: TrainState, batch: Mapping, *, remat: bool = False,
         # DDP averages the ranks' gradients; each loss is a part of the
         # joint one
         (loss * world if world > 1 else loss).backward()
+    sum_partial_grads(state.module)
     if state.schedule is not None:
         lr = float(state.schedule(state.step))
         for group in state.optimizer.param_groups:
@@ -184,7 +210,7 @@ def train_step(state: TrainState, batch: Mapping, *, remat: bool = False,
     state.optimizer.step()
     state.step += 1
     loss = loss.detach()
-    return {"loss": sync.all_reduce_sum(loss) if world > 1 else loss}
+    return {"loss": sync.all_reduce_sum(loss, group) if world > 1 else loss}
 
 
 def eval_step(state: TrainState, batch: Mapping) -> torch.Tensor:

@@ -17,17 +17,22 @@ parameters (``Config.compute_dtype``, as JAX's ``setup_state`` maps it),
 and ``--remat`` passes ``remat=True`` to every step, as JAX's trainer
 does.
 
-Data parallel (``medt_tpu/training/trainer.py``'s mesh): in a process
-group of more than one rank (torchrun's, or one ``cli.train --dp N``
-spawns), each rank builds the model on its card from the same seed, wraps
-it in ``DistributedDataParallel``, loads its rows of each global batch
-(the same loader and seed on every rank, each loading only its own rows:
-``DataLoader(shard=...)``) and steps on them; the step is the one-process
-step on the joint batch (``state.train_step``), so ``--batch_size`` is the
-global batch, as in JAX. Validation runs on the coordinator over the
-whole validation set with the unwrapped model, so its F1 and IoU are a
-one-card run's; the coordinator writes the masks, logs and checkpoints
-while the other ranks wait. The mesh's ``seq`` and ``model`` axes are not ported
+Data and model parallel (``medt_tpu/training/trainer.py``'s mesh): in a
+process group of more than one rank (torchrun's, or one ``cli.train --dp
+N [--tp M]`` spawns), the ranks form the ``(dp, tp)`` mesh
+(``parallel.make_mesh``: ``--dp``, ``--tp``, ``--num_slices``); each rank
+builds the model on its card from the same seed, splits its attention
+layers over the model axis and wraps it in ``DistributedDataParallel``
+over the data axis (``state.data_parallel``), loads its data index's rows
+of each global batch (the same loader and seed on every rank, each loading
+only its own rows: ``DataLoader(shard=...)``; the ranks of one data index
+load the same rows) and steps on them; the step is the one-process step on
+the joint batch (``state.train_step``), so ``--batch_size`` is the global
+batch, as in JAX. Validation runs on the coordinator's model group (the
+ranks of data index 0; the others wait) over the whole validation set with
+the unwrapped model, so its F1 and IoU are a one-card run's; the
+coordinator writes the masks, logs and checkpoints (one-card state dicts,
+gathered over the model axis). The mesh's ``seq`` axis is not ported
 (``parallel.mesh.MESH_TODO``). JAX's Mosaic preflight, which disables a
 Pallas kernel family that fails to lower and retraces onto XLA, has no
 counterpart: on the card a kernel fault raises. The staircase schedule
@@ -52,7 +57,13 @@ from ..data import (
 from ..device import resolve_device
 from ..metrics import binary_seg_scores, logits_to_foreground
 from ..models import build_model, main_logits
-from ..parallel import host_shard, is_coordinator
+from ..parallel import (
+    Mesh,
+    host_shard,
+    is_coordinator,
+    join_mesh,
+    make_mesh,
+)
 from ..utils import Logger, ThroughputMeter, chk_mkdir, profiler_trace
 from .checkpointing import (
     latest_checkpoint,
@@ -87,10 +98,12 @@ def build_tx(cfg: Config, model: torch.nn.Module, steps_per_epoch: int):
     return optimizer, schedule
 
 
-def setup_state(cfg: Config, steps_per_epoch: int, device) -> TrainState:
+def setup_state(cfg: Config, steps_per_epoch: int, device,
+                mesh: Optional[Mesh] = None) -> TrainState:
     """The configured model (weights from ``--seed``) on ``device`` (None:
-    the current card), with its optimizer and schedule; in a process group
-    of more than one rank, wrapped in ``DistributedDataParallel``.
+    the current card), with its optimizer and schedule; laid over ``mesh``
+    (None: the default process group's data axis) by
+    ``state.data_parallel``.
     ``--trainable_gates yes`` trains the attention gates; ``--dtype
     bfloat16`` computes in bf16."""
     device = resolve_device(device)
@@ -103,18 +116,21 @@ def setup_state(cfg: Config, steps_per_epoch: int, device) -> TrainState:
                         seed=cfg.seed, device=device,
                         trainable_gates=cfg.trainable_gates == "yes",
                         dtype=cfg.compute_dtype)
-    model = data_parallel(model)
+    model = data_parallel(model, mesh)
     optimizer, schedule = build_tx(cfg, model, steps_per_epoch)
-    return TrainState(model, optimizer, schedule=schedule)
+    return TrainState(model, optimizer, schedule=schedule, mesh=mesh)
 
 
 def validate(cfg: Config, state: TrainState, val_loader: DataLoader,
              epoch: int) -> dict:
     """Validation pass: the mask PNGs under ``<direc>/<epoch>/`` and the
     mean foreground F1 and IoU (of the main logits of a deep-supervision
-    model, whose tuple JAX's validation cannot take)."""
+    model, whose tuple JAX's validation cannot take). The ranks of a split
+    model's model group run it together; the coordinator writes."""
     fulldir = os.path.join(cfg.direc, str(epoch))
-    chk_mkdir(fulldir)
+    writes = is_coordinator()
+    if writes:
+        chk_mkdir(fulldir)
     f1s, ious = [], []
     for batch in val_loader:
         dev = to_device(batch, state.device)
@@ -123,25 +139,34 @@ def validate(cfg: Config, state: TrainState, val_loader: DataLoader,
         f1, iou, _ = binary_seg_scores(fg, dev["label"] > 0)
         f1s.append(f1)
         ious.append(iou)
-        fg_np = fg.cpu().numpy()
-        for i, name in enumerate(batch["name"]):
-            write_mask_png(os.path.join(fulldir, name), fg_np[i])
+        if writes:
+            fg_np = fg.cpu().numpy()
+            for i, name in enumerate(batch["name"]):
+                write_mask_png(os.path.join(fulldir, name), fg_np[i])
     return {"val_f1": float(torch.cat(f1s).mean()),
             "val_iou": float(torch.cat(ious).mean())}
 
 
-def _loader(cfg: Config, path: str, train: bool) -> DataLoader:
+def _data_shard(mesh: Optional[Mesh]):
+    """``(data index, dp)`` of a mesh whose data axis has more than one
+    rank, else None: the train loader's ``shard``."""
+    if mesh is None or mesh.dp <= 1:
+        return None
+    return mesh.data_index, mesh.dp
+
+
+def _loader(cfg: Config, path: str, train: bool,
+            mesh: Optional[Mesh] = None) -> DataLoader:
     """Byte batches of the PNG set at ``path``: shuffled at ``--batch_size``
-    with random flips for training (in a process group, this rank's rows of
+    with random flips for training (on a mesh, its data index's rows of
     each), in order at batch 1 for validation."""
     tf = JointTransform2D(crop=cfg.crop_tuple, p_flip=0.5 if train else 0,
                           color_jitter_params=None, long_mask=True,
                           output_dtype="uint8")
     ds = ImageToImage2D(path, tf, gray=cfg.gray == "yes")
-    rank, world = host_shard()
     return DataLoader(ds, cfg.batch_size if train else 1, shuffle=train,
                       num_workers=cfg.workers, seed=cfg.seed,
-                      shard=(rank, world) if train and world > 1 else None)
+                      shard=_data_shard(mesh) if train else None)
 
 
 def run_training(cfg: Config, state: Optional[TrainState] = None,
@@ -153,20 +178,33 @@ def run_training(cfg: Config, state: Optional[TrainState] = None,
     state (its model's device is used) and loaders; otherwise they are
     built from ``cfg`` on ``device`` (None: the card). In a process group
     every rank calls it, with the same loaders, the train loader sharded
-    for this rank (``DataLoader(shard=(rank, world))``)."""
+    for this rank's data index (``DataLoader(shard=(index, dp))``); a
+    caller's state brings its own mesh (``TrainState.mesh``), else the
+    ranks form the mesh of ``--dp``, ``--tp`` and ``--num_slices``."""
     np.random.seed(cfg.seed)  # the reference seeds numpy and torch to 3000
+    rank, world = host_shard()
+    if state is not None:
+        mesh = state.mesh
+        if world > 1 and mesh is None:
+            raise ValueError("in a process group of more than one rank a "
+                             "caller's state needs its mesh "
+                             "(TrainState.mesh)")
+    elif world > 1:
+        mesh = join_mesh(make_mesh(world, cfg.dp, cfg.tp, cfg.num_slices))
+    else:
+        mesh = None
     if train_loader is None:
-        train_loader = _loader(cfg, cfg.train_dataset, train=True)
+        train_loader = _loader(cfg, cfg.train_dataset, train=True, mesh=mesh)
     if val_loader is None and cfg.val_dataset:
         val_loader = _loader(cfg, cfg.val_dataset, train=False)
     steps_per_epoch = max(len(train_loader), 1)
     if state is None:
-        state = setup_state(cfg, steps_per_epoch, device)
+        state = setup_state(cfg, steps_per_epoch, device, mesh)
     device = state.device
-    rank, world = host_shard()
-    if world > 1 and getattr(train_loader, "shard", None) != (rank, world):
+    shard = _data_shard(mesh)
+    if world > 1 and getattr(train_loader, "shard", None) != shard:
         raise ValueError(f"rank {rank} of {world} needs a train loader with "
-                         f"shard=({rank}, {world})")
+                         f"shard={shard}")
 
     start_epoch = cfg.start_epoch
     if cfg.resume:
@@ -188,7 +226,7 @@ def run_training(cfg: Config, state: Optional[TrainState] = None,
             epoch_loss = torch.zeros((), device=device)
             n_batches = 0
             for k, batch in enumerate(train_loader):
-                joint = train_loader.joint_rows(k) if world > 1 \
+                joint = train_loader.joint_rows(k) if shard \
                     else len(batch["name"])
                 metrics = train_step(state, to_device(batch, device),
                                      remat=cfg.remat, joint_rows=joint)
@@ -201,8 +239,11 @@ def run_training(cfg: Config, state: Optional[TrainState] = None,
                 "imgs_per_sec": round(meter.imgs_per_sec, 2),
             }
             if epoch % cfg.save_freq == 0:
-                if val_loader is not None and is_coordinator():
-                    entry.update(validate(cfg, state, val_loader, epoch))
+                if val_loader is not None and (mesh is None
+                                               or mesh.data_index == 0):
+                    scores = validate(cfg, state, val_loader, epoch)
+                    if is_coordinator():
+                        entry.update(scores)
                 save_checkpoint(cfg.direc, epoch, state.model,
                                 state.optimizer, step=state.step)
             logger.log(entry)

@@ -1,5 +1,6 @@
 """What each rank of the two-rank gloo world of
-``test_torch_port_parallel.py`` runs.
+``test_torch_port_parallel.py`` runs (``cli.train`` and
+``cli.train_cls --distributed``).
 
 Spawned ranks import this module by name, so it imports the port alone
 (no JAX, no test file). Every case takes the rank's rows of a global
@@ -8,15 +9,17 @@ one process on the joint batch; :func:`one_process` runs the same case on
 the whole batch without a process group.
 """
 import contextlib
+from types import SimpleNamespace
 
 import numpy as np
 import torch
 import torch.distributed as dist
 
+from medt_tpu_torch import builders
 from medt_tpu_torch.cli import train as cli_train
 from medt_tpu_torch.cli import train_cls
 from medt_tpu_torch.data import blob_batch
-from medt_tpu_torch.models import build_model
+from medt_tpu_torch.models import build_model, classifiers
 from medt_tpu_torch.ops import AxialAttention, BatchNorm
 from medt_tpu_torch.parallel import (
     data_parallel_step,
@@ -40,6 +43,10 @@ STEPS = (("rows4", 4, "sgd", False), ("rows3", 3, "adam", False),
 # (name, global rows): the modules, each with a rank of one row and one
 # of two (3 rows) or one rank with no row (1 row)
 MODULE_ROWS = (3, 1)
+# the classification steps: axial26s at 32 px, s 0.25, on the fused path
+# (plain cores on the CPU), SGD as train_cls builds it, at these joint
+# batches (3: a rank of one row and one of two)
+CLS_ROWS, CLS_IMG, CLS_CLASSES, CLS_SMOOTHING = (4, 3), 32, 5, 0.1
 
 
 def _rows(t: torch.Tensor) -> torch.Tensor:
@@ -125,15 +132,48 @@ def bare_case(device, rows=None) -> dict:
     return {k: b.clone() for k, b in bn.named_buffers() if "running" in k}
 
 
-def train_cls_refusal() -> str:
-    """``cli.train_cls --distributed`` in this world: the message it
-    raises, or "ran"."""
-    try:
-        train_cls.main(["--train_dataset", "none", "--val_dataset", "none",
-                        "--distributed"], device="cpu")
-    except NotImplementedError as e:
-        return str(e)
-    return "ran"
+def _cls_model(device):
+    return classifiers.axial26s(img_size=CLS_IMG, s=0.25,
+                                num_classes=CLS_CLASSES, use_fused=True,
+                                generator=torch.Generator().manual_seed(4),
+                                device=device)
+
+
+def cls_step_case(rows: int, device, image=None) -> dict:
+    """One ``cli.train_cls`` step (label smoothing, SGD) of axial26s on
+    this process's rows of a seeded joint batch of ``rows`` (``image``:
+    that batch's images, perturbed): the loss, the accuracy, the
+    gradients and the parameters after the update."""
+    rng = np.random.default_rng(21)
+    images = rng.normal(size=(rows, CLS_IMG, CLS_IMG, 3)).astype(np.float32)
+    labels = rng.integers(0, CLS_CLASSES, rows)
+    model = _cls_model(device)
+    if host_shard()[1] > 1:
+        model = data_parallel(model)
+    opt = builders.build_optimizer(SimpleNamespace(lr=0.1), model.parameters())
+    state = TrainState(model, opt)
+    rank, world = host_shard()
+    batch = shard_batch({"image": images if image is None else image,
+                         "label": labels}, rank, world)
+    train_step, _ = train_cls.make_steps(CLS_SMOOTHING)
+    m = train_step(state, batch, joint_rows=rows)
+    module = state.module
+    return {"loss": float(m["loss"]), "acc": float(m["acc"]),
+            "grads": {k: p.grad.clone() for k, p in module.named_parameters()
+                      if p.grad is not None},
+            "stats": {k: b.clone() for k, b in module.named_buffers()
+                      if "running" in k},
+            "params": {k: p.detach().clone()
+                       for k, p in module.named_parameters()}}
+
+
+def train_cls_run(argv) -> dict:
+    """``cli.train_cls.main(argv, device="cpu")`` (joining the world under
+    ``--distributed``): the steps it took and its final weights."""
+    state = train_cls.main(argv, device="cpu")
+    return {"steps": state.step,
+            "state_dict": {k: v.clone()
+                           for k, v in state.module.state_dict().items()}}
 
 
 def step_case(before: dict, rows: int, optimizer: str, remat: bool, device,
@@ -168,18 +208,24 @@ def one_process(before: dict, device="cpu") -> dict:
     return cases(device, before)
 
 
-def cases(device, before: dict, cli_argv=None, checkpoint=None) -> dict:
-    """Every two-rank case on this rank: the modules, the steps, in a world
-    a bare BN and ``cli.train_cls --distributed``; with
-    ``cli_argv``, ``cli.train.main(cli_argv, device="cpu")`` joining the
-    world; with ``checkpoint`` (a one-card run's), the step it restores
-    into a DDP-wrapped model and the weights that model then holds."""
+def cases(device, before: dict, cli_argv=None, checkpoint=None,
+          cls_argv=None) -> dict:
+    """Every two-rank case on this rank: the modules, the steps, the
+    classification steps, in a world a bare BN; with ``cli_argv``,
+    ``cli.train.main(cli_argv, device="cpu")`` joining the world; with
+    ``checkpoint`` (a one-card run's), the step it restores into a
+    DDP-wrapped model and the weights that model then holds; with
+    ``cls_argv``, ``cli.train_cls.main(cls_argv, device="cpu")``."""
     out = {"modules": {(k, r): module_case(k, r, device) for k in MODULES
                        for r in MODULE_ROWS},
            "steps": {name: step_case(before, rows, opt, remat, device)
-                     for name, rows, opt, remat in STEPS}}
+                     for name, rows, opt, remat in STEPS},
+           "cls_steps": {rows: cls_step_case(rows, device)
+                         for rows in CLS_ROWS}}
     if host_shard()[1] > 1:
-        out.update(bare=bare_case(device), train_cls=train_cls_refusal())
+        out.update(bare=bare_case(device))
+    if cls_argv is not None:
+        out["train_cls"] = train_cls_run(cls_argv)
     if cli_argv is not None:
         cli_train.main(cli_argv, device="cpu")
     if checkpoint is not None:

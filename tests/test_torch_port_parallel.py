@@ -20,21 +20,30 @@ case on one process on the joint batch:
   ranks' parameters bit-equal after the update; the 4-row step also
   against JAX's ``train_step`` on ``make_mesh(2, dp=2, sp=1, tp=1)`` (its
   plain path; SGD, so the update is the gradient);
+* ``cli.train_cls``'s data-parallel step (axial26s at 32 px on the fused
+  path, label smoothing, SGD) at joint batches of 4 and 3 rows: the loss
+  and the accuracy (the joint batch's on both ranks), and every gradient,
+  running statistic and parameter after the update under the steps' rule;
 * outside a data-parallel step a bare ``BatchNorm`` in the world takes its
-  own rows' statistics, and ``cli.train_cls --distributed`` refuses to
-  run (its step is not data-parallel);
+  own rows' statistics;
 * ``cli.train.main([... "--dp", "2"], device="cpu")`` joining the world:
   one log, one checkpoint that loads strictly into a one-process model,
   the logged loss the one-process CLI's; and the one-process CLI's
-  checkpoint restored strictly into each rank's DDP-wrapped model.
+  checkpoint restored strictly into each rank's DDP-wrapped model;
+* ``cli.train_cls.main([... "--distributed", "-b", "2"], device="cpu")``
+  over an ImageFolder of 9 images: both ranks take the one-process run's
+  3 steps (``-b 4``), one log whose ``val_acc`` is the one-process run's,
+  one checkpoint that loads strictly into a one-card model.
 
 Outside the world: the loader's per-rank rows, the CLI's spawn of the
 ranks (``run_data_parallel`` replaced by a recorder), the engine with two
-CPU replicas against one, and the refusals of ``--sp``, ``--tp``,
-``--num_slices`` and a ``--dp`` past the visible cards.
+CPU replicas against one, and the refusals of ``--sp``, of a ``--tp``
+that does not divide the world, of ``--num_slices`` over a data axis it
+does not divide, and of a ``--dp`` past the visible cards.
 """
 import json
 import os
+import re
 import types
 
 import jax
@@ -56,6 +65,7 @@ from medt_tpu.parallel import shard_batch as jax_shard_batch
 from medt_tpu.training import optimizers as joptim
 from medt_tpu.training.state import TrainState as JaxTrainState
 from medt_tpu.training.state import train_step as jax_train_step
+from medt_tpu_torch import builders
 from medt_tpu_torch.cli import serve as cli_serve
 from medt_tpu_torch.cli import train as cli_train
 from medt_tpu_torch.data import DataLoader, blob_batch, make_png_dataset
@@ -63,11 +73,19 @@ from medt_tpu_torch.models import build_model
 from medt_tpu_torch.parallel import rank_rows, run_data_parallel, shard_batch
 from medt_tpu_torch.serving import InferenceEngine
 from medt_tpu_torch.training import adam_l2, restore_checkpoint
+from test_torch_port_cls_data import write_image_folder
 from test_torch_port_models import carried, jax_variables
 
 MODEL, IMG, LR = ranks.MODEL, ranks.IMG, ranks.LR
 INPUT_NOISE = 1e-6   # as test_torch_port_training.py
 NOISE_FACTOR = 4.0
+
+
+def _cls_argv(root, work_dirs, batch, extra=()):
+    return ["--model", "resnet18", "--num_classes", "3", "--imgsize", "64",
+            "--epochs", "1", "-b", str(batch), "--train_dataset",
+            str(root / "cls"), "--val_dataset", str(root / "cls"),
+            "--work_dirs", str(work_dirs), "-j", "0", *extra]
 
 
 def _cli_argv(root, direc, extra=()):
@@ -85,15 +103,20 @@ def world(tmp_path_factory):
     root = tmp_path_factory.mktemp("dp")
     make_png_dataset(str(root / "train"), n=3, img_size=IMG, seed=5)
     make_png_dataset(str(root / "val"), n=2, img_size=IMG, seed=6)
+    # 9 images: joint batches of 4, 4 and 1 (a rank without rows)
+    write_image_folder(root / "cls", per_class=3, size=(36, 40),
+                       classes=("a", "b", "c"))
     # as many threads as a rank has: more only contend for the cores
     threads = torch.get_num_threads()
     torch.set_num_threads(max(1, min(threads, (os.cpu_count() or 2) // 2)))
     try:
         cli_train.main(_cli_argv(root, root / "dp1"), device="cpu")
+        cls_one = ranks.train_cls_run(_cls_argv(root, root / "cls1", 4))
         two = run_data_parallel(
             ranks.cases, ["cpu", "cpu"], "gloo", timeout_s=300,
             args=(before, _cli_argv(root, root / "dp2", ["--dp", "2"]),
-                  str(root / "dp1" / "final_model")))
+                  str(root / "dp1" / "final_model"),
+                  _cls_argv(root, root / "cls2", 2, ["--distributed"])))
         one = ranks.one_process(before)
         rng = np.random.default_rng(9)
         spread = {}
@@ -104,10 +127,17 @@ def world(tmp_path_factory):
                     1.0 + INPUT_NOISE * rng.standard_normal(x.shape)))
                 .astype(np.float32)) for _ in range(2)]
         spread["remat"] = spread["rows4"]
+        for rows in ranks.CLS_ROWS:
+            x = np.random.default_rng(21).normal(
+                size=(rows, ranks.CLS_IMG, ranks.CLS_IMG, 3))
+            spread["cls", rows] = [ranks.cls_step_case(
+                rows, "cpu", image=(x * (1.0 + INPUT_NOISE * rng
+                                         .standard_normal(x.shape)))
+                .astype(np.float32)) for _ in range(2)]
     finally:
         torch.set_num_threads(threads)
     return types.SimpleNamespace(before=before, two=two, one=one,
-                                 spread=spread, root=root)
+                                 spread=spread, root=root, cls_one=cls_one)
 
 
 def _close(got, want, err_msg):
@@ -206,10 +236,50 @@ def test_bare_module_in_a_group_takes_its_own_rows(world):
                            world.two[1]["bare"]["running_var"])
 
 
-def test_train_cls_distributed_refused_in_a_world(world):
+@pytest.mark.parametrize("rows", ranks.CLS_ROWS)
+def test_cls_step_matches_one_process(world, rows):
+    """``cli.train_cls``'s step on two ranks is the one-process step on
+    the joint batch: its loss and accuracy, gradients, statistics and the
+    parameters after the SGD update."""
+    r0, r1 = (w["cls_steps"][rows] for w in world.two)
+    want = world.one["cls_steps"][rows]
+    runs = [want] + world.spread["cls", rows]
+    assert (r0["loss"], r0["acc"]) == (r1["loss"], r1["acc"])
+    assert abs(r0["loss"] - want["loss"]) <= 1e-5 + 1e-4 * abs(want["loss"])
+    assert r0["acc"] == want["acc"]
+    for key in r0["params"]:
+        assert torch.equal(r0["params"][key], r1["params"][key]), key
+    for what in ("grads", "stats", "params"):
+        _held(r0[what], want[what], [r[what] for r in runs], what)
+
+
+def test_train_cls_distributed_takes_equal_steps(world):
+    """Over 9 images at 2 rows a rank, each rank takes the one-process
+    run's 3 steps at 4 rows (the last joint batch has one row: rank 1
+    takes none of it and pairs its collectives all the same)."""
+    assert world.cls_one["steps"] == 3
     for rank in world.two:
-        assert "not data-parallel" in rank["train_cls"]
-        assert "ROADMAP.md section 1, item 5" in rank["train_cls"]
+        assert rank["train_cls"]["steps"] == 3
+
+
+def test_train_cls_distributed_logs_the_one_process_val_acc(world):
+    """One log, written by the coordinator: the loss near the one-process
+    run's and the same val_acc over the whole validation set."""
+    (got,), (want,) = (_log(world.root / d) for d in ("cls2", "cls1"))
+    assert got["val_acc"] == want["val_acc"]
+    assert abs(got["loss"] - want["loss"]) <= 1e-3 * abs(want["loss"])
+
+
+def test_train_cls_distributed_checkpoint_loads_one_card(world):
+    """The coordinator's checkpoint loads strictly into a one-card model
+    and holds the ranks' final weights."""
+    args = types.SimpleNamespace(model="resnet18", num_classes=3)
+    model = builders.build_model(args, device="cpu")
+    path = world.root / "cls2" / "final_model"
+    assert restore_checkpoint(str(path), model) == 3
+    for key, w in model.state_dict().items():
+        for rank in world.two:
+            assert torch.equal(rank["train_cls"]["state_dict"][key], w), key
 
 
 class _Indexed:
@@ -358,12 +428,24 @@ def test_engine_batch_must_divide_by_replicas(world):
                         devices=["cpu", "cpu"])
 
 
-@pytest.mark.parametrize("flag", ["--sp", "--tp", "--num_slices"])
-def test_mesh_axes_past_data_refused(flag, capsys, tmp_path):
-    with pytest.raises(SystemExit):
-        cli_train.main(["--train_dataset", str(tmp_path), flag, "2"],
+@pytest.mark.parametrize("argv, message", [
+    (["--sp", "2"], "'The mesh's seq axis'"),
+    (["--tp", "3"], "--tp 3 does not divide the 2 ranks"),
+    (["--dp", "1", "--tp", "2", "--num_slices", "2"],
+     r"data axis \(1\) must be a multiple of the slice count \(2\)")])
+def test_mesh_axes_past_data_refused(argv, message, capsys, monkeypatch,
+                                     tmp_path):
+    """``--sp`` names the seq axis, not ported; ``--tp`` must divide a
+    world of 2 (torchrun's variables), and ``--num_slices`` the data
+    axis."""
+    for key, value in (("WORLD_SIZE", "2"), ("RANK", "0"),
+                       ("LOCAL_RANK", "0"), ("MASTER_ADDR", "127.0.0.1")):
+        monkeypatch.setenv(key, value)
+    with pytest.raises(SystemExit) as raised:
+        cli_train.main(["--train_dataset", str(tmp_path), *argv],
                        device="cpu")
-    assert "'The mesh's seq and model axes'" in capsys.readouterr().err
+    assert re.search(message, str(raised.value.code) + capsys
+                     .readouterr().err)
 
 
 @pytest.mark.parametrize("cli", ["train", "serve"])
